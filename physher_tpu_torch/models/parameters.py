@@ -1,0 +1,207 @@
+"""Parameter dictionaries and constraint transforms (PyTorch).
+
+Port of ``physher_tpu/models/parameters.py``. Parameters are a plain
+``dict[str, Tensor]`` with the JAX package's keys; models are functions of
+it. What remains of the reference's Parameter/Model graph is declarative:
+
+- :class:`ParamSpec` — shape/init/bounds/transform of one named parameter,
+- :class:`ParamSpace` — an ordered collection with bijections to
+  unconstrained space (for gradient-based ML; mirrors
+  src/phyc/transforms.c in the reference).
+
+Simplex parameters use the stick-breaking transform (Stan's convention,
+reference: src/phyc/simplex.c) so a K-simplex has K-1 unconstrained entries.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """Declarative description of one parameter block."""
+
+    name: str
+    init: np.ndarray
+    lower: float = -np.inf
+    upper: float = np.inf
+    # 'none' | 'log' | 'shifted_log' | 'interval' | 'simplex' | 'fixed'
+    transform: str = "none"
+
+    @staticmethod
+    def scalar(name, value, lower=-np.inf, upper=np.inf, transform=None):
+        if transform is None:
+            transform = _default_transform(lower, upper)
+        return ParamSpec(name, np.asarray(float(value)), lower, upper, transform)
+
+    @staticmethod
+    def vector(name, values, lower=-np.inf, upper=np.inf, transform=None):
+        if transform is None:
+            transform = _default_transform(lower, upper)
+        return ParamSpec(name, np.asarray(values, dtype=np.float64), lower,
+                         upper, transform)
+
+    @staticmethod
+    def simplex(name, values):
+        values = np.asarray(values, dtype=np.float64)
+        values = values / values.sum()
+        return ParamSpec(name, values, 0.0, 1.0, "simplex")
+
+    @staticmethod
+    def fixed(name, values):
+        return ParamSpec(name, np.asarray(values, dtype=np.float64),
+                         transform="fixed")
+
+
+def _default_transform(lower, upper) -> str:
+    if lower == -np.inf and upper == np.inf:
+        return "none"
+    if upper == np.inf and lower == 0.0:
+        return "log"
+    if np.isfinite(lower) and np.isfinite(upper):
+        return "interval"
+    return "shifted_log" if np.isfinite(lower) else "none"
+
+
+def params_from_numpy(params: dict, *, dtype: torch.dtype,
+                      device) -> dict:
+    """Arrays (e.g. the JAX package's parameters after ``np.asarray``) ->
+    the port's ``dict[str, Tensor]`` on ``device`` in ``dtype``."""
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+            for k, v in params.items()}
+
+
+# -- stick-breaking simplex (Stan convention) --------------------------------
+
+
+def _offsets(K: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.arange(K - 1, 0, -1, dtype=like.dtype,
+                                  device=like.device))
+
+
+def simplex_constrain(y: torch.Tensor) -> torch.Tensor:
+    """Unconstrained R^{K-1} -> K-simplex (stick breaking, Stan convention)."""
+    K = y.shape[-1] + 1
+    z = torch.sigmoid(y - _offsets(K, y))
+    zl = torch.cat([torch.ones_like(z[..., :1]), torch.cumprod(1 - z, -1)], -1)
+    x = zl[..., :-1] * z
+    return torch.cat([x, zl[..., -1:]], dim=-1)
+
+
+def simplex_unconstrain(x: torch.Tensor) -> torch.Tensor:
+    K = x.shape[-1]
+    rem = 1.0 - torch.cat(
+        [torch.zeros_like(x[..., :1]), torch.cumsum(x[..., :-1], -1)], -1
+    )[..., :-1]
+    z = x[..., :-1] / torch.clamp(rem, min=1e-300)
+    return torch.log(z) - torch.log1p(-z) + _offsets(K, x)
+
+
+def simplex_log_jacobian(y: torch.Tensor) -> torch.Tensor:
+    """log |det d(constrain)/dy| for the stick-breaking transform."""
+    K = y.shape[-1] + 1
+    z = torch.sigmoid(y - _offsets(K, y))
+    zl = torch.cat([torch.ones_like(z[..., :1]), torch.cumprod(1 - z, -1)], -1)
+    return torch.sum(torch.log(z) + torch.log1p(-z) + torch.log(zl[..., :-1]),
+                     -1)
+
+
+class ParamSpace:
+    """Ordered collection of ParamSpecs with constrained/unconstrained
+    dictionary views."""
+
+    def __init__(self, specs: list[ParamSpec]):
+        seen = {}
+        for s in specs:
+            if s.name in seen:
+                if seen[s.name] is not s and not np.array_equal(
+                    seen[s.name].init, s.init
+                ):
+                    raise ValueError(f"conflicting duplicate parameter {s.name}")
+            seen[s.name] = s
+        self.specs = list(seen.values())
+        self.by_name = seen
+
+    @property
+    def names(self):
+        return [s.name for s in self.specs]
+
+    def init_params(self, *, dtype: torch.dtype, device) -> dict:
+        return {s.name: torch.as_tensor(s.init, dtype=dtype, device=device)
+                for s in self.specs}
+
+    def free_specs(self):
+        return [s for s in self.specs if s.transform != "fixed"]
+
+    # -- constrained <-> unconstrained dictionaries ------------------------
+
+    def unconstrain(self, params: dict) -> dict:
+        out = {}
+        for s in self.free_specs():
+            x = params[s.name]
+            t = s.transform
+            if t == "none":
+                out[s.name] = x
+            elif t == "log":
+                out[s.name] = torch.log(x)
+            elif t == "shifted_log":
+                out[s.name] = torch.log(x - s.lower)
+            elif t == "interval":
+                u = (x - s.lower) / (s.upper - s.lower)
+                out[s.name] = torch.log(u) - torch.log1p(-u)
+            elif t == "simplex":
+                out[s.name] = simplex_unconstrain(x)
+            else:
+                raise ValueError(t)
+        return out
+
+    def constrain(self, uparams: dict, params: Optional[dict] = None) -> dict:
+        out = dict(params) if params else {}
+        fixed = [s for s in self.specs if s.transform == "fixed"]
+        if fixed:
+            like = next(iter({**out, **uparams}.values()))
+            for s in fixed:
+                out.setdefault(s.name, torch.as_tensor(
+                    s.init, dtype=like.dtype, device=like.device))
+        for s in self.free_specs():
+            y = uparams[s.name]
+            t = s.transform
+            if t == "none":
+                out[s.name] = y
+            elif t == "log":
+                out[s.name] = torch.exp(y)
+            elif t == "shifted_log":
+                out[s.name] = torch.exp(y) + s.lower
+            elif t == "interval":
+                out[s.name] = s.lower + (s.upper - s.lower) * torch.sigmoid(y)
+            elif t == "simplex":
+                out[s.name] = simplex_constrain(y)
+            else:
+                raise ValueError(t)
+        return out
+
+    def log_jacobian(self, uparams: dict) -> torch.Tensor:
+        """log |det| of constrain(), summed over all free parameters."""
+        total = 0.0
+        for s in self.free_specs():
+            y = uparams[s.name]
+            t = s.transform
+            if t == "none":
+                continue
+            elif t in ("log", "shifted_log"):
+                total = total + torch.sum(y)
+            elif t == "interval":
+                total = total + torch.sum(
+                    math.log(s.upper - s.lower)
+                    + F.logsigmoid(y) + F.logsigmoid(-y)
+                )
+            elif t == "simplex":
+                total = total + torch.sum(simplex_log_jacobian(y))
+        return total

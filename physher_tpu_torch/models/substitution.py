@@ -1,0 +1,221 @@
+"""Substitution models: Q construction and transition probabilities P(t).
+
+Port of ``physher_tpu/models/substitution.py`` (reference:
+src/phyc/substmodel.c, jc69.c, gtr.c):
+
+- JC69 uses the closed-form P(t),
+- GTR symmetrizes Q with sqrt(pi) and uses a self-adjoint ``eigh``.
+  ``torch.linalg.eigh``'s own gradient is NaN/inf at repeated eigenvalues,
+  which JC-like GTR states have (a triple eigenvalue), so
+  :func:`p_t_reversible` is an ``autograd.Function`` whose backward is the
+  transpose of the Daleckii-Krein divided-difference JVP of the JAX package.
+
+``p_t`` is vectorized over leading batch dims of ``t`` (node x category
+branch lengths) and returns the ``[..., S, S]`` stack the pruning engines
+consume. ``P[i, j] = P(child state j | parent state i, t)``; partials
+propagate as ``P @ partial_child`` (reference:
+src/phyc/treelikelihood4.c:420-480).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .parameters import ParamSpec, ParamSpace
+
+
+class SubstitutionModel:
+    """Base: subclasses define q(params) (normalized) and frequencies(params)."""
+
+    name = "subst"
+    state_count: int
+    reversible = True
+
+    def __init__(self, prefix: str = "", *, dtype: torch.dtype, device):
+        self.prefix = prefix
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def key(self, k):
+        return f"{self.prefix}{k}" if self.prefix else k
+
+    def param_space(self) -> ParamSpace:
+        return ParamSpace(self.param_specs())
+
+    def param_specs(self) -> list:
+        return []
+
+    def frequencies(self, params) -> torch.Tensor:
+        raise NotImplementedError
+
+    def q(self, params) -> torch.Tensor:
+        """Normalized generator: -sum_i pi_i Q_ii = 1 (expected subst rate 1),
+        (reference: src/phyc/substmodel.c update_Q + normalize)."""
+        raise NotImplementedError
+
+    def p_t(self, params, t: torch.Tensor) -> torch.Tensor:
+        """Transition probabilities for branch lengths t [...]: [..., S, S]."""
+        if not self.reversible:
+            raise NotImplementedError(
+                "non-reversible models (expm) are not ported yet")
+        return p_t_reversible(self.q(params), self.frequencies(params), t)
+
+
+def normalize_q(Q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    mu = -torch.einsum("...i,...ii->...", pi, Q)
+    return Q / mu[..., None, None]
+
+
+def _set_diagonal_neg_rowsum(Q: torch.Tensor) -> torch.Tensor:
+    S = Q.shape[-1]
+    eye = torch.eye(S, dtype=Q.dtype, device=Q.device)
+    off = Q * (1 - eye)
+    return off - eye * off.sum(-1)[..., :, None]
+
+
+def reversible_eig(Q: torch.Tensor, pi: torch.Tensor):
+    """Eigendecomposition of a reversible generator via symmetrization.
+
+    S = D Q D^-1 with D = diag(sqrt pi) is symmetric; eigh(S) = (lam, W)
+    gives Q = V diag(lam) V^-1 with V = D^-1 W, V^-1 = W^T D.
+    """
+    sq = torch.sqrt(pi)
+    S = Q * (sq[..., :, None] / sq[..., None, :])
+    S = 0.5 * (S + S.transpose(-1, -2))
+    lam, W = torch.linalg.eigh(S)
+    # a generator's spectrum is <= 0; clamp the numerical-noise positive tail
+    # (in float32 a +1e-6 eigenvalue times a long branch explodes exp())
+    lam = torch.clamp(lam, max=0.0)
+    V = W / sq[..., :, None]
+    Vinv = W.transpose(-1, -2) * sq[..., None, :]
+    return lam, V, Vinv
+
+
+def pt_from_eig(lam, V, Vinv, t) -> torch.Tensor:
+    """P(t) = V exp(lam t) V^-1, batched over leading dims of t
+    (reference: src/phyc/substmodel.c:518-556)."""
+    elt = torch.exp(lam * t[..., None])  # [..., S]
+    return torch.einsum("ij,...j,jk->...ik", V, elt, Vinv)
+
+
+class _PtReversible(torch.autograd.Function):
+    """P(t) = expm(Q t) with the divided-difference (Daleckii-Krein)
+    gradient, valid at repeated eigenvalues.
+
+    JVP (as in the JAX package): ``dP = V (F o (V^-1 dQ V)) V^-1 +
+    V diag(lam e^{lam t}) V^-1 dt`` with ``F_ij = (e^{l_i t} - e^{l_j t}) /
+    (l_i - l_j)`` and ``F_ii = t e^{l_i t}``. Its transpose gives
+    ``Qbar = sum_t V^-T (F o (V^T Pbar V^-T)) V^T`` and
+    ``tbar = <Pbar, V diag(lam e^{lam t}) V^-1>``. ``pi`` only enables the
+    symmetric decomposition; all sensitivity flows through ``Q``.
+    """
+
+    @staticmethod
+    def forward(ctx, Q, pi, t):
+        lam, V, Vinv = reversible_eig(Q, pi)
+        ctx.save_for_backward(lam, V, Vinv, t)
+        return pt_from_eig(lam, V, Vinv, t)
+
+    @staticmethod
+    def backward(ctx, Pbar):
+        lam, V, Vinv, t = ctx.saved_tensors
+        tb = t[..., None]                       # [..., 1]
+        elt = torch.exp(lam * tb)               # [..., S]
+        gQ = gt = None
+        if ctx.needs_input_grad[0]:
+            li = lam[:, None]
+            lj = lam[None, :]
+            ei = elt[..., :, None]
+            ej = elt[..., None, :]
+            diff = li - lj
+            near = torch.abs(diff) < 1e-10
+            F = torch.where(near, tb[..., None] * 0.5 * (ei + ej),
+                            (ei - ej) / torch.where(near, torch.ones_like(diff),
+                                                    diff))
+            G = torch.einsum("ji,...jk,lk->...il", V, Pbar, Vinv)
+            FG = (F * G).reshape(-1, *G.shape[-2:]).sum(0)
+            gQ = Vinv.transpose(-1, -2) @ FG @ V.transpose(-1, -2)
+        if ctx.needs_input_grad[2]:
+            dPdt = torch.einsum("ij,...j,jk->...ik", V, lam * elt, Vinv)
+            gt = (Pbar * dPdt).sum((-1, -2))
+        return gQ, None, gt
+
+
+def p_t_reversible(Q: torch.Tensor, pi: torch.Tensor,
+                   t: torch.Tensor) -> torch.Tensor:
+    """P(t) = expm(Q t) for a reversible generator, batched over t [...].
+    Differentiable w.r.t. Q and t even at degenerate eigenvalues."""
+    return _PtReversible.apply(Q, pi, t)
+
+
+# ---------------------------------------------------------------------------
+# Nucleotide models
+# ---------------------------------------------------------------------------
+
+
+class JC69(SubstitutionModel):
+    """Jukes-Cantor: equal rates/frequencies, closed-form P(t)
+    (reference: src/phyc/jc69.c)."""
+
+    name = "jc69"
+    state_count = 4
+
+    def frequencies(self, params):
+        return torch.full((4,), 0.25, dtype=self.dtype, device=self.device)
+
+    def q(self, params):
+        S = 4
+        eye = torch.eye(S, dtype=self.dtype, device=self.device)
+        return torch.full((S, S), 1.0 / 3.0, dtype=self.dtype,
+                          device=self.device) - eye * (1.0 / 3.0 + 1.0)
+
+    def p_t(self, params, t):
+        e = torch.exp(-4.0 / 3.0 * t)[..., None, None]
+        eye = torch.eye(4, dtype=e.dtype, device=e.device)
+        return 0.25 + e * (eye - 0.25)
+
+
+def _nuc_rate_matrix(rates6: torch.Tensor) -> torch.Tensor:
+    """Symmetric 4x4 exchangeability matrix from 6 rates (AC,AG,AT,CG,CT,GT)."""
+    ac, ag, at, cg, ct, gt = (rates6[..., i] for i in range(6))
+    z = torch.zeros_like(ac)
+    return torch.stack([
+        torch.stack([z, ac, ag, at], -1),
+        torch.stack([ac, z, cg, ct], -1),
+        torch.stack([ag, cg, z, gt], -1),
+        torch.stack([at, ct, gt, z], -1),
+    ], -2)
+
+
+class GTR(SubstitutionModel):
+    """General time-reversible: 6 exchange rates + frequencies via eigh
+    (reference: src/phyc/gtr.c; rate order AC,AG,AT,CG,CT,GT)."""
+
+    name = "gtr"
+    state_count = 4
+
+    def __init__(self, prefix="", rates_init=None, freqs_init=None,
+                 rates_simplex=False, fixed_freqs=False, *, dtype, device):
+        super().__init__(prefix, dtype=dtype, device=device)
+        self.rates_init = np.ones(6) if rates_init is None else np.asarray(rates_init)
+        self.freqs_init = np.full(4, 0.25) if freqs_init is None else np.asarray(freqs_init)
+        self.rates_simplex = rates_simplex
+        self.fixed_freqs = fixed_freqs
+
+    def param_specs(self):
+        if self.rates_simplex:
+            rspec = ParamSpec.simplex(self.key("rates"), self.rates_init)
+        else:
+            rspec = ParamSpec.vector(self.key("rates"), self.rates_init, lower=0.0)
+        mkf = ParamSpec.fixed if self.fixed_freqs else ParamSpec.simplex
+        return [rspec, mkf(self.key("frequencies"), self.freqs_init)]
+
+    def frequencies(self, params):
+        return params[self.key("frequencies")]
+
+    def q(self, params):
+        pi = self.frequencies(params)
+        R = _nuc_rate_matrix(params[self.key("rates")])
+        Q = _set_diagonal_neg_rowsum(R * pi[..., None, :])
+        return normalize_q(Q, pi)

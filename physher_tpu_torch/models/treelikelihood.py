@@ -1,0 +1,215 @@
+"""TreeLikelihood: data + tree + substitution/site/clock models as one
+``nn.Module`` whose forward is the log-likelihood of a parameter dict.
+
+Port of ``physher_tpu/models/treelikelihood.py`` (reference:
+src/phyc/treelikelihood.c:46-124 struct, 1454-1735 calculation). The full
+likelihood is recomputed per call; gradients come from autograd, through the
+CUDA kernels' backward on the card (``ops/fused.py``).
+
+Engines (``engine=``):
+
+- ``"auto"``: the CUDA kernels for CUDA tensors, the plain engine
+  (``ops/pruning.py``) for CPU tensors;
+- ``"cuda"``: the CUDA kernels; raises for CPU tensors;
+- ``"torch"``: the plain engine on any device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.sitepattern import SitePattern
+from ..ops.fused import fused_tree_log_likelihood
+from ..ops.pruning import tree_log_likelihood, pad_patterns
+from ..trees.topology import Topology
+from ..trees.timetree import TimeTreeData
+from ..trees.heights import (
+    heights_from_ratios, heights_from_shifts, shifts_from_heights,
+    ratio_log_jacobian, branch_durations,
+)
+from .parameters import ParamSpec, ParamSpace
+from .clock import BranchModel
+from .sitemodel import SiteModel, ConstantSiteModel
+from .substitution import SubstitutionModel
+
+ENGINES = ("auto", "cuda", "torch")
+
+
+class TreeLikelihood(nn.Module):
+    """Phylogenetic likelihood model over a fixed topology.
+
+    Two parameterizations of branch lengths:
+    - unrooted/distance mode: free branch-length vector ``{prefix}distances``
+      (one per non-root node, node-id order),
+    - time mode (``time_data`` given): node-height ratio parameters
+      ``{prefix}ratios`` (internal postorder order) + ``{prefix}root_height``
+      (or ``{prefix}shifts`` with ``height_transform="shift"``), with a clock
+      model mapping durations to substitution branch lengths.
+
+    The tip partials ``[T, S, P]`` and pattern weights ``[P]`` are registered
+    buffers; pad columns (``pattern_pad_multiple``) carry all-ones tips and
+    weight 0.
+    """
+
+    def __init__(self, site_pattern: SitePattern, topo: Topology,
+                 subst_model: SubstitutionModel, site_model: SiteModel = None,
+                 *, dtype: torch.dtype, device,
+                 clock: BranchModel = None, time_data: TimeTreeData = None,
+                 distances_init: np.ndarray = None,
+                 include_jacobian: bool = False, tipstates: bool = False,
+                 use_ambiguities: bool = True, rescale: bool | None = None,
+                 pattern_pad_multiple: int = 1, prefix: str = "tree.",
+                 engine: str = "auto", height_transform: str = "ratio"):
+        super().__init__()
+        device = torch.device(device)
+        if site_model is None:
+            site_model = ConstantSiteModel(dtype=dtype, device=device)
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+        self.sp = site_pattern
+        self.topo = topo
+        self.subst = subst_model
+        self.site_model = site_model
+        self.clock = clock
+        self.time_data = time_data
+        self.include_jacobian = include_jacobian
+        self.prefix = prefix
+        self.engine = engine
+        self.dtype = dtype
+        # RATIO / RATIO_NAIVE / PROPORTION share one transform in the
+        # reference; SHIFT is a distinct parameterization with |J| = 1
+        # (reference: src/phyc/treetransform.h:17-22)
+        ht = str(height_transform or "ratio").lower()
+        if ht in ("ratio", "ratio_naive", "proportion", ""):
+            self.height_transform = "ratio"
+        elif ht == "shift":
+            self.height_transform = "shift"
+        else:
+            raise ValueError(f"unknown height transform {height_transform!r}")
+        if rescale is None:
+            # float32 partials underflow on realistic trees; rescaling is
+            # exact (the reference switches it on at -inf,
+            # treelikelihood.c:1497-1520)
+            rescale = torch.finfo(dtype).bits < 64
+        self.rescale = rescale
+
+        if time_data is not None and clock is None:
+            raise ValueError("time mode requires a clock (branch rate) model")
+
+        # order site-pattern rows to match tip ids
+        order = [site_pattern.taxa.index(t) for t in topo.taxa]
+        self._P = pad_patterns(site_pattern.pattern_count, pattern_pad_multiple)
+        tp = site_pattern.tip_partials(
+            tipstates=tipstates or not use_ambiguities, pad_to=self._P,
+            dtype=np.float64)
+        self.register_buffer("tip_partials", torch.as_tensor(
+            np.ascontiguousarray(tp[order]), dtype=dtype, device=device))
+        self.register_buffer("weights", torch.as_tensor(
+            site_pattern.padded_weights(self._P), dtype=dtype, device=device))
+
+        if distances_init is None:
+            distances_init = np.full(topo.N - 1, 0.1)
+        self.distances_init = np.asarray(distances_init, dtype=np.float64)[
+            : topo.N - 1]
+
+    # -- parameters --------------------------------------------------------
+
+    def key(self, k):
+        return f"{self.prefix}{k}" if self.prefix else k
+
+    def param_specs(self):
+        specs = []
+        if self.time_data is not None:
+            td = self.time_data
+            I = self.topo.I
+            if self.height_transform == "shift":
+                shifts0 = shifts_from_heights(td.node_heights0, self.topo)
+                specs.append(ParamSpec.vector(
+                    self.key("shifts"), np.maximum(shifts0, 1e-6), lower=0.0))
+            else:
+                specs.append(ParamSpec.vector(
+                    self.key("ratios"), td.ratios0[: I - 1],
+                    lower=0.0, upper=1.0))
+                specs.append(ParamSpec.scalar(
+                    self.key("root_height"), td.ratios0[I - 1],
+                    lower=float(td.lowers[self.topo.root])))
+        else:
+            specs.append(ParamSpec.vector(
+                self.key("distances"), self.distances_init, lower=0.0))
+        specs += self.subst.param_specs()
+        specs += self.site_model.param_specs()
+        if self.clock is not None:
+            specs += self.clock.param_specs()
+        return specs
+
+    def param_space(self) -> ParamSpace:
+        return ParamSpace(self.param_specs())
+
+    # -- computation -------------------------------------------------------
+
+    def node_heights(self, params) -> torch.Tensor:
+        td = self.time_data
+        if self.height_transform == "shift":
+            return heights_from_shifts(params[self.key("shifts")], self.topo,
+                                       td.tip_heights)
+        ratios = torch.cat([
+            torch.atleast_1d(params[self.key("ratios")]),
+            torch.atleast_1d(params[self.key("root_height")]),
+        ])
+        return heights_from_ratios(ratios, self.topo, td.tip_heights,
+                                   td.lowers)
+
+    def branch_lengths(self, params) -> torch.Tensor:
+        """Substitution branch length per node [N] (root entry 0)."""
+        if self.time_data is not None:
+            h = self.node_heights(params)
+            d = branch_durations(h, self.topo)
+            return d * self.clock.rates(params)
+        dist = params[self.key("distances")]
+        return torch.cat([dist, dist.new_zeros(1)])
+
+    def _engine(self):
+        on_cuda = self.tip_partials.device.type == "cuda"
+        if self.engine == "cuda" and not on_cuda:
+            raise ValueError("engine='cuda' needs CUDA tensors; this model "
+                             f"lives on {self.tip_partials.device}")
+        if self.engine == "cuda" or (self.engine == "auto" and on_cuda):
+            return fused_tree_log_likelihood
+        return tree_log_likelihood
+
+    def _run_engine(self, params):
+        engine = self._engine()
+        bl = self.branch_lengths(params)
+        rates, props = self.site_model.rates_props(params)
+        blc = bl[:, None] * rates[None, :]      # [N, C]
+        pmats = self.subst.p_t(params, blc)     # [N, C, S, S]
+        freqs = self.subst.frequencies(params)
+        return engine(self.tip_partials, pmats.to(self.dtype), self.topo,
+                      freqs.to(self.dtype), props.to(self.dtype),
+                      self.weights, rescale=self.rescale)
+
+    def log_likelihood_only(self, params) -> torch.Tensor:
+        logL, _ = self._run_engine(params)
+        return logL
+
+    def log_jacobian(self, params) -> torch.Tensor:
+        if self.height_transform == "shift":
+            # |d heights / d shifts| = 1
+            return self.weights.new_zeros(())
+        h = self.node_heights(params)
+        return ratio_log_jacobian(h, self.topo, self.time_data.lowers)
+
+    def log_likelihood(self, params) -> torch.Tensor:
+        logL = self.log_likelihood_only(params)
+        if self.include_jacobian and self.time_data is not None:
+            logL = logL + self.log_jacobian(params)
+        return logL
+
+    def forward(self, params) -> torch.Tensor:
+        return self.log_likelihood(params)
+
+    def site_log_likelihoods(self, params) -> torch.Tensor:
+        _, site_log = self._run_engine(params)
+        return site_log[: self.sp.pattern_count]

@@ -1,0 +1,241 @@
+"""Pruning likelihood and its gradient through hand-written CUDA kernels.
+
+Port of ``physher_tpu/ops/pallas_fused.py``. The two TPU kernels there,
+``_fused_fwd_kernel`` (``build_fused_forward``) and ``_fused_bwd_kernel``
+(``build_fused_backward``), become kernel F and kernel B of
+``csrc/pruning.cu``: the same function (the rescaled postorder sweep to
+per-pattern site log-likelihoods, and its reverse sweep to d pmats and
+d (props x freqs)), but not the TPU layout. The source note in
+``csrc/pruning.cu`` says what bounds them on the card and what the design
+does about it.
+
+- :func:`fused_site_log` / :func:`fused_tree_log_likelihood` are the entry
+  points (the JAX signatures without ``B``, ``tile`` and ``interpret``). On
+  a CUDA tensor they launch the kernels or raise; on a CPU tensor they run
+  :func:`fused_site_log_reference`, the plain PyTorch version.
+- The kernels are built at first use by ``nvcc`` from the package's own
+  sources into ``_build/`` (keyed on a hash of the sources and flags), and
+  loaded with ctypes. Nothing is built when the module is imported.
+- ``FORWARD_LAUNCHES`` / ``BACKWARD_LAUNCHES`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..trees.heights import topo_constant
+from ..trees.topology import Topology
+from .pruning import pruning_partials
+
+FORWARD_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
+
+# threads per block: one thread per pattern; a multiple of the warp size
+BLOCK = 128
+MAX_CATEGORIES = 8
+
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCE = _PKG / "csrc" / "pruning.cu"
+_BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    # PyTorch's own lookup: $CUDA_HOME / $CUDA_PATH, nvcc on PATH, then the
+    # toolkit's default install location
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if not CUDA_HOME or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return nvcc
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/pruning.cu`` (once per source hash) and load it."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    src = _SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = _BUILD_DIR / f"libpruning-{digest[:16]}.so"
+    if not out.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        build_log = r.stdout + r.stderr
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        fwd = getattr(lib, f"pruning_forward_{dt}")
+        fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fwd.restype = i32
+        bwd = getattr(lib, f"pruning_backward_{dt}")
+        bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        bwd.restype = i32
+    _lib = lib
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _dims(tips, pmats, children, rootw):
+    """Validate the kernels' common inputs; returns (T, I, C, maxc, P)."""
+    if tips.device.type != "cuda":
+        raise ValueError(f"the CUDA pruning kernels need CUDA tensors, got "
+                         f"{tips.device}")
+    if tips.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {tips.dtype}")
+    if tips.dim() != 3 or tips.shape[1] != 4:
+        raise ValueError(f"tips must be [T, 4, P], got {tuple(tips.shape)}")
+    T, _, P = tips.shape
+    I, maxc = children.shape
+    if pmats.dim() != 4:
+        raise ValueError(f"pmats must be [N, C, 4, 4], got {tuple(pmats.shape)}")
+    C = pmats.shape[1]
+    if not 1 <= C <= MAX_CATEGORIES:
+        raise ValueError(f"{C} rate categories; the kernels take 1 to "
+                         f"{MAX_CATEGORIES}")
+    dev, dt = tips.device, tips.dtype
+    _check("tips", tips, dev, dt, (T, 4, P))
+    _check("pmats", pmats, dev, dt, (T + I, C, 4, 4))
+    _check("children", children, dev, torch.int32, (I, maxc))
+    _check("rootw", rootw, dev, dt, (C * 4,))
+    return T, I, C, maxc, P
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pruning_forward(tips, pmats, children, rootw):
+    """Launch kernel F: returns (site_log [P], partials [I, C, 4, P],
+    scale [I, P])."""
+    global FORWARD_LAUNCHES
+    T, I, C, maxc, P = _dims(tips, pmats, children, rootw)
+    lib = build()
+    partials = tips.new_empty((I, C, 4, P))
+    scale = tips.new_empty((I, P))
+    site_log = tips.new_empty((P,))
+    fn = (lib.pruning_forward_f32 if tips.dtype == torch.float32
+          else lib.pruning_forward_f64)
+    with torch.cuda.device(tips.device):
+        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+                 rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
+                 site_log.data_ptr(), T, I, C, maxc, P, BLOCK, _stream(tips))
+    FORWARD_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"pruning forward kernel launch failed: "
+                           f"cudaError {err}")
+    return site_log, partials, scale
+
+
+def pruning_backward(tips, pmats, children, rootw, partials, scale, g):
+    """Launch kernel B: returns (d pmats [N, C, 4, 4], d rootw [C * 4])."""
+    global BACKWARD_LAUNCHES
+    T, I, C, maxc, P = _dims(tips, pmats, children, rootw)
+    _check("partials", partials, tips.device, tips.dtype, (I, C, 4, P))
+    _check("scale", scale, tips.device, tips.dtype, (I, P))
+    _check("g", g, tips.device, tips.dtype, (P,))
+    lib = build()
+    N = T + I
+    n_blocks = -(-P // BLOCK)
+    gbuf = tips.new_empty((I, C, 4, P))
+    dP_part = tips.new_empty((n_blocks, N, C, 16))
+    dP_part[:, N - 1].zero_()  # the root is no node's child
+    drootw_part = tips.new_empty((n_blocks, C * 4))
+    fn = (lib.pruning_backward_f32 if tips.dtype == torch.float32
+          else lib.pruning_backward_f64)
+    with torch.cuda.device(tips.device):
+        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+                 rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
+                 g.data_ptr(), gbuf.data_ptr(), dP_part.data_ptr(),
+                 drootw_part.data_ptr(), T, I, C, maxc, P, BLOCK,
+                 _stream(tips))
+    BACKWARD_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"pruning backward kernel launch failed: "
+                           f"cudaError {err}")
+    # deterministic second pass over the per-block partial sums
+    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+
+
+class _FusedSiteLog(torch.autograd.Function):
+    """site_log = F(tips, pmats, rootw); the backward is kernel B. The
+    forward's rescaled partials and scalers are kept for it."""
+
+    @staticmethod
+    def forward(ctx, tips, pmats, rootw, children):
+        site_log, partials, scale = pruning_forward(tips, pmats, children,
+                                                    rootw)
+        ctx.save_for_backward(tips, pmats, rootw, children, partials, scale)
+        return site_log
+
+    @staticmethod
+    def backward(ctx, g):
+        tips, pmats, rootw, children, partials, scale = ctx.saved_tensors
+        dP, drootw = pruning_backward(tips, pmats, children, rootw, partials,
+                                      scale, g.contiguous())
+        return None, dP, drootw, None
+
+
+def fused_site_log_reference(tip_partials, pmats, topo: Topology, freqs,
+                             props):
+    """Plain PyTorch version of the kernels' function: the postorder with
+    the same per-node rescaling (max detached), autograd for the gradient."""
+    parts, scal = pruning_partials(tip_partials.detach(), pmats, topo,
+                                   rescale=True)
+    rootw = props[:, None] * freqs[None, :]
+    site = torch.einsum("cs,csp->p", rootw, parts[topo.root])
+    site = torch.clamp(site, min=torch.finfo(site.dtype).tiny)
+    return torch.log(site) + scal[topo.root]
+
+
+def fused_site_log(tip_partials, pmats, topo: Topology, freqs, props):
+    """Per-pattern site log-likelihoods [P], differentiable w.r.t.
+    pmats/freqs/props (tips are constants). CUDA tensors go through the
+    kernels (or raise); CPU tensors through the plain version."""
+    if tip_partials.device.type == "cpu":
+        return fused_site_log_reference(tip_partials, pmats, topo, freqs,
+                                        props)
+    children = topo_constant(topo, "children", lambda: topo.children,
+                             tip_partials, torch.int32)
+    # rootw = props (x) freqs in torch: autograd maps d rootw to d props
+    # and d freqs
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    return _FusedSiteLog.apply(tip_partials.detach().contiguous(),
+                               pmats.contiguous(), rootw.contiguous(),
+                               children)
+
+
+def fused_tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs,
+                              props, weights, *, rescale: bool = True):
+    """(logL, site_log). ``rescale`` is accepted for engine-API
+    compatibility; the kernels always rescale (exact)."""
+    site_log = fused_site_log(tip_partials, pmats, topo, freqs, props)
+    return torch.sum(weights * site_log), site_log

@@ -1,0 +1,93 @@
+"""The CUDA pruning kernels against their plain PyTorch version, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device. On a machine with
+one (and nvcc), run them with ``python -m pytest -m cuda
+tests/test_torch_cuda.py``; this file imports no JAX. Tolerances: float64
+rounding only (1e-12 of the largest entry); float32 those of
+tests/test_fused_engine.py (site logs rtol 5e-4 / atol 1e-4, gradients rtol
+5e-3 with a floor of 1e-3 of the largest entry).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from physher_tpu_torch.ops import fused
+from physher_tpu_torch.trees.topology import Topology
+from physher_tpu_torch.utils.synthetic import balanced_topology
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _polytomy():
+    """A root with three children, one of them a 4-way polytomy."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    nested = {"name": None, "children": [
+        {"name": None, "length": 0.2, "children": [tip(0), tip(1), tip(2),
+                                                   tip(3)]},
+        {"name": None, "length": 0.1, "children": [tip(4), tip(5)]},
+        tip(6)]}
+    return Topology.from_nested(nested)[0]
+
+
+def _inputs(topo, P, C, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, 4, (topo.T, P))
+    tips = np.eye(4)[states].transpose(0, 2, 1)
+    tips[:, :, -3:] = 1.0                     # pad-like all-ones columns
+    Q = rng.random((topo.N, C, 4, 4)) + 0.1
+    arrays = (tips, Q / Q.sum(-1, keepdims=True), rng.dirichlet(np.ones(4)),
+              rng.dirichlet(np.ones(C)), rng.uniform(0.5, 2.0, P))
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device) for a in arrays]
+
+
+def _value_and_grad(fn, topo, tips, pm, freqs, props, w):
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    site = fn(tips, leaves[0], topo, leaves[1], leaves[2])
+    grads = torch.autograd.grad(torch.sum(w * site), leaves)
+    return site.detach(), grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,P,C", [
+    ("balanced", 300, 4), ("balanced", 128, 1), ("polytomy", 257, 3)])
+def test_kernels_match_plain(device, dtype, shape, P, C):
+    topo = balanced_topology(16) if shape == "balanced" else _polytomy()
+    inputs = _inputs(topo, P, C, dtype, device)
+    f0, b0 = fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
+    site_k, grads_k = _value_and_grad(fused.fused_site_log, topo, *inputs)
+    assert (fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES) == (f0 + 1,
+                                                                 b0 + 1)
+    site_p, grads_p = _value_and_grad(fused.fused_site_log_reference, topo,
+                                      *inputs)
+    if dtype == torch.float64:
+        rtol, atol, grtol = 1e-12, 1e-12, 1e-12
+    else:
+        rtol, atol, grtol = 5e-4, 1e-4, 5e-3
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def test_wrapper_rejects_bad_input(device):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _inputs(topo, 64, 4, torch.float32, device)
+    children = torch.as_tensor(topo.children, device=device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    with pytest.raises(ValueError, match="dtype"):
+        fused.pruning_forward(tips, pm.double(), children, rootw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.pruning_forward(tips, pm.transpose(2, 3), children, rootw)
+    with pytest.raises(ValueError, match="rate categories"):
+        fused.pruning_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
+                              children, rootw.repeat(3))

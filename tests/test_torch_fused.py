@@ -1,0 +1,285 @@
+"""ops/fused.py on the CPU: the plain version of the CUDA kernels' function
+against the JAX package's fused Pallas kernel (interpret mode) and its plain
+pruning engine, and the CPU behaviour of the kernel wrappers.
+
+The cases are those of tests/test_fused_engine.py: a balanced 12-taxon tree
+and a 9-taxon caterpillar, C in {4, 3, 1} rate categories (the JAX kernel's
+category-padding cases), patterns padded to 256 with all-ones tips and
+weight 0. Tolerances are that test's: the float32 values agree to rtol 2e-5
+(logL) and 5e-4/1e-4 (site logs); float32 gradients to rtol 5e-3 with an
+absolute floor of 1e-3 of the largest entry, since summation orders differ.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from physher_tpu.ops.pallas_fused import (
+    fused_tree_log_likelihood as j_fused_tree_log_likelihood)
+from physher_tpu.ops.pruning import tree_log_likelihood as j_tree_log_likelihood
+from physher_tpu.trees.topology import Topology as JTopology
+from physher_tpu.utils.synthetic import balanced_topology as j_balanced
+from physher_tpu_torch.ops import fused
+from physher_tpu_torch.ops.pruning import pad_patterns, pruning_partials
+from physher_tpu_torch.trees.topology import Topology
+from physher_tpu_torch.utils.synthetic import (
+    balanced_topology, random_sitepattern)
+
+
+def _caterpillar(cls, n_tips):
+    nested = {"name": "t0", "length": 0.1, "children": []}
+    for i in range(1, n_tips):
+        nested = {"name": None, "length": 0.1, "children": [
+            nested, {"name": f"t{i}", "length": 0.1, "children": []}]}
+    topo, _ = cls.from_nested(nested)
+    return topo
+
+
+def _topologies(shape):
+    if shape == "balanced":
+        return balanced_topology(12), j_balanced(12)
+    return _caterpillar(Topology, 9), _caterpillar(JTopology, 9)
+
+
+def _setup(topo, C, n_sites=100, seed=0):
+    """Numpy inputs: tips [T,4,P], pmats [N,C,4,4], freqs, props, weights."""
+    sp = random_sitepattern(topo.T, n_sites, seed=seed)
+    P = pad_patterns(sp.pattern_count, 256)
+    order = [sp.taxa.index(t) for t in topo.taxa]
+    tips = sp.tip_partials(pad_to=P)[order]
+    rng = np.random.default_rng(seed)
+    Q = rng.random((topo.N, C, 4, 4)) + 0.1
+    pm = Q / Q.sum(-1, keepdims=True)
+    freqs = np.asarray([0.3, 0.2, 0.25, 0.25])
+    props = np.arange(1, C + 1) / (C * (C + 1) / 2)
+    w = sp.padded_weights(P)
+    return tips, pm, freqs, props, w
+
+
+def _port_value_and_grad(topo, inputs, dtype):
+    tips, pm, freqs, props, w = (torch.as_tensor(x, dtype=dtype)
+                                 for x in inputs)
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    ll, sl = fused.fused_tree_log_likelihood(tips, *leaves[:1], topo,
+                                             leaves[1], leaves[2], w)
+    ll.backward()
+    return (float(ll.detach()), sl.detach().double().numpy(),
+            [x.grad.double().numpy() for x in leaves])
+
+
+def _jax_value_and_grad(fn, jtopo, inputs, dtype):
+    tips, pm, freqs, props, w = (jnp.asarray(x, dtype) for x in inputs)
+
+    def f(pm_, fr_, pr_):
+        return fn(tips, pm_, jtopo, fr_, pr_, w)
+
+    (ll, sl), g = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        pm, freqs, props)
+    return (float(ll), np.asarray(sl, np.float64),
+            [np.asarray(x, np.float64) for x in g])
+
+
+@pytest.mark.parametrize("shape,C", [
+    ("balanced", 4), ("balanced", 1), ("caterpillar", 4),
+    ("caterpillar", 3)])
+def test_plain_matches_pallas_kernel(shape, C):
+    topo, jtopo = _topologies(shape)
+    inputs = _setup(topo, C)
+    w = inputs[-1]
+    ll, sl, g = _port_value_and_grad(topo, inputs, torch.float32)
+
+    def j_fused(*a):
+        return j_fused_tree_log_likelihood(*a, interpret=True)
+
+    jll, jsl, jg = _jax_value_and_grad(j_fused, jtopo, inputs, jnp.float32)
+    np.testing.assert_allclose(ll, jll, rtol=2e-5)
+    np.testing.assert_allclose(sl[w > 0], jsl[w > 0], rtol=5e-4, atol=1e-4)
+    for a, b in zip(g, jg):
+        np.testing.assert_allclose(a, b, rtol=5e-3,
+                                   atol=1e-3 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.parametrize("shape,C", [
+    ("balanced", 4), ("balanced", 1), ("caterpillar", 4),
+    ("caterpillar", 3)])
+def test_plain_matches_pruning_f64(shape, C):
+    """float64: the rescaled plain version against the JAX package's
+    rescaled plain engine to 1e-12 (rounding only)."""
+    topo, jtopo = _topologies(shape)
+    inputs = _setup(topo, C)
+    ll, sl, g = _port_value_and_grad(topo, inputs, torch.float64)
+
+    def j_plain(*a):
+        return j_tree_log_likelihood(*a, rescale=True)
+
+    jll, jsl, jg = _jax_value_and_grad(j_plain, jtopo, inputs, jnp.float64)
+    np.testing.assert_allclose(ll, jll, rtol=1e-12)
+    np.testing.assert_allclose(sl, jsl, rtol=1e-12, atol=1e-12)
+    for a, b in zip(g, jg):
+        np.testing.assert_allclose(a, b, rtol=1e-12,
+                                   atol=1e-12 * np.abs(b).max())
+
+
+def test_cpu_runs_plain_version_without_launch():
+    """Importing the module builds nothing; a CPU call launches nothing."""
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, w = (torch.as_tensor(x)
+                                 for x in _setup(topo, 4, n_sites=50))
+    fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+    pm.requires_grad_(True)
+    ll, _ = fused.fused_tree_log_likelihood(tips, pm, topo, freqs, props, w)
+    ll.backward()
+    assert torch.isfinite(pm.grad).all()
+    assert fused.FORWARD_LAUNCHES == 0 and fused.BACKWARD_LAUNCHES == 0
+    assert fused._lib is None
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = (torch.as_tensor(x)
+                                 for x in _setup(topo, 4, n_sites=50))
+    children = torch.as_tensor(topo.children)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused.pruning_forward(tips, pm, children, rootw)
+    assert fused.FORWARD_LAUNCHES == 0
+
+
+def test_cuda_engine_on_cpu_raises(data_dir):
+    from physher_tpu_torch.models.substitution import JC69
+    from physher_tpu_torch.models.treelikelihood import TreeLikelihood
+
+    topo = balanced_topology(8)
+    sp = random_sitepattern(8, 40, seed=1)
+    tlk = TreeLikelihood(sp, topo, JC69(dtype=torch.float64, device="cpu"),
+                         dtype=torch.float64, device="cpu", engine="cuda")
+    params = tlk.param_space().init_params(dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tlk(params)
+
+
+# -- the CUDA kernels' schedule, emulated on the CPU --------------------------
+#
+# csrc/pruning.cu cannot run here. These two functions follow its loops
+# (one "thread" per pattern, vectorized over patterns; postorder ranks, child
+# slots with -1 for a missing child, per-node rescaling by the max; the
+# reverse sweep with g_raw = gbuf / m, other_i = g_raw * prod_{j != i}
+# contrib_j, and per-block sums of dP over BLOCK patterns), so the CPU tests
+# hold the kernels' algorithm against the plain version. The card holds the
+# kernels themselves against the plain version (tests/test_torch_cuda.py,
+# chip_smoke.py).
+
+
+def _apply_p(pm, x):
+    """out[a] = sum_b pm[a, b] * x[b] over patterns."""
+    return sum(pm[:, b:b + 1] * x[b:b + 1] for b in range(4))
+
+
+def _child(tips, partials, ch, c, T):
+    return tips[ch] if ch < T else partials[ch - T, c]
+
+
+def _emulate_forward(tips, pmats, children, rootw):
+    T, _, P = tips.shape
+    C = pmats.shape[1]
+    I, maxc = children.shape
+    tiny = torch.finfo(tips.dtype).tiny
+    partials = tips.new_empty((I, C, 4, P))
+    scale = tips.new_empty((I, P))
+    log_sum = tips.new_zeros(P)
+    for k in range(I):
+        res = tips.new_ones((C, 4, P))
+        for j in range(maxc):
+            ch = int(children[k, j])
+            if ch < 0:
+                continue
+            for c in range(C):
+                res[c] = res[c] * _apply_p(pmats[ch, c],
+                                           _child(tips, partials, ch, c, T))
+        m = torch.clamp(res.amax((0, 1)), min=tiny)
+        partials[k], scale[k] = res / m, m
+        log_sum = log_sum + torch.log(m)
+    site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum((0, 1)),
+                       min=tiny)
+    return torch.log(site) + log_sum, partials, scale
+
+
+def _block_sums(v):
+    """[..., P] -> per-block sums [n_blocks, ...] over BLOCK patterns."""
+    P = v.shape[-1]
+    nb = -(-P // fused.BLOCK)
+    v = torch.nn.functional.pad(v, (0, nb * fused.BLOCK - P))
+    return v.reshape(*v.shape[:-1], nb, fused.BLOCK).sum(-1).movedim(-1, 0)
+
+
+def _emulate_backward(tips, pmats, children, rootw, partials, scale, g):
+    T, _, P = tips.shape
+    N, C = pmats.shape[:2]
+    I, maxc = children.shape
+    tiny = torch.finfo(tips.dtype).tiny
+    gbuf = tips.new_empty((I, C, 4, P))
+    root = partials[I - 1]
+    inv = g / torch.clamp((rootw.view(C, 4, 1) * root).sum((0, 1)), min=tiny)
+    gbuf[I - 1] = rootw.view(C, 4, 1) * inv
+    drootw_part = _block_sums((root * inv).reshape(C * 4, P))
+    dP_part = tips.new_full((drootw_part.shape[0], N, C, 16), float("nan"))
+    dP_part[:, N - 1] = 0.0
+    for k in range(I - 1, -1, -1):
+        for c in range(C):
+            g_raw = gbuf[k, c] / scale[k]
+            for i in range(maxc):
+                ch = int(children[k, i])
+                if ch < 0:
+                    continue
+                other = g_raw
+                for j in range(maxc):
+                    cj = int(children[k, j])
+                    if j != i and cj >= 0:
+                        other = other * _apply_p(
+                            pmats[cj, c], _child(tips, partials, cj, c, T))
+                x = _child(tips, partials, ch, c, T)
+                dP_part[:, ch, c] = _block_sums(
+                    (other[:, None] * x[None, :]).reshape(16, P))
+                if ch >= T:
+                    gbuf[ch - T, c] = _apply_p(pmats[ch, c].T, other)
+    assert torch.isfinite(dP_part).all(), "a dP row was never written"
+    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+
+
+def _polytomy():
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    nested = {"name": None, "children": [
+        {"name": None, "length": 0.2, "children": [tip(0), tip(1), tip(2),
+                                                   tip(3)]},
+        {"name": None, "length": 0.1, "children": [tip(4), tip(5)]},
+        tip(6)]}
+    return Topology.from_nested(nested)[0]
+
+
+@pytest.mark.parametrize("shape,C", [
+    ("balanced", 4), ("caterpillar", 3), ("polytomy", 2)])
+def test_kernel_schedule_matches_plain(shape, C):
+    """float64: the kernels' emulated schedule against the plain version
+    (value, d pmats, d rootw) to rounding; 300 patterns padded to 512 span
+    four blocks."""
+    topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
+    tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
+                                 _setup(topo, C, n_sites=300, seed=2))
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
+    children = torch.as_tensor(topo.children)
+    site, partials, scale = _emulate_forward(tips, pm, children, rootw.detach())
+    dP, drootw = _emulate_backward(tips, pm, children, rootw.detach(),
+                                   partials, scale, w)
+
+    pm_ = pm.clone().requires_grad_(True)
+    parts, scal = pruning_partials(tips, pm_, topo, rescale=True)
+    ref = torch.log(torch.einsum("cs,csp->p", rootw.view(-1, 4),
+                                 parts[topo.root])) + scal[topo.root]
+    ref_dP, ref_drootw = torch.autograd.grad(torch.sum(w * ref), [pm_, rootw])
+    torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
+                               atol=1e-12 * float(ref_dP.abs().max()))
+    torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12, atol=1e-12)
