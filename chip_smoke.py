@@ -1,7 +1,12 @@
 """On-card check of physher_tpu_torch: builds the CUDA pruning kernels from
 this checkout, holds them against their plain PyTorch version, runs the
-slice's main path (fluA likelihoods, gradients and Adam steps) through them,
-and times kernel against plain.
+slices' main paths through them and times kernel against plain:
+
+- nucleotide (K1'/K2', ``csrc/pruning.cu``): fluA likelihoods, gradients
+  and Adam steps;
+- codon and protein (K7'/K8', ``csrc/wide.cu``): the libphyc and WAG
+  goldens, a GY94 M0 fit to data simulated on the card at 32 taxa x 4096
+  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns.
 
     python3 chip_smoke.py
 
@@ -19,25 +24,32 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import physher_tpu_torch  # noqa: F401  (sets the TF32 policy)
+from physher_tpu_torch.data.distance import distance_matrix
 from physher_tpu_torch.data.sitepattern import SitePattern
 from physher_tpu_torch.inference.ml import optimize_adam
 from physher_tpu_torch.io.seqio import read_alignment
 from physher_tpu_torch.io.treeio import read_newick
+from physher_tpu_torch.likelihood.analysis import simulate_alignment
 from physher_tpu_torch.models.clock import StrictClock
-from physher_tpu_torch.models.sitemodel import GammaSiteModel
+from physher_tpu_torch.models.codon import GY94, MG94
+from physher_tpu_torch.models.protein import WAG
+from physher_tpu_torch.models.sitemodel import (
+    ConstantSiteModel, GammaSiteModel)
 from physher_tpu_torch.models.substitution import GTR, JC69
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
-from physher_tpu_torch.ops import fused
+from physher_tpu_torch.ops import fused, wide
+from physher_tpu_torch.trees.build import nj
 from physher_tpu_torch.trees.heights import topo_constant
 from physher_tpu_torch.trees.timetree import TimeTreeData
 from physher_tpu_torch.utils.synthetic import (
-    balanced_topology, random_sitepattern)
+    balanced_topology, caterpillar_topology, random_sitepattern)
 
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
@@ -57,6 +69,14 @@ GOLDEN_LOGP, GOLDEN_RATE_GRAD = -4777.616349713985, 328017.6732813406
 # Checkpoint A in float32: 24-bit products over 137 nodes and 238 weighted
 # site terms drift about 1e-6 relative; 1e-5 relative (0.05 nats) bounds it.
 F32_LOGP_ATOL = 0.05
+# codon and protein goldens in float64: libphyc's GY94 / MG94 logP on
+# codon_small (tests/data/goldens/codon_small.txt) at rtol 5e-9 / atol 1e-7,
+# and WAG on tiny_aa (tests/data/goldens/wag.json) at atol 1e-8, the
+# tolerances of tests/test_codon_protein.py
+WAG_GOLDEN_LOGP = -1297.2958256864874
+# the GY94 M0 fit: simulated kappa 2, omega 0.2; recovered within these
+M0_TRUTH = {"kappa": 2.0, "omega": 0.2}
+M0_ATOL = {"kappa": 0.5, "omega": 0.05}
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,15 +112,17 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def random_inputs(topo, P, C, seed, dtype, device):
-    """Tips [T,4,P] of random states, row-stochastic pmats [N,C,4,4],
+def random_inputs(topo, P, C, seed, dtype, device, datatype="nucleotide"):
+    """Tips [T,S,P] of random states, row-stochastic pmats [N,C,S,S],
     freqs, props, pattern weights (numpy seed)."""
 
-    sp = random_sitepattern(topo.T, P, seed=seed)
+    sp = random_sitepattern(topo.T, P, seed=seed, datatype=datatype)
+    S = sp.datatype.state_count
     rng = np.random.default_rng(seed)
-    Q = rng.random((topo.N, C, 4, 4)) + 0.1
-    arrays = (sp.tip_partials(), Q / Q.sum(-1, keepdims=True),
-              np.asarray([0.3, 0.2, 0.25, 0.25]),
+    Q = rng.random((topo.N, C, S, S)) + 0.1
+    freqs = (np.asarray([0.3, 0.2, 0.25, 0.25]) if S == 4
+             else rng.dirichlet(np.full(S, 5.0)))
+    arrays = (sp.tip_partials(), Q / Q.sum(-1, keepdims=True), freqs,
               np.arange(1, C + 1) / (C * (C + 1) / 2),
               rng.uniform(0.5, 2.0, P))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -122,11 +144,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor):
     return abs_err, abs_err / max(float(b.abs().max()), 1e-300)
 
 
-def compare(name, topo, inputs, dtype):
-    """Kernel against plain on one shape; returns the error record."""
+def compare(name, topo, inputs, dtype, mod=fused, phase="kernel_vs_plain"):
+    """Kernel against plain on one shape (``mod`` is ops.fused or ops.wide);
+    returns the error record."""
     tol = TOL[dtype]
-    k = value_and_grad(fused.fused_site_log, topo, *inputs)
-    p = value_and_grad(fused.fused_site_log_reference, topo, *inputs)
+    if mod is fused:
+        kernel, plain = fused.fused_site_log, fused.fused_site_log_reference
+    else:
+        kernel, plain = wide.wide_site_log, wide.wide_site_log_reference
+    k = value_and_grad(kernel, topo, *inputs)
+    p = value_and_grad(plain, topo, *inputs)
     torch.cuda.synchronize()
     rec = {"shape": name, "dtype": str(dtype).replace("torch.", "")}
     logl_rel = abs(float(k[0]) - float(p[0])) / abs(float(p[0]))
@@ -142,7 +169,7 @@ def compare(name, topo, inputs, dtype):
         check(bool(torch.isfinite(gk).all()), f"{name} {gname} finite")
     rec["tolerance"] = tol
     rec["ok"] = ok
-    emit("kernel_vs_plain", **rec)
+    emit(phase, **rec)
     check(ok, f"kernel against plain on {name} {dtype}")
     return rec
 
@@ -194,11 +221,174 @@ def golden_lines():
     return logp, node_ids, fd
 
 
+def codon_small(model, dtype, device):
+    """GY94 or MG94 on codon_small at the golden's parameters; returns
+    (model, params, golden logP)."""
+    seqs = read_alignment(str(DATA / "codon_small.fa"))
+    topo, dist = read_newick((DATA / "codon_small.nwk").read_text().strip())
+    sp = SitePattern.from_alignment(seqs, "codon")
+    golden = (DATA / "goldens" / "codon_small.txt").read_text()
+    maker, values = {"gy94": (GY94, {"kappa": 2.5, "omega": 0.3}),
+                     "mg94": (MG94, {"alpha": 1.0, "beta": 0.4,
+                                     "kappa": 2.0})}[model]
+    logp = next(float(ln.split()[-1]) for ln in golden.splitlines()
+                if ln.startswith(model + " "))
+    kw = dict(dtype=dtype, device=device)
+    tlk = TreeLikelihood(sp, topo, maker(fixed_freqs=True, **kw),
+                         distances_init=dist, **kw)
+    params = tlk.param_space().init_params(**kw)
+    params.update({k: torch.tensor(v, **kw) for k, v in values.items()})
+    return tlk, params, logp
+
+
+def wag_tiny_aa(dtype, device):
+    """The WAG golden's model as tests/data/goldens/wag.json builds it: NJ
+    over Kimura distances (the port's own), tip states on."""
+    sp = SitePattern.from_alignment(read_alignment(str(DATA / "tiny_aa.fa")),
+                                    "aa")
+    topo, dist = nj(sp.taxa, distance_matrix(sp, "kimura"))
+    kw = dict(dtype=dtype, device=device)
+    return TreeLikelihood(sp, topo, WAG(**kw),
+                          distances_init=np.nan_to_num(dist[: topo.N - 1],
+                                                       nan=0.1),
+                          tipstates=True, **kw)
+
+
+def wag_g4_large(dtype, device):
+    """WAG+G4 at the JAX package's benchmark size (bench.py): a balanced
+    64-taxon tree, 8192 random amino-acid patterns."""
+    sp = random_sitepattern(64, 8192, seed=9, datatype="aminoacid")
+    kw = dict(dtype=dtype, device=device)
+    return TreeLikelihood(sp, balanced_topology(64), WAG(**kw),
+                          GammaSiteModel(4, prefix="sitemodel.", **kw), **kw)
+
+
+def gy94_m0_fit_model(dtype, device, seed=11):
+    """GY94 M0 data simulated on the card (kappa 2, omega 0.2, fixed
+    frequencies, branch lengths 0.3) on a balanced 32-taxon tree, 4096
+    codons, and the model that fits it."""
+    kw = dict(dtype=dtype, device=device)
+    topo = balanced_topology(32)
+    subst = GY94(fixed_freqs=True, **kw)
+    params = subst.param_space().init_params(**kw)
+    params.update({k: torch.tensor(v, **kw) for k, v in M0_TRUTH.items()})
+    bl = np.full(topo.N, 0.3)
+    bl[topo.root] = 0.0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seqs = simulate_alignment(gen, topo, subst, ConstantSiteModel(**kw),
+                              params, bl, 4096, datatype="codon")
+    sp = SitePattern.from_alignment(seqs, "codon")
+    return TreeLikelihood(sp, topo, GY94(fixed_freqs=True, **kw),
+                          distances_init=np.full(topo.N - 1, 0.3), **kw)
+
+
+def engine_inputs(tlk, params):
+    """(tips, pmats, freqs, props, weights) of a model at ``params``, as its
+    engine gets them, detached."""
+    with torch.no_grad():
+        rates, props = tlk.site_model.rates_props(params)
+        bl = tlk.branch_lengths(params)
+        pmats = tlk.subst.p_t(params, bl[:, None] * rates[None, :])
+        freqs = tlk.subst.frequencies(params)
+    return (tlk.tip_partials, pmats.to(tlk.dtype).contiguous(),
+            freqs.to(tlk.dtype), props.to(tlk.dtype), tlk.weights)
+
+
+def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
+    """Each kernel of ``mod`` (ops.fused or ops.wide) alone against the
+    plain version on one model's inputs: max abs errors and median times."""
+    S = tips.shape[1]
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    if mod is fused:
+        def fwd():
+            return fused.pruning_forward(tips, pmats, children, rootw)
+
+        def bwd(partials, scale):
+            return fused.pruning_backward(tips, pmats, children, rootw,
+                                          partials, scale, g)
+        reference = fused.fused_site_log_reference
+    else:
+        schedule = wide.level_schedule(topo, tips)
+
+        def fwd():
+            return wide.wide_forward(tips, pmats, children, rootw, schedule)
+
+        def bwd(partials, scale):
+            return wide.wide_backward(tips, pmats, children, rootw, schedule,
+                                      partials, scale, g)
+        reference = wide.wide_site_log_reference
+    site_k, partials, scale = fwd()
+    dP_k, drootw_k = bwd(partials, scale)
+    leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
+    site_graph = reference(tips, leaves[0], topo, leaves[1], leaves[2])
+    grads_p = torch.autograd.grad(site_graph, leaves, g, retain_graph=True)
+    # d rootw -> d freqs, d props through rootw = props (x) freqs
+    dr = drootw_k.view(-1, S)
+    grads_k = (dP_k, (props[:, None] * dr).sum(0), (freqs[None, :] * dr).sum(1))
+    site_p = site_graph.detach()
+    tol = TOL[tips.dtype]
+    check(bool(torch.all((site_k - site_p).abs()
+                         <= tol["site"] * (site_p.abs() + 0.2)))
+          and all(max_err(a, b)[1] <= tol["grad"]
+                  for a, b in zip(grads_k, grads_p)),
+          f"{mod.__name__} kernels against plain at a main path's shapes")
+    rec = {
+        "forward_err": float((site_k - site_p).abs().max()),
+        "backward_err": max(max_err(a, b)[0]
+                            for a, b in zip(grads_k, grads_p)),
+        "forward_ms": median_ms(fwd, reps=100),
+        "backward_ms": median_ms(lambda: bwd(partials, scale), reps=100),
+    }
+    with torch.no_grad():
+        rec["forward_plain_ms"] = median_ms(lambda: reference(
+            tips, pmats, topo, freqs, props), reps=100)
+    rec["backward_plain_ms"] = median_ms(lambda: torch.autograd.grad(
+        site_graph, leaves, g, retain_graph=True), reps=100)
+    return rec
+
+
+def adam_step_ms(tlk, params, n_steps=20, lr=0.01):
+    """Mean host time of one Adam step (after 3 warm-up steps)."""
+    space = tlk.param_space()
+    optimize_adam(tlk.log_likelihood, space, params, learning_rate=lr,
+                  max_iter=3, patience=1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optimize_adam(tlk.log_likelihood, space, params, learning_rate=lr,
+                  max_iter=n_steps, patience=1000)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+def timed_build(mod):
+    t0 = time.perf_counter()
+    mod.build()
+    return time.perf_counter() - t0
+
+
+def ptxas_lines(log: str) -> list:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 # kernel-against-plain shapes: (name, n_tips, patterns, categories); n_tips
 # None is the fluA tree (69 taxa), else a balanced tree
 SHAPES = [("fluA-69x256-C1", None, 256, 1),
           ("fluA-69x256-C4", None, 256, 4),
           ("balanced-128x16384-C4", 128, 16384, 4)]
+# the wide kernels' shapes: (name, topology, patterns, categories, datatype,
+# seed); GY94 M0 and WAG+G4 at the JAX package's benchmark sizes
+# (bench.py), and a caterpillar, the deepest tree
+WIDE_SHAPES = [
+    ("codon-GY94-32x4096-C1", lambda: balanced_topology(32), 4096, 1,
+     "codon", 5),
+    ("wag-64x8192-C4", lambda: balanced_topology(64), 8192, 4, "aminoacid",
+     9),
+    ("codon-caterpillar-32x1024-C1", lambda: caterpillar_topology(32), 1024,
+     1, "codon", 5),
+]
 
 
 def cuda_device():
@@ -217,17 +407,16 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 off")
 
-    # ---- 2. build
+    # ---- 2. build both sources, one nvcc each, started together
     t0 = time.perf_counter()
-    fused.build()
-    build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in fused.build_log.splitlines()
-            if "registers" in ln]
-    emit("build", seconds=build_s, ptxas=regs)
+    with ThreadPoolExecutor(2) as pool:
+        build_s, build_wide_s = pool.map(timed_build, (fused, wide))
+    emit("build", seconds=build_s, ptxas=ptxas_lines(fused.build_log))
+    emit("build_wide", seconds=build_wide_s, both_seconds=time.perf_counter()
+         - t0, ptxas=ptxas_lines(wide.build_log))
 
     # ---- 3. kernel against plain, on the card
     flu_topo = load_fluA_time(torch.float64, "cpu").topo
@@ -285,7 +474,7 @@ def main() -> int:
                         fd_atol=5e-2))
     check(ok, "GTR+G4 fluA golden on the card")
 
-    # ---- 6. the main path: 20 Adam steps, GTR+G4 fluA, float32
+    # ---- 6. the nucleotide main path: 20 Adam steps, GTR+G4 fluA, float32
     gtr32 = load_gtrg4_fluA(torch.float32, dev)
     space = gtr32.param_space()
     start = space.init_params(dtype=torch.float32, device=dev)
@@ -295,17 +484,17 @@ def main() -> int:
                         learning_rate=0.01, max_iter=20, patience=1000)
     torch.cuda.synchronize()
     adam_s = time.perf_counter() - t0
-    launches = {"forward": fused.FORWARD_LAUNCHES,
-                "backward": fused.BACKWARD_LAUNCHES}
+    launches_fused = {"forward": fused.FORWARD_LAUNCHES,
+                      "backward": fused.BACKWARD_LAUNCHES}
     hist = res.history
     ok = bool(len(hist) == 20 and all(np.isfinite(hist))
-              and hist[-1] > hist[0] and min(launches.values()) >= 20)
+              and hist[-1] > hist[0] and min(launches_fused.values()) >= 20)
     emit("adam", ok=ok, steps=len(hist), logp_first=hist[0],
-         logp_last=hist[-1], best_logp=res.logp, launches=launches,
+         logp_last=hist[-1], best_logp=res.logp, launches=launches_fused,
          seconds=adam_s)
     check(ok, "20 Adam steps through the kernels with rising logP")
 
-    # ---- 7. times
+    # ---- 7. times of K1'/K2'
     times = {"card": smi}
     for name, topo, P, C in shapes[1:]:
         inputs = random_inputs(topo, P, C, 7, torch.float32, dev)
@@ -316,78 +505,138 @@ def main() -> int:
                 fused.fused_site_log_reference, topo, *inputs)),
         }
     # each kernel alone at the main path's shapes (GTR+G4 fluA, float32)
-    with torch.no_grad():
-        rates, props = gtr32.site_model.rates_props(start)
-        bl = gtr32.branch_lengths(start)
-        pmats = gtr32.subst.p_t(start, bl[:, None] * rates[None, :])
-        pmats = pmats.contiguous()
-        freqs = gtr32.subst.frequencies(start)
-    topo, tips = gtr32.topo, gtr32.tip_partials
-    children = topo_constant(topo, "children", lambda: topo.children, tips,
-                             torch.int32)
-    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
-    site_k, partials, scale = fused.pruning_forward(tips, pmats, children,
-                                                    rootw)
-    g = gtr32.weights
-    dP_k, drootw_k = fused.pruning_backward(tips, pmats, children, rootw,
-                                            partials, scale, g)
-    leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
-    site_graph = fused.fused_site_log_reference(tips, leaves[0], topo,
-                                                leaves[1], leaves[2])
-    dP_p, dfreqs_p, dprops_p = torch.autograd.grad(site_graph, leaves, g,
-                                                   retain_graph=True)
-    site_p = site_graph
-    # d rootw -> d freqs, d props through rootw = props (x) freqs
-    dr = drootw_k.view(-1, 4)
-    dfreqs_k = (props[:, None] * dr).sum(0)
-    dprops_k = (freqs[None, :] * dr).sum(1)
-    site_p = site_p.detach()
-    fwd_err = float((site_k - site_p).abs().max())
-    bwd_err = max(float((a - b).abs().max()) for a, b in (
-        (dP_k, dP_p), (dfreqs_k, dfreqs_p), (dprops_k, dprops_p)))
-    tol = TOL[torch.float32]
-    check(bool(torch.all((site_k - site_p).abs()
-                         <= tol["site"] * (site_p.abs() + 0.2)))
-          and all(max_err(a, b)[1] <= tol["grad"] for a, b in (
-              (dP_k, dP_p), (dfreqs_k, dfreqs_p), (dprops_k, dprops_p))),
-          "kernels against plain at the main path's shapes")
-    ms = {
-        "forward": median_ms(lambda: fused.pruning_forward(
-            tips, pmats, children, rootw), reps=100),
-        "backward": median_ms(lambda: fused.pruning_backward(
-            tips, pmats, children, rootw, partials, scale, g), reps=100),
-    }
-    with torch.no_grad():
-        plain_fwd = median_ms(lambda: fused.fused_site_log_reference(
-            tips, pmats, topo, freqs, props), reps=100)
-    plain_bwd = median_ms(lambda: torch.autograd.grad(
-        site_graph, leaves, g, retain_graph=True), reps=100)
-    n_steps = 50
-    optimize_adam(gtr32.log_likelihood, space, start, learning_rate=0.01,
-                  max_iter=3, patience=1000)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    optimize_adam(gtr32.log_likelihood, space, start, learning_rate=0.01,
-                  max_iter=n_steps, patience=1000)
-    torch.cuda.synchronize()
-    times["adam_step_ms_gtrg4_fluA_f32"] = (time.perf_counter() - t0) \
-        * 1e3 / n_steps
-    times["kernel_alone_gtrg4_fluA_f32"] = {
-        "forward_ms": ms["forward"], "forward_plain_ms": plain_fwd,
-        "backward_ms": ms["backward"], "backward_plain_ms": plain_bwd}
+    fused_alone = kernels_alone(fused, gtr32.topo,
+                                *engine_inputs(gtr32, start))
+    times["adam_step_ms_gtrg4_fluA_f32"] = adam_step_ms(gtr32, start,
+                                                        n_steps=50)
+    times["kernel_alone_gtrg4_fluA_f32"] = fused_alone
     times["build_seconds"] = build_s
     emit("times", **times)
 
-    src = "physher_tpu_torch/csrc/pruning.cu"
+    # ---- 8. K7'/K8' against plain at both full shapes and the caterpillar
+    wide_shapes = [(name, make(), P, C, datatype, seed)
+                   for name, make, P, C, datatype, seed in WIDE_SHAPES]
+    for dtype in (torch.float32, torch.float64):
+        for name, topo, P, C, datatype, seed in wide_shapes:
+            compare(name, topo, random_inputs(topo, P, C, seed, dtype, dev,
+                                              datatype), dtype, mod=wide,
+                    phase="wide_kernel_vs_plain")
+            torch.cuda.synchronize()
+
+    # ---- 9. codon and protein goldens through K7'/K8' (float64)
+    kw64 = dict(dtype=torch.float64, device=dev)
+    wide.WIDE_FORWARD_LAUNCHES = wide.WIDE_BACKWARD_LAUNCHES = 0
+    rec, ok = {}, True
+    cases = [(m, *codon_small(m, torch.float64, dev)) for m in ("gy94",
+                                                                "mg94")]
+    wag64 = wag_tiny_aa(torch.float64, dev)
+    cases.append(("wag", wag64, wag64.param_space().init_params(**kw64),
+                  WAG_GOLDEN_LOGP))
+    for name, tlk, params, golden in cases:
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        logp = tlk.log_likelihood(leaves)
+        (g_dist,) = torch.autograd.grad(logp, [leaves["tree.distances"]])
+        # the same gradient from the plain engine on the card
+        plain = {k: v.clone().requires_grad_(True)
+                 for k, v in params.items()}
+        tlk.engine = "torch"
+        (g_plain,) = torch.autograd.grad(tlk.log_likelihood(plain),
+                                         [plain["tree.distances"]])
+        tlk.engine = "auto"
+        err = float(logp.detach()) - golden
+        atol = 1e-8 if name == "wag" else 1e-7 + 5e-9 * abs(golden)
+        g_rel = max_err(g_dist, g_plain)[1]
+        rec[name] = dict(logp=float(logp.detach()), golden=golden,
+                         logp_err=err, logp_tol=atol,
+                         engine=tlk.engine_name(),
+                         distance_grad_rel_err_vs_plain=g_rel)
+        ok = ok and abs(err) <= atol and tlk.engine_name() == "cuda-wide" \
+            and g_rel <= 1e-10
+    launches = {"forward": wide.WIDE_FORWARD_LAUNCHES,
+                "backward": wide.WIDE_BACKWARD_LAUNCHES}
+    ok = ok and min(launches.values()) >= len(cases)
+    emit("codon_protein_goldens", ok=ok, launches=launches, **rec)
+    check(ok, "codon and protein goldens through the wide kernels")
+
+    # ---- 10. the codon and protein main path: a GY94 M0 fit to data
+    # simulated on the card, then 20 Adam steps of WAG+G4 64 x 8192 (f32)
+    kw32 = dict(dtype=torch.float32, device=dev)
+    wide.WIDE_FORWARD_LAUNCHES = wide.WIDE_BACKWARD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    m0 = gy94_m0_fit_model(torch.float32, dev)
+    m0_space = m0.param_space()
+    m0_start = m0_space.init_params(**kw32)
+    fit = optimize_adam(m0.log_likelihood, m0_space, m0_start,
+                        learning_rate=0.05, max_iter=600)
+    m0_s = time.perf_counter() - t0
+    got = {k: float(fit.params[k]) for k in M0_TRUTH}
+    m0_ok = all(abs(got[k] - M0_TRUTH[k]) < M0_ATOL[k] for k in M0_TRUTH)
+    wag32 = wag_g4_large(torch.float32, dev)
+    wag_space = wag32.param_space()
+    wag_start = wag_space.init_params(**kw32)
+    wres = optimize_adam(wag32.log_likelihood, wag_space, wag_start,
+                         learning_rate=0.01, max_iter=20, patience=1000)
+    torch.cuda.synchronize()
+    wide_launches = {"forward": wide.WIDE_FORWARD_LAUNCHES,
+                     "backward": wide.WIDE_BACKWARD_LAUNCHES}
+    hist = wres.history
+    wag_ok = bool(len(hist) == 20 and all(np.isfinite(hist))
+                  and hist[-1] > hist[0])
+    ok = bool(m0_ok and wag_ok and m0.engine_name() == "cuda-wide"
+              and wag32.engine_name() == "cuda-wide"
+              and min(wide_launches.values()) >= fit.iterations + 20)
+    emit("adam_codon", ok=ok, patterns=m0.sp.pattern_count,
+         m0_steps=fit.iterations, m0_estimates=got, m0_truth=M0_TRUTH,
+         m0_tolerance=M0_ATOL, m0_logp=fit.logp, m0_seconds=m0_s,
+         wag_steps=len(hist), wag_logp_first=hist[0], wag_logp_last=hist[-1],
+         launches=wide_launches)
+    check(ok, "GY94 M0 recovery and WAG+G4 Adam steps through the wide "
+              "kernels")
+
+    # ---- 11. times of K7'/K8' (float32)
+    times = {"card": smi}
+    m0_params = {k: v.detach() for k, v in fit.params.items()}
+    for name, tlk, params in (("gy94-32x4096", m0, m0_params),
+                              ("wag-g4-64x8192", wag32, wag_start)):
+        inputs = engine_inputs(tlk, params)
+        times[name] = {
+            "patterns": tlk.sp.pattern_count,
+            "value_and_grad_kernel_ms": median_ms(lambda: value_and_grad(
+                wide.wide_site_log, tlk.topo, *inputs)),
+            "value_and_grad_plain_ms": median_ms(lambda: value_and_grad(
+                wide.wide_site_log_reference, tlk.topo, *inputs)),
+            "kernel_alone": kernels_alone(wide, tlk.topo, *inputs),
+            "adam_step_ms": adam_step_ms(tlk, params),
+        }
+    times["build_seconds"] = build_wide_s
+    emit("wide_times", **times)
+
+    fused_src = "physher_tpu_torch/csrc/pruning.cu"
+    wide_src = "physher_tpu_torch/csrc/wide.cu"
+    gy = times["gy94-32x4096"]["kernel_alone"]
     print(json.dumps({"kernels": [
-        {"name": "pruning_forward", "route": "cuda", "source": src,
+        {"name": "pruning_forward", "route": "cuda", "source": fused_src,
          "replaces": "physher_tpu/ops/pallas_fused.py:245",
-         "launches": launches["forward"], "max_abs_err": fwd_err,
-         "ms": ms["forward"], "plain_ms": plain_fwd},
-        {"name": "pruning_backward", "route": "cuda", "source": src,
+         "launches": launches_fused["forward"],
+         "max_abs_err": fused_alone["forward_err"],
+         "ms": fused_alone["forward_ms"],
+         "plain_ms": fused_alone["forward_plain_ms"]},
+        {"name": "pruning_backward", "route": "cuda", "source": fused_src,
          "replaces": "physher_tpu/ops/pallas_fused.py:390",
-         "launches": launches["backward"], "max_abs_err": bwd_err,
-         "ms": ms["backward"], "plain_ms": plain_bwd},
+         "launches": launches_fused["backward"],
+         "max_abs_err": fused_alone["backward_err"],
+         "ms": fused_alone["backward_ms"],
+         "plain_ms": fused_alone["backward_plain_ms"]},
+        {"name": "wide_forward", "route": "cuda", "source": wide_src,
+         "replaces": "physher_tpu/ops/pallas_wide.py:217",
+         "launches": wide_launches["forward"], "max_abs_err": gy["forward_err"],
+         "ms": gy["forward_ms"], "plain_ms": gy["forward_plain_ms"]},
+        {"name": "wide_backward", "route": "cuda", "source": wide_src,
+         "replaces": "physher_tpu/ops/pallas_wide.py:396",
+         "launches": wide_launches["backward"],
+         "max_abs_err": gy["backward_err"], "ms": gy["backward_ms"],
+         "plain_ms": gy["backward_plain_ms"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 The same phylogenetic models as the JAX package, module for module, written
 in PyTorch for one NVIDIA H100. Plain tensor code is PyTorch; the pruning
-sweep and its gradient run in hand-written CUDA kernels
-(``ops/fused.py``, sources in ``csrc/``) on CUDA tensors, and in plain
-PyTorch on CPU tensors. Nothing here imports jax or physher_tpu.
+sweep and its gradient run in hand-written CUDA kernels on CUDA tensors
+(``ops/fused.py`` for nucleotides, ``ops/wide.py`` for codons and amino
+acids, sources in ``csrc/``), and in plain PyTorch on CPU tensors.
+Nothing here imports jax or physher_tpu.
 
 Precision policy: every constructor takes an explicit ``dtype`` and
 ``device``. Golden parity with the reference C implementation needs

@@ -12,6 +12,10 @@ Engines (``engine=``):
   (``ops/pruning.py``) for CPU tensors;
 - ``"cuda"``: the CUDA kernels; raises for CPU tensors;
 - ``"torch"``: the plain engine on any device.
+
+The CUDA kernels are chosen by the state count (:func:`select_engine`):
+K1'/K2' (``ops/fused.py``) for S = 4, K7'/K8' (``ops/wide.py``) for any
+other S. ``engine_name()`` says which one a model takes.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from ..data.sitepattern import SitePattern
 from ..ops.fused import fused_tree_log_likelihood
 from ..ops.pruning import tree_log_likelihood, pad_patterns
+from ..ops.wide import wide_tree_log_likelihood
 from ..trees.topology import Topology
 from ..trees.timetree import TimeTreeData
 from ..trees.heights import (
@@ -35,6 +40,25 @@ from .sitemodel import SiteModel, ConstantSiteModel
 from .substitution import SubstitutionModel
 
 ENGINES = ("auto", "cuda", "torch")
+_ENGINE_FUNCTIONS = {"cuda-fused": fused_tree_log_likelihood,
+                     "cuda-wide": wide_tree_log_likelihood,
+                     "torch": tree_log_likelihood}
+
+
+def select_engine(engine: str, device_type: str, n_states: int) -> str:
+    """The concrete engine for an ``engine=`` choice, the device type of the
+    model's tensors and its state count: ``"cuda-fused"`` (K1'/K2', S = 4),
+    ``"cuda-wide"`` (K7'/K8', any other S) or ``"torch"`` (the plain
+    engine). ``"cuda"`` on a non-CUDA device raises."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+    on_cuda = device_type == "cuda"
+    if engine == "cuda" and not on_cuda:
+        raise ValueError("engine='cuda' needs CUDA tensors; this model "
+                         f"lives on {device_type}")
+    if engine == "torch" or not on_cuda:
+        return "torch"
+    return "cuda-fused" if n_states == 4 else "cuda-wide"
 
 
 class TreeLikelihood(nn.Module):
@@ -170,14 +194,14 @@ class TreeLikelihood(nn.Module):
         dist = params[self.key("distances")]
         return torch.cat([dist, dist.new_zeros(1)])
 
+    def engine_name(self) -> str:
+        """The engine this model runs: ``"cuda-fused"``, ``"cuda-wide"`` or
+        ``"torch"`` (see :func:`select_engine`)."""
+        return select_engine(self.engine, self.tip_partials.device.type,
+                             self.tip_partials.shape[1])
+
     def _engine(self):
-        on_cuda = self.tip_partials.device.type == "cuda"
-        if self.engine == "cuda" and not on_cuda:
-            raise ValueError("engine='cuda' needs CUDA tensors; this model "
-                             f"lives on {self.tip_partials.device}")
-        if self.engine == "cuda" or (self.engine == "auto" and on_cuda):
-            return fused_tree_log_likelihood
-        return tree_log_likelihood
+        return _ENGINE_FUNCTIONS[self.engine_name()]
 
     def _run_engine(self, params):
         engine = self._engine()

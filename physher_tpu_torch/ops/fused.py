@@ -22,16 +22,14 @@ does about it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
-from .pruning import pruning_partials
+from . import cuda_build
+from .cuda_build import check as _check, stream as _stream
+from .pruning import rescaled_site_log
 
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
@@ -40,25 +38,10 @@ BACKWARD_LAUNCHES = 0
 BLOCK = 128
 MAX_CATEGORIES = 8
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "pruning.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCE = cuda_build.PKG / "csrc" / "pruning.cu"
 
 _lib = None
 build_log = ""
-
-
-def _nvcc() -> str:
-    # PyTorch's own lookup: $CUDA_HOME / $CUDA_PATH, nvcc on PATH, then the
-    # toolkit's default install location
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
-    if not CUDA_HOME or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return nvcc
 
 
 def build() -> ctypes.CDLL:
@@ -66,20 +49,7 @@ def build() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libpruning-{digest[:16]}.so"
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-        build_log = r.stdout + r.stderr
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib, build_log = cuda_build.build_library(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"pruning_forward_{dt}")
@@ -90,18 +60,6 @@ def build() -> ctypes.CDLL:
         bwd.restype = i32
     _lib = lib
     return lib
-
-
-def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _dims(tips, pmats, children, rootw):
@@ -127,10 +85,6 @@ def _dims(tips, pmats, children, rootw):
     _check("children", children, dev, torch.int32, (I, maxc))
     _check("rootw", rootw, dev, dt, (C * 4,))
     return T, I, C, maxc, P
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def pruning_forward(tips, pmats, children, rootw):
@@ -204,16 +158,8 @@ class _FusedSiteLog(torch.autograd.Function):
         return None, dP, drootw, None
 
 
-def fused_site_log_reference(tip_partials, pmats, topo: Topology, freqs,
-                             props):
-    """Plain PyTorch version of the kernels' function: the postorder with
-    the same per-node rescaling (max detached), autograd for the gradient."""
-    parts, scal = pruning_partials(tip_partials.detach(), pmats, topo,
-                                   rescale=True)
-    rootw = props[:, None] * freqs[None, :]
-    site = torch.einsum("cs,csp->p", rootw, parts[topo.root])
-    site = torch.clamp(site, min=torch.finfo(site.dtype).tiny)
-    return torch.log(site) + scal[topo.root]
+# the plain PyTorch version of the kernels' function (ops/pruning.py)
+fused_site_log_reference = rescaled_site_log
 
 
 def fused_site_log(tip_partials, pmats, topo: Topology, freqs, props):

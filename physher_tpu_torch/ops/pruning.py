@@ -99,6 +99,20 @@ def tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs, props,
                                scal[topo.root] if rescale else None)
 
 
+def rescaled_site_log(tip_partials, pmats, topo: Topology, freqs, props):
+    """Per-pattern site log-likelihoods [P] of the rescaled postorder, in
+    the form the CUDA kernels compute: ``log max(sum_{c,s} rootw * root,
+    tiny) + sum_nodes log m`` with ``rootw = props (x) freqs``. The plain
+    PyTorch version of the kernels of ``ops/fused.py`` and ``ops/wide.py``
+    (tips are constants; autograd gives the gradient)."""
+    parts, scal = pruning_partials(tip_partials.detach(), pmats, topo,
+                                   rescale=True)
+    rootw = props[:, None] * freqs[None, :]
+    site = torch.einsum("cs,csp->p", rootw, parts[topo.root])
+    site = torch.clamp(site, min=torch.finfo(site.dtype).tiny)
+    return torch.log(site) + scal[topo.root]
+
+
 def pad_patterns(n: int, multiple: int = 128) -> int:
     """Pattern-axis padding target."""
     return int(-(-n // multiple) * multiple)

@@ -23,6 +23,17 @@ def balanced_topology(n_tips: int) -> Topology:
     return topo
 
 
+def caterpillar_topology(n_tips: int) -> Topology:
+    """Caterpillar (ladder) tree over ``n_tips``: the deepest rooted binary
+    tree, one internal node per level."""
+    nested = {"name": "t0", "length": 0.1, "children": []}
+    for i in range(1, n_tips):
+        nested = {"name": None, "length": 0.1, "children": [
+            nested, {"name": f"t{i}", "length": 0.1, "children": []}]}
+    topo, _ = Topology.from_nested(nested)
+    return topo
+
+
 def random_alignment(n_tips: int, n_sites: int, seed: int = 0,
                      datatype: str = "nucleotide"):
     """Random (incompressible) alignment dict for throughput benchmarks."""

@@ -1,4 +1,5 @@
-"""The CUDA pruning kernels against their plain PyTorch version, on the card.
+"""The CUDA pruning kernels (K1'/K2' of ops/fused.py, K7'/K8' of ops/wide.py)
+against their plain PyTorch version, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -12,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from physher_tpu_torch.ops import fused
+from physher_tpu_torch.ops import fused, wide
 from physher_tpu_torch.trees.topology import Topology
-from physher_tpu_torch.utils.synthetic import balanced_topology
+from physher_tpu_torch.utils.synthetic import (
+    balanced_topology, caterpillar_topology)
 
 pytestmark = pytest.mark.cuda
 
@@ -38,13 +40,13 @@ def _polytomy():
     return Topology.from_nested(nested)[0]
 
 
-def _inputs(topo, P, C, dtype, device, seed=0):
+def _inputs(topo, P, C, dtype, device, seed=0, S=4):
     rng = np.random.default_rng(seed)
-    states = rng.integers(0, 4, (topo.T, P))
-    tips = np.eye(4)[states].transpose(0, 2, 1)
+    states = rng.integers(0, S, (topo.T, P))
+    tips = np.eye(S)[states].transpose(0, 2, 1)
     tips[:, :, -3:] = 1.0                     # pad-like all-ones columns
-    Q = rng.random((topo.N, C, 4, 4)) + 0.1
-    arrays = (tips, Q / Q.sum(-1, keepdims=True), rng.dirichlet(np.ones(4)),
+    Q = rng.random((topo.N, C, S, S)) + 0.1
+    arrays = (tips, Q / Q.sum(-1, keepdims=True), rng.dirichlet(np.ones(S)),
               rng.dirichlet(np.ones(C)), rng.uniform(0.5, 2.0, P))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=device) for a in arrays]
@@ -91,3 +93,61 @@ def test_wrapper_rejects_bad_input(device):
     with pytest.raises(ValueError, match="rate categories"):
         fused.pruning_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
                               children, rootw.repeat(3))
+
+
+def _tolerances(dtype):
+    """(site rtol, site atol, gradient rtol) as in the module docstring."""
+    return (1e-12, 1e-12, 1e-12) if dtype == torch.float64 else \
+        (5e-4, 1e-4, 5e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,S,C,P", [
+    ("balanced", 61, 1, 300), ("balanced", 20, 4, 257),
+    ("caterpillar", 61, 4, 129), ("caterpillar", 20, 1, 64),
+    ("polytomy", 5, 4, 300), ("polytomy", 20, 1, 100),
+    ("balanced", 5, 1, 33)])
+def test_wide_kernels_match_plain(device, dtype, shape, S, C, P):
+    """K7'/K8' against the plain version: S in {5, 20, 61}, C in {1, 4},
+    balanced, caterpillar and polytomy trees, ragged P."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy}[shape]()
+    inputs = _inputs(topo, P, C, dtype, device, S=S)
+    f0, b0 = wide.WIDE_FORWARD_LAUNCHES, wide.WIDE_BACKWARD_LAUNCHES
+    site_k, grads_k = _value_and_grad(wide.wide_site_log, topo, *inputs)
+    assert (wide.WIDE_FORWARD_LAUNCHES,
+            wide.WIDE_BACKWARD_LAUNCHES) == (f0 + 1, b0 + 1)
+    site_p, grads_p = _value_and_grad(wide.wide_site_log_reference, topo,
+                                      *inputs)
+    rtol, atol, grtol = _tolerances(dtype)
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def _wide_args(device, S=20, C=4, dtype=torch.float32):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _inputs(topo, 64, C, dtype, device, S=S)
+    children = torch.as_tensor(topo.children, device=device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    return tips, pm, children, rootw, wide.level_schedule(topo, tips)
+
+
+def test_wide_wrapper_rejects_bad_input(device):
+    tips, pm, children, rootw, schedule = _wide_args(device)
+    n0 = wide.WIDE_FORWARD_LAUNCHES
+    with pytest.raises(ValueError, match="dtype"):
+        wide.wide_forward(tips, pm.double(), children, rootw, schedule)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide.wide_forward(tips, pm.transpose(2, 3), children, rootw,
+                          schedule)
+    with pytest.raises(ValueError, match="rate categories"):
+        wide.wide_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
+                          children, rootw.repeat(3), schedule)
+    with pytest.raises(ValueError, match="states"):
+        wide.wide_forward(*_wide_args(device, S=65, C=1))
+    with pytest.raises(ValueError, match="states"):
+        wide.wide_forward(*_wide_args(device, S=1, C=1))
+    assert wide.WIDE_FORWARD_LAUNCHES == n0
