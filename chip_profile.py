@@ -1,0 +1,259 @@
+"""Where the time goes in an ADVI step of the port's CLI configs, on the card.
+
+For the reference's fluA ADVI config (``tests/data/fluA-elbo.json``, through
+K1'/K2') and for the 128-taxon GTR+G4 config that ``chip_smoke.py`` simulates
+(about 16 000 patterns, through K3'/K4'), in float32: the host time of one
+ADVI step (one-sample ELBO gradient and the Adam update), its device time
+and launches from ``torch.profiler`` (kernel rows only), the device's busy
+share of the step, the top kernel rows, and the host time of one
+multi-sample convergence check (forward-only calls under ``no_grad``).
+Then K3'/K4' and K1'/K2', each kernel alone by CUDA events against the plain
+version, on the balanced 128 x 16384 and the caterpillar 64 x 8192 trees
+(C = 4) in float32 and float64.
+
+With ``--gate``, only the measurement behind ``select_engine``'s choice
+between K3'/K4' and K1'/K2': one forward and one backward sweep (the launch
+wrappers, CUDA events, median of 20) through each pair, float32, on
+balanced, caterpillar and random binary trees and the fluA tree, from 16
+to 512 taxa, 256 to 32 768 patterns, C = 1 and 4: one JSON line per shape
+on standard output (and in the file ``--out`` names). Then, end
+to end, the Adam step and value-and-gradient of three models through each
+pair forced (fused, staged, staged, fused): JC69 on the fluA time tree,
+GTR+G4 on the fluA tree and GTR+G4 on a random 128-taxon tree with 16 384
+patterns.
+
+    python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
+
+Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
+line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from physher_tpu_torch.config.builder import build_config, load_json
+from physher_tpu_torch.inference import vb
+import numpy as np
+
+from physher_tpu_torch.io.treeio import read_newick
+from physher_tpu_torch.models.sitemodel import GammaSiteModel
+from physher_tpu_torch.models.substitution import GTR
+from physher_tpu_torch.models.treelikelihood import TreeLikelihood
+from physher_tpu_torch.ops import cuda_build, fused, staged
+from physher_tpu_torch.utils.synthetic import (
+    balanced_topology, caterpillar_topology, random_sitepattern)
+
+
+def kernel_rows(prof, n_steps: int):
+    """(device ms per step, kernel launches per step, top rows) from the
+    profiler's kernel rows (device-side events only)."""
+    rows = [r for r in prof.key_averages()
+            if getattr(r, "device_type", None) == DeviceType.CUDA]
+
+    def dev_us(r):
+        return getattr(r, "self_device_time_total",
+                       getattr(r, "self_cuda_time_total", 0.0))
+    rows.sort(key=dev_us, reverse=True)
+    total_ms = sum(dev_us(r) for r in rows) / 1e3 / n_steps
+    launches = sum(r.count for r in rows) / n_steps
+    top = [{"name": r.key[:80], "ms_per_step": dev_us(r) / 1e3 / n_steps,
+            "calls_per_step": r.count / n_steps} for r in rows[:10]]
+    return total_ms, launches, top
+
+
+def profile_advi(name, config: Path, dev, n_steps: int):
+    ctx, _ = build_config(load_json(str(config)), base_dir=str(config.parent),
+                          dtype=torch.float32, device=dev)
+    tlk = ctx.objects["treelikelihood"]
+    handle = ctx.objects["varnormal"]
+    fam = handle.family
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vparams = {k: v.clone().requires_grad_(True) for k, v in fam.init.items()}
+    opt, schedule = vb.adam(vparams, 0.05)
+    for _ in range(5):
+        vb.step(fam, vparams, opt, schedule, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        vb.step(fam, vparams, opt, schedule, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            vb.step(fam, vparams, opt, schedule, gen)
+        torch.cuda.synchronize()
+    device_ms, launches, top = kernel_rows(prof, n_steps)
+    vparams = {k: v.detach() for k, v in vparams.items()}
+    eps = fam.draw(vparams, gen, handle.elbo_samples)
+    with torch.no_grad():
+        fam.elbo(vparams, eps=eps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fam.elbo(vparams, eps=eps)
+        torch.cuda.synchronize()
+    check_ms = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({
+        "config": name, "engine": tlk.engine_name(),
+        "taxa": tlk.topo.T, "patterns": tlk.sp.pattern_count,
+        "dim": fam.dim, "steps": n_steps, "step_ms": step_ms,
+        "device_ms_per_step": device_ms,
+        "busy_share": device_ms / step_ms if device_ms else None,
+        "kernel_launches_per_step": launches,
+        "check_samples": handle.elbo_samples, "check_ms": check_ms,
+        "top_kernels": top}), flush=True)
+
+
+def kernel_times(dev):
+    for name, make, P, C in cs.STAGED_SHAPES[:2]:
+        topo = make()
+        for dtype in (torch.float32, torch.float64):
+            inputs = cs.random_inputs(topo, P, C, 7, dtype, dev)
+            print(json.dumps({
+                "shape": name, "dtype": str(dtype).replace("torch.", ""),
+                "levels": len(topo.levels),
+                "staged": cs.kernels_alone(staged, topo, *inputs),
+                "fused": cs.kernels_alone(fused, topo, *inputs)}),
+                flush=True)
+
+
+def device_inputs(topo, P, C, dtype, dev, seed=0):
+    """Random one-hot tips, row-stochastic pmats, freqs, props and a site
+    cotangent, made on the card."""
+    kw = dict(dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    states = torch.randint(0, 4, (topo.T, P), generator=g, device=dev)
+    tips = torch.nn.functional.one_hot(states, 4).to(dtype).transpose(1, 2)
+    Q = torch.rand((topo.N, C, 4, 4), generator=g, **kw) + 0.1
+    return (tips.contiguous(), Q / Q.sum(-1, keepdim=True),
+            torch.tensor([0.3, 0.2, 0.25, 0.25], **kw),
+            torch.full((C,), 1.0 / C, **kw),
+            torch.rand(P, generator=g, **kw) + 0.5)
+
+
+def sweep_ms(mod, topo, tips, pmats, freqs, props, cot):
+    """Median device time of one forward and one backward sweep through the
+    launch wrappers of ``mod`` (ops.fused or ops.staged)."""
+    forward, backward = cs.WRAPPERS[mod]
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=tips.device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    extra = (() if mod is fused
+             else (cuda_build.level_schedule(topo, tips),))
+
+    def sweep():
+        _, partials, scale = forward(tips, pmats, children, rootw, *extra)
+        backward(tips, pmats, children, rootw, *extra, partials, scale, cot)
+    return cs.median_ms(sweep, reps=20)
+
+
+def gate_trees():
+    """(kind, topology) of the sweep: balanced, caterpillar and random
+    binary trees (random pairs of lineages merge, ``random_dated_tree``),
+    and the fluA tree."""
+    trees = [("balanced", balanced_topology(n))
+             for n in (16, 32, 64, 128, 256, 512)]
+    trees += [("caterpillar", caterpillar_topology(n))
+              for n in (16, 32, 64, 128)]
+    trees += [("random", read_newick(cs.random_dated_tree(n, 13)[0])[0])
+              for n in (32, 64, 128, 256, 512)]
+    trees.append(("fluA", cs.load_fluA_time(torch.float64, "cpu").topo))
+    return trees
+
+
+def gate_sweep(dev, out: Path):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with out.open("w") as fh:
+        for kind, topo in gate_trees():
+            for P in (256, 1024, 4096, 8192, 16384, 32768):
+                for C in (1, 4):
+                    inputs = device_inputs(topo, P, C, torch.float32, dev)
+                    row = {"tree": kind, "taxa": topo.T,
+                           "internal": topo.I, "levels": len(topo.levels),
+                           "max_children": int(topo.children.shape[1]),
+                           "patterns": P, "categories": C, "sms": sms,
+                           "staged_ms": sweep_ms(staged, topo, *inputs),
+                           "fused_ms": sweep_ms(fused, topo, *inputs)}
+                    line = json.dumps(row)
+                    print(line, flush=True)
+                    fh.write(line + "\n")
+                    del inputs
+            torch.cuda.empty_cache()
+
+
+def gate_end_to_end(dev):
+    """Adam steps (host clock) and value-and-gradient (CUDA events) of
+    models on either side of the gate, through each pair forced."""
+    kw = dict(dtype=torch.float32, device=dev)
+    topo, dist = read_newick(cs.random_dated_tree(128, 13)[0])
+    large = TreeLikelihood(
+        random_sitepattern(128, 16384, seed=3), topo, GTR(**kw),
+        GammaSiteModel(4, **kw),
+        distances_init=np.nan_to_num(dist[: topo.N - 1], nan=1.0) * 0.01,
+        **kw)
+    models = [("fluA JC69 time tree", cs.load_fluA_time(torch.float32, dev)),
+              ("fluA GTR+G4", cs.load_gtrg4_fluA(torch.float32, dev)),
+              ("random 128 x 16384 GTR+G4", large)]
+    for name, tlk in models:
+        params = tlk.param_space().init_params(**kw)
+
+        def value_and_grad():
+            p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            torch.autograd.grad(tlk.log_likelihood(p), list(p.values()),
+                                allow_unused=True)
+        row = {"model": name, "auto": tlk.engine_name(),
+               "categories": tlk.site_model.cat_count,
+               "nodes_per_level": tlk.topo.I / len(tlk.topo.levels),
+               "patterns": tlk.sp.pattern_count}
+        for engine in ("cuda-fused", "cuda-staged", "cuda-staged",
+                       "cuda-fused"):
+            tlk.engine = engine
+            row.setdefault(f"{engine}_adam_step_ms", []).append(
+                cs.adam_step_ms(tlk, params, n_steps=30))
+            row.setdefault(f"{engine}_value_and_grad_ms", []).append(
+                cs.median_ms(value_and_grad))
+        tlk.engine = "auto"
+        print(json.dumps(row), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--gate", action="store_true",
+                    help="only the staged-against-fused measurement")
+    ap.add_argument("--out", type=Path, default=Path(os.devnull),
+                    help="with --gate, also write the sweep's lines here")
+    args = ap.parse_args()
+    dev = cs.cuda_device()
+    smi = cs.nvidia_smi()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m.build(), (fused, staged)))
+    if args.gate:
+        gate_sweep(dev, args.out)
+        gate_end_to_end(dev)
+        print(smi, flush=True)
+        return 0
+    profile_advi("fluA-elbo", cs.DATA / "fluA-elbo.json", dev, args.steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = cs.large_config(Path(tmp), 128, 20480, dev)
+        profile_advi("gtrg4-128-large", path, dev, args.steps)
+    kernel_times(dev)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

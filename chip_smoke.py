@@ -3,10 +3,16 @@ this checkout, holds them against their plain PyTorch version, runs the
 slices' main paths through them and times kernel against plain:
 
 - nucleotide (K1'/K2', ``csrc/pruning.cu``): fluA likelihoods, gradients
-  and Adam steps;
+  and the GTR+G4 golden, and Adam steps of GTR+G4 fluA through the pair
+  that ``select_engine`` picks;
 - codon and protein (K7'/K8', ``csrc/wide.cu``): the libphyc and WAG
   goldens, a GY94 M0 fit to data simulated on the card at 32 taxa x 4096
-  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns.
+  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns;
+- large nucleotide alignments (K3'/K4', ``csrc/staged.cu``) and the
+  JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
+  the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
+  ML then ADVI of a GTR+G4 config on 128 taxa x about 16 000 patterns
+  simulated on the card (through K3'/K4').
 
     python3 chip_smoke.py
 
@@ -24,6 +30,7 @@ import statistics
 import subprocess
 import sys
 import time
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 import physher_tpu_torch  # noqa: F401  (sets the TF32 policy)
+from physher_tpu_torch import cli
 from physher_tpu_torch.data.distance import distance_matrix
 from physher_tpu_torch.data.sitepattern import SitePattern
 from physher_tpu_torch.inference.ml import optimize_adam
@@ -44,7 +52,7 @@ from physher_tpu_torch.models.sitemodel import (
     ConstantSiteModel, GammaSiteModel)
 from physher_tpu_torch.models.substitution import GTR, JC69
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
-from physher_tpu_torch.ops import fused, wide
+from physher_tpu_torch.ops import cuda_build, fused, staged, wide
 from physher_tpu_torch.trees.build import nj
 from physher_tpu_torch.trees.heights import topo_constant
 from physher_tpu_torch.trees.timetree import TimeTreeData
@@ -77,6 +85,10 @@ WAG_GOLDEN_LOGP = -1297.2958256864874
 # the GY94 M0 fit: simulated kappa 2, omega 0.2; recovered within these
 M0_TRUTH = {"kappa": 2.0, "omega": 0.2}
 M0_ATOL = {"kappa": 0.5, "omega": 0.05}
+# the NVIDIA H100 SXM's published peaks (at 700 W): device-memory bandwidth
+# and the float32 rate of the CUDA cores; the kernels' bounds use them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -144,14 +156,18 @@ def max_err(a: torch.Tensor, b: torch.Tensor):
     return abs_err, abs_err / max(float(b.abs().max()), 1e-300)
 
 
+# each kernel module's entry point and its plain version
+SITE_LOG = {fused: (fused.fused_site_log, fused.fused_site_log_reference),
+            staged: (staged.staged_site_log,
+                     staged.staged_site_log_reference),
+            wide: (wide.wide_site_log, wide.wide_site_log_reference)}
+
+
 def compare(name, topo, inputs, dtype, mod=fused, phase="kernel_vs_plain"):
-    """Kernel against plain on one shape (``mod`` is ops.fused or ops.wide);
-    returns the error record."""
+    """Kernel against plain on one shape (``mod`` is ops.fused, ops.staged
+    or ops.wide); returns the error record."""
     tol = TOL[dtype]
-    if mod is fused:
-        kernel, plain = fused.fused_site_log, fused.fused_site_log_reference
-    else:
-        kernel, plain = wide.wide_site_log, wide.wide_site_log_reference
+    kernel, plain = SITE_LOG[mod]
     k = value_and_grad(kernel, topo, *inputs)
     p = value_and_grad(plain, topo, *inputs)
     torch.cuda.synchronize()
@@ -294,31 +310,59 @@ def engine_inputs(tlk, params):
             freqs.to(tlk.dtype), props.to(tlk.dtype), tlk.weights)
 
 
+# each kernel module's launch wrappers (forward, backward); the staged and
+# wide ones take the level schedule after rootw
+WRAPPERS = {fused: (fused.pruning_forward, fused.pruning_backward),
+            staged: (staged.staged_forward, staged.staged_backward),
+            wide: (wide.wide_forward, wide.wide_backward)}
+
+
+def pruning_work(backward, T, I, C, S, maxc, P, itemsize):
+    """(bytes, FLOPs) of one forward or backward sweep: each input read once
+    and each output written once (forward: tips, pmats, rootw, children in;
+    partials, scalers, site logs out; backward: tips, pmats, rootw,
+    children, partials, scalers, cotangent in; d pmats, d rootw out), and
+    2 S^2 + S operations per (branch, category, pattern) forward, 6 S^2 + S
+    backward (the sibling's product again, the dP outer product, the
+    child's cotangent), plus the rescaling and the root."""
+    N = T + I
+    pm, parts = N * C * S * S, I * C * S * P
+    if backward:
+        n = T * S * P + pm + C * S + parts + I * P + P + pm + C * S
+        flops = P * ((N - 1) * C * (6 * S * S + S) + 4 * C * S)
+    else:
+        n = T * S * P + pm + C * S + parts + I * P + P
+        flops = P * ((N - 1) * C * (2 * S * S + S) + I * 2 * C * S
+                     + 2 * C * S)
+    return n * itemsize + 4 * I * (maxc + 1), flops
+
+
+def bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations") on the NVIDIA H100 SXM."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
-    """Each kernel of ``mod`` (ops.fused or ops.wide) alone against the
-    plain version on one model's inputs: max abs errors and median times."""
-    S = tips.shape[1]
+    """Each kernel of ``mod`` (ops.fused, ops.staged or ops.wide) alone
+    against the plain version on one model's inputs: max abs errors, median
+    times and the bounds."""
+    T, S, P = tips.shape
     children = topo_constant(topo, "children", lambda: topo.children, tips,
                              torch.int32)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
-    if mod is fused:
-        def fwd():
-            return fused.pruning_forward(tips, pmats, children, rootw)
+    forward, backward = WRAPPERS[mod]
+    schedule = cuda_build.level_schedule(topo, tips)
+    extra = () if mod is fused else (schedule,)
 
-        def bwd(partials, scale):
-            return fused.pruning_backward(tips, pmats, children, rootw,
-                                          partials, scale, g)
-        reference = fused.fused_site_log_reference
-    else:
-        schedule = wide.level_schedule(topo, tips)
+    def fwd():
+        return forward(tips, pmats, children, rootw, *extra)
 
-        def fwd():
-            return wide.wide_forward(tips, pmats, children, rootw, schedule)
-
-        def bwd(partials, scale):
-            return wide.wide_backward(tips, pmats, children, rootw, schedule,
-                                      partials, scale, g)
-        reference = wide.wide_site_log_reference
+    def bwd(partials, scale):
+        return backward(tips, pmats, children, rootw, *extra, partials,
+                        scale, g)
+    reference = SITE_LOG[mod][1]
     site_k, partials, scale = fwd()
     dP_k, drootw_k = bwd(partials, scale)
     leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
@@ -346,6 +390,11 @@ def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
             tips, pmats, topo, freqs, props), reps=100)
     rec["backward_plain_ms"] = median_ms(lambda: torch.autograd.grad(
         site_graph, leaves, g, retain_graph=True), reps=100)
+    dims = (T, topo.I, pmats.shape[1], S, children.shape[1], P,
+            tips.element_size())
+    for kind, is_bwd in (("forward", False), ("backward", True)):
+        ms, by = bound(*pruning_work(is_bwd, *dims))
+        rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
     return rec
 
 
@@ -391,6 +440,16 @@ WIDE_SHAPES = [
 ]
 
 
+# K3'/K4' against plain: (name, topology, patterns, categories): the JAX
+# package's large shape, a caterpillar (one node per level, the prototype
+# K9's many-step case) and a ragged pattern count
+STAGED_SHAPES = [
+    ("balanced-128x16384-C4", lambda: balanced_topology(128), 16384, 4),
+    ("caterpillar-64x8192-C4", lambda: caterpillar_topology(64), 8192, 4),
+    ("balanced-128x8229-C4", lambda: balanced_topology(128), 8192 + 37, 4),
+]
+
+
 def cuda_device():
     """The card, or exit 1 (no fallback to the CPU)."""
     if not torch.cuda.is_available():
@@ -399,48 +458,24 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def main() -> int:
-    # ---- 1. device
-    dev = cuda_device()
-    smi = nvidia_smi()
-    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
-
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and not torch.backends.cudnn.allow_tf32, "TF32 off")
-
-    # ---- 2. build both sources, one nvcc each, started together
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        build_s, build_wide_s = pool.map(timed_build, (fused, wide))
-    emit("build", seconds=build_s, ptxas=ptxas_lines(fused.build_log))
-    emit("build_wide", seconds=build_wide_s, both_seconds=time.perf_counter()
-         - t0, ptxas=ptxas_lines(wide.build_log))
-
-    # ---- 3. kernel against plain, on the card
-    flu_topo = load_fluA_time(torch.float64, "cpu").topo
-    shapes = [(name, flu_topo if n is None else balanced_topology(n), P, C)
-              for name, n, P, C in SHAPES]
-    for dtype in (torch.float32, torch.float64):
-        for name, topo, P, C in shapes:
-            compare(name, topo, random_inputs(topo, P, C, 7, dtype,
-                                                     dev), dtype)
-            torch.cuda.synchronize()
-
-    # ---- 4. checkpoint A on the card
+def checkpoint_a(dev, engine="auto", phase="checkpoint_a"):
+    """Checkpoint A on the card: JC69 strict-clock fluA logP and
+    d logP / d rate in float64 (and the float32 drift)."""
     tlk64 = load_fluA_time(torch.float64, dev)
+    tlk64.engine = engine
     params = {k: v.requires_grad_(True) for k, v in
               tlk64.param_space().init_params(dtype=torch.float64,
                                               device=dev).items()}
     logp64 = tlk64.log_likelihood_only(params)
     (g_rate,) = torch.autograd.grad(logp64, [params["rate"]])
     tlk32 = load_fluA_time(torch.float32, dev)
+    tlk32.engine = engine
     logp32 = float(tlk32.log_likelihood_only(
         tlk32.param_space().init_params(dtype=torch.float32, device=dev)))
     torch.cuda.synchronize()
     logp64 = logp64.detach()
-    rec = dict(logp_f64=float(logp64), rate_grad_f64=float(g_rate),
+    rec = dict(engine=tlk64.engine_name(), logp_f64=float(logp64),
+               rate_grad_f64=float(g_rate),
                logp_f64_err=float(logp64) - GOLDEN_LOGP,
                rate_grad_f64_rel_err=float(g_rate) / GOLDEN_RATE_GRAD - 1,
                logp_f32=logp32, logp_f32_drift=logp32 - GOLDEN_LOGP,
@@ -448,12 +483,17 @@ def main() -> int:
                               logp_f32_atol=F32_LOGP_ATOL))
     ok = (abs(rec["logp_f64_err"]) <= 1e-8
           and abs(rec["rate_grad_f64_rel_err"]) <= 1e-8
-          and abs(rec["logp_f32_drift"]) <= F32_LOGP_ATOL)
-    emit("checkpoint_a", ok=ok, **rec)
-    check(ok, "checkpoint A on the card")
+          and abs(rec["logp_f32_drift"]) <= F32_LOGP_ATOL
+          and (engine == "auto" or rec["engine"] == engine))
+    emit(phase, ok=ok, **rec)
+    check(ok, f"checkpoint A on the card ({rec['engine']})")
 
-    # ---- 5. GTR+G4 fluA golden on the card (float64)
+
+def gtrg4_golden(dev, engine="auto", phase="gtrg4_fluA"):
+    """The GTR+G4 fluA golden in float64: logP and the branch gradients
+    against the reference's finite differences."""
     gtr64 = load_gtrg4_fluA(torch.float64, dev)
+    gtr64.engine = engine
     p64 = {k: v.requires_grad_(True) for k, v in gtr64.param_space(
     ).init_params(dtype=torch.float64, device=dev).items()}
     lp = gtr64.log_likelihood(p64)
@@ -466,32 +506,322 @@ def main() -> int:
               for i, fd in zip(nonroot, fd_ref)]
     lp = lp.detach()
     ok = bool(abs(float(lp) - logp_ref) <= 2e-8 + 5e-9 * abs(logp_ref)
-              and len(nonroot) == len(fd_ref) and max(fd_err) <= 0)
-    emit("gtrg4_fluA", ok=ok, logp=float(lp), logp_ref=logp_ref,
-         logp_err=float(lp) - logp_ref, n_fd=len(fd_ref),
+              and len(nonroot) == len(fd_ref) and max(fd_err) <= 0
+              and (engine == "auto" or gtr64.engine_name() == engine))
+    emit(phase, ok=ok, engine=gtr64.engine_name(), logp=float(lp),
+         logp_ref=logp_ref, logp_err=float(lp) - logp_ref, n_fd=len(fd_ref),
          worst_fd_margin=float(max(fd_err)),
          tolerance=dict(logp_rtol=5e-9, logp_atol=2e-8, fd_rtol=5e-4,
                         fd_atol=5e-2))
-    check(ok, "GTR+G4 fluA golden on the card")
+    check(ok, f"GTR+G4 fluA golden on the card ({gtr64.engine_name()})")
 
-    # ---- 6. the nucleotide main path: 20 Adam steps, GTR+G4 fluA, float32
+
+def random_dated_tree(n_tips: int, seed: int):
+    """A random binary tree over ``n_tips`` tips sampled across 20 years:
+    random pairs of lineages merge, each parent 0.1-5 years (uniform) above
+    its older child. Returns (newick with branch lengths in years,
+    {taxon: date})."""
+    rng = np.random.default_rng(seed)
+    tip_h = rng.uniform(0.0, 20.0, n_tips)
+    active = [(f"t{i}", h) for i, h in enumerate(tip_h)]
+    while len(active) > 1:
+        i, j = sorted(rng.choice(len(active), 2, replace=False))
+        (a, ha), (b, hb) = active[i], active[j]
+        h = max(ha, hb) + rng.uniform(0.1, 5.0)
+        del active[j], active[i]
+        active.append((f"({a}:{h - ha:.9f},{b}:{h - hb:.9f})", h))
+    return active[0][0] + ";", {f"t{i}": 2020.0 - h
+                                 for i, h in enumerate(tip_h)}
+
+
+# the simulation's truth: GTR exchangeabilities (AC, AG, AT, CG, CT, GT),
+# frequencies, Gamma shape and clock rate (substitutions per site per year)
+LARGE_TRUTH = dict(rates=[1.0, 3.0, 0.8, 1.2, 3.5, 1.0],
+                   freqs=[0.3, 0.2, 0.22, 0.28], shape=0.8, rate=4e-3)
+
+
+def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
+                 seed: int = 13):
+    """Simulate a GTR+G4 alignment down a random dated tree on ``dev`` and
+    write it as FASTA with a config that mirrors tests/data/fluA-elbo.json:
+    GTR+G4, a strict clock on a time tree, a constant coalescent, oneonx
+    and ctmcscale priors, mean-field blocks; actions: 50 sg (Adam) steps of
+    ML, then 200 steps of ADVI. Returns (config path, pattern count)."""
+    from physher_tpu_torch.io.seqio import write_fasta
+
+    newick, dates = random_dated_tree(n_tips, seed)
+    topo, dist = read_newick(newick)
+    kw = dict(dtype=torch.float64, device=dev)
+    t = LARGE_TRUTH
+    subst = GTR(rates_init=np.asarray(t["rates"]) / sum(t["rates"]),
+                freqs_init=t["freqs"], **kw)
+    site = GammaSiteModel(4, shape_init=t["shape"], **kw)
+    params = {**subst.param_space().init_params(**kw),
+              **site.param_space().init_params(**kw)}
+    bl = np.nan_to_num(dist, nan=0.0) * t["rate"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seqs = simulate_alignment(gen, topo, subst, site, params, bl, n_sites)
+    n_patterns = SitePattern.from_alignment(seqs).pattern_count
+    write_fasta(seqs, str(workdir / "large.fa"))
+
+    def param(pid, value, lower=None):
+        out = {"id": pid, "type": "parameter", "value": value}
+        if lower is not None:
+            out["lower"] = lower
+        return out
+
+    cfg = {
+        "rates": {"id": "rates", "type": "simplex",
+                  "values": [1.0] * 6},
+        "model": {"id": "posterior", "type": "compound", "distributions": [
+            {"id": "treelikelihood", "type": "treelikelihood",
+             "include_jacobian": True, "tipstates": False,
+             "sitepattern": {"id": "patterns", "type": "sitepattern",
+                             "datatype": "nucleotide",
+                             "alignment": {"id": "seqs", "type": "alignment",
+                                           "file": "large.fa"}},
+             "sitemodel": {
+                 "id": "sitemodel", "type": "sitemodel",
+                 "distribution": {"distribution": "gamma", "categories": 4,
+                                  "parameters": {"alpha": param(
+                                      "alpha", 0.5, 0)}},
+                 "substitutionmodel": {
+                     "id": "sm", "type": "substitutionmodel",
+                     "model": "gtr", "datatype": "nucleotide",
+                     "rates": "$rates",
+                     "frequencies": {"id": "freqs", "type": "Simplex",
+                                     "values": [0.25] * 4}}},
+             "tree": {"id": "tree", "type": "tree", "time": True,
+                      "newick": newick, "dates": dates,
+                      "reparam": "tree.scalers"},
+             "branchmodel": {"id": "bm", "type": "branchmodel",
+                             "model": "strict", "tree": "&tree",
+                             "rate": param("rate", 1e-3, 0)}},
+            {"id": "prior", "type": "compound", "distributions": [
+                {"id": "coalescent", "type": "coalescent",
+                 "model": "constant",
+                 "parameters": {"n0": param("n0", 10.0, 0)},
+                 "tree": "&tree"},
+                {"id": "priortheta", "type": "distribution",
+                 "distribution": "oneonx", "x": "&n0"},
+                {"id": "priorrate", "type": "distribution",
+                 "distribution": "ctmcscale", "x": "&rate",
+                 "tree": "&tree"}]}]},
+        "varmodel": {"id": "varnormal", "type": "variational",
+                     "posterior": "&posterior", "elbosamples": 100,
+                     "gradsamples": 1, "distributions": [
+                         {"id": "block1", "type": "block",
+                          "distribution": "normal", "x": "%tree.scalers",
+                          "initialize": True},
+                         {"id": "block2", "type": "block",
+                          "distribution": "normal", "x": "&n0",
+                          "parameters": {"sigma": param("sigma.theta", 0.13,
+                                                        0)}},
+                         {"id": "block3", "type": "block",
+                          "distribution": "normal", "x": "&rate",
+                          "initialize": True,
+                          "parameters": {"sigma": param("sigma.rate", 0.07,
+                                                        0)}}]},
+        "physher": [
+            {"id": "ml", "type": "optimizer", "algorithm": "sg",
+             "model": "&posterior", "max": 50, "eta": 0.01,
+             "tol": 1e-9},
+            {"id": "vb", "type": "optimizer", "algorithm": "sg",
+             "model": "&varnormal", "eta": 0.1, "tol": 1e-5, "max": 200},
+        ],
+    }
+    path = workdir / "large.json"
+    path.write_text(json.dumps(cfg, indent=1))
+    return path, n_patterns
+
+
+def run_cli(argv):
+    """The port's CLI in-process: (runner, printed lines)."""
+    import io
+
+    out = io.StringIO()
+    runner = cli.run([str(a) for a in argv], out=out)
+    torch.cuda.synchronize()
+    return runner, out.getvalue().splitlines()
+
+
+def cli_checkpoint_b(dev):
+    """The reference's fluA ADVI config as it stands, through the CLI on the
+    card in float32 (K1'/K2'): the final ELBO within 1.5 nats of
+    checkpoint B."""
+    golden = json.loads((DATA / "goldens" / "fluA_elbo.json").read_text())
+    fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+    staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner, lines = run_cli([DATA / "fluA-elbo.json"])
+    wall = time.perf_counter() - t0
+    launches = {"fused_forward": fused.FORWARD_LAUNCHES,
+                "fused_backward": fused.BACKWARD_LAUNCHES,
+                "staged_forward": staged.STAGED_FORWARD_LAUNCHES,
+                "staged_backward": staged.STAGED_BACKWARD_LAUNCHES}
+    res = runner.results["sg"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    vh = runner.ctx.objects["varnormal"]
+    elbo_line = next(ln for ln in lines if ln.startswith("ELBO: "))
+    elbo = float(elbo_line.split()[1])
+    # a low-noise evaluation of the converged distribution (1000 draws)
+    gen = torch.Generator(device=dev).manual_seed(123)
+    with torch.no_grad():
+        elbo_1000 = float(vh.family.elbo(res.vparams, gen, 1000))
+    err = elbo - golden["reference_elbo"]
+    ok = bool(abs(err) <= golden["tolerance_nats"]
+              and tlk.engine_name() == "cuda-fused"
+              and runner.ctx.dtype == torch.float32
+              and launches["fused_forward"] >= res.iterations
+              and launches["fused_backward"] >= res.iterations
+              and launches["staged_forward"] == 0
+              and launches["staged_backward"] == 0)
+    emit("cli_checkpoint_B", ok=ok, lines=lines, elbo=elbo,
+         reference_elbo=golden["reference_elbo"], elbo_err=err,
+         tolerance_nats=golden["tolerance_nats"], elbo_1000_draws=elbo_1000,
+         iterations=res.iterations, checks=len(res.history),
+         wall_seconds=wall, fit_seconds=res.seconds,
+         check_seconds=res.check_seconds,
+         check_share=res.check_seconds / res.seconds,
+         mean_step_ms=(res.seconds - res.check_seconds) * 1e3
+         / res.iterations,
+         engine=tlk.engine_name(), dtype=str(runner.ctx.dtype),
+         launches=launches)
+    check(ok, "checkpoint B through the CLI on the card")
+    return runner, {"forward": launches["fused_forward"],
+                    "backward": launches["fused_backward"]}
+
+
+def cli_staged_large(dev, n_tips=128, n_sites=20480):
+    """ML then ADVI of a GTR+G4 config on an alignment simulated on the card
+    (128 taxa, 20 480 sites: about 16 000 patterns, the JAX package's large
+    shape; P >= 8192 asserted), through the CLI: the staged kernels K3'/K4'
+    carry it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path, n_patterns = large_config(Path(tmp), n_tips, n_sites, dev)
+        sim_s = time.perf_counter() - t0
+        fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+        staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = {"forward": staged.STAGED_FORWARD_LAUNCHES,
+                    "backward": staged.STAGED_BACKWARD_LAUNCHES,
+                    "fused_forward": fused.FORWARD_LAUNCHES,
+                    "fused_backward": fused.BACKWARD_LAUNCHES}
+    tlk = runner.ctx.objects["treelikelihood"]
+    ml_res, vb_res = runner.results["ml"], runner.results["vb"]
+    fam = runner.ctx.objects["varnormal"].family
+    eps = fam.draw(fam.init, torch.Generator(device=dev).manual_seed(7), 100)
+    with torch.no_grad():
+        elbo_first = float(fam.elbo(fam.init, eps=eps))
+        elbo_last = float(fam.elbo(vb_res.vparams, eps=eps))
+    hist = ml_res.history
+    ok = bool(n_patterns >= 8192 and tlk.engine_name() == "cuda-staged"
+              and launches["forward"] >= ml_res.iterations
+              + vb_res.iterations
+              and launches["backward"] >= ml_res.iterations
+              + vb_res.iterations
+              and launches["fused_forward"] == 0
+              and launches["fused_backward"] == 0
+              and len(hist) == 50 and all(np.isfinite(hist))
+              and hist[-1] > hist[0] and elbo_last > elbo_first)
+    rec = dict(ok=ok, lines=lines, taxa=n_tips, sites=n_sites,
+               patterns=n_patterns, engine=tlk.engine_name(),
+               levels=len(tlk.topo.levels), simulate_seconds=sim_s,
+               wall_seconds=wall, ml_steps=ml_res.iterations,
+               ml_logp_first=hist[0], ml_logp_last=hist[-1],
+               ml_step_ms=ml_res.seconds * 1e3 / ml_res.iterations,
+               vb_steps=vb_res.iterations, elbo_first=elbo_first,
+               elbo_last=elbo_last, vb_history=vb_res.history,
+               vb_step_ms=(vb_res.seconds - vb_res.check_seconds) * 1e3
+               / vb_res.iterations,
+               vb_check_share=vb_res.check_seconds / vb_res.seconds,
+               launches=launches)
+    emit("cli_staged_large", **rec)
+    check(ok, "ML and ADVI of the large GTR+G4 config through K3'/K4'")
+    return runner, launches
+
+
+def kernel_row(name, src, replaces, launches, alone, kind):
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": alone[f"{kind}_err"], "ms": alone[f"{kind}_ms"],
+            "plain_ms": alone[f"{kind}_plain_ms"],
+            "bound_ms": alone[f"{kind}_bound_ms"],
+            "bound_by": alone[f"{kind}_bound_by"],
+            # no single PyTorch call computes a pruning sweep
+            "library_ms": None}
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    # ---- 1. device
+    dev = cuda_device()
+    smi = nvidia_smi()
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 off")
+
+    # ---- 2. build the three sources, one nvcc each, started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        build_s, build_wide_s, build_staged_s = pool.map(
+            timed_build, (fused, wide, staged))
+    both_s = time.perf_counter() - t0
+    emit("build", seconds=build_s, ptxas=ptxas_lines(fused.build_log))
+    emit("build_wide", seconds=build_wide_s, all_seconds=both_s,
+         ptxas=ptxas_lines(wide.build_log))
+    emit("build_staged", seconds=build_staged_s, all_seconds=both_s,
+         ptxas=ptxas_lines(staged.build_log))
+
+    # ---- 3. K1'/K2' against plain, on the card
+    flu_topo = load_fluA_time(torch.float64, "cpu").topo
+    shapes = [(name, flu_topo if n is None else balanced_topology(n), P, C)
+              for name, n, P, C in SHAPES]
+    for dtype in (torch.float32, torch.float64):
+        for name, topo, P, C in shapes:
+            compare(name, topo, random_inputs(topo, P, C, 7, dtype,
+                                                     dev), dtype)
+            torch.cuda.synchronize()
+
+    # ---- 4. checkpoint A on the card
+    checkpoint_a(dev)
+
+    # ---- 5. GTR+G4 fluA golden on the card (float64) through K1'/K2' (auto
+    # picks K3'/K4' for this model; phase 13 holds them to it)
+    gtrg4_golden(dev, engine="cuda-fused")
+
+    # ---- 6. the nucleotide main path: 20 Adam steps, GTR+G4 fluA, float32,
+    # through the pair that select_engine picks (K3'/K4' since the gate was
+    # measured: C = 4 on 68 internal nodes in 21 levels)
     gtr32 = load_gtrg4_fluA(torch.float32, dev)
     space = gtr32.param_space()
     start = space.init_params(dtype=torch.float32, device=dev)
     fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+    staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
     t0 = time.perf_counter()
     res = optimize_adam(gtr32.log_likelihood, space, start,
                         learning_rate=0.01, max_iter=20, patience=1000)
     torch.cuda.synchronize()
     adam_s = time.perf_counter() - t0
-    launches_fused = {"forward": fused.FORWARD_LAUNCHES,
-                      "backward": fused.BACKWARD_LAUNCHES}
+    launches = {"fused_forward": fused.FORWARD_LAUNCHES,
+                "fused_backward": fused.BACKWARD_LAUNCHES,
+                "staged_forward": staged.STAGED_FORWARD_LAUNCHES,
+                "staged_backward": staged.STAGED_BACKWARD_LAUNCHES}
+    pair = gtr32.engine_name().removeprefix("cuda-")
     hist = res.history
     ok = bool(len(hist) == 20 and all(np.isfinite(hist))
-              and hist[-1] > hist[0] and min(launches_fused.values()) >= 20)
+              and hist[-1] > hist[0] and pair in ("fused", "staged")
+              and min(launches[f"{pair}_forward"],
+                      launches[f"{pair}_backward"]) >= 20)
     emit("adam", ok=ok, steps=len(hist), logp_first=hist[0],
-         logp_last=hist[-1], best_logp=res.logp, launches=launches_fused,
-         seconds=adam_s)
+         logp_last=hist[-1], best_logp=res.logp, engine=gtr32.engine_name(),
+         launches=launches, seconds=adam_s)
     check(ok, "20 Adam steps through the kernels with rising logP")
 
     # ---- 7. times of K1'/K2'
@@ -504,12 +834,11 @@ def main() -> int:
             "value_and_grad_plain_ms": median_ms(lambda: value_and_grad(
                 fused.fused_site_log_reference, topo, *inputs)),
         }
-    # each kernel alone at the main path's shapes (GTR+G4 fluA, float32)
-    fused_alone = kernels_alone(fused, gtr32.topo,
-                                *engine_inputs(gtr32, start))
+    # each kernel alone at GTR+G4 fluA (float32), as in earlier runs
     times["adam_step_ms_gtrg4_fluA_f32"] = adam_step_ms(gtr32, start,
                                                         n_steps=50)
-    times["kernel_alone_gtrg4_fluA_f32"] = fused_alone
+    times["kernel_alone_gtrg4_fluA_f32"] = kernels_alone(
+        fused, gtr32.topo, *engine_inputs(gtr32, start))
     times["build_seconds"] = build_s
     emit("times", **times)
 
@@ -611,32 +940,79 @@ def main() -> int:
         }
     times["build_seconds"] = build_wide_s
     emit("wide_times", **times)
+    wide_alone = times["gy94-32x4096"]["kernel_alone"]
 
+    # ---- 12. K3'/K4' against plain: the large balanced tree, a caterpillar
+    # and a ragged pattern count, float32 and float64
+    for dtype in (torch.float32, torch.float64):
+        for name, make, P, C in STAGED_SHAPES:
+            topo = make()
+            compare(name, topo, random_inputs(topo, P, C, 7, dtype, dev),
+                    dtype, mod=staged, phase="staged_kernel_vs_plain")
+            torch.cuda.synchronize()
+
+    # ---- 13. checkpoint A and the GTR+G4 golden through K3'/K4' (float64)
+    checkpoint_a(dev, engine="cuda-staged", phase="staged_checkpoint_a")
+    gtrg4_golden(dev, engine="cuda-staged", phase="staged_gtrg4_fluA")
+
+    # ---- 14. checkpoint B: the fluA ADVI config through the CLI (K1'/K2'),
+    # and K1'/K2' alone at its model's inputs
+    runner, launches_fused = cli_checkpoint_b(dev)
+    tlk = runner.ctx.objects["treelikelihood"]
+    fused_alone = kernels_alone(fused, tlk.topo, *engine_inputs(
+        tlk, runner.params_for(tlk.param_space())))
+    emit("fused_times", card=smi, model="fluA-elbo JC69 float32",
+         patterns=tlk.sp.pattern_count, kernel_alone=fused_alone)
+
+    # ---- 15. the third slice's main path: ML then ADVI of a GTR+G4 config
+    # at 128 taxa x about 16 000 patterns through the CLI (K3'/K4')
+    runner, staged_launches = cli_staged_large(dev)
+
+    # ---- 16. times of K3'/K4', K1'/K2' and plain at that model's inputs
+    tlk = runner.ctx.objects["treelikelihood"]
+    params = runner.params_for(tlk.param_space())
+    inputs = engine_inputs(tlk, params)
+    staged_alone = kernels_alone(staged, tlk.topo, *inputs)
+    times = {"card": smi, "patterns": tlk.sp.pattern_count,
+             "kernel_alone": staged_alone}
+    for label, fn in (("staged", staged.staged_site_log),
+                      ("fused", fused.fused_site_log),
+                      ("plain", staged.staged_site_log_reference)):
+        times[f"value_and_grad_{label}_ms"] = median_ms(
+            lambda: value_and_grad(fn, tlk.topo, *inputs))
+    inputs64 = random_inputs(balanced_topology(128), 16384, 4, 7,
+                             torch.float64, dev)
+    topo128 = balanced_topology(128)
+    for label, fn in (("staged", staged.staged_site_log),
+                      ("fused", fused.fused_site_log)):
+        times[f"value_and_grad_{label}_f64_balanced_128x16384_ms"] = \
+            median_ms(lambda: value_and_grad(fn, topo128, *inputs64))
+    times["build_seconds"] = build_staged_s
+    emit("staged_times", **times)
+
+    emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
-    gy = times["gy94-32x4096"]["kernel_alone"]
+    staged_src = "physher_tpu_torch/csrc/staged.cu"
     print(json.dumps({"kernels": [
-        {"name": "pruning_forward", "route": "cuda", "source": fused_src,
-         "replaces": "physher_tpu/ops/pallas_fused.py:245",
-         "launches": launches_fused["forward"],
-         "max_abs_err": fused_alone["forward_err"],
-         "ms": fused_alone["forward_ms"],
-         "plain_ms": fused_alone["forward_plain_ms"]},
-        {"name": "pruning_backward", "route": "cuda", "source": fused_src,
-         "replaces": "physher_tpu/ops/pallas_fused.py:390",
-         "launches": launches_fused["backward"],
-         "max_abs_err": fused_alone["backward_err"],
-         "ms": fused_alone["backward_ms"],
-         "plain_ms": fused_alone["backward_plain_ms"]},
-        {"name": "wide_forward", "route": "cuda", "source": wide_src,
-         "replaces": "physher_tpu/ops/pallas_wide.py:217",
-         "launches": wide_launches["forward"], "max_abs_err": gy["forward_err"],
-         "ms": gy["forward_ms"], "plain_ms": gy["forward_plain_ms"]},
-        {"name": "wide_backward", "route": "cuda", "source": wide_src,
-         "replaces": "physher_tpu/ops/pallas_wide.py:396",
-         "launches": wide_launches["backward"],
-         "max_abs_err": gy["backward_err"], "ms": gy["backward_ms"],
-         "plain_ms": gy["backward_plain_ms"]},
+        kernel_row("pruning_forward", fused_src,
+                   "physher_tpu/ops/pallas_fused.py:245",
+                   launches_fused["forward"], fused_alone, "forward"),
+        kernel_row("pruning_backward", fused_src,
+                   "physher_tpu/ops/pallas_fused.py:390",
+                   launches_fused["backward"], fused_alone, "backward"),
+        kernel_row("wide_forward", wide_src,
+                   "physher_tpu/ops/pallas_wide.py:217",
+                   wide_launches["forward"], wide_alone, "forward"),
+        kernel_row("wide_backward", wide_src,
+                   "physher_tpu/ops/pallas_wide.py:396",
+                   wide_launches["backward"], wide_alone, "backward"),
+        kernel_row("staged_forward", staged_src,
+                   "physher_tpu/ops/pallas_staged.py:234",
+                   staged_launches["forward"], staged_alone, "forward"),
+        kernel_row("staged_backward", staged_src,
+                   "physher_tpu/ops/pallas_staged.py:375",
+                   staged_launches["backward"], staged_alone, "backward"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

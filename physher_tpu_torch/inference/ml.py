@@ -1,15 +1,18 @@
 """Maximum-likelihood / MAP optimization (Adam).
 
-Port of ``optimize_adam`` and ``_make_loss`` of
-``physher_tpu/inference/ml.py`` (reference: src/phyc/gradascent.c
-optimize_stochastic_gradient_adam). The JAX package's own Adam
-(``physher_tpu/utils/optim.py``) is the same algorithm as
+Port of ``optimize_adam``, ``_make_loss`` and the ``method="adam"`` branch
+of ``optimize`` of ``physher_tpu/inference/ml.py`` (reference:
+src/phyc/gradascent.c optimize_stochastic_gradient_adam). The JAX package's
+own Adam (``physher_tpu/utils/optim.py``) is the same algorithm as
 ``torch.optim.Adam`` (same bias correction, eps outside the square root),
-so the port uses ``torch.optim.Adam`` on the unconstrained parameters.
+so the port uses ``torch.optim.Adam`` on the unconstrained parameters. The
+meta strategy, L-BFGS, the Brent pass and the CSV checkpoint are not ported
+yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -26,6 +29,8 @@ class OptResult:
     iterations: int
     converged: bool
     history: list = field(default_factory=list)
+    # host seconds of the optimization
+    seconds: float = 0.0
 
 
 def _make_loss(log_prob: Callable, space: ParamSpace):
@@ -55,6 +60,7 @@ def optimize_adam(log_prob, space: ParamSpace, params: dict, *,
     since = 0
     history = []
     it = 0
+    t0 = time.perf_counter()
     for it in range(max_iter):
         opt.zero_grad(set_to_none=True)
         val = loss(uparams)
@@ -73,4 +79,16 @@ def optimize_adam(log_prob, space: ParamSpace, params: dict, *,
                 break
     with torch.no_grad():
         final = space.constrain(best_u)
-    return OptResult(final, -best, it + 1, since < patience, history)
+    return OptResult(final, -best, it + 1, since < patience, history,
+                     seconds=time.perf_counter() - t0)
+
+
+def optimize(log_prob, space: ParamSpace, params: dict, *,
+             method: str = "adam", **kw) -> OptResult:
+    """The JAX package's ``optimize`` for ``method="adam"`` (as
+    ``config/actions.py`` calls it); any other method raises."""
+    if method != "adam":
+        raise NotImplementedError(
+            f"optimizer method {method!r} is not ported to physher_tpu_torch "
+            "yet (ROADMAP Queue 1 item 8); use 'adam'")
+    return optimize_adam(log_prob, space, params, **kw)

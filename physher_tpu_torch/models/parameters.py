@@ -59,6 +59,18 @@ class ParamSpec:
         return ParamSpec(name, np.asarray(values, dtype=np.float64),
                          transform="fixed")
 
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.init.shape)) if self.init.shape else 1
+
+    @property
+    def unconstrained_size(self) -> int:
+        if self.transform == "fixed":
+            return 0
+        if self.transform == "simplex":
+            return self.size - 1
+        return self.size
+
 
 def _default_transform(lower, upper) -> str:
     if lower == -np.inf and upper == np.inf:
@@ -73,9 +85,18 @@ def _default_transform(lower, upper) -> str:
 def params_from_numpy(params: dict, *, dtype: torch.dtype,
                       device) -> dict:
     """Arrays (e.g. the JAX package's parameters after ``np.asarray``) ->
-    the port's ``dict[str, Tensor]`` on ``device`` in ``dtype``."""
+    the port's ``dict[str, Tensor]`` on ``device`` in ``dtype``, for every
+    key: tree, substitution, site, clock and coalescent parameters alike."""
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in params.items()}
+
+
+def vparams_from_numpy(vparams: dict, *, dtype: torch.dtype,
+                       device) -> dict:
+    """A variational family's parameters (``loc`` / ``log_scale`` of the
+    mean-field normal, ``loc`` / ``log_diag`` / ``off`` of the full-rank
+    one) from arrays to tensors on ``device`` in ``dtype``."""
+    return params_from_numpy(vparams, dtype=dtype, device=device)
 
 
 # -- stick-breaking simplex (Stan convention) --------------------------------
@@ -139,6 +160,10 @@ class ParamSpace:
 
     def free_specs(self):
         return [s for s in self.specs if s.transform != "fixed"]
+
+    @property
+    def unconstrained_size(self) -> int:
+        return sum(s.unconstrained_size for s in self.free_specs())
 
     # -- constrained <-> unconstrained dictionaries ------------------------
 
@@ -205,3 +230,28 @@ class ParamSpace:
             elif t == "simplex":
                 total = total + torch.sum(simplex_log_jacobian(y))
         return total
+
+    # -- flat vector view (for variational families) ----------------------
+
+    def unconstrained_slices(self) -> dict:
+        """{spec name: (offset, size)} into the flat unconstrained vector."""
+        out = {}
+        i = 0
+        for s in self.free_specs():
+            out[s.name] = (i, s.unconstrained_size)
+            i += s.unconstrained_size
+        return out
+
+    def flatten_unconstrained(self, uparams: dict) -> torch.Tensor:
+        return torch.cat([torch.reshape(uparams[s.name], (-1,))
+                          for s in self.free_specs()])
+
+    def unflatten_unconstrained(self, vec: torch.Tensor) -> dict:
+        out = {}
+        i = 0
+        for s in self.free_specs():
+            n = s.unconstrained_size
+            shape = s.init.shape if s.transform != "simplex" else (n,)
+            out[s.name] = vec[..., i: i + n].reshape(vec.shape[:-1] + shape)
+            i += n
+        return out

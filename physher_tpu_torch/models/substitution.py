@@ -1,9 +1,9 @@
 """Substitution models: Q construction and transition probabilities P(t).
 
 Port of ``physher_tpu/models/substitution.py`` (reference:
-src/phyc/substmodel.c, jc69.c, gtr.c):
+src/phyc/substmodel.c, jc69.c, K80.c, f81.c, hky.c, gtr.c):
 
-- JC69 uses the closed-form P(t),
+- JC69, K80, F81 and HKY use their closed-form P(t),
 - GTR symmetrizes Q with sqrt(pi) and uses a self-adjoint ``eigh``.
   ``torch.linalg.eigh``'s own gradient is NaN/inf at repeated eigenvalues,
   which JC-like GTR states have (a triple eigenvalue), so
@@ -174,6 +174,148 @@ class JC69(SubstitutionModel):
         e = torch.exp(-4.0 / 3.0 * t)[..., None, None]
         eye = torch.eye(4, dtype=e.dtype, device=e.device)
         return 0.25 + e * (eye - 0.25)
+
+
+class K80(SubstitutionModel):
+    """Kimura 1980: kappa, equal frequencies, closed form
+    (reference: src/phyc/K80.c)."""
+
+    name = "k80"
+    state_count = 4
+
+    def param_specs(self):
+        return [ParamSpec.scalar(self.key("kappa"), 1.0, lower=0.0)]
+
+    def frequencies(self, params):
+        return torch.full((4,), 0.25, dtype=self.dtype, device=self.device)
+
+    def q(self, params):
+        kappa = params[self.key("kappa")]
+        one = torch.ones_like(kappa)
+        R = _nuc_rate_matrix(torch.stack([one, kappa, one, one, kappa, one]))
+        Q = _set_diagonal_neg_rowsum(R * 0.25)
+        return normalize_q(Q, self.frequencies(params))
+
+    def p_t(self, params, t):
+        kappa = params[self.key("kappa")]
+        # rate normalization: mu = (kappa + 2) / 4
+        d = t * (4.0 / (kappa + 2.0))
+        e1 = torch.exp(-d)
+        e2 = torch.exp(-d * (kappa + 1.0) / 2.0)
+        same = 0.25 + 0.25 * e1 + 0.5 * e2
+        transition = 0.25 + 0.25 * e1 - 0.5 * e2
+        transversion = 0.25 - 0.25 * e1
+        # A, C, G, T: transitions are A<->G and C<->T
+        rows = [[same, transversion, transition, transversion],
+                [transversion, same, transversion, transition],
+                [transition, transversion, same, transversion],
+                [transversion, transition, transversion, same]]
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+class F81(SubstitutionModel):
+    """Felsenstein 81: free frequencies, closed form
+    (reference: src/phyc/f81.c)."""
+
+    name = "f81"
+    state_count = 4
+
+    def __init__(self, prefix="", freqs_init=None, fixed_freqs=False, *,
+                 dtype, device):
+        super().__init__(prefix, dtype=dtype, device=device)
+        self.freqs_init = (np.full(4, 0.25) if freqs_init is None
+                           else np.asarray(freqs_init))
+        self.fixed_freqs = fixed_freqs
+
+    def param_specs(self):
+        mk = ParamSpec.fixed if self.fixed_freqs else ParamSpec.simplex
+        return [mk(self.key("frequencies"), self.freqs_init)]
+
+    def frequencies(self, params):
+        return params[self.key("frequencies")]
+
+    def q(self, params):
+        pi = self.frequencies(params)
+        R = 1.0 - torch.eye(4, dtype=pi.dtype, device=pi.device)
+        Q = _set_diagonal_neg_rowsum(R * pi[None, :])
+        return normalize_q(Q, pi)
+
+    def p_t(self, params, t):
+        pi = self.frequencies(params)
+        beta = 1.0 / (1.0 - torch.sum(pi * pi))
+        e = torch.exp(-beta * t)[..., None, None]
+        eye = torch.eye(4, dtype=pi.dtype, device=pi.device)
+        return e * eye + (1.0 - e) * pi[None, :]
+
+
+class HKY(SubstitutionModel):
+    """HKY85: kappa + free frequencies, analytic P(t)
+    (reference: src/phyc/hky.c:230-560)."""
+
+    name = "hky"
+    state_count = 4
+
+    def __init__(self, prefix="", kappa_init=1.0, freqs_init=None,
+                 fixed_freqs=False, fixed_kappa=False, *, dtype, device):
+        super().__init__(prefix, dtype=dtype, device=device)
+        self.kappa_init = kappa_init
+        self.freqs_init = (np.full(4, 0.25) if freqs_init is None
+                           else np.asarray(freqs_init))
+        self.fixed_freqs = fixed_freqs
+        self.fixed_kappa = fixed_kappa
+
+    def param_specs(self):
+        mkf = ParamSpec.fixed if self.fixed_freqs else ParamSpec.simplex
+        specs = [mkf(self.key("frequencies"), self.freqs_init)]
+        if self.fixed_kappa:
+            specs.append(ParamSpec.fixed(self.key("kappa"), self.kappa_init))
+        else:
+            specs.append(ParamSpec.scalar(self.key("kappa"), self.kappa_init,
+                                          lower=0.0))
+        return specs
+
+    def frequencies(self, params):
+        return params[self.key("frequencies")]
+
+    def q(self, params):
+        pi = self.frequencies(params)
+        kappa = params[self.key("kappa")]
+        one = torch.ones_like(kappa)
+        R = _nuc_rate_matrix(torch.stack([one, kappa, one, one, kappa, one],
+                                         -1))
+        Q = _set_diagonal_neg_rowsum(R * pi[..., None, :])
+        return normalize_q(Q, pi)
+
+    def p_t(self, params, t):
+        """Analytic HKY transition probabilities (Hasegawa-Kishino-Yano
+        1985)."""
+        pi = self.frequencies(params)
+        kappa = params[self.key("kappa")]
+        A, C, G, T = (pi[..., i] for i in range(4))
+        piR, piY = A + G, C + T
+        # normalization so that the expected rate is 1
+        beta = 0.5 / (piR * piY + kappa * (A * G + C * T))
+        d = beta * t
+        e1 = torch.exp(-d)
+        eR = torch.exp(-d * (1.0 + piR * (kappa - 1.0)))  # purines
+        eY = torch.exp(-d * (1.0 + piY * (kappa - 1.0)))  # pyrimidines
+        rows = []
+        for i in range(4):
+            cols = []
+            for j in range(4):
+                pj = pi[..., j]
+                purine_j = j in (0, 2)
+                pclass = piR if purine_j else piY
+                ec = eR if purine_j else eY
+                base = pj + pj * (1.0 - pclass) / pclass * e1
+                if i == j:
+                    cols.append(base + (pclass - pj) / pclass * ec)
+                elif (i in (0, 2)) == purine_j:
+                    cols.append(base - pj / pclass * ec)
+                else:
+                    cols.append(pj * (1.0 - e1))
+            rows.append(torch.stack(torch.broadcast_tensors(*cols), -1))
+        return torch.stack(rows, -2)
 
 
 def _nuc_rate_matrix(rates6: torch.Tensor) -> torch.Tensor:

@@ -4,18 +4,23 @@
 Port of ``physher_tpu/models/treelikelihood.py`` (reference:
 src/phyc/treelikelihood.c:46-124 struct, 1454-1735 calculation). The full
 likelihood is recomputed per call; gradients come from autograd, through the
-CUDA kernels' backward on the card (``ops/fused.py``).
+CUDA kernels' backward on the card (``ops/fused.py``, ``ops/staged.py``,
+``ops/wide.py``).
 
 Engines (``engine=``):
 
 - ``"auto"``: the CUDA kernels for CUDA tensors, the plain engine
   (``ops/pruning.py``) for CPU tensors;
 - ``"cuda"``: the CUDA kernels; raises for CPU tensors;
+- ``"cuda-fused"``, ``"cuda-staged"``, ``"cuda-wide"``: that pair of
+  kernels; raises for CPU tensors and for a state count it cannot take;
 - ``"torch"``: the plain engine on any device.
 
-The CUDA kernels are chosen by the state count (:func:`select_engine`):
-K1'/K2' (``ops/fused.py``) for S = 4, K7'/K8' (``ops/wide.py``) for any
-other S. ``engine_name()`` says which one a model takes.
+``"auto"`` and ``"cuda"`` choose the kernels by the model's shape
+(:func:`select_engine`): K3'/K4' (``ops/staged.py``) for S = 4 on a binary
+tree whose levels are wide enough, K1'/K2' (``ops/fused.py``) for any other
+S = 4 model, K7'/K8' (``ops/wide.py``) for any other S. ``engine_name()``
+says which one a model takes.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 from ..data.sitepattern import SitePattern
 from ..ops.fused import fused_tree_log_likelihood
 from ..ops.pruning import tree_log_likelihood, pad_patterns
+from ..ops.staged import staged_tree_log_likelihood
 from ..ops.wide import wide_tree_log_likelihood
 from ..trees.topology import Topology
 from ..trees.timetree import TimeTreeData
@@ -39,26 +45,56 @@ from .clock import BranchModel
 from .sitemodel import SiteModel, ConstantSiteModel
 from .substitution import SubstitutionModel
 
-ENGINES = ("auto", "cuda", "torch")
+KERNEL_ENGINES = ("cuda-fused", "cuda-staged", "cuda-wide")
+ENGINES = ("auto", "cuda", "torch") + KERNEL_ENGINES
 _ENGINE_FUNCTIONS = {"cuda-fused": fused_tree_log_likelihood,
+                     "cuda-staged": staged_tree_log_likelihood,
                      "cuda-wide": wide_tree_log_likelihood,
                      "torch": tree_log_likelihood}
+# The staged kernels' gate, measured on an NVIDIA H100 (``python3
+# chip_profile.py --gate``, run twice: balanced, caterpillar and random
+# binary trees of 16-512 taxa and the fluA tree, 256-32768 patterns, C = 1
+# and 4). K1'/K2' walk the internal nodes one after the other, at a cost per
+# node that grows with the categories C; K3'/K4' pay about as much per tree
+# level whatever its width. So K3'/K4' win where C x (internal nodes /
+# levels) is large, at every pattern count measured: they were faster on 227
+# of the 228 shapes from 8.2 up, K1'/K2' on all 60 below 3.7; between, the
+# two traded places (K1'/K2' ahead on 74 of 96).
+STAGED_MIN_LEVEL_WORK = 8.0
 
 
-def select_engine(engine: str, device_type: str, n_states: int) -> str:
+def select_engine(engine: str, device_type: str, n_states: int,
+                  max_children: int = 2, n_categories: int = 1,
+                  nodes_per_level: float = 1.0) -> str:
     """The concrete engine for an ``engine=`` choice, the device type of the
-    model's tensors and its state count: ``"cuda-fused"`` (K1'/K2', S = 4),
-    ``"cuda-wide"`` (K7'/K8', any other S) or ``"torch"`` (the plain
-    engine). ``"cuda"`` on a non-CUDA device raises."""
+    model's tensors, its state count, the most children of a node, the rate
+    categories and the mean internal nodes per tree level:
+    ``"cuda-staged"`` (K3'/K4', S = 4 on a binary tree with ``n_categories
+    * nodes_per_level >= STAGED_MIN_LEVEL_WORK``), ``"cuda-fused"``
+    (K1'/K2', any other S = 4 model), ``"cuda-wide"`` (K7'/K8', any other
+    S) or ``"torch"`` (the plain engine). A CUDA engine on a non-CUDA
+    device, and a named kernel that cannot take the state count, raise."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     on_cuda = device_type == "cuda"
-    if engine == "cuda" and not on_cuda:
-        raise ValueError("engine='cuda' needs CUDA tensors; this model "
+    if engine != "torch" and engine != "auto" and not on_cuda:
+        raise ValueError(f"engine={engine!r} needs CUDA tensors; this model "
                          f"lives on {device_type}")
     if engine == "torch" or not on_cuda:
         return "torch"
-    return "cuda-fused" if n_states == 4 else "cuda-wide"
+    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
+        raise ValueError(f"engine={engine!r} takes 4 states, not {n_states}")
+    if engine == "cuda-wide" and not 2 <= n_states <= 64:
+        raise ValueError(f"engine='cuda-wide' takes 2 to 64 states, not "
+                         f"{n_states}")
+    if engine in KERNEL_ENGINES:
+        return engine
+    if n_states != 4:
+        return "cuda-wide"
+    if (max_children == 2
+            and n_categories * nodes_per_level >= STAGED_MIN_LEVEL_WORK):
+        return "cuda-staged"
+    return "cuda-fused"
 
 
 class TreeLikelihood(nn.Module):
@@ -195,10 +231,14 @@ class TreeLikelihood(nn.Module):
         return torch.cat([dist, dist.new_zeros(1)])
 
     def engine_name(self) -> str:
-        """The engine this model runs: ``"cuda-fused"``, ``"cuda-wide"`` or
-        ``"torch"`` (see :func:`select_engine`)."""
+        """The engine this model runs: ``"cuda-fused"``, ``"cuda-staged"``,
+        ``"cuda-wide"`` or ``"torch"`` (see :func:`select_engine`)."""
+        topo = self.topo
         return select_engine(self.engine, self.tip_partials.device.type,
-                             self.tip_partials.shape[1])
+                             self.tip_partials.shape[1],
+                             int(topo.child_count.max()),
+                             self.site_model.cat_count,
+                             topo.I / len(topo.levels))
 
     def _engine(self):
         return _ENGINE_FUNCTIONS[self.engine_name()]

@@ -5,6 +5,11 @@ compiles one with ``nvcc`` for ``sm_90a`` into ``_build/`` (the file name
 keyed on a hash of the source and the flags, so a changed source is rebuilt
 and an unchanged one is not), and loads it with ctypes. Nothing is built
 when a module is imported: the wrappers call it at their first launch.
+
+:func:`pruning_dims` checks the inputs that the three pruning kernel pairs
+(``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``) share, and
+:func:`level_schedule` is the tree-level schedule that the staged and wide
+pairs launch by.
 """
 
 from __future__ import annotations
@@ -15,10 +20,18 @@ import os
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
+
+from ..trees.heights import topo_constant
+from ..trees.topology import Topology
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
+# rate categories that every pruning kernel takes (their C template values)
+MAX_CATEGORIES = 8
+# CUDA's bound on gridDim.y, which carries the nodes of one level
+MAX_LEVEL_NODES = 65535
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,3 +85,73 @@ def check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the kernels take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def level_schedule(topo: Topology, like: torch.Tensor):
+    """(nodes, offsets): the internal ranks level by level, leaves first, as
+    an int32 tensor on ``like``'s device, and the level boundaries."""
+    levels = topo.levels
+    offsets = tuple(int(x) for x in np.cumsum([0] + [len(lv) for lv in levels]))
+    nodes = topo_constant(topo, "level_nodes",
+                          lambda: np.concatenate(levels), like, torch.int32)
+    return nodes, offsets
+
+
+def offsets_arg(schedule):
+    """(the level offsets as a C int array, the number of levels)."""
+    offsets = schedule[1]
+    return (ctypes.c_int * len(offsets))(*offsets), len(offsets) - 1
+
+
+def pruning_dims(kernels: str, tips, pmats, children, rootw, *,
+                 states=(4, 4), max_children=None, schedule=None,
+                 root_alone=False):
+    """Validate a pruning kernel pair's common inputs; returns
+    (T, I, C, S, maxc, P).
+
+    tips [T, S, P] with ``states[0] <= S <= states[1]``, pmats [N, C, S, S],
+    children [I, maxc] (int32, maxc at most ``max_children`` if given) and
+    rootw [C * S], contiguous on one CUDA device in float32 or float64; and
+    the level ``schedule`` (nodes, offsets) if given, whose last level holds
+    the root alone if ``root_alone``. ``kernels`` names the pair in the
+    messages."""
+    if tips.device.type != "cuda":
+        raise ValueError(f"the CUDA {kernels} kernels need CUDA tensors, "
+                         f"got {tips.device}")
+    if tips.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {tips.dtype}")
+    if tips.dim() != 3:
+        raise ValueError(f"tips must be [T, S, P], got {tuple(tips.shape)}")
+    T, S, P = tips.shape
+    if not states[0] <= S <= states[1]:
+        raise ValueError(f"{S} states; the {kernels} kernels take "
+                         f"{states[0]} to {states[1]}")
+    I, maxc = children.shape
+    if max_children is not None and not 1 <= maxc <= max_children:
+        raise ValueError(f"{maxc} children per node; the {kernels} kernels "
+                         f"take 1 to {max_children}")
+    if pmats.dim() != 4:
+        raise ValueError(f"pmats must be [N, C, S, S], got "
+                         f"{tuple(pmats.shape)}")
+    C = pmats.shape[1]
+    if not 1 <= C <= MAX_CATEGORIES:
+        raise ValueError(f"{C} rate categories; the kernels take 1 to "
+                         f"{MAX_CATEGORIES}")
+    dev, dt = tips.device, tips.dtype
+    check("tips", tips, dev, dt, (T, S, P))
+    check("pmats", pmats, dev, dt, (T + I, C, S, S))
+    check("children", children, dev, torch.int32, (I, maxc))
+    check("rootw", rootw, dev, dt, (C * S,))
+    if schedule is not None:
+        nodes, offsets = schedule
+        check("nodes", nodes, dev, torch.int32, (I,))
+        sizes = [b - a for a, b in zip(offsets[:-1], offsets[1:])]
+        if offsets[0] != 0 or offsets[-1] != I or min(sizes) < 1:
+            raise ValueError(f"level offsets {offsets} do not split {I} "
+                             f"nodes")
+        if max(sizes) > MAX_LEVEL_NODES:
+            raise ValueError(f"a level of {max(sizes)} nodes; the kernels "
+                             f"take at most {MAX_LEVEL_NODES}")
+        if root_alone and sizes[-1] != 1:
+            raise ValueError("the last level must hold the root alone")
+    return T, I, C, S, maxc, P

@@ -36,7 +36,6 @@ BACKWARD_LAUNCHES = 0
 
 # threads per block: one thread per pattern; a multiple of the warp size
 BLOCK = 128
-MAX_CATEGORIES = 8
 
 _SOURCE = cuda_build.PKG / "csrc" / "pruning.cu"
 
@@ -63,27 +62,9 @@ def build() -> ctypes.CDLL:
 
 
 def _dims(tips, pmats, children, rootw):
-    """Validate the kernels' common inputs; returns (T, I, C, maxc, P)."""
-    if tips.device.type != "cuda":
-        raise ValueError(f"the CUDA pruning kernels need CUDA tensors, got "
-                         f"{tips.device}")
-    if tips.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {tips.dtype}")
-    if tips.dim() != 3 or tips.shape[1] != 4:
-        raise ValueError(f"tips must be [T, 4, P], got {tuple(tips.shape)}")
-    T, _, P = tips.shape
-    I, maxc = children.shape
-    if pmats.dim() != 4:
-        raise ValueError(f"pmats must be [N, C, 4, 4], got {tuple(pmats.shape)}")
-    C = pmats.shape[1]
-    if not 1 <= C <= MAX_CATEGORIES:
-        raise ValueError(f"{C} rate categories; the kernels take 1 to "
-                         f"{MAX_CATEGORIES}")
-    dev, dt = tips.device, tips.dtype
-    _check("tips", tips, dev, dt, (T, 4, P))
-    _check("pmats", pmats, dev, dt, (T + I, C, 4, 4))
-    _check("children", children, dev, torch.int32, (I, maxc))
-    _check("rootw", rootw, dev, dt, (C * 4,))
+    """Validate the kernels' inputs; returns (T, I, C, maxc, P)."""
+    T, I, C, _, maxc, P = cuda_build.pruning_dims("pruning", tips, pmats,
+                                                  children, rootw)
     return T, I, C, maxc, P
 
 

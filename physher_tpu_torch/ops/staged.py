@@ -1,0 +1,191 @@
+"""Pruning likelihood and its gradient for large nucleotide alignments
+through hand-written CUDA kernels staged by tree level.
+
+Port of ``physher_tpu/ops/pallas_staged.py``. The two TPU kernels there,
+``_fwd_kernel`` (``build_staged_forward``, run with ``spill=True``) and
+``_bwd_kernel`` (``build_staged_backward``), become kernels K3' and K4' of
+``csrc/staged.cu``: the same function as ``ops/fused.py`` (the rescaled
+postorder sweep to per-pattern site log-likelihoods, and its reverse sweep
+to d pmats and d (props x freqs)) for S = 4, with the tree step as a
+parallel axis: one launch per level of the postorder, the level's nodes and
+the pattern tiles on the grid. The forward keeps its rescaled partials and
+log-scalers in device memory; the backward reads them and never recomputes
+the forward. The source note in ``csrc/staged.cu`` says what bounds them on
+the card and what the design does about it.
+
+- :func:`staged_site_log` / :func:`staged_tree_log_likelihood` are the entry
+  points (the JAX signatures without ``B`` and ``interpret``). On a CUDA
+  tensor they launch the kernels or raise; on a CPU tensor they run
+  :func:`staged_site_log_reference`, the plain PyTorch version.
+- :func:`staged_forward` / :func:`staged_backward` are the launch wrappers.
+  ``STAGED_FORWARD_LAUNCHES`` / ``STAGED_BACKWARD_LAUNCHES`` count their
+  calls: one forward sweep is ``len(topo.levels)`` CUDA launches (the root's
+  launch also computes the site log-likelihoods), one reverse sweep
+  ``len(topo.levels) + 1``.
+- The kernels are built at first use by ``nvcc`` (``ops/cuda_build.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..trees.heights import topo_constant
+from ..trees.topology import Topology
+from . import cuda_build
+from .cuda_build import check, level_schedule, offsets_arg, stream
+from .pruning import rescaled_site_log
+
+STAGED_FORWARD_LAUNCHES = 0
+STAGED_BACKWARD_LAUNCHES = 0
+
+# children per node: the backward stages [maxc, C, 4, 4] P entries and a
+# [4 warps, maxc, C, 16] reduction in shared memory, at most 82 KB in float64
+MAX_CHILDREN = 16
+# patterns per block (csrc/staged.cu THREADS): the block axis of the
+# per-block dP and d rootw partial sums
+BLOCK = 128
+
+_SOURCE = cuda_build.PKG / "csrc" / "staged.cu"
+
+_lib = None
+build_log = ""
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/staged.cu`` (once per source hash) and load it."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    lib, build_log = cuda_build.build_library(_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        fwd = getattr(lib, f"staged_forward_{dt}")
+        fwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 4 + [i32] * 5 + [ptr]
+        fwd.restype = i32
+        bwd = getattr(lib, f"staged_backward_{dt}")
+        bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+        bwd.restype = i32
+    _lib = lib
+    return lib
+
+
+def _dims(tips, pmats, children, rootw, schedule):
+    """Validate the kernels' inputs; returns (T, I, C, maxc, P)."""
+    T, I, C, _, maxc, P = cuda_build.pruning_dims(
+        "staged pruning", tips, pmats, children, rootw,
+        max_children=MAX_CHILDREN, schedule=schedule, root_alone=True)
+    return T, I, C, maxc, P
+
+
+def staged_forward(tips, pmats, children, rootw, schedule):
+    """Launch K3' (one launch per level; the root's also computes the site
+    log-likelihoods): returns (site_log [P], partials [I, C, 4, P],
+    logscale [I, P])."""
+    global STAGED_FORWARD_LAUNCHES
+    T, I, C, maxc, P = _dims(tips, pmats, children, rootw, schedule)
+    lib = build()
+    partials = tips.new_empty((I, C, 4, P))
+    logscale = tips.new_empty((I, P))
+    site_log = tips.new_empty((P,))
+    offsets, n_levels = offsets_arg(schedule)
+    fn = (lib.staged_forward_f32 if tips.dtype == torch.float32
+          else lib.staged_forward_f64)
+    with torch.cuda.device(tips.device):
+        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+                 schedule[0].data_ptr(), offsets, n_levels, rootw.data_ptr(),
+                 partials.data_ptr(), logscale.data_ptr(), site_log.data_ptr(),
+                 T, I, C, maxc, P, stream(tips))
+    STAGED_FORWARD_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"staged forward kernel launch failed: "
+                           f"cudaError {err}")
+    return site_log, partials, logscale
+
+
+def staged_backward(tips, pmats, children, rootw, schedule, partials,
+                    logscale, g):
+    """Launch K4' (the root seed, then one launch per level, root first):
+    returns (d pmats [N, C, 4, 4], d rootw [C * 4])."""
+    global STAGED_BACKWARD_LAUNCHES
+    T, I, C, maxc, P = _dims(tips, pmats, children, rootw, schedule)
+    check("partials", partials, tips.device, tips.dtype, (I, C, 4, P))
+    check("logscale", logscale, tips.device, tips.dtype, (I, P))
+    check("g", g, tips.device, tips.dtype, (P,))
+    lib = build()
+    N = T + I
+    n_blocks = -(-P // BLOCK)
+    gbuf = tips.new_empty((I, C, 4, P))
+    dP_part = tips.new_empty((n_blocks, N, C, 16))
+    dP_part[:, N - 1].zero_()  # the root is no node's child
+    drootw_part = tips.new_empty((n_blocks, C * 4))
+    offsets, n_levels = offsets_arg(schedule)
+    fn = (lib.staged_backward_f32 if tips.dtype == torch.float32
+          else lib.staged_backward_f64)
+    with torch.cuda.device(tips.device):
+        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+                 schedule[0].data_ptr(), offsets, n_levels, rootw.data_ptr(),
+                 partials.data_ptr(), logscale.data_ptr(), g.data_ptr(),
+                 gbuf.data_ptr(), dP_part.data_ptr(), drootw_part.data_ptr(),
+                 T, I, C, maxc, P, stream(tips))
+    STAGED_BACKWARD_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"staged backward kernel launch failed: "
+                           f"cudaError {err}")
+    # deterministic second pass over the per-block partial sums
+    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+
+
+class _StagedSiteLog(torch.autograd.Function):
+    """site_log = K3'(tips, pmats, rootw); the backward is K4'. The
+    forward's rescaled partials and log-scalers are kept for it."""
+
+    @staticmethod
+    def forward(ctx, tips, pmats, rootw, children, nodes, offsets):
+        schedule = (nodes, offsets)
+        site_log, partials, logscale = staged_forward(tips, pmats, children,
+                                                      rootw, schedule)
+        ctx.save_for_backward(tips, pmats, rootw, children, nodes, partials,
+                              logscale)
+        ctx.offsets = offsets
+        return site_log
+
+    @staticmethod
+    def backward(ctx, g):
+        tips, pmats, rootw, children, nodes, partials, logscale = \
+            ctx.saved_tensors
+        dP, drootw = staged_backward(tips, pmats, children, rootw,
+                                     (nodes, ctx.offsets), partials, logscale,
+                                     g.contiguous())
+        return None, dP, drootw, None, None, None
+
+
+# the plain PyTorch version of the kernels' function (ops/pruning.py)
+staged_site_log_reference = rescaled_site_log
+
+
+def staged_site_log(tip_partials, pmats, topo: Topology, freqs, props):
+    """Per-pattern site log-likelihoods [P], differentiable w.r.t.
+    pmats/freqs/props (tips are constants). CUDA tensors go through the
+    kernels (or raise); CPU tensors through the plain version."""
+    if tip_partials.device.type == "cpu":
+        return staged_site_log_reference(tip_partials, pmats, topo, freqs,
+                                         props)
+    children = topo_constant(topo, "children", lambda: topo.children,
+                             tip_partials, torch.int32)
+    nodes, offsets = level_schedule(topo, tip_partials)
+    # rootw = props (x) freqs in torch: autograd maps d rootw to d props
+    # and d freqs
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    return _StagedSiteLog.apply(tip_partials.detach().contiguous(),
+                                pmats.contiguous(), rootw.contiguous(),
+                                children, nodes, offsets)
+
+
+def staged_tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs,
+                               props, weights, *, rescale: bool = True):
+    """(logL, site_log). ``rescale`` is accepted for engine-API
+    compatibility; the kernels always rescale (exact)."""
+    site_log = staged_site_log(tip_partials, pmats, topo, freqs, props)
+    return torch.sum(weights * site_log), site_log

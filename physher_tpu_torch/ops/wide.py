@@ -25,25 +25,21 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
 from . import cuda_build
-from .cuda_build import check, stream
+from .cuda_build import check, level_schedule, offsets_arg, stream
 from .pruning import rescaled_site_log
 
 WIDE_FORWARD_LAUNCHES = 0
 WIDE_BACKWARD_LAUNCHES = 0
 
 MIN_STATES, MAX_STATES = 2, 64
-MAX_CATEGORIES = 8
 # patterns per backward block (csrc/wide.cu BWD_P): the block axis of the
 # per-block dP and d rootw partial sums
 BWD_PATTERNS = 128
-# CUDA's bound on gridDim.y, which carries the nodes of one level
-MAX_LEVEL_NODES = 65535
 
 _SOURCE = cuda_build.PKG / "csrc" / "wide.cu"
 
@@ -69,56 +65,11 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def level_schedule(topo: Topology, like: torch.Tensor):
-    """(nodes, offsets): the internal ranks level by level, leaves first, as
-    an int32 tensor on ``like``'s device, and the level boundaries."""
-    levels = topo.levels
-    offsets = tuple(int(x) for x in np.cumsum([0] + [len(lv) for lv in levels]))
-    nodes = topo_constant(topo, "level_nodes",
-                          lambda: np.concatenate(levels), like, torch.int32)
-    return nodes, offsets
-
-
 def _dims(tips, pmats, children, rootw, schedule):
-    """Validate the kernels' common inputs; returns (T, I, C, S, maxc, P)."""
-    if tips.device.type != "cuda":
-        raise ValueError(f"the CUDA wide pruning kernels need CUDA tensors, "
-                         f"got {tips.device}")
-    if tips.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {tips.dtype}")
-    if tips.dim() != 3:
-        raise ValueError(f"tips must be [T, S, P], got {tuple(tips.shape)}")
-    T, S, P = tips.shape
-    if not MIN_STATES <= S <= MAX_STATES:
-        raise ValueError(f"{S} states; the wide kernels take {MIN_STATES} to "
-                         f"{MAX_STATES}")
-    I, maxc = children.shape
-    if pmats.dim() != 4:
-        raise ValueError(f"pmats must be [N, C, S, S], got "
-                         f"{tuple(pmats.shape)}")
-    C = pmats.shape[1]
-    if not 1 <= C <= MAX_CATEGORIES:
-        raise ValueError(f"{C} rate categories; the kernels take 1 to "
-                         f"{MAX_CATEGORIES}")
-    dev, dt = tips.device, tips.dtype
-    check("tips", tips, dev, dt, (T, S, P))
-    check("pmats", pmats, dev, dt, (T + I, C, S, S))
-    check("children", children, dev, torch.int32, (I, maxc))
-    check("rootw", rootw, dev, dt, (C * S,))
-    nodes, offsets = schedule
-    check("nodes", nodes, dev, torch.int32, (I,))
-    sizes = [b - a for a, b in zip(offsets[:-1], offsets[1:])]
-    if offsets[0] != 0 or offsets[-1] != I or min(sizes) < 1:
-        raise ValueError(f"level offsets {offsets} do not split {I} nodes")
-    if max(sizes) > MAX_LEVEL_NODES:
-        raise ValueError(f"a level of {max(sizes)} nodes; the kernels take "
-                         f"at most {MAX_LEVEL_NODES}")
-    return T, I, C, S, maxc, P
-
-
-def _offsets(schedule):
-    offsets = schedule[1]
-    return (ctypes.c_int * len(offsets))(*offsets), len(offsets) - 1
+    """Validate the kernels' inputs; returns (T, I, C, S, maxc, P)."""
+    return cuda_build.pruning_dims("wide pruning", tips, pmats, children,
+                                   rootw, states=(MIN_STATES, MAX_STATES),
+                                   schedule=schedule)
 
 
 def wide_forward(tips, pmats, children, rootw, schedule):
@@ -130,7 +81,7 @@ def wide_forward(tips, pmats, children, rootw, schedule):
     partials = tips.new_empty((I, C, S, P))
     scale = tips.new_empty((I, P))
     site_log = tips.new_empty((P,))
-    offsets, n_levels = _offsets(schedule)
+    offsets, n_levels = offsets_arg(schedule)
     fn = (lib.wide_forward_f32 if tips.dtype == torch.float32
           else lib.wide_forward_f64)
     with torch.cuda.device(tips.device):
@@ -160,7 +111,7 @@ def wide_backward(tips, pmats, children, rootw, schedule, partials, scale, g):
     dP_part = tips.new_empty((n_blocks, N, C, S, S))
     dP_part[:, N - 1].zero_()  # the root is no node's child
     drootw_part = tips.new_empty((n_blocks, C * S))
-    offsets, n_levels = _offsets(schedule)
+    offsets, n_levels = offsets_arg(schedule)
     fn = (lib.wide_backward_f32 if tips.dtype == torch.float32
           else lib.wide_backward_f64)
     with torch.cuda.device(tips.device):

@@ -1,5 +1,6 @@
-"""The CUDA pruning kernels (K1'/K2' of ops/fused.py, K7'/K8' of ops/wide.py)
-against their plain PyTorch version, on the card.
+"""The CUDA pruning kernels (K1'/K2' of ops/fused.py, K3'/K4' of
+ops/staged.py, K7'/K8' of ops/wide.py) against their plain PyTorch version,
+on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from physher_tpu_torch.ops import fused, wide
+from physher_tpu_torch.ops import cuda_build, fused, staged, wide
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology)
@@ -132,7 +133,7 @@ def _wide_args(device, S=20, C=4, dtype=torch.float32):
     tips, pm, freqs, props, _ = _inputs(topo, 64, C, dtype, device, S=S)
     children = torch.as_tensor(topo.children, device=device)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
-    return tips, pm, children, rootw, wide.level_schedule(topo, tips)
+    return tips, pm, children, rootw, cuda_build.level_schedule(topo, tips)
 
 
 def test_wide_wrapper_rejects_bad_input(device):
@@ -151,3 +152,45 @@ def test_wide_wrapper_rejects_bad_input(device):
     with pytest.raises(ValueError, match="states"):
         wide.wide_forward(*_wide_args(device, S=1, C=1))
     assert wide.WIDE_FORWARD_LAUNCHES == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,P,C", [
+    ("balanced", 300, 4), ("balanced", 128, 1), ("caterpillar", 257, 4),
+    ("caterpillar", 64, 1), ("polytomy", 129, 3), ("balanced", 8192 + 37, 4)])
+def test_staged_kernels_match_plain(device, dtype, shape, P, C):
+    """K3'/K4' against the plain version: balanced, caterpillar and polytomy
+    trees, C in {1, 3, 4}, ragged P."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy}[shape]()
+    inputs = _inputs(topo, P, C, dtype, device)
+    f0, b0 = staged.STAGED_FORWARD_LAUNCHES, staged.STAGED_BACKWARD_LAUNCHES
+    site_k, grads_k = _value_and_grad(staged.staged_site_log, topo, *inputs)
+    assert (staged.STAGED_FORWARD_LAUNCHES,
+            staged.STAGED_BACKWARD_LAUNCHES) == (f0 + 1, b0 + 1)
+    site_p, grads_p = _value_and_grad(staged.staged_site_log_reference, topo,
+                                      *inputs)
+    rtol, atol, grtol = _tolerances(dtype)
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def test_staged_wrapper_rejects_bad_input(device):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _inputs(topo, 64, 4, torch.float32, device)
+    children = torch.as_tensor(topo.children, device=device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    schedule = cuda_build.level_schedule(topo, tips)
+    n0 = staged.STAGED_FORWARD_LAUNCHES
+    with pytest.raises(ValueError, match="dtype"):
+        staged.staged_forward(tips, pm.double(), children, rootw, schedule)
+    with pytest.raises(ValueError, match="contiguous"):
+        staged.staged_forward(tips, pm.transpose(2, 3), children, rootw,
+                              schedule)
+    with pytest.raises(ValueError, match="rate categories"):
+        staged.staged_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
+                              children, rootw.repeat(3), schedule)
+    assert staged.STAGED_FORWARD_LAUNCHES == n0

@@ -1,0 +1,349 @@
+"""ops/staged.py on the CPU: the plain version of the staged CUDA kernels'
+function (K3'/K4') against the JAX package's staged Pallas kernel in
+interpret mode (as tests/test_staged_engine.py runs it), an emulation of the
+kernels' level-launch schedule, and the engine routing of TreeLikelihood.
+
+The JAX kernel takes patterns in tiles of 256: its inputs are padded with
+all-ones tips and weight 0, the port's are not (the CUDA kernels take any
+P), and the comparison is over the real patterns. Tolerances: float64 1e-10
+(rounding only); float32 rtol 1e-5 with an absolute floor of 1e-5 of the
+largest entry for the gradients (the kernel's MXU-ordered products and the
+port's einsums sum in other orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from physher_tpu.ops.pallas_staged import staged_site_log as j_staged_site_log
+from physher_tpu.trees.topology import Topology as JTopology
+from physher_tpu.utils import synthetic as j_synthetic
+from physher_tpu_torch.models.treelikelihood import (
+    STAGED_MIN_LEVEL_WORK, TreeLikelihood, select_engine)
+from physher_tpu_torch.models.sitemodel import GammaSiteModel
+from physher_tpu_torch.models.substitution import JC69
+from physher_tpu_torch.ops import staged
+from physher_tpu_torch.ops.pruning import pad_patterns, pruning_partials
+from physher_tpu_torch.ops.cuda_build import level_schedule
+from physher_tpu_torch.trees.topology import Topology
+from physher_tpu_torch.utils.synthetic import (
+    balanced_topology, caterpillar_topology, random_sitepattern)
+
+TILE = 256
+
+
+def _j_caterpillar(n_tips):
+    nested = {"name": "t0", "length": 0.1, "children": []}
+    for i in range(1, n_tips):
+        nested = {"name": None, "length": 0.1, "children": [
+            nested, {"name": f"t{i}", "length": 0.1, "children": []}]}
+    return JTopology.from_nested(nested)[0]
+
+
+def _topologies(shape):
+    if shape == "balanced":
+        return balanced_topology(12), j_synthetic.balanced_topology(12)
+    return caterpillar_topology(12), _j_caterpillar(12)
+
+
+def _setup(topo, P, C, seed=0):
+    """Numpy inputs at exactly P patterns: tips [T,4,P] of random states
+    (some ambiguous), row-stochastic pmats [N,C,4,4], freqs, props,
+    weights."""
+    rng = np.random.default_rng(seed)
+    tips = np.eye(4)[rng.integers(0, 4, (topo.T, P))].transpose(0, 2, 1)
+    tips[:, :, rng.random(P) < 0.05] = 1.0
+    Q = rng.random((topo.N, C, 4, 4)) + 0.1
+    f = rng.random(4) + 0.2
+    return (np.ascontiguousarray(tips), Q / Q.sum(-1, keepdims=True),
+            f / f.sum(), rng.dirichlet(np.ones(C)), rng.uniform(0.5, 2.0, P))
+
+
+def _port(fn, topo, inputs, dtype):
+    tips, pm, freqs, props, w = (torch.as_tensor(x, dtype=dtype)
+                                 for x in inputs)
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    site = fn(tips, leaves[0], topo, leaves[1], leaves[2])
+    grads = torch.autograd.grad(torch.sum(w * site), leaves)
+    return (site.detach().double().numpy(),
+            [g.double().numpy() for g in grads])
+
+
+def _jax_staged(jtopo, inputs, dtype):
+    tips, pm, freqs, props, w = inputs
+    P = tips.shape[-1]
+    Pp = pad_patterns(P, TILE)
+    tips = np.pad(tips, ((0, 0), (0, 0), (0, Pp - P)), constant_values=1.0)
+    w = np.pad(w, (0, Pp - P))
+    tips, w = jnp.asarray(tips, dtype), jnp.asarray(w, dtype)
+
+    def f(pm_, fr_, pr_):
+        site = j_staged_site_log(tips, pm_, jtopo, fr_, pr_, interpret=True)
+        return jnp.sum(w * site), site
+
+    # jit: one compile of the interpret-mode kernel runs faster than its
+    # eager grid loop
+    (_, site), g = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(x, dtype) for x in (pm, freqs, props)))
+    return (np.asarray(site, np.float64)[:P],
+            [np.asarray(x, np.float64) for x in g])
+
+
+def _tol(dtype):
+    return 1e-10 if dtype == torch.float64 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,P,C", [
+    ("balanced", 256, 4), ("balanced", 300, 1), ("caterpillar", 300, 4),
+    ("caterpillar", 256, 1)])
+def test_plain_matches_pallas_staged(shape, P, C, dtype):
+    """The plain version against the JAX staged kernel in interpret mode:
+    site logs and d (pmats, freqs, props) against jax.grad."""
+    topo, jtopo = _topologies(shape)
+    inputs = _setup(topo, P, C)
+    site, grads = _port(staged.staged_site_log, topo, inputs, dtype)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jsite, jgrads = _jax_staged(jtopo, inputs, jdt)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(site, jsite, rtol=tol, atol=tol)
+    for a, b in zip(grads, jgrads):
+        np.testing.assert_allclose(a, b, rtol=tol,
+                                   atol=tol * np.abs(b).max())
+
+
+# -- the CUDA kernels' level-launch schedule, emulated on the CPU -------------
+#
+# csrc/staged.cu cannot run here. These functions follow its launches: one
+# per level of topo.levels, every node of a level at once (the grid's y
+# axis), one "thread" per pattern (vectorized), the node's partials divided
+# by their max over (C, 4) and its log-scaler stored, the root's launch
+# summing every scaler into the site log; the backward's root launch, then
+# the levels in reverse, each reading its nodes' cotangents and writing
+# their internal children's, with dP summed per block of BLOCK patterns.
+
+
+def _apply_p(pm, x):
+    """[n, C, 4, 4] @ [n, C, 4, P] -> [n, C, 4, P]."""
+    return torch.einsum("ncab,ncbp->ncap", pm, x)
+
+
+def _children_x(tips, partials, ch, C, T):
+    """Partials [n, C, 4, P] of child ids ``ch`` (tips broadcast over C)."""
+    out = []
+    for c in ch.tolist():
+        out.append(tips[c][None].expand(C, -1, -1) if c < T
+                   else partials[c - T])
+    return torch.stack(out)
+
+
+def _emulate_forward(tips, pmats, topo, rootw):
+    T, _, P = tips.shape
+    C = pmats.shape[1]
+    I = topo.I
+    tiny = torch.finfo(tips.dtype).tiny
+    partials = tips.new_full((I, C, 4, P), float("nan"))
+    logscale = tips.new_full((I, P), float("nan"))
+    nodes, offsets = level_schedule(topo, tips)
+    site_log = None
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        ks = nodes[lo:hi].long()
+        res = tips.new_ones((len(ks), C, 4, P))
+        for j in range(topo.children.shape[1]):
+            ch = torch.as_tensor(topo.children[ks.numpy(), j])
+            have = ch >= 0
+            x = _children_x(tips, partials, torch.where(have, ch, 0), C, T)
+            contrib = _apply_p(pmats[torch.where(have, ch, 0)], x)
+            res = res * torch.where(have[:, None, None, None], contrib, 1.0)
+        m = torch.clamp(res.amax((1, 2)), min=tiny)
+        partials[ks] = res / m[:, None, None]
+        logscale[ks] = torch.log(m)
+        if hi == I:  # the root's launch
+            assert hi - lo == 1 and int(ks[0]) == I - 1
+            site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum(
+                (0, 1)), min=tiny)
+            site_log = torch.log(site) + logscale.sum(0)
+    assert torch.isfinite(partials).all() and torch.isfinite(logscale).all()
+    return site_log, partials, logscale
+
+
+def _block_sums(v):
+    """[..., P] -> per-block sums [n_blocks, ...] over BLOCK patterns."""
+    P = v.shape[-1]
+    nb = -(-P // staged.BLOCK)
+    v = torch.nn.functional.pad(v, (0, nb * staged.BLOCK - P))
+    return v.reshape(*v.shape[:-1], nb, staged.BLOCK).sum(-1).movedim(-1, 0)
+
+
+def _emulate_backward(tips, pmats, topo, rootw, partials, logscale, g):
+    T, _, P = tips.shape
+    N, C = pmats.shape[:2]
+    I = topo.I
+    maxc = topo.children.shape[1]
+    tiny = torch.finfo(tips.dtype).tiny
+    gbuf = tips.new_full((I, C, 4, P), float("nan"))
+    # the root launch
+    root = partials[I - 1]
+    inv = g / torch.clamp((rootw.view(C, 4, 1) * root).sum((0, 1)), min=tiny)
+    gbuf[I - 1] = rootw.view(C, 4, 1) * inv
+    drootw_part = _block_sums((root * inv).reshape(C * 4, P))
+    dP_part = tips.new_full((drootw_part.shape[0], N, C, 16), float("nan"))
+    dP_part[:, N - 1] = 0.0
+    nodes, offsets = level_schedule(topo, tips)
+    for lo, hi in reversed(list(zip(offsets[:-1], offsets[1:]))):
+        for k in nodes[lo:hi].tolist():
+            graw = gbuf[k] * torch.exp(-logscale[k])
+            ch = torch.as_tensor(topo.children[k])
+            for i in range(maxc):
+                if ch[i] < 0:
+                    continue
+                other = graw
+                for j in range(maxc):
+                    if j != i and ch[j] >= 0:
+                        xj = _children_x(tips, partials, ch[j:j + 1], C, T)
+                        other = other * _apply_p(pmats[ch[j:j + 1]], xj)[0]
+                x = _children_x(tips, partials, ch[i:i + 1], C, T)[0]
+                dP_part[:, ch[i]] = _block_sums(
+                    (other[:, :, None] * x[:, None, :]).reshape(C, 16, P))
+                if ch[i] >= T:
+                    gbuf[ch[i] - T] = torch.einsum(
+                        "cab,cap->cbp", pmats[ch[i]], other)
+    assert torch.isfinite(dP_part).all(), "a dP row was never written"
+    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+
+
+def _polytomy():
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    nested = {"name": None, "children": [
+        {"name": None, "length": 0.2, "children": [tip(0), tip(1), tip(2),
+                                                   tip(3)]},
+        {"name": None, "length": 0.1, "children": [tip(4), tip(5)]},
+        tip(6)]}
+    return Topology.from_nested(nested)[0]
+
+
+@pytest.mark.parametrize("shape,C,P", [
+    ("balanced", 4, 300), ("caterpillar", 1, 257), ("polytomy", 3, 129)])
+def test_kernel_schedule_matches_plain(shape, C, P):
+    """float64: the kernels' emulated level schedule against the plain
+    version (site logs, d pmats, d rootw) to rounding; ragged P spans
+    several blocks."""
+    topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
+    tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
+                                 _setup(topo, P, C, seed=2))
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
+    site, partials, logscale = _emulate_forward(tips, pm, topo,
+                                                rootw.detach())
+    dP, drootw = _emulate_backward(tips, pm, topo, rootw.detach(), partials,
+                                   logscale, w)
+    # the plain sweep, differentiated with respect to rootw itself
+    pm_ = pm.clone().requires_grad_(True)
+    parts, scal = pruning_partials(tips, pm_, topo, rescale=True)
+    ref = torch.log(torch.einsum("cs,csp->p", rootw.view(C, 4),
+                                 parts[topo.root])) + scal[topo.root]
+    ref_dP, ref_drootw = torch.autograd.grad(torch.sum(w * ref), [pm_, rootw])
+    torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
+                               atol=1e-12 * float(ref_dP.abs().max()))
+    torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12, atol=1e-12)
+
+
+# -- CPU behaviour of the wrappers and the engine routing ---------------------
+
+
+def test_cpu_runs_plain_version_without_launch():
+    """Importing the module builds nothing; a CPU call launches nothing."""
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, w = (torch.as_tensor(x)
+                                 for x in _setup(topo, 50, 4))
+    staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
+    pm.requires_grad_(True)
+    ll, _ = staged.staged_tree_log_likelihood(tips, pm, topo, freqs, props, w)
+    ll.backward()
+    assert torch.isfinite(pm.grad).all()
+    assert staged.STAGED_FORWARD_LAUNCHES == 0
+    assert staged.STAGED_BACKWARD_LAUNCHES == 0
+    assert staged._lib is None
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = (torch.as_tensor(x)
+                                 for x in _setup(topo, 50, 4))
+    children = torch.as_tensor(topo.children, dtype=torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    schedule = level_schedule(topo, tips)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        staged.staged_forward(tips, pm, children, rootw, schedule)
+    assert staged.STAGED_FORWARD_LAUNCHES == 0
+
+
+# (C, mean internal nodes per level) on either side of the gate: the fluA
+# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar, and a
+# balanced 64-taxon tree with C = 1
+FLUA = 68 / 33
+
+
+@pytest.mark.parametrize("engine,device,S,maxc,C,npl,expected", [
+    ("auto", "cuda", 4, 2, 4, FLUA, "cuda-staged"),
+    ("auto", "cuda", 4, 2, 1, FLUA, "cuda-fused"),
+    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-fused"),     # a caterpillar
+    ("auto", "cuda", 4, 2, 1, 10.5, "cuda-staged"),
+    ("auto", "cuda", 4, 2, 2, STAGED_MIN_LEVEL_WORK / 2, "cuda-staged"),
+    ("auto", "cuda", 4, 2, 1, STAGED_MIN_LEVEL_WORK - 0.01, "cuda-fused"),
+    ("cuda", "cuda", 4, 2, 4, 18.0, "cuda-staged"),
+    ("auto", "cuda", 4, 3, 4, 18.0, "cuda-fused"),   # polytomies: not staged
+    ("auto", "cuda", 20, 2, 4, 18.0, "cuda-wide"),
+    ("auto", "cpu", 4, 2, 4, 18.0, "torch"),
+    ("torch", "cuda", 4, 2, 4, 18.0, "torch"),
+    ("cuda-staged", "cuda", 4, 3, 1, 1.0, "cuda-staged"),
+    ("cuda-fused", "cuda", 4, 2, 4, 18.0, "cuda-fused"),
+    ("cuda-wide", "cuda", 4, 2, 1, 1.0, "cuda-wide"),
+])
+def test_engine_routing(engine, device, S, maxc, C, npl, expected):
+    """The measured rule: staged on a binary S = 4 tree where C times the
+    mean internal nodes per level reaches STAGED_MIN_LEVEL_WORK, fused
+    below it, wide for any other S; each named kernel pair can be
+    forced."""
+    assert select_engine(engine, device, S, maxc, C, npl) == expected
+
+
+@pytest.mark.parametrize("engine,device,S", [
+    ("cuda-staged", "cuda", 20), ("cuda-fused", "cuda", 61),
+    ("cuda-wide", "cuda", 65), ("cuda-staged", "cpu", 4),
+    ("pallas-staged", "cuda", 4)])
+def test_engine_routing_refuses(engine, device, S):
+    """A named kernel that cannot take the shape, or a CUDA engine on the
+    CPU, raises; so does a JAX engine name (the builder maps those)."""
+    with pytest.raises(ValueError):
+        select_engine(engine, device, S, 2, 4, 18.0)
+
+
+def test_engine_name_reads_the_gate_inputs(monkeypatch):
+    """``engine_name`` gives the gate the model's own state count, widest
+    node, categories and mean internal nodes per level."""
+    from physher_tpu_torch.models import treelikelihood as tl
+
+    seen = []
+    monkeypatch.setattr(tl, "select_engine",
+                        lambda *a: seen.append(a) or "torch")
+    kw = dict(dtype=torch.float64, device="cpu")
+    topo = balanced_topology(16)
+    sp = random_sitepattern(16, 40, seed=1)
+    TreeLikelihood(sp, topo, JC69(**kw),
+                   GammaSiteModel(4, **kw), **kw).engine_name()
+    assert seen == [("auto", "cpu", 4, 2, 4, 15 / 4)]
+
+
+def test_engine_name_on_cpu():
+    kw = dict(dtype=torch.float64, device="cpu")
+    topo = balanced_topology(8)
+    sp = random_sitepattern(8, 40, seed=1)
+    assert TreeLikelihood(sp, topo, JC69(**kw), **kw).engine_name() == "torch"
+    forced = TreeLikelihood(sp, topo, JC69(**kw), engine="cuda-staged", **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        forced(forced.param_space().init_params(**kw))

@@ -26,7 +26,7 @@ from physher_tpu.trees.topology import Topology as JTopology
 from physher_tpu_torch.data.sitepattern import SitePattern
 from physher_tpu_torch.models.treelikelihood import (
     TreeLikelihood, select_engine)
-from physher_tpu_torch.ops import wide
+from physher_tpu_torch.ops import cuda_build, wide
 from physher_tpu_torch.ops.pruning import pad_patterns
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
@@ -296,7 +296,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     children = torch.as_tensor(topo.children)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
     schedule = (torch.as_tensor(np.concatenate(topo.levels)),
-                wide.level_schedule(topo, tips)[1])
+                cuda_build.level_schedule(topo, tips)[1])
     with pytest.raises(ValueError, match="CUDA tensors"):
         wide.wide_forward(tips, pm, children, rootw, schedule)
     assert wide.WIDE_FORWARD_LAUNCHES == 0
@@ -304,10 +304,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_level_schedule():
     topo = caterpillar_topology(9)
-    nodes, offsets = wide.level_schedule(topo, torch.zeros(1))
+    nodes, offsets = cuda_build.level_schedule(topo, torch.zeros(1))
     assert nodes.dtype == torch.int32 and offsets == tuple(range(9))
     topo = balanced_topology(12)
-    nodes, offsets = wide.level_schedule(topo, torch.zeros(1))
+    nodes, offsets = cuda_build.level_schedule(topo, torch.zeros(1))
     np.testing.assert_array_equal(nodes.numpy(), np.concatenate(topo.levels))
     assert offsets[-1] == topo.I and len(offsets) == len(topo.levels) + 1
 
