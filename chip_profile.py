@@ -22,7 +22,14 @@ pair forced (fused, staged, staged, fused): JC69 on the fluA time tree,
 GTR+G4 on the fluA tree and GTR+G4 on a random 128-taxon tree with 16 384
 patterns.
 
+With ``--mcmc``, only the Metropolis-Hastings step of the checkpoint B
+model's tempered target (``inference/mcmc.MCMC``, float32) against the
+number of chains L = 1, 4, 16, 64: host time per step (mean of at least
+200), device time, launches and busy share per step from the profiler, and
+the engine (K1'/K2' as one dict at L = 1, K5' from L = 2).
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
+                            [--mcmc]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -52,7 +59,7 @@ from physher_tpu_torch.io.treeio import read_newick
 from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import GTR
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
-from physher_tpu_torch.ops import cuda_build, fused, staged
+from physher_tpu_torch.ops import cuda_build, fused, loop, staged
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology, random_sitepattern)
 
@@ -229,18 +236,71 @@ def gate_end_to_end(dev):
         print(json.dumps(row), flush=True)
 
 
+def profile_mcmc(dev, n_steps: int):
+    """The MH step of the checkpoint B model's tempered target against the
+    number of chains L (float32): host time per step (mean over
+    ``n_steps``), device time and launches per step from the profiler, the
+    busy share, and the engine the batch takes."""
+    from physher_tpu_torch.config.actions import Runner
+    from physher_tpu_torch.inference.marginal import ladder_temperatures
+    from physher_tpu_torch.inference.mcmc import MCMC
+
+    ctx, _ = build_config(load_json(str(cs.DATA / "fluA-elbo.json")),
+                          base_dir=str(cs.DATA), dtype=torch.float32,
+                          device=dev)
+    post = ctx.objects["posterior"]
+    tlk = ctx.objects["treelikelihood"]
+    like, prior = Runner(ctx)._split_like_prior(post)
+    space = post.param_space()
+    params = space.init_params(dtype=torch.float32, device=dev)
+    sampler = MCMC(space, log_like=like, log_prior=prior)
+    for L in (1, 4, 16, 64):
+        temps = ladder_temperatures(L) if L > 1 else None
+        gen = torch.Generator(device=dev).manual_seed(L)
+
+        def run(n):
+            return sampler.run(gen, params, n_iter=n, every=n,
+                               temperatures=temps, adapt=False)
+        run(20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n_steps)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(n_steps)
+            torch.cuda.synchronize()
+        device_ms, launches, top = kernel_rows(prof, n_steps)
+        print(json.dumps({
+            "mcmc": "fluA-elbo tempered target", "chains": L,
+            "engine": tlk.engine_name(L if L > 1 else None),
+            "steps": n_steps, "step_ms": step_ms,
+            "step_ms_per_chain": step_ms / L,
+            "device_ms_per_step": device_ms,
+            "busy_share": device_ms / step_ms if device_ms else None,
+            "kernel_launches_per_step": launches, "top_kernels": top}),
+            flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--gate", action="store_true",
                     help="only the staged-against-fused measurement")
+    ap.add_argument("--mcmc", action="store_true",
+                    help="only the MH step against the number of chains")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
     dev = cs.cuda_device()
     smi = cs.nvidia_smi()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m.build(), (fused, staged)))
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m.build(), (fused, staged, loop)))
+    if args.mcmc:
+        profile_mcmc(dev, max(args.steps, 200))
+        print(smi, flush=True)
+        return 0
     if args.gate:
         gate_sweep(dev, args.out)
         gate_end_to_end(dev)

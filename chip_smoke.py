@@ -11,8 +11,14 @@ slices' main paths through them and times kernel against plain:
 - large nucleotide alignments (K3'/K4', ``csrc/staged.cu``) and the
   JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
-  ML then ADVI of a GTR+G4 config on 128 taxa x about 16 000 patterns
-  simulated on the card (through K3'/K4').
+  ADVI and ML of a GTR+G4 config on 128 taxa x about 16 000 patterns
+  simulated on the card (through K3'/K4');
+- MCMC and marginal likelihood over a batch of chains (K5'/K6',
+  ``csrc/loop.cu``): the kernels against plain on chains of the fluA
+  models and on a fluA tree with polytomies, mmcmc (16 temperatures as one
+  batch) and marginallikelihood through the CLI on the checkpoint B model,
+  mcmc with 8 chains and its loggers on GTR+G4 fluA, and HMC on the
+  checkpoint B model.
 
     python3 chip_smoke.py
 
@@ -52,7 +58,7 @@ from physher_tpu_torch.models.sitemodel import (
     ConstantSiteModel, GammaSiteModel)
 from physher_tpu_torch.models.substitution import GTR, JC69
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
-from physher_tpu_torch.ops import cuda_build, fused, staged, wide
+from physher_tpu_torch.ops import cuda_build, fused, loop, staged, wide
 from physher_tpu_torch.trees.build import nj
 from physher_tpu_torch.trees.heights import topo_constant
 from physher_tpu_torch.trees.timetree import TimeTreeData
@@ -300,14 +306,66 @@ def gy94_m0_fit_model(dtype, device, seed=11):
 
 def engine_inputs(tlk, params):
     """(tips, pmats, freqs, props, weights) of a model at ``params``, as its
-    engine gets them, detached."""
+    engine gets them, detached; for a batch of parameter dicts, pmats
+    [L, N, C, S, S], freqs [L, S] and props [L, C]."""
     with torch.no_grad():
         rates, props = tlk.site_model.rates_props(params)
         bl = tlk.branch_lengths(params)
-        pmats = tlk.subst.p_t(params, bl[:, None] * rates[None, :])
+        pmats = tlk.subst.p_t(params, bl[..., :, None] * rates[..., None, :])
         freqs = tlk.subst.frequencies(params)
+    if bl.dim() == 2:
+        freqs = freqs.expand(bl.shape[0], -1)
+        props = props.expand(bl.shape[0], -1)
     return (tlk.tip_partials, pmats.to(tlk.dtype).contiguous(),
-            freqs.to(tlk.dtype), props.to(tlk.dtype), tlk.weights)
+            freqs.to(tlk.dtype).contiguous(),
+            props.to(tlk.dtype).contiguous(), tlk.weights)
+
+
+def chain_params(tlk, L, seed, scale=0.05):
+    """A batch of L parameter dicts around the model's initial values (numpy
+    noise of sd ``scale`` in the unconstrained space)."""
+    space = tlk.param_space()
+    kw = dict(dtype=tlk.dtype, device=tlk.tip_partials.device)
+    with torch.no_grad():
+        u0 = space.flatten_unconstrained(space.unconstrain(
+            space.init_params(**kw)))
+        noise = np.random.default_rng(seed).normal(0.0, scale, (L, len(u0)))
+        return space.constrain(space.unflatten_unconstrained(
+            u0 + torch.as_tensor(noise, **kw)))
+
+
+def random_chains(topo, P, C, L, seed, dtype, device):
+    """Random one-hot tips [T,4,P] and L chains' row-stochastic pmats
+    [L,N,C,4,4], freqs [L,4], props [L,C], and a cotangent [L,P] (numpy
+    seed)."""
+    rng = np.random.default_rng(seed)
+    tips = np.eye(4)[rng.integers(0, 4, (topo.T, P))].transpose(0, 2, 1)
+    Q = rng.random((L, topo.N, C, 4, 4)) + 0.1
+    arrays = (tips, Q / Q.sum(-1, keepdims=True),
+              rng.dirichlet(np.full(4, 5.0), L),
+              rng.dirichlet(np.full(C, 5.0), L), rng.uniform(0.5, 2.0, (L, P)))
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device) for a in arrays]
+
+
+def collapsed_topology(topo, every=7):
+    """``topo`` with the branch above every ``every``-th non-root internal
+    node collapsed: its children hang from its parent, so the tree has
+    polytomies."""
+    from physher_tpu_torch.trees.topology import Topology
+
+    T = topo.T
+    gone = {T + k for k in range(0, topo.I - 1, every)}
+
+    def nested(node):
+        if node < T:
+            return {"name": topo.taxa[node], "length": 0.1, "children": []}
+        kids = []
+        for ch in topo.children[node - T, : topo.child_count[node - T]]:
+            sub = nested(int(ch))
+            kids += sub["children"] if int(ch) in gone else [sub]
+        return {"name": None, "length": 0.1, "children": kids}
+    return Topology.from_nested(nested(topo.root))[0]
 
 
 # each kernel module's launch wrappers (forward, backward); the staged and
@@ -395,6 +453,89 @@ def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
     for kind, is_bwd in (("forward", False), ("backward", True)):
         ms, by = bound(*pruning_work(is_bwd, *dims))
         rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
+    return rec
+
+
+def loop_work(backward, T, I, C, S, maxc, P, L, itemsize):
+    """(bytes, FLOPs) of one K5' or K6' launch over L chains: the function of
+    the TPU loop kernel, which writes no partials (forward: tips once, and
+    per chain pmats, freqs, props in, site logs out; backward: the same
+    inputs and the cotangent in, d pmats, d freqs, d props out), and per
+    chain the operations of :func:`pruning_work`."""
+    N = T + I
+    per_chain = N * C * S * S + S + C
+    n = T * S * P + L * (per_chain + (P if backward else 0)
+                         + (per_chain if backward else P))
+    one = pruning_work(backward, T, I, C, S, maxc, P, itemsize)[1]
+    return n * itemsize + 4 * I * maxc, L * one
+
+
+# K5'/K6' against plain: logL relative to |logL| and gradients relative to
+# their largest entry (float64: rounding only; float32: 24-bit products
+# over 137 nodes and 238 weighted sites)
+LOOP_TOL = {torch.float64: dict(logl=1e-12, grad=1e-12),
+            torch.float32: dict(logl=1e-5, grad=1e-4)}
+
+
+def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
+               timed=False):
+    """K5'/K6' against the plain version on one batch of chains; logL is
+    ``sum(g * site_log)`` per chain. With ``timed``, the median times (CUDA
+    events) of each kernel (100 runs) and of the plain version (20), and
+    the bounds."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+
+    def fwd():
+        return loop.loop_forward(tips, pmats, children, freqs, props,
+                                 rescale)
+    site_k, partials, scale = fwd()
+
+    def bwd():
+        return loop.loop_backward(tips, pmats, children, freqs, props,
+                                  partials, scale, g)
+    grads_k = bwd()
+    leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
+    site_graph = loop.loop_site_log_reference(tips, leaves[0], topo,
+                                              leaves[1], leaves[2],
+                                              rescale=rescale)
+    grads_p = torch.autograd.grad(site_graph, leaves, g, retain_graph=True)
+    site_p = site_graph.detach()
+    torch.cuda.synchronize()
+    tol = LOOP_TOL[tips.dtype]
+    logl_k, logl_p = (g * site_k).sum(-1), (g * site_p).sum(-1)
+    rec = {"shape": name, "dtype": str(tips.dtype).replace("torch.", ""),
+           "chains": pmats.shape[0], "categories": pmats.shape[2],
+           "max_children": int(children.shape[1]), "rescale": rescale,
+           "logl_rel_err": float(((logl_k - logl_p).abs()
+                                  / logl_p.abs()).max()),
+           "forward_err": float((site_k - site_p).abs().max()),
+           "backward_err": max(max_err(a, b)[0]
+                               for a, b in zip(grads_k, grads_p)),
+           "grad_rel_err": max(max_err(a, b)[1]
+                               for a, b in zip(grads_k, grads_p)),
+           "tolerance": tol}
+    rec["ok"] = bool(rec["logl_rel_err"] <= tol["logl"]
+                     and rec["grad_rel_err"] <= tol["grad"]
+                     and all(bool(torch.isfinite(a).all()) for a in grads_k))
+    if timed:
+        rec["forward_ms"] = median_ms(fwd, reps=100)
+        rec["backward_ms"] = median_ms(bwd, reps=100)
+        with torch.no_grad():
+            rec["forward_plain_ms"] = median_ms(
+                lambda: loop.loop_site_log_reference(
+                    tips, pmats, topo, freqs, props, rescale=rescale),
+                reps=20)
+        rec["backward_plain_ms"] = median_ms(lambda: torch.autograd.grad(
+            site_graph, leaves, g, retain_graph=True), reps=20)
+        dims = (tips.shape[0], topo.I, pmats.shape[2], 4, children.shape[1],
+                tips.shape[2], pmats.shape[0], tips.element_size())
+        for kind, is_bwd in (("forward", False), ("backward", True)):
+            ms, by = bound(*loop_work(is_bwd, *dims))
+            rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
+    emit("loop_kernel_vs_plain", **rec)
+    check(rec["ok"], f"K5'/K6' against plain on {name} {rec['dtype']} "
+                     f"rescale={rescale}")
     return rec
 
 
@@ -545,8 +686,8 @@ def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
     """Simulate a GTR+G4 alignment down a random dated tree on ``dev`` and
     write it as FASTA with a config that mirrors tests/data/fluA-elbo.json:
     GTR+G4, a strict clock on a time tree, a constant coalescent, oneonx
-    and ctmcscale priors, mean-field blocks; actions: 50 sg (Adam) steps of
-    ML, then 200 steps of ADVI. Returns (config path, pattern count)."""
+    and ctmcscale priors, mean-field blocks; action: 200 steps of ADVI.
+    Returns (config path, pattern count)."""
     from physher_tpu_torch.io.seqio import write_fasta
 
     newick, dates = random_dated_tree(n_tips, seed)
@@ -623,9 +764,6 @@ def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
                           "parameters": {"sigma": param("sigma.rate", 0.07,
                                                         0)}}]},
         "physher": [
-            {"id": "ml", "type": "optimizer", "algorithm": "sg",
-             "model": "&posterior", "max": 50, "eta": 0.01,
-             "tol": 1e-9},
             {"id": "vb", "type": "optimizer", "algorithm": "sg",
              "model": "&varnormal", "eta": 0.1, "tol": 1e-5, "max": 200},
         ],
@@ -693,10 +831,12 @@ def cli_checkpoint_b(dev):
 
 
 def cli_staged_large(dev, n_tips=128, n_sites=20480):
-    """ML then ADVI of a GTR+G4 config on an alignment simulated on the card
-    (128 taxa, 20 480 sites: about 16 000 patterns, the JAX package's large
-    shape; P >= 8192 asserted), through the CLI: the staged kernels K3'/K4'
-    carry it."""
+    """ADVI of a GTR+G4 config on an alignment simulated on the card (128
+    taxa, 20 480 sites: about 16 000 patterns, the JAX package's large
+    shape; P >= 8192 asserted) through the CLI, and 50 Adam steps of ML on
+    its posterior through ``optimize_adam`` (the config's ML node would run
+    Adam to convergence, as the JAX package does whatever "max" says): the
+    staged kernels K3'/K4' carry both."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         path, n_patterns = large_config(Path(tmp), n_tips, n_sites, dev)
@@ -705,13 +845,19 @@ def cli_staged_large(dev, n_tips=128, n_sites=20480):
         staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
         t0 = time.perf_counter()
         runner, lines = run_cli([path])
+        post = runner.ctx.objects["posterior"]
+        ml_res = optimize_adam(post.log_prob, post.param_space(),
+                               runner.params_for(post.param_space()),
+                               learning_rate=0.01, max_iter=50,
+                               patience=1000)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"forward": staged.STAGED_FORWARD_LAUNCHES,
                     "backward": staged.STAGED_BACKWARD_LAUNCHES,
                     "fused_forward": fused.FORWARD_LAUNCHES,
                     "fused_backward": fused.BACKWARD_LAUNCHES}
     tlk = runner.ctx.objects["treelikelihood"]
-    ml_res, vb_res = runner.results["ml"], runner.results["vb"]
+    vb_res = runner.results["vb"]
     fam = runner.ctx.objects["varnormal"].family
     eps = fam.draw(fam.init, torch.Generator(device=dev).manual_seed(7), 100)
     with torch.no_grad():
@@ -744,6 +890,211 @@ def cli_staged_large(dev, n_tips=128, n_sites=20480):
     return runner, launches
 
 
+def flua_config(workdir: Path, physher: list, gtr_g4: bool = False) -> Path:
+    """tests/data/fluA-elbo.json's model (the checkpoint B model), or with
+    GTR+G4 in place of JC69, and the action list ``physher``, written to
+    ``workdir`` beside links to its data files."""
+    cfg = json.loads((DATA / "fluA-elbo.json").read_text())
+    if gtr_g4:
+        sm = cfg["model"]["distributions"][0]["sitemodel"]
+        sm["distribution"] = {"distribution": "gamma", "categories": 4,
+                              "parameters": {"alpha": {
+                                  "id": "alpha", "type": "parameter",
+                                  "value": 0.5, "lower": 0}}}
+        sm["substitutionmodel"].update(model="gtr", rates={
+            "id": "rates", "type": "simplex", "values": [1.0] * 6})
+    cfg.pop("varmodel")
+    cfg["physher"] = physher
+    for name in ("fluA.fa", "fluA-rooted.nxs"):
+        link = workdir / name
+        if not link.exists():
+            link.symlink_to(DATA / name)
+    path = workdir / ("fluA-gtrg4.json" if gtr_g4 else "fluA-jc69.json")
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def loop_launches():
+    return {"forward": loop.LOOP_FORWARD_LAUNCHES,
+            "backward": loop.LOOP_BACKWARD_LAUNCHES,
+            "fused_forward": fused.FORWARD_LAUNCHES,
+            "staged_forward": staged.STAGED_FORWARD_LAUNCHES}
+
+
+def zero_launches():
+    fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+    staged.STAGED_FORWARD_LAUNCHES = staged.STAGED_BACKWARD_LAUNCHES = 0
+    loop.LOOP_FORWARD_LAUNCHES = loop.LOOP_BACKWARD_LAUNCHES = 0
+
+
+# recomputing logged values one chain at a time through the one-dict
+# engines (K1'/K2', K3'/K4') against the batched K5' values, float32: 1e-5
+# relative (0.05 nats at 4700)
+MCMC_LOG_RTOL = 1e-5
+
+
+def cli_mmcmc(elbo_b, length=3000, n_temps=16):
+    """mmcmc (16 temperatures as one batch of chains, float32) then
+    marginallikelihood through the CLI on the checkpoint B model: every
+    step through K5' at L = 16, none through K1'/K3'. The rungs' last
+    recorded log-likelihoods are recomputed as one batch through the plain
+    engine and one chain at a time through K1'/K2', and the mean
+    log-likelihood must rise from the prior's rung to the posterior's
+    (d E_T[ll] / dT = Var_T[ll] >= 0). The estimates are
+    printed beside checkpoint B's ELBO, not held to it: the config's prior
+    is improper (oneonx on the population size), so its log Z is not the
+    ELBO's target."""
+    burnin = length // 10
+    actions = [{"id": "mmcmc", "type": "mmcmc", "model": "&posterior",
+                "length": length, "temperatures": n_temps, "every": 10,
+                "burnin": burnin},
+               {"id": "ml", "type": "marginallikelihood", "mmcmc": "&mmcmc"}]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = flua_config(Path(tmp), actions)
+        zero_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = loop_launches()
+    temps, lls, res = runner.results["mmcmc"]
+    est = runner.results["ml"]
+    ss, ps = est["stepping"], est["path"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    like, _ = runner._split_like_prior(runner.ctx.objects["posterior"])
+    logged = np.asarray([x[-1] for x in lls])
+    with torch.no_grad():
+        # the rungs' last states again as one batch through the plain
+        # engine (the same arithmetic up to the kernel), and one at a time
+        # through K1'/K2'
+        last = res.constrain(res.samples_u[-1])
+        tlk.engine = "torch"
+        plain = like(last).cpu().numpy()
+        tlk.engine = "auto"
+        one = np.asarray([float(like(res.params_at(-1, chain=k)))
+                          for k in range(n_temps)])
+    rel_plain = np.abs(plain - logged) / np.abs(plain)
+    rel_one = np.abs(one - logged) / np.abs(one)
+    # the hot rungs sample the (improper) prior far from the data: there
+    # float32 heights cancel (a branch is a difference of two large
+    # heights) differently in the batched and the one-dict transforms, and
+    # sites underflow, which the kernels clamp at tiny and the plain engine
+    # does not (log 0), as in the JAX package: held from T = 0.1 up
+    warm = temps >= 0.1
+    means = [float(np.mean(x)) for x in lls]
+    ok = bool(launches["forward"] == length + burnin + 1
+              and launches["fused_forward"] == launches["staged_forward"]
+              == 0 and tlk.engine_name(n_temps) == "cuda-loop"
+              and np.isfinite([ss, ps]).all()
+              and all(np.isfinite(x).all() for x in lls)
+              and rel_plain[warm].max() <= MCMC_LOG_RTOL
+              and rel_one[warm].max() <= MCMC_LOG_RTOL
+              and means[-1] > means[0])
+    emit("cli_mmcmc", ok=ok, lines=lines, temperatures=list(temps),
+         iterations=length, burnin=burnin,
+         samples_per_temperature=len(lls[0]), stepping_stone=ss,
+         path_sampling=ps, estimates=est, checkpoint_b_elbo=elbo_b,
+         mean_loglik_per_temperature=means,
+         last_loglik_rel_err_plain_batch=list(rel_plain),
+         last_loglik_rel_err_one_chain=list(rel_one), rtol=MCMC_LOG_RTOL,
+         acceptance=list(res.acceptance), wall_seconds=wall,
+         step_ms=wall * 1e3 / (length + burnin), launches=launches,
+         engine=tlk.engine_name(n_temps))
+    check(ok, "mmcmc and marginallikelihood through K5' on the card")
+    return launches
+
+
+def cli_mcmc_gtr(length=1000, n_chains=8):
+    """mcmc with 8 chains through the CLI on a GTR+G4 strict-clock fluA
+    time-tree config (float32), with tabular, tree and sitewise loggers;
+    the logged log-posteriors recomputed one chain at a time."""
+    actions = [{"id": "mc", "type": "mcmc", "model": "&posterior",
+                "length": length, "chains": n_chains,
+                "log": [{"id": "lg", "type": "logger", "every": 100,
+                         "file": "mc.log", "models": ["&posterior"],
+                         "x": ["&rate", "&n0", "&alpha"]},
+                        {"id": "lt", "type": "logger", "every": 100,
+                         "file": "mc.trees", "models": ["&tree"]},
+                        {"id": "ls", "type": "logger", "every": 200,
+                         "file": "mc.site", "models": ["&treelikelihood"],
+                         "sitewise": True}]}]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = flua_config(Path(tmp), actions, gtr_g4=True)
+        zero_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = loop_launches()
+        texts = {n: (Path(tmp) / n).read_text()
+                 for n in ("mc.log", "mc.trees", "mc.site")}
+    res = runner.results["mc"]
+    post = runner.ctx.objects["posterior"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    rows = texts["mc.log"].splitlines()
+    logged = np.asarray([float(r.split("\t")[1]) for r in rows[1:]])
+    with torch.no_grad():
+        again = np.asarray([float(post.log_prob(res.params_at(i)))
+                            for i in range(len(logged))])
+    rel = np.abs(again - logged) / np.abs(again)
+    n_samples = length // 100
+    ok = bool(launches["forward"] >= length
+              and tlk.engine_name(n_chains) == "cuda-loop"
+              and tlk.engine_name() == "cuda-staged"
+              and rows[0] == "state\tposterior\tbm.rate\tcoalescent.theta"
+                             "\tsitemodel.shape"
+              and len(logged) == n_samples
+              and texts["mc.trees"].count("tree STATE_") == n_samples
+              and len(texts["mc.site"].splitlines()) == 2 + n_samples // 2
+              and np.isfinite(logged).all()
+              and float(rel.max()) <= MCMC_LOG_RTOL)
+    emit("cli_mcmc_gtrg4", ok=ok, lines=lines, chains=n_chains,
+         iterations=length, log_header=rows[0],
+         logged_posterior=list(logged), recomputed_l1=list(again),
+         max_rel_err=float(rel.max()), rtol=MCMC_LOG_RTOL,
+         acceptance=list(res.acceptance), wall_seconds=wall,
+         step_ms=wall * 1e3 / length, launches=launches,
+         engine_batch=tlk.engine_name(n_chains),
+         engine_one=tlk.engine_name())
+    check(ok, "mcmc with 8 chains through K5' and its logs")
+
+
+def hmc_checkpoint_b(dev, n_chains=4, n_iter=60, every=5, burnin=60):
+    """HMC through the Python API on the checkpoint B model (float32): 4
+    chains, 10 leapfrog steps, value and gradient through K5'/K6'."""
+    from physher_tpu_torch.config.builder import build_config, load_json
+    from physher_tpu_torch.inference.mcmc import HMC
+
+    ctx, _ = build_config(load_json(str(DATA / "fluA-elbo.json")),
+                          base_dir=str(DATA), dtype=torch.float32,
+                          device=dev)
+    post = ctx.objects["posterior"]
+    space = post.param_space()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = HMC(space, post.log_prob, n_leapfrog=10).run(
+        torch.Generator(device=dev).manual_seed(5),
+        space.init_params(dtype=torch.float32, device=dev), n_iter=n_iter,
+        every=every, n_chains=n_chains, step_size=0.03, burnin=burnin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = loop_launches()
+    acc = float(np.mean(res.acceptance[burnin // every:]))
+    n_evals = (n_iter + burnin) * 10 + 1
+    ok = bool(0.2 < acc < 0.99 and np.isfinite(res.samples_u).all()
+              and np.isfinite(res.log_posterior).all()
+              and launches["backward"] >= n_evals
+              and launches["forward"] >= n_evals
+              and ctx.objects["treelikelihood"].engine_name(n_chains)
+              == "cuda-loop")
+    emit("hmc_checkpoint_B", ok=ok, chains=n_chains, leapfrog=10,
+         iterations=n_iter, burnin=burnin, acceptance_after_adaptation=acc,
+         acceptance_per_chunk=list(res.acceptance),
+         step_size=float(res.step_sizes[0]),
+         log_posterior_last=list(res.log_posterior[-1]), wall_seconds=wall,
+         ms_per_leapfrog=wall * 1e3 / n_evals, launches=launches)
+    check(ok, "HMC on the checkpoint B model through K5'/K6'")
+    return launches
+
+
 def kernel_row(name, src, replaces, launches, alone, kind):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -767,17 +1118,19 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 off")
 
-    # ---- 2. build the three sources, one nvcc each, started together
+    # ---- 2. build the four sources, one nvcc each, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        build_s, build_wide_s, build_staged_s = pool.map(
-            timed_build, (fused, wide, staged))
+    with ThreadPoolExecutor(4) as pool:
+        build_s, build_wide_s, build_staged_s, build_loop_s = pool.map(
+            timed_build, (fused, wide, staged, loop))
     both_s = time.perf_counter() - t0
     emit("build", seconds=build_s, ptxas=ptxas_lines(fused.build_log))
     emit("build_wide", seconds=build_wide_s, all_seconds=both_s,
          ptxas=ptxas_lines(wide.build_log))
     emit("build_staged", seconds=build_staged_s, all_seconds=both_s,
          ptxas=ptxas_lines(staged.build_log))
+    emit("build_loop", seconds=build_loop_s, all_seconds=both_s,
+         ptxas=ptxas_lines(loop.build_log))
 
     # ---- 3. K1'/K2' against plain, on the card
     flu_topo = load_fluA_time(torch.float64, "cpu").topo
@@ -958,6 +1311,7 @@ def main() -> int:
     # ---- 14. checkpoint B: the fluA ADVI config through the CLI (K1'/K2'),
     # and K1'/K2' alone at its model's inputs
     runner, launches_fused = cli_checkpoint_b(dev)
+    runner_b_elbo = runner.results["sg"].elbo
     tlk = runner.ctx.objects["treelikelihood"]
     fused_alone = kernels_alone(fused, tlk.topo, *engine_inputs(
         tlk, runner.params_for(tlk.param_space())))
@@ -990,10 +1344,52 @@ def main() -> int:
     times["build_seconds"] = build_staged_s
     emit("staged_times", **times)
 
+    # ---- 17. K5'/K6' against plain at the fourth slice's shapes: chains of
+    # the checkpoint B model (L = 16, the mmcmc ladder; L = 4, the HMC
+    # chains) and of GTR+G4 fluA (L = 8), and a fluA tree with polytomies
+    # at L = 1 and 4; float32, and float64 with rescale on and off
+    loop_times = {"card": smi, "build_seconds": build_loop_s}
+    poly = collapsed_topology(flu_topo)
+    for dtype in (torch.float32, torch.float64):
+        jc, gtr = load_fluA_time(dtype, dev), load_gtrg4_fluA(dtype, dev)
+        cases = [("fluA-jc69-L16", jc.topo,
+                  engine_inputs(jc, chain_params(jc, 16, 1))),
+                 ("fluA-jc69-L4", jc.topo,
+                  engine_inputs(jc, chain_params(jc, 4, 2))),
+                 ("fluA-gtrg4-L8", gtr.topo,
+                  engine_inputs(gtr, chain_params(gtr, 8, 3)))]
+        for rescale in (True,) if dtype == torch.float32 else (True, False):
+            timed = dtype == torch.float32
+            for name, topo, (tips, pm, fr, pr, w) in cases:
+                g = w.expand(pm.shape[0], -1).contiguous()
+                rec = loop_alone(name, topo, tips, pm, fr, pr, g, rescale,
+                                 timed=timed)
+                if timed:
+                    loop_times[name] = rec
+            for L in (1, 4):
+                loop_alone(f"fluA-polytomy-L{L}", poly,
+                           *random_chains(poly, 238, 4, L, 11 + L, dtype,
+                                          dev), rescale=rescale)
+        torch.cuda.synchronize()
+    emit("loop_times", **loop_times)
+
+    # ---- 18. the fourth slice's main path: mmcmc (16 temperatures as one
+    # batch) and marginallikelihood through the CLI on the checkpoint B
+    # model (K5')
+    elbo_b = float(runner_b_elbo)
+    ladder_launches = cli_mmcmc(elbo_b)
+
+    # ---- 19. mcmc with 8 chains through the CLI, GTR+G4 fluA, loggers
+    cli_mcmc_gtr()
+
+    # ---- 20. HMC through the Python API on the checkpoint B model (K5'/K6')
+    hmc_launches = hmc_checkpoint_b(dev)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
     staged_src = "physher_tpu_torch/csrc/staged.cu"
+    loop_src = "physher_tpu_torch/csrc/loop.cu"
     print(json.dumps({"kernels": [
         kernel_row("pruning_forward", fused_src,
                    "physher_tpu/ops/pallas_fused.py:245",
@@ -1013,6 +1409,14 @@ def main() -> int:
         kernel_row("staged_backward", staged_src,
                    "physher_tpu/ops/pallas_staged.py:375",
                    staged_launches["backward"], staged_alone, "backward"),
+        kernel_row("loop_forward", loop_src,
+                   "physher_tpu/ops/pallas_pruning_loop.py:119",
+                   ladder_launches["forward"], loop_times["fluA-jc69-L16"],
+                   "forward"),
+        kernel_row("loop_backward", loop_src,
+                   "physher_tpu/ops/pallas_pruning_loop.py:314",
+                   hmc_launches["backward"], loop_times["fluA-jc69-L4"],
+                   "backward"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

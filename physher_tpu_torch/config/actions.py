@@ -1,33 +1,40 @@
 """Action execution: the ``physher`` run list of a config.
 
-Port of the ``optimizer`` and ``logger`` actions of
-``physher_tpu/config/actions.py`` (reference: src/physher.c:207-305).
-Actions share one parameter pool, so sequential actions see each other's
-results (the reference's shared Parameter objects in its hashtable). The
-random draws come from one ``torch.Generator`` on the context's device,
-seeded once. Every other action type, and every optimizer algorithm but
-``sg`` / ``adam``, raises ``NotImplementedError`` naming its ROADMAP item.
+Port of the ``optimizer``, ``logger``, ``mcmc``, ``mmcmc`` and
+``marginallikelihood`` actions of ``physher_tpu/config/actions.py``
+(reference: src/physher.c:207-305). Actions share one parameter pool, so
+sequential actions see each other's results (the reference's shared
+Parameter objects in its hashtable). The random draws come from one
+``torch.Generator`` on the context's device, seeded once. The chains of an
+``mcmc`` node (``"chains"``) and the temperatures of an ``mmcmc`` node run
+as one batch through the model (``inference/mcmc.py``). Every other action
+type, and every optimizer algorithm but ``sg`` / ``adam``, raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 import torch
 
-from ..inference import ml, vb as vb_mod
+from ..inference import marginal, mcmc as mcmc_mod, ml, vb as vb_mod
+from ..models.distributions import CompoundModel
 from ..models.parameters import ParamSpace
+from ..models.treelikelihood import TreeLikelihood
 from .builder import Context
 from .variational import VariationalHandle
 
 # the JAX package's actions that are not ported yet -> ROADMAP Queue 1 item
 _UNPORTED_ACTIONS = {
-    "mcmc": 13, "mmcmc": 13, "marginallikelihood": 13, "laplace": 13,
-    "bridgesampling": 13, "is": 13, "nest": 13, "cpo": 13, "mc": 13,
-    "predictive": 13, "hessian": 8, "asr": 14, "ppsite": 14, "cat": 14,
-    "simultron": 14, "sbn": 17, "dumper": 17,
+    "laplace": 13, "bridgesampling": 13, "is": 13, "nest": 13, "cpo": 13,
+    "mc": 13, "predictive": 13, "hessian": 8, "asr": 14, "ppsite": 14,
+    "cat": 14, "simultron": 14, "sbn": 17, "dumper": 17,
 }
+# chains evaluated at once when a logger recomputes values over samples
+_LOG_BATCH = 256
 # optimizer algorithms -> ROADMAP Queue 1 item, for the unported ones
 _UNPORTED_ALGORITHMS = {"meta": 8, "lbfgs": 8, "bfgs": 8, "cg": 8,
                         "brent": 8, "serial": 8, "serialbrent": 8,
@@ -111,15 +118,9 @@ class Runner:
         log_prob = self.model_logprob(model)
         space = model.param_space()
         params = self.params_for(space)
-        # The JAX package runs Adam with its defaults here and ignores "max"
-        # and "eta"; the port honours them when the config gives them, as
-        # the reference's optimizer does (src/phyc/optimizer.c). Without
-        # them both run the same Adam.
-        kw = {"tol": tol}
-        if "max" in node:
-            kw["max_iter"] = max_iter
-        if "eta" in node:
-            kw["learning_rate"] = float(node["eta"])
+        # As the JAX package does (a deviation from the reference's
+        # optimizer, ported as it is): Adam with its defaults, whatever
+        # "max" and "eta" say.
         restrict = node.get("parameters")
         if not restrict and node.get("list"):
             restrict = self._schedule_scope(node)
@@ -135,10 +136,10 @@ class Runner:
 
             res = ml.optimize(fn, sub_space,
                               {k: params[k] for k in sub_space.names},
-                              method="adam", **kw)
+                              method="adam", tol=tol)
             params.update(res.params)
         else:
-            res = ml.optimize(log_prob, space, params, method="adam", **kw)
+            res = ml.optimize(log_prob, space, params, method="adam", tol=tol)
             params = dict(res.params)
         self.update_pool(params)
         self.results[node.get("id", "optimizer")] = res
@@ -190,3 +191,264 @@ class Runner:
                     value = float(self.model_logprob(obj)(
                         self.params_for(obj.param_space())))
                 print(f"{m.lstrip('&')}: {value:.6f}", file=self.out)
+
+    # -- MCMC and marginal likelihood --------------------------------------
+
+    def action_mcmc(self, node):
+        """Block Metropolis-Hastings over the model's parameters, all
+        chains (``"chains"``) as one batch (reference: src/phyc/mcmc.c;
+        operators' weights per parameter, logging every smallest logger
+        ``every``)."""
+        model = self.ctx.resolve(node.get("model"))
+        log_prob = self.model_logprob(model)
+        space = model.param_space()
+        params = self.params_for(space)
+        length = int(node.get("length", 100000))
+        # operator weights -> per-spec proposal weights
+        weights: dict = {}
+        for op in node.get("operators", []):
+            if str(op.get("algorithm", "")).lower() == "vb" \
+                    or op.get("x") is None:
+                continue  # vb/topology operators carry no parameter block
+            w = float(op.get("weight", 1.0))
+            for n in self.ctx.resolve_target(op.get("x")):
+                weights[n] = weights.get(n, 0.0) + w
+        # logging granularity = smallest logger "every"
+        logs = node.get("log", [])
+        every = min([int(lg.get("every", 1000)) for lg in logs] or [1000])
+        algs = {str(op.get("algorithm", "")).lower()
+                for op in node.get("operators", [])}
+        if "nni" in algs and isinstance(model, TreeLikelihood):
+            raise NotImplementedError(
+                "the tree MCMC ('nni' operators) is not ported to "
+                "physher_tpu_torch yet (ROADMAP Queue 1 item 16)")
+        # "vb" operator: independence proposals from a fitted variational
+        # distribution (reference: src/phyc/opvb.c, operator.c:419)
+        vb_prop, vb_w = None, 1.0
+        for op in node.get("operators", []):
+            if str(op.get("algorithm", "")).lower() != "vb":
+                continue
+            vh = self.ctx.resolve(op.get("var", op.get("x")))
+            if getattr(vh, "vparams", None) is None:
+                # fit on the fly (reference: opvb.c:96-150)
+                vh.vparams = vb_mod.fit(vh.family, self.generator,
+                                        steps=2000, tol=1e-4).vparams
+            if vh.family.space.unconstrained_size != \
+                    space.unconstrained_size:
+                raise ValueError(
+                    "vb operator: variational space does not match the "
+                    "MCMC model's parameter space")
+            vb_prop = mcmc_mod.vb_proposal_from(vh.family, vh.vparams)
+            vb_w = float(op.get("weight", 1.0))
+        sampler = mcmc_mod.MCMC(space, log_prob, weights=weights or None,
+                                vb_proposal=vb_prop, vb_weight=vb_w)
+        n_chains = int(node.get("chains", 0)) or 1
+        res = sampler.run(self.generator, params, n_iter=length,
+                          every=every, n_chains=n_chains)
+        self.results[node.get("id", "mcmc")] = res
+        if res.interrupted:
+            print(f"MCMC interrupted: finalizing logs with "
+                  f"{len(res.samples_u)} samples", file=self.out)
+        self._write_mcmc_logs(node, res, space, every)
+        # leave the pool at the last sample
+        self.update_pool(res.params_at(-1))
+        acc = ", ".join(f"{b}:{a:.2f}" for b, a in
+                        zip(sampler.blocks, res.acceptance))
+        print(f"MCMC finished: {length} iterations; acceptance {acc}",
+              file=self.out)
+        return res
+
+    @staticmethod
+    def _batched(fn, space, z: np.ndarray, like: torch.Tensor) -> np.ndarray:
+        """``fn`` over a batch of parameter dicts made from the unconstrained
+        samples ``z`` [n, dim], ``_LOG_BATCH`` chains at a time."""
+        out = []
+        with torch.no_grad():
+            for i in range(0, len(z), _LOG_BATCH):
+                zi = torch.as_tensor(z[i: i + _LOG_BATCH], dtype=like.dtype,
+                                     device=like.device)
+                p = space.constrain(space.unflatten_unconstrained(zi))
+                out.append(fn(p).cpu().numpy())
+        return np.concatenate(out)
+
+    def _write_mcmc_logs(self, node, res, space, base_every):
+        """The mcmc node's loggers, from chain 0 as the reference logs one
+        chain: tabular (models' log-densities and parameters), tree (NEXUS)
+        and sitewise (per-pattern log-likelihoods) files."""
+        cons = res.to_dict_of_arrays()
+        S = res.samples_u.shape[0]
+        like = torch.empty(0, **self.ctx.kw)
+        for log_node in node.get("log", []):
+            every = int(log_node.get("every", 1000))
+            stride = max(1, every // base_every)
+            idx = np.arange(0, S, stride)
+            states = idx * base_every
+            fname = log_node.get("file")
+            models = log_node.get("models", [])
+            if isinstance(models, str):
+                models = [models]
+            xs = log_node.get("x", [])
+            if isinstance(xs, str):
+                xs = [xs]
+            zsel = res.samples_u[idx, 0]
+            # sitewise log-likelihood logger (reference: logmcmc.c Log with
+            # per-site output consumed by cpo.c/predictive.c)
+            if log_node.get("sitewise") and fname:
+                tlk = None
+                for m in models:
+                    obj = self.ctx.resolve(m) if isinstance(m, str) else m
+                    if hasattr(obj, "site_log_likelihoods"):
+                        tlk = obj
+                if tlk is not None:
+                    site = self._batched(tlk.site_log_likelihoods, space,
+                                         zsel, like)
+                    w = np.asarray(tlk.sp.weights)
+                    lines = ["#" + "\t".join(f"{x:g}" for x in w),
+                             "\t".join(["state"] + [
+                                 f"site{i}" for i in range(site.shape[1])])]
+                    for s, row in zip(states, site):
+                        lines.append("\t".join(
+                            [str(int(s))] + [f"{v:.10g}" for v in row]))
+                    with open(self._path(fname), "w") as fh:
+                        fh.write("\n".join(lines) + "\n")
+                    continue
+            # tree logger?
+            tree_handle = None
+            for m in models:
+                obj = self.ctx.resolve(m) if isinstance(m, str) else m
+                if hasattr(obj, "is_time_tree"):
+                    tree_handle = obj
+            if tree_handle is not None and fname:
+                self._write_tree_log(fname, tree_handle, res, idx, states)
+                continue
+            # tabular logger
+            cols: list = ["state"]
+            series: list = [states]
+            for m in models:
+                obj = self.ctx.resolve(m) if isinstance(m, str) else m
+                if hasattr(obj, "log_prob") or hasattr(obj, "log_likelihood"):
+                    series.append(self._batched(self.model_logprob(obj),
+                                                space, zsel, like))
+                    cols.append(m.lstrip("&$%"))
+                elif isinstance(m, str):
+                    for name in self.ctx.resolve_target(m):
+                        if name in cons:
+                            arr2 = cons[name][idx, 0].reshape(len(idx), -1)
+                            for j in range(arr2.shape[1]):
+                                cols.append(f"{name}.{j}" if arr2.shape[1] > 1
+                                            else name)
+                                series.append(arr2[:, j])
+            for x in xs:
+                for name in self.ctx.resolve_target(x):
+                    if name not in cons:
+                        continue
+                    arr = cons[name][idx, 0].reshape(len(idx), -1)
+                    for j in range(arr.shape[1]):
+                        cols.append(f"{name}.{j}" if arr.shape[1] > 1
+                                    else name)
+                        series.append(arr[:, j])
+            table = np.column_stack(series)
+            lines = ["\t".join(cols)]
+            for row in table:
+                lines.append("\t".join(
+                    str(int(row[0])) if c == 0 else f"{v:.10g}"
+                    for c, v in enumerate(row)))
+            text = "\n".join(lines) + "\n"
+            if fname:
+                with open(self._path(fname), "w") as fh:
+                    fh.write(text)
+            else:
+                print(text[:2000], file=self.out)
+
+    def _write_tree_log(self, fname, handle, res, idx, states):
+        from ..io.treeio import write_newick
+        from ..trees.heights import branch_durations
+
+        topo = handle.topo
+        lines = ["#NEXUS", "begin trees;"]
+        for s, i in zip(states, idx):
+            p = res.params_at(int(i))
+            with torch.no_grad():
+                if handle.is_time_tree:
+                    dist = branch_durations(handle.heights(p), topo)
+                    dist = dist.cpu().numpy().astype(np.float64)
+                else:
+                    d = p[handle.key("distances")].cpu().numpy()
+                    dist = np.concatenate([np.asarray(d, np.float64),
+                                           [np.nan]])
+            lines.append(
+                f"tree STATE_{int(s)} = {write_newick(topo, dist)}")
+        lines += ["end;", ""]
+        with open(self._path(fname), "w") as fh:
+            fh.write("\n".join(lines))
+
+    def _path(self, p):
+        return p if os.path.isabs(p) else os.path.join(self.ctx.base_dir, p)
+
+    def action_mmcmc(self, node):
+        """Tempered-ladder MCMC, the temperatures as one batch of chains
+        (reference: src/phyc/mmcmc.c, which runs them one after another)."""
+        model = self.ctx.resolve(node.get("model"))
+        like, prior = self._split_like_prior(model)
+        space = model.param_space()
+        params = self.params_for(space)
+        n_temps = int(node.get("temperatures", node.get("steps", 16)))
+        length = int(node.get("length", 10000))
+        temps, lls, res = marginal.run_tempered_ladder(
+            self.generator, space, like, prior, params, n_temps=n_temps,
+            n_iter=length, every=int(node.get("every", 10)),
+            burnin=int(node.get("burnin", length // 10)),
+            distribution_power=float(node.get("power", 0.3)))
+        self.results[node.get("id", "mmcmc")] = (temps, lls, res)
+        ss, _ = marginal.log_stepping_stone(lls, temps)
+        ps, _ = marginal.log_path_sampling(lls, temps)
+        print(f"log marginal likelihood: stepping-stone {ss:.4f}, "
+              f"path-sampling {ps:.4f}", file=self.out)
+        return temps, lls, res
+
+    def _split_like_prior(self, model):
+        """Split a compound model into (likelihood, prior) callables."""
+        if isinstance(model, CompoundModel):
+            likes = [c for c in model.components
+                     if isinstance(c, TreeLikelihood)]
+            priors = [c for c in model.components
+                      if not isinstance(c, TreeLikelihood)]
+
+            def like(p):
+                return sum(lk.log_likelihood(p) for lk in likes)
+
+            def prior(p):
+                return sum((c.log_prob(p) for c in priors), 0.0)
+
+            return like, prior
+        return self.model_logprob(model), lambda p: 0.0
+
+    def action_marginallikelihood(self, node):
+        """Marginal-likelihood estimates from a stored mmcmc result
+        (reference: marginal.c _marginal_likelihood_run reads logs)."""
+        ref = node.get("mmcmc", "mmcmc")
+        stored = self.results.get(ref.lstrip("&") if isinstance(ref, str)
+                                  else "mmcmc")
+        if stored is None:
+            raise ValueError("marginallikelihood needs a prior mmcmc action")
+        temps, lls, _ = stored
+        methods = node.get("methods",
+                           ["stepping", "path", "harmonic", "stabilized"])
+        out = {}
+        for m in methods:
+            if m in ("stepping", "ss"):
+                out[m] = marginal.log_stepping_stone(lls, temps)[0]
+            elif m in ("path", "ps"):
+                out[m] = marginal.log_path_sampling(lls, temps)[0]
+            elif m == "path2":
+                out[m] = marginal.log_path_sampling_modified(lls, temps)[0]
+            elif m == "harmonic":
+                out[m] = marginal.log_harmonic_mean(lls[-1])
+            elif m == "stabilized":
+                out[m] = marginal.log_stabilized_harmonic_mean(lls[-1])
+            elif m == "arithmetic":
+                out[m] = marginal.log_arithmetic_mean(lls[0])
+        for m, v in out.items():
+            print(f"{m}: {v:.6f}", file=self.out)
+        self.results[node.get("id", "marginal")] = out
+        return out

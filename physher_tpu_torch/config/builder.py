@@ -16,7 +16,7 @@ built in the :class:`Context`'s ``dtype`` on its ``device``.
 
 The config's ``"engine"`` names map to the port's: ``pallas-fused`` ->
 ``cuda-fused``, ``pallas-staged`` -> ``cuda-staged``, ``pallas-wide`` ->
-``cuda-wide``, ``xla`` -> ``torch``. A model type the JAX builder supports
+``cuda-wide``, ``pallas-loop`` -> ``cuda-loop``, ``xla`` -> ``torch``. A model type the JAX builder supports
 and the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item; nothing falls back silently.
 """
@@ -50,7 +50,7 @@ from .treehandle import TreeHandle
 # the JAX package's engine names -> the port's
 ENGINE_NAMES = {"auto": "auto", "pallas-fused": "cuda-fused",
                 "pallas-staged": "cuda-staged", "pallas-wide": "cuda-wide",
-                "xla": "torch"}
+                "pallas-loop": "cuda-loop", "xla": "torch"}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -499,13 +499,9 @@ def build_branchmodel(node, ctx: Context, N: int):
 def engine_name(name: str) -> str:
     """The port's engine for a config's ``"engine"`` value."""
     name = str(name).lower()
-    if name == "pallas-loop":
-        raise NotImplementedError(
-            "engine 'pallas-loop': the loop kernels K5/K6 are not ported "
-            "yet (ROADMAP Queue 2)")
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; one of "
-                         f"{sorted(ENGINE_NAMES) + ['pallas-loop']}")
+                         f"{sorted(ENGINE_NAMES)}")
     return ENGINE_NAMES[name]
 
 

@@ -36,10 +36,13 @@ class CTMCScalePrior:
         return []
 
     def log_prob(self, params):
+        """One log-density per batch entry: the tree length T has the
+        batch shape of ``params``."""
         T = self.tree.tree_length(params)
         total = 0.0
         for name in self.targets:
-            total = total + torch.sum(ctmc_scale_logpdf(params[name], T))
+            r = params[name].reshape(T.shape + (-1,))
+            total = total + torch.sum(ctmc_scale_logpdf(r, T[..., None]), -1)
         return total
 
     __call__ = log_prob

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..trees.heights import (
-    heights_from_ratios, heights_from_shifts, branch_durations,
+    heights_from_ratios, heights_from_shifts, branch_durations, ratio_params,
 )
 from ..trees.timetree import TimeTreeData
 from ..trees.topology import Topology
@@ -42,10 +42,8 @@ class TreeHandle:
         if self.transform == "shift":
             return heights_from_shifts(params[self.key("shifts")], self.topo,
                                        td.tip_heights)
-        ratios = torch.cat([
-            torch.atleast_1d(params[self.key("ratios")]),
-            torch.atleast_1d(params[self.key("root_height")]),
-        ])
+        ratios = ratio_params(params[self.key("ratios")],
+                              params[self.key("root_height")])
         return heights_from_ratios(ratios, self.topo, td.tip_heights,
                                    td.lowers)
 
@@ -54,7 +52,8 @@ class TreeHandle:
 
     def tree_length(self, params) -> torch.Tensor:
         """Total time length (sum of branch durations), the CTMC-scale
-        prior's T (reference: src/phyc/ctmcscale.c:21-27)."""
+        prior's T (reference: src/phyc/ctmcscale.c:21-27); one per batch
+        entry."""
         if self.is_time_tree:
-            return torch.sum(self.durations(params))
-        return torch.sum(params[self.key("distances")])
+            return torch.sum(self.durations(params), -1)
+        return torch.sum(params[self.key("distances")], -1)

@@ -30,7 +30,7 @@ class BranchModel:
         return ParamSpace(self.param_specs())
 
     def rates(self, params) -> torch.Tensor:
-        """Per-node substitution rate [N]."""
+        """Per-node substitution rate [(L,) N]."""
         raise NotImplementedError
 
 
@@ -49,4 +49,5 @@ class StrictClock(BranchModel):
         return [mk(self.key("rate"), self.rate_init)]
 
     def rates(self, params):
-        return params[self.key("rate")].expand(self.N)
+        r = params[self.key("rate")]
+        return r[..., None].expand(r.shape + (self.N,))

@@ -10,7 +10,9 @@ ported yet (ROADMAP Queue 1 item 10).
 
 Every model has ``log_prob_from_heights(heights, params)`` and, once bound
 to a tree's heights (:meth:`CoalescentModel.bind_tree`), the compound-model
-protocol ``log_prob(params)``.
+protocol ``log_prob(params)``. The constant model also takes a batch of
+chains (heights ``[L, N]``, theta ``[L]``); the exponential and skyride
+models raise ``NotImplementedError`` for one.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def _events(topo: Topology):
 
 
 def interval_decomposition(heights: torch.Tensor, topo: Topology) -> dict:
-    """Sort the events into intervals.
+    """Sort the events into intervals, per batch entry of heights
+    ``[(L,) N]``.
 
     Returns per-interval start and duration, active lineage pairs, the
     coalescent-event flags, and the cumulative counters that index theta
@@ -40,18 +43,18 @@ def interval_decomposition(heights: torch.Tensor, topo: Topology) -> dict:
     d = topo_constant(topo, "coal_delta", lambda: delta, heights)
     c = topo_constant(topo, "coal_is_coal", lambda: is_coal, heights,
                       torch.bool)
-    order = torch.argsort(heights, stable=True)
-    t = heights[order]
+    order = torch.argsort(heights, dim=-1, stable=True)
+    t = torch.gather(heights, -1, order)
     d = d[order]
     c = c[order]
-    k = torch.cumsum(d, 0)                  # lineages after event i
+    k = torch.cumsum(d, -1)                 # lineages after event i
     pairs = k * (k - 1.0) / 2.0             # active pairs on [t_i, t_{i+1})
     dt = torch.diff(t)
-    coal_incl = torch.cumsum(c.to(torch.int64), 0)
+    coal_incl = torch.cumsum(c.to(torch.int64), -1)
     coal_before = coal_incl - c.to(torch.int64)
-    return {"t": t, "dt": dt, "pairs": pairs[:-1], "is_coal": c,
+    return {"t": t, "dt": dt, "pairs": pairs[..., :-1], "is_coal": c,
             "coal_before": coal_before, "coal_incl": coal_incl,
-            "start": t[:-1]}
+            "start": t[..., :-1]}
 
 
 class CoalescentModel:
@@ -79,10 +82,18 @@ class CoalescentModel:
         self.tree_param_fn = heights_fn
         return self
 
+    # whether log_prob_from_heights takes heights [L, N] (a batch of chains)
+    batched = False
+
     def log_prob(self, params):
         if self.tree_param_fn is None:
             raise ValueError("coalescent not bound to a tree; call bind_tree")
-        return self.log_prob_from_heights(self.tree_param_fn(params), params)
+        heights = self.tree_param_fn(params)
+        if heights.dim() > 1 and not self.batched:
+            raise NotImplementedError(
+                f"{type(self).__name__} takes no batch of chains yet "
+                "(ROADMAP Queue 1 item 10)")
+        return self.log_prob_from_heights(heights, params)
 
     __call__ = log_prob
 
@@ -96,6 +107,8 @@ class CoalescentModel:
 
 class ConstantCoalescent(CoalescentModel):
     """theta(t) = N (reference: demographicmodels.c new_ConstantCoalescent)."""
+
+    batched = True
 
     def __init__(self, topo, prefix="coalescent.", theta_init=1.0,
                  log_space=False):
@@ -114,7 +127,7 @@ class ConstantCoalescent(CoalescentModel):
         if self.log_space:
             theta = torch.exp(theta)
         iv = interval_decomposition(heights, self.topo)
-        integral = torch.sum(iv["pairs"] * iv["dt"]) / theta
+        integral = torch.sum(iv["pairs"] * iv["dt"], -1) / theta
         return -integral - self.topo.I * torch.log(theta)
 
 

@@ -13,7 +13,8 @@ seed.
 
 ``PriorModel`` binds a density to target parameter names in the parameter
 dict; ``CompoundModel`` sums its components' log-probabilities (the
-posterior = likelihood + priors).
+posterior = likelihood + priors). Given a batch of parameter dicts (a
+``ParamBatch``, tensors ``[L, ...]``), both return ``[L]`` log-densities.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from .parameters import ParamSpec, ParamSpace
+from .parameters import ParamSpec, ParamSpace, batch_shape
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -148,7 +149,7 @@ def gmrf_logpdf(log_thetas, precision):
     d = torch.diff(log_thetas)
     n = d.shape[-1]
     return (0.5 * n * (torch.log(precision) - LOG_2PI)
-            - 0.5 * precision * torch.sum(d * d))
+            - 0.5 * precision * torch.sum(d * d, -1))
 
 
 def ctmc_scale_logpdf(rate, tree_length):
@@ -274,25 +275,31 @@ class PriorModel:
         return ParamSpace(self.param_specs())
 
     def gather(self, params):
+        """The targets' values, flattened: ``[(L,) n]``."""
+        lead = batch_shape(params)
         vals = []
         for name, idx in self.targets:
             v = params[name]
             if idx is not None:
-                v = v[idx]
-            vals.append(torch.reshape(v, (-1,)))
-        return torch.cat(vals)
+                v = v[..., idx] if lead else v[idx]
+            vals.append(torch.reshape(v, lead + (-1,)))
+        return torch.cat(vals, -1)
 
     def hyper_values(self, params):
         out = dict(self.hyper)
+        lead = batch_shape(params)
         for hname in self.hyper_free:
-            out[hname] = params[self.key(hname)]
+            v = params[self.key(hname)]
+            out[hname] = v[..., None] if lead else v
         return out
 
     def log_prob(self, params):
+        """One log-density per batch entry of ``params``."""
         x = self.gather(params)
         if self.shift:
             x = x - self.shift
-        return torch.sum(LOGPDFS[self.dist](x, **self.hyper_values(params)))
+        lp = LOGPDFS[self.dist](x, **self.hyper_values(params))
+        return torch.sum(lp.reshape(batch_shape(params) + (-1,)), -1)
 
     __call__ = log_prob
 

@@ -11,6 +11,13 @@ it. What remains of the reference's Parameter/Model graph is declarative:
 
 Simplex parameters use the stick-breaking transform (Stan's convention,
 reference: src/phyc/simplex.c) so a K-simplex has K-1 unconstrained entries.
+
+A batch of parameter dicts (the chains of an MCMC run) is one dict whose
+tensors all carry the same leading batch axes ``[L, ...]``. The ParamSpace
+methods take such a batch; since they know each spec's own shape, they read
+the batch shape off the tensors, and :meth:`ParamSpace.constrain` returns a
+:class:`ParamBatch` that carries it, so that models summing over a
+parameter's entries (the priors) sum over those and not over the chains.
 """
 
 from __future__ import annotations
@@ -70,6 +77,33 @@ class ParamSpec:
         if self.transform == "simplex":
             return self.size - 1
         return self.size
+
+    @property
+    def unconstrained_shape(self) -> tuple:
+        return ((self.size - 1,) if self.transform == "simplex"
+                else tuple(self.init.shape))
+
+
+class ParamBatch(dict):
+    """A parameter dict whose tensors share the leading ``batch_shape``."""
+
+    def __init__(self, params: dict, batch_shape: tuple):
+        super().__init__(params)
+        self.batch_shape = tuple(batch_shape)
+
+
+def batch_shape(params: dict) -> tuple:
+    """The leading batch shape of a parameter dict: ``()`` unless it is a
+    :class:`ParamBatch`."""
+    return getattr(params, "batch_shape", ())
+
+
+def _lead(x: torch.Tensor, event_shape) -> tuple:
+    return tuple(x.shape[:x.dim() - len(event_shape)])
+
+
+def _sum_event(x: torch.Tensor, event_ndim: int) -> torch.Tensor:
+    return x.sum(tuple(range(-event_ndim, 0))) if event_ndim else x
 
 
 def _default_transform(lower, upper) -> str:
@@ -187,14 +221,25 @@ class ParamSpace:
                 raise ValueError(t)
         return out
 
+    def batch_shape_of(self, uparams: dict) -> tuple:
+        """The leading batch shape of an unconstrained dict of this space."""
+        free = self.free_specs()
+        if not free:
+            return ()
+        return _lead(uparams[free[0].name], free[0].unconstrained_shape)
+
     def constrain(self, uparams: dict, params: Optional[dict] = None) -> dict:
+        """Unconstrained -> constrained values; a batch (tensors ``[L,
+        ...]``) gives a :class:`ParamBatch`."""
+        lead = self.batch_shape_of(uparams)
         out = dict(params) if params else {}
         fixed = [s for s in self.specs if s.transform == "fixed"]
         if fixed:
             like = next(iter({**out, **uparams}.values()))
             for s in fixed:
                 out.setdefault(s.name, torch.as_tensor(
-                    s.init, dtype=like.dtype, device=like.device))
+                    s.init, dtype=like.dtype, device=like.device).expand(
+                        lead + s.init.shape))
         for s in self.free_specs():
             y = uparams[s.name]
             t = s.transform
@@ -210,25 +255,26 @@ class ParamSpace:
                 out[s.name] = simplex_constrain(y)
             else:
                 raise ValueError(t)
-        return out
+        return ParamBatch(out, lead) if lead else out
 
     def log_jacobian(self, uparams: dict) -> torch.Tensor:
-        """log |det| of constrain(), summed over all free parameters."""
+        """log |det| of constrain(), summed over all free parameters (one
+        value per batch entry)."""
         total = 0.0
         for s in self.free_specs():
             y = uparams[s.name]
             t = s.transform
+            n = len(s.init.shape)
             if t == "none":
                 continue
             elif t in ("log", "shifted_log"):
-                total = total + torch.sum(y)
+                total = total + _sum_event(y, n)
             elif t == "interval":
-                total = total + torch.sum(
+                total = total + _sum_event(
                     math.log(s.upper - s.lower)
-                    + F.logsigmoid(y) + F.logsigmoid(-y)
-                )
+                    + F.logsigmoid(y) + F.logsigmoid(-y), n)
             elif t == "simplex":
-                total = total + torch.sum(simplex_log_jacobian(y))
+                total = total + simplex_log_jacobian(y)
         return total
 
     # -- flat vector view (for variational families) ----------------------
@@ -243,15 +289,18 @@ class ParamSpace:
         return out
 
     def flatten_unconstrained(self, uparams: dict) -> torch.Tensor:
-        return torch.cat([torch.reshape(uparams[s.name], (-1,))
-                          for s in self.free_specs()])
+        """dict -> flat vector ``[(L,) unconstrained_size]``."""
+        lead = self.batch_shape_of(uparams)
+        return torch.cat([torch.reshape(uparams[s.name],
+                                        lead + (s.unconstrained_size,))
+                          for s in self.free_specs()], -1)
 
     def unflatten_unconstrained(self, vec: torch.Tensor) -> dict:
         out = {}
         i = 0
         for s in self.free_specs():
             n = s.unconstrained_size
-            shape = s.init.shape if s.transform != "simplex" else (n,)
-            out[s.name] = vec[..., i: i + n].reshape(vec.shape[:-1] + shape)
+            out[s.name] = vec[..., i: i + n].reshape(
+                vec.shape[:-1] + s.unconstrained_shape)
             i += n
         return out

@@ -17,7 +17,8 @@ from ..utils.special import qgamma, qgamma_fixed_p
 
 
 class SiteModel:
-    """Base: ``rates_props(params) -> (rates [C], props [C])``."""
+    """Base: ``rates_props(params) -> (rates [(L,) C], props [C])``; the
+    rates carry the batch axes of a batch of parameter dicts."""
 
     cat_count: int = 1
 
@@ -41,7 +42,8 @@ class SiteModel:
         return ParamSpace(self.param_specs())
 
     def _mu(self, params):
-        return params[self.key("mu")] if self.use_mu else 1.0
+        """mu ``[(L,) 1]``, or 1.0 without one."""
+        return params[self.key("mu")][..., None] if self.use_mu else 1.0
 
     def rates_props(self, params):
         raise NotImplementedError
@@ -85,9 +87,11 @@ class QuantileSiteModel(SiteModel):
         ]
 
     def _quantile_rates(self, alpha, quantiles, static_p):
+        """[(L,) K] quantiles for shapes alpha [(L)]."""
         if alpha.dtype == torch.float64:
             # float64 (the golden path) keeps the Newton inverse
-            return qgamma(quantiles, alpha, alpha)
+            a = alpha[..., None]
+            return qgamma(quantiles, a, a)
         # float32: host-tabulated quantiles at the fixed probabilities
         return qgamma_fixed_p(static_p, alpha)
 
@@ -98,7 +102,7 @@ class QuantileSiteModel(SiteModel):
         quantiles = (2.0 * torch.arange(K, dtype=alpha.dtype,
                                         device=alpha.device) + 1.0) / (2.0 * K)
         rates = self._quantile_rates(alpha, quantiles, static_p)
-        rates = rates / (torch.sum(rates) / K)
+        rates = rates / (torch.sum(rates, -1, keepdim=True) / K)
         props = torch.full((K,), 1.0 / K, dtype=alpha.dtype,
                            device=alpha.device)
         return rates * self._mu(params), props

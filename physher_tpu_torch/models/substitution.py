@@ -12,7 +12,9 @@ src/phyc/substmodel.c, jc69.c, K80.c, f81.c, hky.c, gtr.c):
 
 ``p_t`` is vectorized over leading batch dims of ``t`` (node x category
 branch lengths) and returns the ``[..., S, S]`` stack the pruning engines
-consume. ``P[i, j] = P(child state j | parent state i, t)``; partials
+consume. The nucleotide models also take a batch of parameter dicts (MCMC
+chains): parameters ``[L, ...]`` with branch lengths ``t [L, N, C]`` give
+``[L, N, C, 4, 4]``. ``P[i, j] = P(child state j | parent state i, t)``; partials
 propagate as ``P @ partial_child`` (reference:
 src/phyc/treelikelihood4.c:420-480).
 """
@@ -92,11 +94,19 @@ def reversible_eig(Q: torch.Tensor, pi: torch.Tensor):
     return lam, V, Vinv
 
 
+def _flat_t(t: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """Branch lengths ``[*lead, ...]`` -> ``[*lead, M]``."""
+    return t.reshape(lead + (-1,))
+
+
 def pt_from_eig(lam, V, Vinv, t) -> torch.Tensor:
-    """P(t) = V exp(lam t) V^-1, batched over leading dims of t
-    (reference: src/phyc/substmodel.c:518-556)."""
-    elt = torch.exp(lam * t[..., None])  # [..., S]
-    return torch.einsum("ij,...j,jk->...ik", V, elt, Vinv)
+    """P(t) = V exp(lam t) V^-1 for branch lengths t [*B, ...], with the
+    decomposition batched over B (``lam [*B, S]``; reference:
+    src/phyc/substmodel.c:518-556)."""
+    lead = lam.shape[:-1]
+    elt = torch.exp(lam[..., None, :] * _flat_t(t, lead)[..., None])
+    P = torch.einsum("...ij,...mj,...jk->...mik", V, elt, Vinv)
+    return P.reshape(t.shape + P.shape[-2:])
 
 
 class _PtReversible(torch.autograd.Function):
@@ -108,7 +118,8 @@ class _PtReversible(torch.autograd.Function):
     (l_i - l_j)`` and ``F_ii = t e^{l_i t}``. Its transpose gives
     ``Qbar = sum_t V^-T (F o (V^T Pbar V^-T)) V^T`` and
     ``tbar = <Pbar, V diag(lam e^{lam t}) V^-1>``. ``pi`` only enables the
-    symmetric decomposition; all sensitivity flows through ``Q``.
+    symmetric decomposition; all sensitivity flows through ``Q``. A batch of
+    generators ``Q [*B, S, S]`` goes with branch lengths ``t [*B, ...]``.
     """
 
     @staticmethod
@@ -120,12 +131,14 @@ class _PtReversible(torch.autograd.Function):
     @staticmethod
     def backward(ctx, Pbar):
         lam, V, Vinv, t = ctx.saved_tensors
-        tb = t[..., None]                       # [..., 1]
-        elt = torch.exp(lam * tb)               # [..., S]
+        lead = lam.shape[:-1]
+        tb = _flat_t(t, lead)[..., None]                 # [*B, M, 1]
+        Pb = Pbar.reshape(lead + (-1,) + Pbar.shape[-2:])  # [*B, M, S, S]
+        elt = torch.exp(lam[..., None, :] * tb)          # [*B, M, S]
         gQ = gt = None
         if ctx.needs_input_grad[0]:
-            li = lam[:, None]
-            lj = lam[None, :]
+            li = lam[..., None, :, None]
+            lj = lam[..., None, None, :]
             ei = elt[..., :, None]
             ej = elt[..., None, :]
             diff = li - lj
@@ -133,20 +146,29 @@ class _PtReversible(torch.autograd.Function):
             F = torch.where(near, tb[..., None] * 0.5 * (ei + ej),
                             (ei - ej) / torch.where(near, torch.ones_like(diff),
                                                     diff))
-            G = torch.einsum("ji,...jk,lk->...il", V, Pbar, Vinv)
-            FG = (F * G).reshape(-1, *G.shape[-2:]).sum(0)
+            G = torch.einsum("...ji,...mjk,...lk->...mil", V, Pb, Vinv)
+            FG = (F * G).sum(-3)
             gQ = Vinv.transpose(-1, -2) @ FG @ V.transpose(-1, -2)
         if ctx.needs_input_grad[2]:
-            dPdt = torch.einsum("ij,...j,jk->...ik", V, lam * elt, Vinv)
-            gt = (Pbar * dPdt).sum((-1, -2))
+            dPdt = torch.einsum("...ij,...mj,...jk->...mik", V,
+                                lam[..., None, :] * elt, Vinv)
+            gt = (Pb * dPdt).sum((-1, -2)).reshape(t.shape)
         return gQ, None, gt
 
 
 def p_t_reversible(Q: torch.Tensor, pi: torch.Tensor,
                    t: torch.Tensor) -> torch.Tensor:
-    """P(t) = expm(Q t) for a reversible generator, batched over t [...].
-    Differentiable w.r.t. Q and t even at degenerate eigenvalues."""
+    """P(t) = expm(Q t) for a reversible generator ``Q [*B, S, S]``, over
+    branch lengths ``t [*B, ...]``. Differentiable w.r.t. Q and t even at
+    degenerate eigenvalues."""
     return _PtReversible.apply(Q, pi, t)
+
+
+def _bcast(x: torch.Tensor, t: torch.Tensor, event_ndim: int = 0):
+    """Model parameter ``x [*B, *event]`` shaped to broadcast against branch
+    lengths ``t [*B, ...]``: ``[*B, 1, ..., 1, *event]``."""
+    n = x.dim() - event_ndim
+    return x.reshape(x.shape[:n] + (1,) * (t.dim() - n) + x.shape[n:])
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +219,7 @@ class K80(SubstitutionModel):
         return normalize_q(Q, self.frequencies(params))
 
     def p_t(self, params, t):
-        kappa = params[self.key("kappa")]
+        kappa = _bcast(params[self.key("kappa")], t)
         # rate normalization: mu = (kappa + 2) / 4
         d = t * (4.0 / (kappa + 2.0))
         e1 = torch.exp(-d)
@@ -241,11 +263,11 @@ class F81(SubstitutionModel):
         return normalize_q(Q, pi)
 
     def p_t(self, params, t):
-        pi = self.frequencies(params)
-        beta = 1.0 / (1.0 - torch.sum(pi * pi))
+        pi = _bcast(self.frequencies(params), t, 1)
+        beta = 1.0 / (1.0 - torch.sum(pi * pi, -1))
         e = torch.exp(-beta * t)[..., None, None]
         eye = torch.eye(4, dtype=pi.dtype, device=pi.device)
-        return e * eye + (1.0 - e) * pi[None, :]
+        return e * eye + (1.0 - e) * pi[..., None, :]
 
 
 class HKY(SubstitutionModel):
@@ -289,8 +311,8 @@ class HKY(SubstitutionModel):
     def p_t(self, params, t):
         """Analytic HKY transition probabilities (Hasegawa-Kishino-Yano
         1985)."""
-        pi = self.frequencies(params)
-        kappa = params[self.key("kappa")]
+        pi = _bcast(self.frequencies(params), t, 1)
+        kappa = _bcast(params[self.key("kappa")], t)
         A, C, G, T = (pi[..., i] for i in range(4))
         piR, piY = A + G, C + T
         # normalization so that the expected rate is 1

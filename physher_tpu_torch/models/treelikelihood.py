@@ -12,15 +12,23 @@ Engines (``engine=``):
 - ``"auto"``: the CUDA kernels for CUDA tensors, the plain engine
   (``ops/pruning.py``) for CPU tensors;
 - ``"cuda"``: the CUDA kernels; raises for CPU tensors;
-- ``"cuda-fused"``, ``"cuda-staged"``, ``"cuda-wide"``: that pair of
-  kernels; raises for CPU tensors and for a state count it cannot take;
+- ``"cuda-fused"``, ``"cuda-staged"``, ``"cuda-wide"``, ``"cuda-loop"``:
+  that pair of kernels; raises for CPU tensors and for a shape it cannot
+  take;
 - ``"torch"``: the plain engine on any device.
 
 ``"auto"`` and ``"cuda"`` choose the kernels by the model's shape
-(:func:`select_engine`): K3'/K4' (``ops/staged.py``) for S = 4 on a binary
+(:func:`select_engine`): K5'/K6' (``ops/loop.py``) for a batch of chains
+and for S = 4 polytomies, K3'/K4' (``ops/staged.py``) for S = 4 on a binary
 tree whose levels are wide enough, K1'/K2' (``ops/fused.py``) for any other
 S = 4 model, K7'/K8' (``ops/wide.py``) for any other S. ``engine_name()``
 says which one a model takes.
+
+A batch of parameter dicts (tensors ``[L, ...]``, the chains of an MCMC
+run) gives ``[L]`` log-likelihoods: the batch runs through the model as a
+leading axis (branch lengths ``[L, N]``, P matrices ``[L, N, C, S, S]``)
+into the plain engine on the CPU and K5'/K6' on the card. Only nucleotide
+models (S = 4) take a batch yet.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from torch import nn
 
 from ..data.sitepattern import SitePattern
 from ..ops.fused import fused_tree_log_likelihood
+from ..ops.loop import loop_tree_log_likelihood
 from ..ops.pruning import tree_log_likelihood, pad_patterns
 from ..ops.staged import staged_tree_log_likelihood
 from ..ops.wide import wide_tree_log_likelihood
@@ -38,19 +47,25 @@ from ..trees.topology import Topology
 from ..trees.timetree import TimeTreeData
 from ..trees.heights import (
     heights_from_ratios, heights_from_shifts, shifts_from_heights,
-    ratio_log_jacobian, branch_durations,
+    ratio_log_jacobian, branch_durations, ratio_params,
 )
 from .parameters import ParamSpec, ParamSpace
 from .clock import BranchModel
 from .sitemodel import SiteModel, ConstantSiteModel
 from .substitution import SubstitutionModel
 
-KERNEL_ENGINES = ("cuda-fused", "cuda-staged", "cuda-wide")
+KERNEL_ENGINES = ("cuda-fused", "cuda-staged", "cuda-wide", "cuda-loop")
 ENGINES = ("auto", "cuda", "torch") + KERNEL_ENGINES
 _ENGINE_FUNCTIONS = {"cuda-fused": fused_tree_log_likelihood,
                      "cuda-staged": staged_tree_log_likelihood,
                      "cuda-wide": wide_tree_log_likelihood,
+                     "cuda-loop": loop_tree_log_likelihood,
                      "torch": tree_log_likelihood}
+# the engines whose functions take a leading chain axis
+_BATCH_ENGINES = ("torch", "cuda-loop")
+_BATCH_NOT_PORTED = ("a batch of chains with {S} states is not ported yet: "
+                     "the card has batched kernels for S = 4 only (ROADMAP "
+                     "Queue 2, K5'/K6' for S != 4)")
 # The staged kernels' gate, measured on an NVIDIA H100 (``python3
 # chip_profile.py --gate``, run twice: balanced, caterpillar and random
 # binary trees of 16-512 taxa and the fluA tree, 256-32768 patterns, C = 1
@@ -65,15 +80,21 @@ STAGED_MIN_LEVEL_WORK = 8.0
 
 def select_engine(engine: str, device_type: str, n_states: int,
                   max_children: int = 2, n_categories: int = 1,
-                  nodes_per_level: float = 1.0) -> str:
+                  nodes_per_level: float = 1.0,
+                  batch: int | None = None) -> str:
     """The concrete engine for an ``engine=`` choice, the device type of the
     model's tensors, its state count, the most children of a node, the rate
-    categories and the mean internal nodes per tree level:
-    ``"cuda-staged"`` (K3'/K4', S = 4 on a binary tree with ``n_categories
-    * nodes_per_level >= STAGED_MIN_LEVEL_WORK``), ``"cuda-fused"``
-    (K1'/K2', any other S = 4 model), ``"cuda-wide"`` (K7'/K8', any other
-    S) or ``"torch"`` (the plain engine). A CUDA engine on a non-CUDA
-    device, and a named kernel that cannot take the state count, raise."""
+    categories, the mean internal nodes per tree level and the number of
+    chains ``batch`` (None: one parameter dict, no batch axis):
+    ``"cuda-loop"`` (K5'/K6', a batch of two or more chains at S = 4, or
+    S = 4 on a tree with a polytomy), ``"cuda-staged"`` (K3'/K4', S = 4 on
+    a binary tree with ``n_categories * nodes_per_level >=
+    STAGED_MIN_LEVEL_WORK``), ``"cuda-fused"`` (K1'/K2', any other S = 4
+    model), ``"cuda-wide"`` (K7'/K8', any other S) or ``"torch"`` (the plain
+    engine, every batch on the CPU). A batch of one chain is routed as one
+    parameter dict. A CUDA engine on a non-CUDA device, a named kernel that
+    cannot take the state count or a batch, and a batch on the card with
+    S != 4, raise."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     on_cuda = device_type == "cuda"
@@ -82,17 +103,25 @@ def select_engine(engine: str, device_type: str, n_states: int,
                          f"lives on {device_type}")
     if engine == "torch" or not on_cuda:
         return "torch"
-    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
+    chains = batch is not None and batch >= 2
+    if chains and n_states != 4:
+        raise NotImplementedError(_BATCH_NOT_PORTED.format(S=n_states))
+    if engine in ("cuda-fused", "cuda-staged", "cuda-loop") \
+            and n_states != 4:
         raise ValueError(f"engine={engine!r} takes 4 states, not {n_states}")
     if engine == "cuda-wide" and not 2 <= n_states <= 64:
         raise ValueError(f"engine='cuda-wide' takes 2 to 64 states, not "
                          f"{n_states}")
+    if chains and engine in KERNEL_ENGINES and engine != "cuda-loop":
+        raise ValueError(f"engine={engine!r} takes no batch of chains; "
+                         f"'cuda-loop' does")
     if engine in KERNEL_ENGINES:
         return engine
     if n_states != 4:
         return "cuda-wide"
-    if (max_children == 2
-            and n_categories * nodes_per_level >= STAGED_MIN_LEVEL_WORK):
+    if chains or max_children != 2:
+        return "cuda-loop"
+    if n_categories * nodes_per_level >= STAGED_MIN_LEVEL_WORK:
         return "cuda-staged"
     return "cuda-fused"
 
@@ -214,45 +243,56 @@ class TreeLikelihood(nn.Module):
         if self.height_transform == "shift":
             return heights_from_shifts(params[self.key("shifts")], self.topo,
                                        td.tip_heights)
-        ratios = torch.cat([
-            torch.atleast_1d(params[self.key("ratios")]),
-            torch.atleast_1d(params[self.key("root_height")]),
-        ])
+        ratios = ratio_params(params[self.key("ratios")],
+                              params[self.key("root_height")])
         return heights_from_ratios(ratios, self.topo, td.tip_heights,
                                    td.lowers)
 
     def branch_lengths(self, params) -> torch.Tensor:
-        """Substitution branch length per node [N] (root entry 0)."""
+        """Substitution branch length per node [(L,) N] (root entry 0)."""
         if self.time_data is not None:
             h = self.node_heights(params)
             d = branch_durations(h, self.topo)
             return d * self.clock.rates(params)
         dist = params[self.key("distances")]
-        return torch.cat([dist, dist.new_zeros(1)])
+        return torch.cat([dist, dist.new_zeros(dist.shape[:-1] + (1,))], -1)
 
-    def engine_name(self) -> str:
-        """The engine this model runs: ``"cuda-fused"``, ``"cuda-staged"``,
-        ``"cuda-wide"`` or ``"torch"`` (see :func:`select_engine`)."""
+    def engine_name(self, batch: int | None = None) -> str:
+        """The engine this model runs for one parameter dict (``batch``
+        None) or a batch of that many: ``"cuda-fused"``, ``"cuda-staged"``,
+        ``"cuda-wide"``, ``"cuda-loop"`` or ``"torch"`` (see
+        :func:`select_engine`)."""
         topo = self.topo
-        return select_engine(self.engine, self.tip_partials.device.type,
-                             self.tip_partials.shape[1],
-                             int(topo.child_count.max()),
-                             self.site_model.cat_count,
-                             topo.I / len(topo.levels))
-
-    def _engine(self):
-        return _ENGINE_FUNCTIONS[self.engine_name()]
+        args = (self.engine, self.tip_partials.device.type,
+                self.tip_partials.shape[1], int(topo.child_count.max()),
+                self.site_model.cat_count, topo.I / len(topo.levels))
+        return (select_engine(*args) if batch is None
+                else select_engine(*args, batch))
 
     def _run_engine(self, params):
-        engine = self._engine()
-        bl = self.branch_lengths(params)
+        bl = self.branch_lengths(params)                  # [(L,) N]
+        batch = bl.shape[0] if bl.dim() == 2 else None
+        S = self.tip_partials.shape[1]
+        if batch is not None and S != 4:
+            raise NotImplementedError(_BATCH_NOT_PORTED.format(S=S))
+        name = self.engine_name(batch)
         rates, props = self.site_model.rates_props(params)
-        blc = bl[:, None] * rates[None, :]      # [N, C]
-        pmats = self.subst.p_t(params, blc)     # [N, C, S, S]
-        freqs = self.subst.frequencies(params)
-        return engine(self.tip_partials, pmats.to(self.dtype), self.topo,
-                      freqs.to(self.dtype), props.to(self.dtype),
-                      self.weights, rescale=self.rescale)
+        blc = bl[..., :, None] * rates[..., None, :]       # [(L,) N, C]
+        pmats = self.subst.p_t(params, blc).to(self.dtype)  # [(L,) N, C, S, S]
+        freqs = self.subst.frequencies(params).to(self.dtype)
+        props = props.to(self.dtype)
+        if batch is not None:
+            freqs = freqs.expand(batch, S)
+            props = props.expand(batch, props.shape[-1])
+        if batch == 1 and name not in _BATCH_ENGINES:
+            # one chain: the one-dict kernels, with the axis put back
+            logL, site_log = _ENGINE_FUNCTIONS[name](
+                self.tip_partials, pmats[0], self.topo, freqs[0], props[0],
+                self.weights, rescale=self.rescale)
+            return logL[None], site_log[None]
+        return _ENGINE_FUNCTIONS[name](
+            self.tip_partials, pmats, self.topo, freqs, props, self.weights,
+            rescale=self.rescale)
 
     def log_likelihood_only(self, params) -> torch.Tensor:
         logL, _ = self._run_engine(params)
@@ -261,7 +301,8 @@ class TreeLikelihood(nn.Module):
     def log_jacobian(self, params) -> torch.Tensor:
         if self.height_transform == "shift":
             # |d heights / d shifts| = 1
-            return self.weights.new_zeros(())
+            return self.weights.new_zeros(
+                params[self.key("shifts")].shape[:-1])
         h = self.node_heights(params)
         return ratio_log_jacobian(h, self.topo, self.time_data.lowers)
 
@@ -276,4 +317,4 @@ class TreeLikelihood(nn.Module):
 
     def site_log_likelihoods(self, params) -> torch.Tensor:
         _, site_log = self._run_engine(params)
-        return site_log[: self.sp.pattern_count]
+        return site_log[..., : self.sp.pattern_count]

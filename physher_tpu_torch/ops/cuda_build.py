@@ -6,8 +6,9 @@ keyed on a hash of the source and the flags, so a changed source is rebuilt
 and an unchanged one is not), and loads it with ctypes. Nothing is built
 when a module is imported: the wrappers call it at their first launch.
 
-:func:`pruning_dims` checks the inputs that the three pruning kernel pairs
-(``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``) share, and
+:func:`pruning_dims` checks the inputs that the four pruning kernel pairs
+(``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``, ``ops/loop.py``)
+share, and
 :func:`level_schedule` is the tree-level schedule that the staged and wide
 pairs launch by.
 """
@@ -105,16 +106,16 @@ def offsets_arg(schedule):
 
 def pruning_dims(kernels: str, tips, pmats, children, rootw, *,
                  states=(4, 4), max_children=None, schedule=None,
-                 root_alone=False):
+                 root_alone=False, batched=False):
     """Validate a pruning kernel pair's common inputs; returns
     (T, I, C, S, maxc, P).
 
-    tips [T, S, P] with ``states[0] <= S <= states[1]``, pmats [N, C, S, S],
-    children [I, maxc] (int32, maxc at most ``max_children`` if given) and
-    rootw [C * S], contiguous on one CUDA device in float32 or float64; and
-    the level ``schedule`` (nodes, offsets) if given, whose last level holds
-    the root alone if ``root_alone``. ``kernels`` names the pair in the
-    messages."""
+    tips [T, S, P] with ``states[0] <= S <= states[1]``, pmats [N, C, S, S]
+    (``[L, N, C, S, S]`` if ``batched``), children [I, maxc] (int32, maxc at
+    most ``max_children`` if given) and rootw [C * S] (unless None),
+    contiguous on one CUDA device in float32 or float64; and the level
+    ``schedule`` (nodes, offsets) if given, whose last level holds the root
+    alone if ``root_alone``. ``kernels`` names the pair in the messages."""
     if tips.device.type != "cuda":
         raise ValueError(f"the CUDA {kernels} kernels need CUDA tensors, "
                          f"got {tips.device}")
@@ -130,18 +131,20 @@ def pruning_dims(kernels: str, tips, pmats, children, rootw, *,
     if max_children is not None and not 1 <= maxc <= max_children:
         raise ValueError(f"{maxc} children per node; the {kernels} kernels "
                          f"take 1 to {max_children}")
-    if pmats.dim() != 4:
-        raise ValueError(f"pmats must be [N, C, S, S], got "
-                         f"{tuple(pmats.shape)}")
-    C = pmats.shape[1]
+    if pmats.dim() != 4 + batched:
+        raise ValueError(f"pmats must be {'[L, ' if batched else '['}"
+                         f"N, C, S, S], got {tuple(pmats.shape)}")
+    C = pmats.shape[-3]
     if not 1 <= C <= MAX_CATEGORIES:
         raise ValueError(f"{C} rate categories; the kernels take 1 to "
                          f"{MAX_CATEGORIES}")
     dev, dt = tips.device, tips.dtype
     check("tips", tips, dev, dt, (T, S, P))
-    check("pmats", pmats, dev, dt, (T + I, C, S, S))
+    check("pmats", pmats, dev, dt,
+          tuple(pmats.shape[:1]) * batched + (T + I, C, S, S))
     check("children", children, dev, torch.int32, (I, maxc))
-    check("rootw", rootw, dev, dt, (C * S,))
+    if rootw is not None:
+        check("rootw", rootw, dev, dt, (C * S,))
     if schedule is not None:
         nodes, offsets = schedule
         check("nodes", nodes, dev, torch.int32, (I,))

@@ -74,9 +74,17 @@ def _ratio_ancestor_mask(topo: Topology) -> np.ndarray:
     return A
 
 
+def ratio_params(ratios: torch.Tensor,
+                 root_height: torch.Tensor) -> torch.Tensor:
+    """The ratio transform's parameter vector ``[(L,) I]``: the non-root
+    ratios ``[(L,) I-1]`` and the root height ``[(L)]`` last."""
+    return torch.cat([ratios, root_height[..., None]], -1)
+
+
 def heights_from_ratios(params: torch.Tensor, topo: Topology,
                         tip_heights, lowers) -> torch.Tensor:
-    """Forward ratio transform: params [I] (root height last) -> heights [N].
+    """Forward ratio transform: params [(L,) I] (root height last) ->
+    heights [(L,) N].
 
     For trees up to ``_MATRIX_MAX_I`` internals the recursion
     ``h(n) = l(n)(1-r(n)) + r(n) h(parent)`` is unrolled to its closed form
@@ -90,31 +98,35 @@ def heights_from_ratios(params: torch.Tensor, topo: Topology,
     sequential sweep (reference semantics: src/phyc/treetransform.c:224-266).
     """
     I, T = topo.I, topo.T
-    tips = _as(tip_heights, params)
-    H = params[I - 1]
+    lead = params.shape[:-1]
+    tips = _as(tip_heights, params).expand(lead + (T,))
+    H = params[..., I - 1]
     if I == 1:
-        return torch.cat([tips, H[None]])
+        return torch.cat([tips, H[..., None]], -1)
     lowers_t = _as(lowers, params)
     if I <= _MATRIX_MAX_I:
         A = topo_constant(topo, "ratio_mask",
                           lambda: _ratio_ancestor_mask(topo), params)
         lows = lowers_t[T: T + I - 1]
         # exact-zero ratios would make logR[-inf]-logR[-inf] = nan in W
-        r = torch.clamp(params[: I - 1], min=torch.finfo(params.dtype).tiny)
-        logR = torch.matmul(A, torch.log(r))
-        W = torch.exp(logR[:, None] - logR[None, :]) * A
-        h_int = torch.matmul(W, lows * (1.0 - r)) + torch.exp(logR) * H
-        return torch.cat([tips, h_int, H[None]])
+        r = torch.clamp(params[..., : I - 1],
+                        min=torch.finfo(params.dtype).tiny)
+        logR = torch.matmul(torch.log(r), A.T)
+        W = torch.exp(logR[..., :, None] - logR[..., None, :]) * A
+        h_int = (torch.matmul(W, (lows * (1.0 - r))[..., None])[..., 0]
+                 + torch.exp(logR) * H[..., None])
+        return torch.cat([tips, h_int, H[..., None]], -1)
     h = [None] * topo.N
     for t in range(T):
-        h[t] = tips[t]
+        h[t] = tips[..., t]
     h[topo.root] = H
     for ranks in topo.preorder_levels[1:]:
         for k in ranks:
             node = T + int(k)
             low = lowers_t[node]
-            h[node] = low + (h[int(topo.parent[node])] - low) * params[int(k)]
-    return torch.stack(h)
+            h[node] = (low + (h[int(topo.parent[node])] - low)
+                       * params[..., int(k)])
+    return torch.stack(h, -1)
 
 
 def ratios_from_heights(heights: np.ndarray, topo: Topology,
@@ -132,12 +144,13 @@ def ratios_from_heights(heights: np.ndarray, topo: Topology,
 
 def ratio_log_jacobian(heights: torch.Tensor, topo: Topology,
                        lowers) -> torch.Tensor:
-    """log |det dh/dratios| summed over non-root internal nodes."""
+    """log |det dh/dratios| summed over non-root internal nodes, per batch
+    entry of heights [(L,) N]."""
     nodes = topo.T + np.arange(topo.I - 1)
     parents = topo_constant(topo, "nonroot_parents",
                             lambda: topo.parent[nodes], heights, torch.long)
     low = _as(lowers, heights)[topo.T: topo.N - 1]
-    return torch.sum(torch.log(heights[parents] - low))
+    return torch.sum(torch.log(heights[..., parents] - low), -1)
 
 
 def _shift_masks(topo: Topology):
@@ -167,9 +180,10 @@ def heights_from_shifts(params: torch.Tensor, topo: Topology,
 
         h(n) = max_{t in subtree(n)} (tip_h(t) + U(t)) - U(n) + shift(n)
 
-    (reference semantics: src/phyc/treetransform.c:14-31)."""
-    tips = _as(tip_heights, params)
+    (reference semantics: src/phyc/treetransform.c:14-31). params
+    [(L,) I] -> heights [(L,) N]."""
     I, T = topo.I, topo.T
+    tips = _as(tip_heights, params).expand(params.shape[:-1] + (T,))
     if I <= _MATRIX_MAX_I:
         anc = topo_constant(topo, "shift_anc", lambda: _shift_masks(topo)[0],
                             params)
@@ -177,21 +191,21 @@ def heights_from_shifts(params: torch.Tensor, topo: Topology,
                                 lambda: _shift_masks(topo)[1], params)
         desc = topo_constant(topo, "shift_desc", lambda: _shift_masks(topo)[2],
                              params)
-        U = torch.matmul(anc, params)              # [I]
-        U_tip = torch.matmul(tip_anc, params)      # [T]
-        val = tips + U_tip                         # [T]
+        U = torch.matmul(params, anc.T)            # [(L,) I]
+        U_tip = torch.matmul(params, tip_anc.T)    # [(L,) T]
+        val = tips + U_tip                         # [(L,) T]
         neg_inf = torch.full_like(desc, -torch.inf)
-        best = torch.max(torch.where(desc > 0, val[None, :], neg_inf),
-                         dim=1).values
+        best = torch.max(torch.where(desc > 0, val[..., None, :], neg_inf),
+                         dim=-1).values
         h_int = best - U + params
-        return torch.cat([tips, h_int])
-    h = [tips[t] for t in range(T)] + [None] * I
+        return torch.cat([tips, h_int], -1)
+    h = [tips[..., t] for t in range(T)] + [None] * I
     for ranks in topo.levels:
         for k in ranks:
             cs = topo.children[int(k), : topo.child_count[int(k)]]
-            h[T + int(k)] = torch.stack([h[int(c)] for c in cs]).max() \
-                + params[int(k)]
-    return torch.stack(h)
+            h[T + int(k)] = (torch.stack([h[int(c)] for c in cs], -1)
+                             .max(-1).values + params[..., int(k)])
+    return torch.stack(h, -1)
 
 
 def shifts_from_heights(heights: np.ndarray, topo: Topology) -> np.ndarray:
@@ -203,13 +217,13 @@ def shifts_from_heights(heights: np.ndarray, topo: Topology) -> np.ndarray:
 
 
 def branch_durations(heights: torch.Tensor, topo: Topology) -> torch.Tensor:
-    """Per-node time-duration of the branch above each node: [N] with 0 at
-    the root. d(n) = h(parent(n)) - h(n)."""
+    """Per-node time-duration of the branch above each node: [(L,) N] with
+    0 at the root. d(n) = h(parent(n)) - h(n)."""
     parent = topo_constant(
         topo, "parent_or_root",
         lambda: np.where(topo.parent >= 0, topo.parent, topo.root),
         heights, torch.long)
-    d = heights[parent] - heights
+    d = heights[..., parent] - heights
     # the root is node N-1 and its entry is h(root) - h(root) = 0 already;
     # the explicit zero keeps its gradient at exactly nothing
-    return torch.cat([d[:-1], torch.zeros_like(d[-1:])])
+    return torch.cat([d[..., :-1], torch.zeros_like(d[..., -1:])], -1)

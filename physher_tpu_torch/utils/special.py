@@ -106,7 +106,8 @@ def _qgamma_table(p_tuple):
 
 
 def qgamma_fixed_p(p_tuple: tuple, alpha: torch.Tensor) -> torch.Tensor:
-    """Gamma(alpha, rate=alpha) quantiles at fixed probabilities ``p_tuple``.
+    """Gamma(alpha, rate=alpha) quantiles at fixed probabilities ``p_tuple``:
+    ``[..., K]`` for shapes ``alpha [...]``.
 
     Catmull-Rom interpolation of host-precomputed log-quantiles in
     log-alpha; differentiable w.r.t. ``alpha`` through the interpolant.
@@ -116,20 +117,22 @@ def qgamma_fixed_p(p_tuple: tuple, alpha: torch.Tensor) -> torch.Tensor:
     key = (p_tuple, alpha.device, alpha.dtype)
     logq = _QGAMMA_TABLE_CACHE.get(key)
     if logq is None:
-        logq = torch.as_tensor(logq_np, dtype=alpha.dtype, device=alpha.device)
+        # [grid, K]: a row per grid point
+        logq = torch.as_tensor(logq_np.T.copy(), dtype=alpha.dtype,
+                               device=alpha.device)
         _QGAMMA_TABLE_CACHE[key] = logq
-    n = logq.shape[1]
+    n = logq.shape[0]
     u = torch.log(torch.clamp(alpha, _QGAMMA_LO, _QGAMMA_HI))
     t = (u - u0) / du
     i = torch.clamp(torch.floor(t).long(), 1, n - 3)
-    f = t - i
-    y0 = logq[:, i - 1]
-    y1 = logq[:, i]
-    y2 = logq[:, i + 1]
-    y3 = logq[:, i + 2]
+    f = (t - i)[..., None]
+    y0 = logq[i - 1]
+    y1 = logq[i]
+    y2 = logq[i + 1]
+    y3 = logq[i + 2]
     a0 = y1
     a1 = 0.5 * (y2 - y0)
     a2 = y0 - 2.5 * y1 + 2.0 * y2 - 0.5 * y3
     a3 = 0.5 * (y3 - y0) + 1.5 * (y1 - y2)
     logv = a0 + f * (a1 + f * (a2 + f * a3))
-    return torch.exp(logv) / alpha
+    return torch.exp(logv) / alpha[..., None]

@@ -389,15 +389,9 @@ def test_cli_ml_then_logger(data_dir, tmp_path):
     assert abs(float(lines[1].split()[1]) - res.logp) < 5.0
 
 
-def test_cli_ml_matches_jax(data_dir, tmp_path):
-    """The ML branch of the optimizer action in both packages on the same
-    config: an sg optimizer restricted to the parameters that its
-    schedule's sub-optimizers ("list") name, with Adam's defaults (no
-    "max" or "eta")."""
-    act = {"id": "ml", "type": "optimizer", "algorithm": "sg",
-           "model": "&posterior", "precision": 0.01,
-           "list": [{"algorithm": "sg", "parameters": ["&rate"]},
-                    {"algorithm": "sg", "parameters": ["&n0"]}]}
+def _ml_both(data_dir, tmp_path, act):
+    """The ML optimizer node ``act`` on fluA-elbo.json's model through the
+    JAX package's Runner and the port's CLI: (JAX result, port result)."""
     cfg = j_load_json(os.path.join(data_dir, "fluA-elbo.json"))
     cfg["physher"] = [act]
     jctx, jactions = j_build_config(cfg, base_dir=data_dir)
@@ -413,6 +407,30 @@ def test_cli_ml_matches_jax(data_dir, tmp_path):
     np.testing.assert_allclose(res.logp, jres.logp, rtol=1e-12)
     for k, v in jres.params.items():
         np.testing.assert_allclose(float(res.params[k]), float(v), rtol=1e-10)
+    return jres, res
+
+
+def test_cli_ml_matches_jax(data_dir, tmp_path):
+    """The ML branch of the optimizer action in both packages on the same
+    config: an sg optimizer restricted to the parameters that its
+    schedule's sub-optimizers ("list") name, with Adam's defaults (no
+    "max" or "eta")."""
+    _ml_both(data_dir, tmp_path, {
+        "id": "ml", "type": "optimizer", "algorithm": "sg",
+        "model": "&posterior", "precision": 0.01,
+        "list": [{"algorithm": "sg", "parameters": ["&rate"]},
+                 {"algorithm": "sg", "parameters": ["&n0"]}]})
+
+
+def test_cli_ml_max_and_eta_match_jax(data_dir, tmp_path):
+    """A config that sets "max" and "eta": the JAX package ignores both and
+    runs Adam with its defaults (a deviation from the reference, ported as
+    it is), and so does the port: the same optimum, past "max" steps."""
+    jres, _ = _ml_both(data_dir, tmp_path, {
+        "id": "ml", "type": "optimizer", "algorithm": "sg",
+        "model": "&posterior", "precision": 0.01, "max": 20, "eta": 0.5,
+        "parameters": ["&rate", "&n0"]})
+    assert jres.iterations > 20
 
 
 def test_cli_dry_prints_json(data_dir):
@@ -429,19 +447,17 @@ def test_cli_without_cuda_exits_nonzero(data_dir, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("what", ["mcmc", "meta", "pallas-loop", "lbfgs",
+@pytest.mark.parametrize("what", ["laplace", "meta", "hessian", "lbfgs",
                                   "mesh", "relaxed"])
 def test_unported_raises(data_dir, tmp_path, what):
     def edit(c):
         tlk = c["model"]["distributions"][0]
-        if what == "mcmc":
-            c["physher"] = [{"id": "mc", "type": "mcmc",
-                             "model": "&posterior", "length": 10}]
+        if what in ("laplace", "hessian"):
+            c["physher"] = [{"id": "x", "type": what,
+                             "model": "&posterior"}]
         elif what in ("meta", "lbfgs"):
             c["physher"] = [{"id": "ml", "type": "optimizer",
                              "algorithm": what, "model": "&posterior"}]
-        elif what == "pallas-loop":
-            tlk["engine"] = "pallas-loop"
         elif what == "mesh":
             c["init"] = {"devices": 2}
         else:
@@ -453,7 +469,8 @@ def test_unported_raises(data_dir, tmp_path, what):
 
 @pytest.mark.parametrize("engine,expected", [
     ("pallas-fused", "cuda-fused"), ("pallas-staged", "cuda-staged"),
-    ("pallas-wide", "cuda-wide"), ("xla", "torch"), ("auto", "auto")])
+    ("pallas-wide", "cuda-wide"), ("pallas-loop", "cuda-loop"),
+    ("xla", "torch"), ("auto", "auto")])
 def test_engine_names_map(data_dir, engine, expected):
     cfg = load_json(os.path.join(data_dir, "fluA-elbo.json"))
     cfg["model"]["distributions"][0]["engine"] = engine

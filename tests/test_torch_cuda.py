@@ -1,6 +1,6 @@
 """The CUDA pruning kernels (K1'/K2' of ops/fused.py, K3'/K4' of
-ops/staged.py, K7'/K8' of ops/wide.py) against their plain PyTorch version,
-on the card.
+ops/staged.py, K5'/K6' of ops/loop.py, K7'/K8' of ops/wide.py) against their
+plain PyTorch version, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from physher_tpu_torch.ops import cuda_build, fused, staged, wide
+from physher_tpu_torch.ops import cuda_build, fused, loop, staged, wide
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology)
@@ -176,6 +176,68 @@ def test_staged_kernels_match_plain(device, dtype, shape, P, C):
     for a, b in zip(grads_k, grads_p):
         torch.testing.assert_close(a, b, rtol=grtol,
                                    atol=grtol * float(b.abs().max()))
+
+
+def _chains(topo, P, C, L, dtype, device, seed=0):
+    """Tips [T,4,P] and L chains' pmats [L,N,C,4,4], freqs [L,4], props
+    [L,C], and a cotangent [L,P]."""
+    rng = np.random.default_rng(seed)
+    tips = np.eye(4)[rng.integers(0, 4, (topo.T, P))].transpose(0, 2, 1)
+    tips[:, :, -3:] = 1.0
+    Q = rng.random((L, topo.N, C, 4, 4)) + 0.1
+    arrays = (tips, Q / Q.sum(-1, keepdims=True),
+              rng.dirichlet(np.ones(4), L), rng.dirichlet(np.ones(C), L),
+              rng.uniform(0.5, 2.0, (L, P)))
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,P,C,L,rescale", [
+    ("balanced", 300, 4, 3, True), ("balanced", 238, 1, 16, True),
+    ("caterpillar", 64, 1, 2, False), ("polytomy", 257, 3, 1, True),
+    ("polytomy", 100, 2, 4, False)])
+def test_loop_kernels_match_plain(device, dtype, shape, P, C, L, rescale):
+    """K5'/K6' against the plain version: L chains, balanced, caterpillar
+    and polytomy trees, C in {1, 2, 3, 4}, rescale on and off, ragged P;
+    d pmats, d freqs and d props."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy}[shape]()
+    tips, pm, freqs, props, g = _chains(topo, P, C, L, dtype, device)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+        site = fn(leaves)
+        return site.detach(), torch.autograd.grad(torch.sum(g * site),
+                                                  leaves)
+    f0, b0 = loop.LOOP_FORWARD_LAUNCHES, loop.LOOP_BACKWARD_LAUNCHES
+    site_k, grads_k = run(lambda x: loop.loop_site_log(topo, rescale, tips,
+                                                       *x))
+    assert (loop.LOOP_FORWARD_LAUNCHES,
+            loop.LOOP_BACKWARD_LAUNCHES) == (f0 + 1, b0 + 1)
+    site_p, grads_p = run(lambda x: loop.loop_site_log_reference(
+        tips, x[0], topo, x[1], x[2], rescale=rescale))
+    rtol, atol, grtol = _tolerances(dtype)
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def test_loop_wrapper_rejects_bad_input(device):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _chains(topo, 64, 4, 2, torch.float32,
+                                        device)
+    children = torch.as_tensor(topo.children, device=device)
+    n0 = loop.LOOP_FORWARD_LAUNCHES
+    with pytest.raises(ValueError, match="dtype"):
+        loop.loop_forward(tips, pm.double(), children, freqs, props)
+    with pytest.raises(ValueError, match="freqs"):
+        loop.loop_forward(tips, pm, children, freqs[:1], props)
+    with pytest.raises(ValueError, match=r"\[L, N, C, S, S\]"):
+        loop.loop_forward(tips, pm[0], children, freqs, props)
+    assert loop.LOOP_FORWARD_LAUNCHES == n0
 
 
 def test_staged_wrapper_rejects_bad_input(device):

@@ -22,7 +22,7 @@ from physher_tpu.ops.pruning import tree_log_likelihood as j_tree_log_likelihood
 from physher_tpu.trees.topology import Topology as JTopology
 from physher_tpu.utils.synthetic import balanced_topology as j_balanced
 from physher_tpu_torch.ops import fused
-from physher_tpu_torch.ops.pruning import pad_patterns, pruning_partials
+from physher_tpu_torch.ops.pruning import pad_patterns, pruning_root_levels
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, random_sitepattern)
@@ -275,9 +275,8 @@ def test_kernel_schedule_matches_plain(shape, C):
                                    partials, scale, w)
 
     pm_ = pm.clone().requires_grad_(True)
-    parts, scal = pruning_partials(tips, pm_, topo, rescale=True)
-    ref = torch.log(torch.einsum("cs,csp->p", rootw.view(-1, 4),
-                                 parts[topo.root])) + scal[topo.root]
+    root, scal = pruning_root_levels(tips, pm_, topo, rescale=True)
+    ref = torch.log(torch.einsum("cs,csp->p", rootw.view(-1, 4), root)) + scal
     ref_dP, ref_drootw = torch.autograd.grad(torch.sum(w * ref), [pm_, rootw])
     torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
