@@ -47,7 +47,6 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
@@ -62,23 +61,6 @@ from physher_tpu_torch.models.treelikelihood import TreeLikelihood
 from physher_tpu_torch.ops import cuda_build, fused, loop, staged
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology, random_sitepattern)
-
-
-def kernel_rows(prof, n_steps: int):
-    """(device ms per step, kernel launches per step, top rows) from the
-    profiler's kernel rows (device-side events only)."""
-    rows = [r for r in prof.key_averages()
-            if getattr(r, "device_type", None) == DeviceType.CUDA]
-
-    def dev_us(r):
-        return getattr(r, "self_device_time_total",
-                       getattr(r, "self_cuda_time_total", 0.0))
-    rows.sort(key=dev_us, reverse=True)
-    total_ms = sum(dev_us(r) for r in rows) / 1e3 / n_steps
-    launches = sum(r.count for r in rows) / n_steps
-    top = [{"name": r.key[:80], "ms_per_step": dev_us(r) / 1e3 / n_steps,
-            "calls_per_step": r.count / n_steps} for r in rows[:10]]
-    return total_ms, launches, top
 
 
 def profile_advi(name, config: Path, dev, n_steps: int):
@@ -103,7 +85,7 @@ def profile_advi(name, config: Path, dev, n_steps: int):
         for _ in range(n_steps):
             vb.step(fam, vparams, opt, schedule, gen)
         torch.cuda.synchronize()
-    device_ms, launches, top = kernel_rows(prof, n_steps)
+    device_ms, launches, top = cs.kernel_rows(prof, n_steps)
     vparams = {k: v.detach() for k, v in vparams.items()}
     eps = fam.draw(vparams, gen, handle.elbo_samples)
     with torch.no_grad():
@@ -271,7 +253,7 @@ def profile_mcmc(dev, n_steps: int):
                                  ProfilerActivity.CUDA]) as prof:
             run(n_steps)
             torch.cuda.synchronize()
-        device_ms, launches, top = kernel_rows(prof, n_steps)
+        device_ms, launches, top = cs.kernel_rows(prof, n_steps)
         print(json.dumps({
             "mcmc": "fluA-elbo tempered target", "chains": L,
             "engine": tlk.engine_name(L if L > 1 else None),

@@ -18,7 +18,13 @@ slices' main paths through them and times kernel against plain:
   models and on a fluA tree with polytomies, mmcmc (16 temperatures as one
   batch) and marginallikelihood through the CLI on the checkpoint B model,
   mcmc with 8 chains and its loggers on GTR+G4 fluA, and HMC on the
-  checkpoint B model.
+  checkpoint B model;
+- codon and protein MCMC over a batch of chains (K5'/K6' at S != 4, the
+  same ``csrc/loop.cu``): the kernels against plain on chains of GY94 M0 at
+  32 taxa x 4096 codons, WAG+G4 at 64 taxa x 8192 patterns and a WAG tree
+  with polytomies, mcmc with 8 chains through the CLI on a GY94 config over
+  data simulated on the card, HMC with 4 chains on WAG+G4 through the API,
+  and the config engine names pallas-fused and pallas-loop on the card.
 
     python3 chip_smoke.py
 
@@ -334,15 +340,15 @@ def chain_params(tlk, L, seed, scale=0.05):
             u0 + torch.as_tensor(noise, **kw)))
 
 
-def random_chains(topo, P, C, L, seed, dtype, device):
-    """Random one-hot tips [T,4,P] and L chains' row-stochastic pmats
-    [L,N,C,4,4], freqs [L,4], props [L,C], and a cotangent [L,P] (numpy
+def random_chains(topo, P, C, L, seed, dtype, device, S=4):
+    """Random one-hot tips [T,S,P] and L chains' row-stochastic pmats
+    [L,N,C,S,S], freqs [L,S], props [L,C], and a cotangent [L,P] (numpy
     seed)."""
     rng = np.random.default_rng(seed)
-    tips = np.eye(4)[rng.integers(0, 4, (topo.T, P))].transpose(0, 2, 1)
-    Q = rng.random((L, topo.N, C, 4, 4)) + 0.1
+    tips = np.eye(S)[rng.integers(0, S, (topo.T, P))].transpose(0, 2, 1)
+    Q = rng.random((L, topo.N, C, S, S)) + 0.1
     arrays = (tips, Q / Q.sum(-1, keepdims=True),
-              rng.dirichlet(np.full(4, 5.0), L),
+              rng.dirichlet(np.full(S, 5.0), L),
               rng.dirichlet(np.full(C, 5.0), L), rng.uniform(0.5, 2.0, (L, P)))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=device) for a in arrays]
@@ -478,11 +484,12 @@ LOOP_TOL = {torch.float64: dict(logl=1e-12, grad=1e-12),
 
 
 def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
-               timed=False):
+               timed=False, tol=None, phase="loop_kernel_vs_plain"):
     """K5'/K6' against the plain version on one batch of chains; logL is
-    ``sum(g * site_log)`` per chain. With ``timed``, the median times (CUDA
-    events) of each kernel (100 runs) and of the plain version (20), and
-    the bounds."""
+    ``sum(g * site_log)`` per chain, held to ``tol`` (LOOP_TOL; with a
+    "site" entry, the site logs too, as :func:`compare` holds them). With
+    ``timed``, the median times (CUDA events) of each kernel (100 runs) and
+    of the plain version (20), and the bounds."""
     children = topo_constant(topo, "children", lambda: topo.children, tips,
                              torch.int32)
 
@@ -502,7 +509,7 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
     grads_p = torch.autograd.grad(site_graph, leaves, g, retain_graph=True)
     site_p = site_graph.detach()
     torch.cuda.synchronize()
-    tol = LOOP_TOL[tips.dtype]
+    tol = tol or LOOP_TOL[tips.dtype]
     logl_k, logl_p = (g * site_k).sum(-1), (g * site_p).sum(-1)
     rec = {"shape": name, "dtype": str(tips.dtype).replace("torch.", ""),
            "chains": pmats.shape[0], "categories": pmats.shape[2],
@@ -518,6 +525,9 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
     rec["ok"] = bool(rec["logl_rel_err"] <= tol["logl"]
                      and rec["grad_rel_err"] <= tol["grad"]
                      and all(bool(torch.isfinite(a).all()) for a in grads_k))
+    if "site" in tol:
+        rec["ok"] = rec["ok"] and bool(torch.all(
+            (site_k - site_p).abs() <= tol["site"] * (site_p.abs() + 0.2)))
     if timed:
         rec["forward_ms"] = median_ms(fwd, reps=100)
         rec["backward_ms"] = median_ms(bwd, reps=100)
@@ -528,12 +538,13 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
                 reps=20)
         rec["backward_plain_ms"] = median_ms(lambda: torch.autograd.grad(
             site_graph, leaves, g, retain_graph=True), reps=20)
-        dims = (tips.shape[0], topo.I, pmats.shape[2], 4, children.shape[1],
-                tips.shape[2], pmats.shape[0], tips.element_size())
+        dims = (tips.shape[0], topo.I, pmats.shape[2], tips.shape[1],
+                children.shape[1], tips.shape[2], pmats.shape[0],
+                tips.element_size())
         for kind, is_bwd in (("forward", False), ("backward", True)):
             ms, by = bound(*loop_work(is_bwd, *dims))
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
-    emit("loop_kernel_vs_plain", **rec)
+    emit(phase, **rec)
     check(rec["ok"], f"K5'/K6' against plain on {name} {rec['dtype']} "
                      f"rescale={rescale}")
     return rec
@@ -1095,6 +1106,249 @@ def hmc_checkpoint_b(dev, n_chains=4, n_iter=60, every=5, burnin=60):
     return launches
 
 
+def gy94_mcmc_config(workdir: Path, dev, length, n_chains, seed=11,
+                     n_codons=4096):
+    """GY94 M0 data simulated on the card as :func:`gy94_m0_fit_model`
+    simulates it (kappa 2, omega 0.2, branch lengths 0.3, a balanced
+    32-taxon tree, 4096 codons), written as FASTA beside a config: GY94
+    (free frequencies) over it on the tree with the simulation's branch
+    lengths, and mcmc with ``n_chains`` chains, the omega and kappa moves
+    weighted up (the builder starts them at 1, as the JAX builder does), a
+    tabular logger every 100 steps. Returns the config's path."""
+    from physher_tpu_torch.io.seqio import write_fasta
+    from physher_tpu_torch.io.treeio import write_newick
+
+    kw = dict(dtype=torch.float64, device=dev)
+    topo = balanced_topology(32)
+    subst = GY94(fixed_freqs=True, **kw)
+    params = subst.param_space().init_params(**kw)
+    params.update({k: torch.tensor(v, **kw) for k, v in M0_TRUTH.items()})
+    bl = np.full(topo.N, 0.3)
+    bl[topo.root] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seqs = simulate_alignment(gen, topo, subst, ConstantSiteModel(**kw),
+                              params, bl, n_codons, datatype="codon")
+    write_fasta(seqs, str(workdir / "m0.fa"))
+    bl[topo.root] = np.nan
+    ops = [{"id": f"op{k}", "type": "operator", "algorithm": "scaler",
+            "x": f"%sm.{k}", "weight": 30.0} for k in ("omega", "kappa")]
+    cfg = {
+        "model": {
+            "id": "treelikelihood", "type": "treelikelihood",
+            "sitepattern": {"id": "patterns", "type": "sitepattern",
+                            "datatype": "codon",
+                            "alignment": {"id": "seqs", "type": "alignment",
+                                          "file": "m0.fa"}},
+            "sitemodel": {"id": "sitemodel", "type": "sitemodel",
+                          "substitutionmodel": {
+                              "id": "sm", "type": "substitutionmodel",
+                              "model": "gy94", "datatype": "codon"}},
+            "tree": {"id": "tree", "type": "tree",
+                     "newick": write_newick(topo, bl)}},
+        "physher": [
+            {"id": "mc", "type": "mcmc", "model": "&treelikelihood",
+             "length": length, "chains": n_chains, "operators": ops,
+             "log": [{"id": "lg", "type": "logger", "every": 100,
+                      "file": "mc.log", "models": ["&treelikelihood"],
+                      "x": ["%sm.kappa", "%sm.omega"]}]}]}
+    path = workdir / "m0-mcmc.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def kernel_rows(prof, n_steps: int):
+    """(device ms per step, kernel launches per step, top rows) from a
+    profiler's kernel rows (device-side events only)."""
+    from torch.autograd import DeviceType
+
+    rows = [r for r in prof.key_averages()
+            if getattr(r, "device_type", None) == DeviceType.CUDA]
+
+    def dev_us(r):
+        return getattr(r, "self_device_time_total",
+                       getattr(r, "self_cuda_time_total", 0.0))
+    rows.sort(key=dev_us, reverse=True)
+    top = [{"name": r.key[:80], "ms_per_step": dev_us(r) / 1e3 / n_steps,
+            "calls_per_step": r.count / n_steps} for r in rows[:10]]
+    return (sum(dev_us(r) for r in rows) / 1e3 / n_steps,
+            sum(r.count for r in rows) / n_steps, top)
+
+
+def cli_mcmc_codon(dev, length=2000, n_chains=8, n_profiled=20,
+                   n_codons=4096):
+    """mcmc with 8 chains through the CLI on a GY94 config over data
+    simulated on the card (float32; K5' at S = 61, L = 8): the logged
+    log-likelihoods of chain 0 recomputed one chain at a time through K7',
+    omega's posterior mean (the second half of every chain) against the
+    simulation's 0.2; then the MH step of the built model alone (host
+    clock, a profiler window for its device time and launches) and the
+    eigendecomposition of [8, 61, 61] that each step's P(t) needs (CUDA
+    events)."""
+    from physher_tpu_torch.inference.mcmc import MCMC
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = gy94_mcmc_config(Path(tmp), dev, length, n_chains,
+                                n_codons=n_codons)
+        zero_launches()
+        wide.WIDE_FORWARD_LAUNCHES = wide.WIDE_BACKWARD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = {**loop_launches(),
+                    "wide_forward": wide.WIDE_FORWARD_LAUNCHES}
+        rows = (Path(tmp) / "mc.log").read_text().splitlines()
+    res = runner.results["mc"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    logged = np.asarray([float(r.split("\t")[1]) for r in rows[1:]])
+    wide.WIDE_FORWARD_LAUNCHES = 0
+    with torch.no_grad():
+        again = np.asarray([float(tlk.log_likelihood(res.params_at(i)))
+                            for i in range(len(logged))])
+    one_chain_launches = wide.WIDE_FORWARD_LAUNCHES
+    rel = np.abs(again - logged) / np.abs(again)
+    omega = res.to_dict_of_arrays()["sm.omega"]           # [samples, L]
+    half = omega[len(omega) // 2:]
+    omega_mean = float(half.mean())
+    # the MH step alone on the built model, from the last state
+    space = tlk.param_space()
+    start = res.params_at(-1)
+    sampler = MCMC(space, tlk.log_likelihood)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def run(n):
+        return sampler.run(gen, start, n_iter=n, every=n, n_chains=n_chains)
+    run(10)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    run(100)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 100
+    k5_per_step = loop.LOOP_FORWARD_LAUNCHES / 100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(n_profiled)
+        torch.cuda.synchronize()
+    device_ms, kernels_per_step, top = kernel_rows(prof, n_profiled)
+    sym = torch.randn((n_chains, 61, 61), generator=gen, device=dev)
+    sym = sym + sym.transpose(-1, -2)
+    eigh_ms = median_ms(lambda: torch.linalg.eigh(sym), reps=20)
+    ok = bool(launches["forward"] >= length
+              and tlk.engine_name(n_chains) == "cuda-loop"
+              and tlk.engine_name() == "cuda-wide"
+              and one_chain_launches >= len(logged)
+              and rows[0] == "state\ttreelikelihood\tsm.kappa\tsm.omega"
+              and len(logged) == length // 100
+              and np.isfinite(logged).all()
+              and float(rel.max()) <= MCMC_LOG_RTOL
+              and abs(omega_mean - M0_TRUTH["omega"]) <= M0_ATOL["omega"])
+    emit("cli_mcmc_codon", ok=ok, lines=lines, chains=n_chains,
+         iterations=length, patterns=tlk.sp.pattern_count,
+         log_header=rows[0], logged_loglik=list(logged),
+         recomputed_one_chain=list(again), max_rel_err=float(rel.max()),
+         rtol=MCMC_LOG_RTOL, omega_posterior_mean=omega_mean,
+         omega_truth=M0_TRUTH["omega"], omega_atol=M0_ATOL["omega"],
+         kappa_posterior_mean=float(res.to_dict_of_arrays()["sm.kappa"][
+             len(omega) // 2:].mean()),
+         acceptance=list(res.acceptance), wall_seconds=wall,
+         mh_step_ms=step_ms, k5_launches_per_step=k5_per_step,
+         device_ms_per_step=device_ms, busy_share=device_ms / step_ms,
+         kernel_launches_per_step=kernels_per_step, top_kernels=top,
+         eigh_8x61x61_f32_ms=eigh_ms, launches=launches,
+         engine_batch=tlk.engine_name(n_chains),
+         engine_one=tlk.engine_name())
+    check(ok, "mcmc with 8 chains on GY94 through K5' at S = 61")
+    return launches
+
+
+def hmc_wag(dev, n_chains=4, n_iter=20, every=5, burnin=20):
+    """HMC through the Python API on WAG+G4 at 64 taxa x 8192 patterns
+    (float32): 4 chains, 10 leapfrog steps, value and gradient through
+    K5'/K6' at S = 20, from 200 Adam steps."""
+    from physher_tpu_torch.inference.mcmc import HMC
+
+    kw = dict(dtype=torch.float32, device=dev)
+    tlk = wag_g4_large(torch.float32, dev)
+    space = tlk.param_space()
+    fit = optimize_adam(tlk.log_likelihood, space, space.init_params(**kw),
+                        learning_rate=0.05, max_iter=200, patience=1000)
+    start = {k: v.detach() for k, v in fit.params.items()}
+    zero_launches()
+    t0 = time.perf_counter()
+    res = HMC(space, tlk.log_likelihood, n_leapfrog=10).run(
+        torch.Generator(device=dev).manual_seed(5), start, n_iter=n_iter,
+        every=every, n_chains=n_chains, step_size=0.005, burnin=burnin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = loop_launches()
+    acc = float(np.mean(res.acceptance[burnin // every:]))
+    n_evals = (n_iter + burnin) * 10 + 1
+    ok = bool(acc > 0 and np.isfinite(res.samples_u).all()
+              and np.isfinite(res.log_posterior).all()
+              and launches["backward"] >= n_evals
+              and launches["forward"] >= n_evals
+              and tlk.engine_name(n_chains) == "cuda-loop")
+    emit("hmc_wag", ok=ok, chains=n_chains, leapfrog=10, iterations=n_iter,
+         burnin=burnin, adam_steps=fit.iterations, adam_logp=fit.logp,
+         acceptance_after_adaptation=acc,
+         acceptance_per_chunk=list(res.acceptance),
+         step_size=float(res.step_sizes[0]),
+         log_posterior_last=list(res.log_posterior[-1]), wall_seconds=wall,
+         ms_per_leapfrog=wall * 1e3 / n_evals, launches=launches)
+    check(ok, "HMC on WAG+G4 through K5'/K6' at S = 20")
+    return launches
+
+
+def engine_names(dev):
+    """The JAX package's engine names in a config on the card (float64):
+    tiny_aa under WAG (tests/data/goldens/wag.json's model) with
+    ``pallas-fused`` runs K7'/K8' and with ``pallas-loop`` K5' for a batch of
+    2 chains and for one dict, each at the ``auto`` build's logP."""
+    from physher_tpu_torch.config.builder import build_config, load_json
+
+    kw = dict(dtype=torch.float64, device=dev)
+    cfg = load_json(str(DATA / "goldens" / "wag.json"))
+    cfg["model"]["sitepattern"]["alignment"]["file"] = "tiny_aa.fa"
+    models = {}
+    for engine in ("auto", "pallas-fused", "pallas-loop"):
+        cfg["model"]["engine"] = engine
+        ctx, _ = build_config(cfg, base_dir=str(DATA), **kw)
+        models[engine] = ctx.objects["treelikelihood"]
+    auto = models["auto"]
+    batch = chain_params(auto, 2, 4)
+    with torch.no_grad():
+        ref_one = float(auto.log_likelihood(auto.param_space().init_params(
+            **kw)))
+        ref_batch = [float(auto.log_likelihood({k: v[i] for k, v in
+                                                batch.items()}))
+                     for i in range(2)]
+        zero_launches()
+        wide.WIDE_FORWARD_LAUNCHES = 0
+        fused_one = float(models["pallas-fused"].log_likelihood(
+            auto.param_space().init_params(**kw)))
+        wide_launches = wide.WIDE_FORWARD_LAUNCHES
+        loop_one = float(models["pallas-loop"].log_likelihood(
+            auto.param_space().init_params(**kw)))
+        loop_batch = models["pallas-loop"].log_likelihood(batch).tolist()
+        loop_launches_ = loop.LOOP_FORWARD_LAUNCHES
+    errs = {"pallas-fused": abs(fused_one / ref_one - 1),
+            "pallas-loop": abs(loop_one / ref_one - 1),
+            "pallas-loop-L2": max(abs(a / b - 1) for a, b in
+                                  zip(loop_batch, ref_batch))}
+    names = {e: (m.engine_name(), m.engine_name(2))
+             for e, m in models.items()}
+    ok = bool(names["pallas-fused"] == ("cuda-wide", "cuda-loop")
+              and names["pallas-loop"] == ("cuda-loop", "cuda-loop")
+              and names["auto"] == ("cuda-wide", "cuda-loop")
+              and wide_launches == 1 and loop_launches_ == 2
+              and max(errs.values()) <= 1e-12)
+    emit("engine_names", ok=ok, engines=names, logp_auto=ref_one,
+         rel_err=errs, rtol=1e-12, wide_launches=wide_launches,
+         loop_launches=loop_launches_)
+    check(ok, "the pallas-* engine names on the card")
+
+
 def kernel_row(name, src, replaces, launches, alone, kind):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -1385,6 +1639,49 @@ def main() -> int:
     # ---- 20. HMC through the Python API on the checkpoint B model (K5'/K6')
     hmc_launches = hmc_checkpoint_b(dev)
 
+    # ---- 21. K5'/K6' at S != 4 against plain at the sixth slice's shapes:
+    # chains of GY94 M0 (32 x 4096, L = 8, the codon mcmc's batch) and of
+    # WAG+G4 (64 x 8192, L = 4, the HMC chains), and a WAG tree with
+    # polytomies at L = 1 and 4; float32, and float64 with rescale on and
+    # off, at the kernel tolerances of TOL
+    wide_loop_times = {"card": smi}
+    wag_poly = collapsed_topology(balanced_topology(64))
+    for dtype in (torch.float32, torch.float64):
+        gy, wg = gy94_m0_fit_model(dtype, dev), wag_g4_large(dtype, dev)
+        cases = [("gy94-32x4096-L8", gy.topo,
+                  engine_inputs(gy, chain_params(gy, 8, 5))),
+                 ("wag-g4-64x8192-L4", wg.topo,
+                  engine_inputs(wg, chain_params(wg, 4, 6)))]
+        for rescale in (True,) if dtype == torch.float32 else (True, False):
+            timed = dtype == torch.float32
+            for name, topo, (tips, pm, fr, pr, w) in cases:
+                g = w.expand(pm.shape[0], -1).contiguous()
+                rec = loop_alone(name, topo, tips, pm, fr, pr, g, rescale,
+                                 timed=timed, tol=TOL[dtype],
+                                 phase="loop_wide_kernel_vs_plain")
+                if timed:
+                    wide_loop_times[name] = rec
+            for L in (1, 4):
+                loop_alone(f"wag-polytomy-L{L}", wag_poly,
+                           *random_chains(wag_poly, 2048, 4, L, 21 + L,
+                                          dtype, dev, S=20),
+                           rescale=rescale, tol=TOL[dtype],
+                           phase="loop_wide_kernel_vs_plain")
+        del gy, wg, cases
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    emit("loop_wide_times", **wide_loop_times)
+
+    # ---- 22. the sixth slice's main path: mcmc with 8 chains through the
+    # CLI on a GY94 config over data simulated on the card (K5' at S = 61)
+    codon_launches = cli_mcmc_codon(dev)
+
+    # ---- 23. HMC with 4 chains on WAG+G4 through the API (K5'/K6', S = 20)
+    hmc_wag_launches = hmc_wag(dev)
+
+    # ---- 24. the config engine names pallas-fused and pallas-loop, card
+    engine_names(dev)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
@@ -1417,6 +1714,14 @@ def main() -> int:
                    "physher_tpu/ops/pallas_pruning_loop.py:314",
                    hmc_launches["backward"], loop_times["fluA-jc69-L4"],
                    "backward"),
+        kernel_row("loop_forward_wide", loop_src,
+                   "physher_tpu/ops/pallas_pruning_loop.py:119",
+                   codon_launches["forward"],
+                   wide_loop_times["gy94-32x4096-L8"], "forward"),
+        kernel_row("loop_backward_wide", loop_src,
+                   "physher_tpu/ops/pallas_pruning_loop.py:314",
+                   hmc_wag_launches["backward"],
+                   wide_loop_times["wag-g4-64x8192-L4"], "backward"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,14 @@ JSON parameter ids map to ParamSpec names recorded in
 ``Context.param_names`` so that actions can address them. Every model is
 built in the :class:`Context`'s ``dtype`` on its ``device``.
 
-The config's ``"engine"`` names map to the port's: ``pallas-fused`` ->
-``cuda-fused``, ``pallas-staged`` -> ``cuda-staged``, ``pallas-wide`` ->
-``cuda-wide``, ``pallas-loop`` -> ``cuda-loop``, ``xla`` -> ``torch``. A model type the JAX builder supports
-and the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item; nothing falls back silently.
+The config's ``"engine"`` names map to the port's by :func:`route_engine`:
+on the card ``pallas-fused`` -> ``cuda-fused``, ``pallas-staged`` ->
+``cuda-staged``, ``pallas-wide`` -> ``cuda-wide``, ``pallas-loop`` ->
+``cuda-loop`` (K7'/K8' for the first two at S != 4, K5'/K6' for a batch of
+chains), on the CPU the plain engine; ``xla`` -> ``torch``. A model type the
+JAX builder supports and the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item; nothing falls back
+silently.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from ..trees.build import nj, upgma
 from ..trees.timetree import TimeTreeData
 from .treehandle import TreeHandle
 
-# the JAX package's engine names -> the port's
+# the JAX package's engine names -> the port's, on the card at S = 4 for one
+# parameter dict (route_engine maps them by device, S and chains)
 ENGINE_NAMES = {"auto": "auto", "pallas-fused": "cuda-fused",
                 "pallas-staged": "cuda-staged", "pallas-wide": "cuda-wide",
                 "pallas-loop": "cuda-loop", "xla": "torch"}
@@ -496,20 +500,43 @@ def build_branchmodel(node, ctx: Context, N: int):
 # -- tree likelihood --------------------------------------------------------
 
 
-def engine_name(name: str) -> str:
-    """The port's engine for a config's ``"engine"`` value."""
+def route_engine(name: str, device_type: str, n_states: int,
+                 batch: int | None = None) -> str:
+    """The port's engine for a config's ``"engine"`` value on a device type
+    and state count, for one parameter dict (``batch`` None) or a batch of
+    that many chains.
+
+    The JAX package runs its ``pallas-*`` names on any device (in interpret
+    mode off the TPU) and at any S, and a batch of two or more chains
+    through its batched engine (``physher_tpu/inference/mcmc.py:344-357``).
+    So here a ``pallas-*`` name takes the plain engine on the CPU, which
+    computes what interpret mode computes, and on the card K5'/K6' for a
+    batch of chains. ``pallas-fused`` and ``pallas-staged`` at S != 4 take
+    K7'/K8', which compute the same function for S from 2 to 64, until
+    ROADMAP Queue 2 items 2 (K1/K2 category-split) and 3 (K3/K4 at S != 4)
+    are ported. A ``cuda-*`` engine given to ``TreeLikelihood`` directly is
+    not mapped: it raises where it cannot run."""
     name = str(name).lower()
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; one of "
                          f"{sorted(ENGINE_NAMES)}")
-    return ENGINE_NAMES[name]
+    engine = ENGINE_NAMES[name]
+    if engine in ("auto", "torch"):
+        return engine
+    if device_type != "cuda":
+        return "torch"
+    if batch is not None and batch >= 2:
+        return "cuda-loop"
+    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
+        return "cuda-wide"
+    return engine
 
 
 def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
     node = ctx.resolve(node)
     if isinstance(node, TreeLikelihood):
         return node
-    engine = engine_name(node.get("engine", "auto"))
+    engine = node.get("engine", "auto")
     sp = build_sitepattern(node["sitepattern"], ctx)
     site_model, subst = build_sitemodel(node.get("sitemodel"), ctx)
     if subst is None:
@@ -523,6 +550,7 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
         clock = StrictClock(topo.N, "bm.", rate_init=1e-3, **ctx.kw)
     dist0 = np.nan_to_num(np.asarray(handle.distances)[: topo.N - 1], nan=0.1)
     tid = node.get("id", "treelikelihood")
+    route = (engine, ctx.device.type, sp.datatype.state_count)
     tlk = TreeLikelihood(
         sp, topo, subst, site_model, clock=clock, time_data=td,
         distances_init=dist0,
@@ -533,7 +561,8 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
         prefix=handle.prefix,
         # the CUDA kernels take any pattern count: no padding by default
         pattern_pad_multiple=int(node.get("pattern_pad_multiple", 1)),
-        engine=engine,
+        engine=route_engine(*route),
+        batch_engine=route_engine(*route, batch=2),
         height_transform=handle.transform, **ctx.kw)
     ctx.param_names.setdefault(handle.key("distances"),
                                handle.key("distances"))

@@ -52,9 +52,50 @@
 // (warp shuffles, then shared memory across the block's warps) into per-
 // (chain, block) partial sums that the caller sums over the block axis: no
 // atomics, so results are deterministic.
+//
+// Any other state count, S from 2 to 64 (protein S = 20, codon S = 61):
+// loop_wide_forward_kernel (K5') and loop_wide_backward_kernel (K6'), the
+// same function with the layouts above at S in place of 4. The S = 4 kernels
+// keep each pattern's C x 4 partials in one thread's registers; at S = 61 a
+// node's C x S partials do not fit one thread, and each child costs an
+// [S, S] @ [S, patterns] product: 2 S^2 FLOPs per pattern against S
+// partials read, 2 S FLOP per element, about 30 FLOP per byte at S = 61 in
+// float32 (the H100's float32 ridge is ~20). At the slice's shapes the
+// FLOPs bound them: GY94 on 32 taxa x 4096 codons, C = 1, L = 8 chains is
+// about 15 GFLOP a forward sweep (0.23 ms at 67 TFLOP/s), WAG+G4 on 64 taxa
+// x 8192 patterns, L = 4 about 13 GFLOP. The design is the simple one of
+// csrc/wide.cu, with the walk over the postorder inside the block as in the
+// S = 4 kernels:
+// - Grid (32-pattern tiles, L chains), 256 threads (8 warps). One block
+//   walks the whole postorder for its 32 patterns of one chain, one launch
+//   per sweep, with __syncthreads() between the steps of the walk (the
+//   partials a block reads back were written by other warps of the same
+//   block, so the barrier makes them visible; plain loads, not __ldg).
+// - For each node, category and child the block stages P[l, ch, c] ([S, S])
+//   and the child's [S, 32] tile in shared memory (row stride 33, so that
+//   the 32 lanes of a warp hit 32 banks); warp w owns states w, w + 8, ...
+//   (at most 8, so S <= 64) for its lane's pattern and reads P as a
+//   broadcast. A node's C categories meet in shared memory ([C, S, 33])
+//   before the division by the per-pattern max over (C, S), which the 8
+//   warps reduce through a small shared array. Shared memory: at S = 61,
+//   C = 1 in float32 about 31 KB; at S = 64, C = 8 in float64 186 KB (the
+//   dynamic limit is raised above 48 KB where needed).
+// - K6' gives each block 4 tiles (128 patterns, as csrc/wide.cu's
+//   backward) and walks the postorder in reverse: for child i of node k,
+//   other = gbuf[k, c] / m_k * prod_{j != i} (P_j x_j), recomputing the
+//   siblings' products as the S = 4 kernel does; dP[ch, c] += other x^T
+//   over the block's patterns, a 16 x 16 grid of threads holding 4 x 4
+//   entries each in registers; the child's cotangent P^T other. The root
+//   seed gives per-block sums of d rootw = d (props (x) freqs), which the
+//   caller turns into d freqs and d props. The per-(chain, block) dP
+//   scratch is L x ceil(P / 128) x N x C x S x S: 240 MB in float32 at
+//   GY94 32 x 4096, L = 8 (128-pattern blocks where 32-pattern ones would
+//   need four times as much).
 
 #include <cuda_runtime.h>
 #include <cfloat>
+
+#include "tiles.cuh"
 
 namespace {
 
@@ -389,6 +430,321 @@ cudaError_t launch_backward(const void* tips, const void* pmats,
   return cudaGetLastError();
 }
 
+// ---- any state count, S from 2 to 64 (the tiles of csrc/tiles.cuh) -------
+
+// K5' for S from 2 to 64: grid (pattern tiles, L). One block walks the
+// whole postorder for its tile of one chain.
+// smem: Ps [S*S], Xs [S*TPS], Rs [C*S*TPS], red [NW*TP].
+template <typename scalar_t>
+__global__ void __launch_bounds__(THREADS)
+    loop_wide_forward_kernel(const scalar_t* __restrict__ tips,
+                             const scalar_t* __restrict__ pmats,
+                             const int* __restrict__ children,
+                             const scalar_t* __restrict__ freqs,
+                             const scalar_t* __restrict__ props,
+                             scalar_t* partials, scalar_t* __restrict__ scale,
+                             scalar_t* __restrict__ site_log, int T, int I,
+                             int C, int S, int maxc, int P, int rescale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
+  scalar_t* Xs = Ps + S * S;
+  scalar_t* Rs = Xs + S * TPS;
+  scalar_t* red = Rs + C * S * TPS;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p0 = blockIdx.x * TP, p = p0 + lane;
+  const bool valid = p < P;
+  const int l = blockIdx.y;
+  const int N = T + I;
+  const scalar_t* pm = pmats + (size_t)l * N * C * S * S;
+  scalar_t* part = partials + (size_t)l * I * C * S * P;
+  const scalar_t tiny = Limits<scalar_t>::tiny();
+  scalar_t m = 1, log_sum = 0;
+  for (int k = 0; k < I; ++k) {
+    scalar_t mx = tiny;
+    for (int c = 0; c < C; ++c) {
+      scalar_t acc[A_MAX];
+#pragma unroll
+      for (int i = 0; i < A_MAX; ++i) acc[i] = 1;
+      for (int j = 0; j < maxc; ++j) {
+        const int ch = __ldg(children + k * maxc + j);
+        if (ch < 0) continue;  // a missing child contributes 1
+        __syncthreads();       // the previous child's tiles are consumed
+        stage_child(tips, pm, part, ch, c, T, C, S, P, p0, scalar_t(1), Ps,
+                    Xs);
+        __syncthreads();
+        mul_product(Ps, Xs, S, w, lane, acc);
+      }
+#pragma unroll
+      for (int i = 0; i < A_MAX; ++i) {
+        const int a = w + NW * i;
+        if (a < S) {
+          Rs[(c * S + a) * TPS + lane] = acc[i];
+          mx = acc[i] > mx ? acc[i] : mx;
+        }
+      }
+    }
+    m = 1;
+    if (rescale) {
+      // the per-pattern max over all (C, S): the 8 warps meet in `red`
+      red[w * TP + lane] = mx;
+      __syncthreads();
+      m = red[lane];
+      for (int v = 1; v < NW; ++v)
+        m = red[v * TP + lane] > m ? red[v * TP + lane] : m;
+      log_sum += log_(m);
+    }
+    // each thread divides the entries it wrote to Rs itself
+    if (valid) {
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int i = 0; i < A_MAX; ++i) {
+          const int a = w + NW * i;
+          if (a < S)
+            part[(((size_t)k * C + c) * S + a) * P + p] =
+                Rs[(c * S + a) * TPS + lane] / m;
+        }
+      if (w == 0) scale[((size_t)l * I + k) * P + p] = m;
+    }
+    __syncthreads();  // node k's partials are visible; `red` is free
+  }
+  // the root (rank I - 1): site = sum_c props_c sum_s freqs_s root[c, s]
+  const scalar_t* fr = freqs + (size_t)l * S;
+  const scalar_t* pr = props + (size_t)l * C;
+  scalar_t part_sum = 0;
+  for (int c = 0; c < C; ++c) {
+    scalar_t per_cat = 0;
+#pragma unroll
+    for (int i = 0; i < A_MAX; ++i) {
+      const int a = w + NW * i;
+      if (a < S) per_cat += __ldg(fr + a) * Rs[(c * S + a) * TPS + lane];
+    }
+    part_sum += __ldg(pr + c) * per_cat;
+  }
+  red[w * TP + lane] = part_sum / m;
+  __syncthreads();
+  if (w == 0 && valid) {
+    scalar_t site = 0;
+    for (int v = 0; v < NW; ++v) site += red[v * TP + lane];
+    site = site > tiny ? site : tiny;
+    site_log[(size_t)l * P + p] = log_(site) + log_sum;
+  }
+}
+
+// K6' for S from 2 to 64: grid (pattern blocks of BWD_P, L).
+// smem: Ps [S*S], Xs [S*TPS], Os [S*TPS], inv_s [BWD_P].
+// gbuf [L, I, C, S, P]; dP_part [L, nb, N, C, S, S] (the caller zeroes the
+// root's rows); drootw_part [L, nb, C * S].
+template <typename scalar_t>
+__global__ void __launch_bounds__(THREADS) loop_wide_backward_kernel(
+    const scalar_t* __restrict__ tips, const scalar_t* __restrict__ pmats,
+    const int* __restrict__ children, const scalar_t* __restrict__ freqs,
+    const scalar_t* __restrict__ props, const scalar_t* __restrict__ partials,
+    const scalar_t* __restrict__ scale, const scalar_t* __restrict__ g,
+    scalar_t* gbuf, scalar_t* __restrict__ dP_part,
+    scalar_t* __restrict__ drootw_part, int T, int I, int C, int S, int maxc,
+    int P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
+  scalar_t* Xs = Ps + S * S;
+  scalar_t* Os = Xs + S * TPS;
+  scalar_t* inv_s = Os + S * TPS;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int tx = threadIdx.x % DT, ty = threadIdx.x / DT;
+  const int l = blockIdx.y;
+  const int nb = gridDim.x;
+  const int N = T + I;
+  const int CS = C * S;
+  const scalar_t* pm = pmats + (size_t)l * N * C * S * S;
+  const scalar_t* part = partials + (size_t)l * I * CS * P;
+  const scalar_t* sc = scale + (size_t)l * I * P;
+  scalar_t* gb = gbuf + (size_t)l * I * CS * P;
+  const size_t blk = (size_t)l * nb + blockIdx.x;
+  scalar_t* dP = dP_part + blk * N * CS * S;
+  const scalar_t* fr = freqs + (size_t)l * S;
+  const scalar_t* pr = props + (size_t)l * C;
+  const int pb = blockIdx.x * BWD_P;
+
+  // ---- root seed: gbuf[root] = rootw * g / site; d rootw summed over the
+  // block's patterns, site in scaled coordinates as the forward had it
+  const size_t root = (size_t)(I - 1) * CS * P;
+  const scalar_t tiny = Limits<scalar_t>::tiny();
+  for (int r = threadIdx.x; r < BWD_P; r += blockDim.x) {
+    const int p = pb + r;
+    scalar_t inv = 0;
+    if (p < P) {
+      scalar_t site = 0;
+      for (int c = 0; c < C; ++c) {
+        scalar_t per_cat = 0;
+        for (int s = 0; s < S; ++s)
+          per_cat += __ldg(fr + s) * part[root + ((size_t)c * S + s) * P + p];
+        site += __ldg(pr + c) * per_cat;
+      }
+      site = site > tiny ? site : tiny;
+      inv = g[(size_t)l * P + p] / site;
+    }
+    inv_s[r] = inv;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < CS * BWD_P; t += blockDim.x) {
+    const int cs = t / BWD_P, r = t - cs * BWD_P, p = pb + r;
+    if (p < P)
+      gb[root + (size_t)cs * P + p] =
+          __ldg(pr + cs / S) * __ldg(fr + cs % S) * inv_s[r];
+  }
+  for (int cs = threadIdx.x; cs < CS; cs += blockDim.x) {
+    scalar_t s = 0;
+    for (int r = 0; r < BWD_P && pb + r < P; ++r)
+      s += part[root + (size_t)cs * P + pb + r] * inv_s[r];
+    drootw_part[blk * CS + cs] = s;
+  }
+  __syncthreads();  // the root's cotangents are visible to every thread
+
+  // ---- reverse postorder. For node k, category c, child i and each tile:
+  //   other = gbuf[k, c] / m_k * prod_{j != i} P_j @ x_j
+  //   dP[child i, c] += other @ x_i^T    (summed over the block's patterns)
+  //   gbuf[child i, c] = P_i^T @ other   (internal children only)
+  for (int k = I - 1; k >= 0; --k) {
+    for (int c = 0; c < C; ++c) {
+      for (int i = 0; i < maxc; ++i) {
+        const int ch = __ldg(children + k * maxc + i);
+        if (ch < 0) continue;
+        scalar_t acc[DA][DA];
+#pragma unroll
+        for (int u = 0; u < DA; ++u)
+#pragma unroll
+          for (int v = 0; v < DA; ++v) acc[u][v] = 0;
+        for (int chunk = 0; chunk < BWD_CHUNKS; ++chunk) {
+          const int p0 = pb + chunk * TP;
+          if (p0 >= P) break;  // block-uniform
+          const int p = p0 + lane;
+          const bool valid = p < P;
+          // cotangent of the raw (pre-rescale) product; the max is a
+          // constant
+          const scalar_t m = valid ? sc[(size_t)k * P + p] : scalar_t(1);
+          scalar_t o[A_MAX];
+#pragma unroll
+          for (int u = 0; u < A_MAX; ++u) {
+            const int a = w + NW * u;
+            o[u] = (valid && a < S)
+                       ? gb[(((size_t)k * C + c) * S + a) * P + p] / m
+                       : scalar_t(0);
+          }
+          for (int j = 0; j < maxc; ++j) {
+            const int cj = __ldg(children + k * maxc + j);
+            if (j == i || cj < 0) continue;
+            __syncthreads();
+            stage_child(tips, pm, part, cj, c, T, C, S, P, p0, scalar_t(0),
+                        Ps, Xs);
+            __syncthreads();
+            mul_product(Ps, Xs, S, w, lane, o);
+          }
+          __syncthreads();  // every read of Ps, Xs and Os above is done
+#pragma unroll
+          for (int u = 0; u < A_MAX; ++u) {
+            const int a = w + NW * u;
+            if (a < S) Os[a * TPS + lane] = o[u];
+          }
+          stage_child(tips, pm, part, ch, c, T, C, S, P, p0, scalar_t(0), Ps,
+                      Xs);
+          __syncthreads();
+          // dP[ch, c, a, b] += sum_q other[a, q] x[b, q]
+          for (int q = 0; q < TP; ++q) {
+            scalar_t oa[DA], xb[DA];
+#pragma unroll
+            for (int u = 0; u < DA; ++u) {
+              const int a = ty + DT * u, b = tx + DT * u;
+              oa[u] = a < S ? Os[a * TPS + q] : scalar_t(0);
+              xb[u] = b < S ? Xs[b * TPS + q] : scalar_t(0);
+            }
+#pragma unroll
+            for (int u = 0; u < DA; ++u)
+#pragma unroll
+              for (int v = 0; v < DA; ++v) acc[u][v] += oa[u] * xb[v];
+          }
+          if (ch >= T) {
+            // the child's cotangent: sum_a P[ch, c, a, b] * other[a]
+            scalar_t gch[A_MAX];
+            transpose_product(Ps, Os, S, w, lane, gch);
+            if (valid) {
+#pragma unroll
+              for (int u = 0; u < A_MAX; ++u) {
+                const int b = w + NW * u;
+                if (b < S)
+                  gb[((((size_t)(ch - T)) * C + c) * S + b) * P + p] = gch[u];
+              }
+            }
+          }
+        }
+        scalar_t* out = dP + ((size_t)ch * C + c) * S * S;
+#pragma unroll
+        for (int u = 0; u < DA; ++u)
+#pragma unroll
+          for (int v = 0; v < DA; ++v) {
+            const int a = ty + DT * u, b = tx + DT * v;
+            if (a < S && b < S) out[a * S + b] = acc[u][v];
+          }
+      }
+    }
+    __syncthreads();  // node k's children's cotangents are written
+  }
+}
+
+bool wide_bad_dims(int C, int S, int maxc, int L) {
+  return S < 2 || S > MAX_S || C < 1 || C > MAX_C || maxc < 1 || L < 1 ||
+         L > 65535;
+}
+
+template <typename scalar_t>
+cudaError_t launch_wide_forward(const void* tips, const void* pmats,
+                                const void* children, const void* freqs,
+                                const void* props, void* partials, void* scale,
+                                void* site_log, int T, int I, int C, int S,
+                                int maxc, int P, int L, int rescale,
+                                cudaStream_t stream) {
+  if (wide_bad_dims(C, S, maxc, L)) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)(S * S + S * TPS + C * S * TPS + NW * TP) *
+                      sizeof(scalar_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      loop_wide_forward_kernel<scalar_t>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((P + TP - 1) / TP, L);
+  loop_wide_forward_kernel<scalar_t><<<grid, THREADS, smem, stream>>>(
+      static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
+      static_cast<const int*>(children), static_cast<const scalar_t*>(freqs),
+      static_cast<const scalar_t*>(props), static_cast<scalar_t*>(partials),
+      static_cast<scalar_t*>(scale), static_cast<scalar_t*>(site_log), T, I,
+      C, S, maxc, P, rescale);
+  return cudaGetLastError();
+}
+
+template <typename scalar_t>
+cudaError_t launch_wide_backward(const void* tips, const void* pmats,
+                                 const void* children, const void* freqs,
+                                 const void* props, const void* partials,
+                                 const void* scale, const void* g, void* gbuf,
+                                 void* dP_part, void* drootw_part, int T,
+                                 int I, int C, int S, int maxc, int P, int L,
+                                 cudaStream_t stream) {
+  if (wide_bad_dims(C, S, maxc, L)) return cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(S * S + 2 * S * TPS + BWD_P) * sizeof(scalar_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      loop_wide_backward_kernel<scalar_t>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((P + BWD_P - 1) / BWD_P, L);
+  loop_wide_backward_kernel<scalar_t><<<grid, THREADS, smem, stream>>>(
+      static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
+      static_cast<const int*>(children), static_cast<const scalar_t*>(freqs),
+      static_cast<const scalar_t*>(props),
+      static_cast<const scalar_t*>(partials),
+      static_cast<const scalar_t*>(scale), static_cast<const scalar_t*>(g),
+      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),
+      static_cast<scalar_t*>(drootw_part), T, I, C, S, maxc, P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -443,5 +799,33 @@ cudaError_t loop_backward_f64(const void* tips, const void* pmats,
                                  L, threads,
                                  static_cast<cudaStream_t>(stream));
 }
+
+#define PHYSHER_LOOP_WIDE_ENTRY(SUFFIX, TYPE)                                 \
+  cudaError_t loop_wide_forward_##SUFFIX(                                     \
+      const void* tips, const void* pmats, const void* children,              \
+      const void* freqs, const void* props, void* partials, void* scale,      \
+      void* site_log, int T, int I, int C, int S, int maxc, int P, int L,     \
+      int rescale, void* stream) {                                            \
+    return launch_wide_forward<TYPE>(tips, pmats, children, freqs, props,     \
+                                     partials, scale, site_log, T, I, C, S,   \
+                                     maxc, P, L, rescale,                     \
+                                     static_cast<cudaStream_t>(stream));      \
+  }                                                                           \
+  cudaError_t loop_wide_backward_##SUFFIX(                                    \
+      const void* tips, const void* pmats, const void* children,              \
+      const void* freqs, const void* props, const void* partials,             \
+      const void* scale, const void* g, void* gbuf, void* dP_part,            \
+      void* drootw_part, int T, int I, int C, int S, int maxc, int P, int L,  \
+      void* stream) {                                                         \
+    return launch_wide_backward<TYPE>(tips, pmats, children, freqs, props,    \
+                                      partials, scale, g, gbuf, dP_part,      \
+                                      drootw_part, T, I, C, S, maxc, P, L,    \
+                                      static_cast<cudaStream_t>(stream));     \
+  }
+
+PHYSHER_LOOP_WIDE_ENTRY(f32, float)
+PHYSHER_LOOP_WIDE_ENTRY(f64, double)
+
+#undef PHYSHER_LOOP_WIDE_ENTRY
 
 }  // extern "C"

@@ -48,21 +48,9 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 
+#include "tiles.cuh"
+
 namespace {
-
-constexpr int NW = 8;                  // warps per block
-constexpr int THREADS = NW * 32;
-constexpr int TP = 32;                 // patterns per tile, one per lane
-constexpr int TPS = TP + 1;            // padded row stride of [S][TP] tiles
-constexpr int A_MAX = 8;               // states per thread in the products
-constexpr int MAX_S = NW * A_MAX;      // 64
-constexpr int MAX_C = 8;
-constexpr int DT = 16;                 // the dP tile: DT x DT threads ...
-constexpr int DA = 4;                  // ... of DA x DA entries (DT * DA >= MAX_S)
-constexpr int BWD_CHUNKS = 4;          // pattern tiles per backward block
-constexpr int BWD_P = TP * BWD_CHUNKS;
-
-static_assert(DT * DT == THREADS && DT * DA >= MAX_S, "dP tiling");
 
 template <typename scalar_t> struct Limits;
 template <> struct Limits<float> {
@@ -74,61 +62,6 @@ template <> struct Limits<double> {
 
 __device__ inline float log_(float x) { return logf(x); }
 __device__ inline double log_(double x) { return log(x); }
-
-// Ps <- P[ch, c] ([S, S]); Xs[b][q] <- child ch's partials (category c) at
-// pattern p0 + q, or `pad` past P.
-template <typename scalar_t>
-__device__ inline void stage_child(const scalar_t* __restrict__ tips,
-                                   const scalar_t* __restrict__ pmats,
-                                   const scalar_t* partials, int ch, int c,
-                                   int T, int C, int S, int P, int p0,
-                                   scalar_t pad, scalar_t* Ps, scalar_t* Xs) {
-  const scalar_t* pm = pmats + ((size_t)ch * C + c) * S * S;
-  for (int t = threadIdx.x; t < S * S; t += blockDim.x) Ps[t] = __ldg(pm + t);
-  const scalar_t* src = ch < T ? tips + (size_t)ch * S * P
-                               : partials + ((size_t)(ch - T) * C + c) * S * P;
-  for (int t = threadIdx.x; t < S * TP; t += blockDim.x) {
-    const int b = t / TP, q = t - b * TP, p = p0 + q;
-    Xs[b * TPS + q] = p < P ? src[(size_t)b * P + p] : pad;
-  }
-}
-
-// acc[i] *= sum_b Ps[a, b] Xs[b, lane] for the thread's states a = w + NW i
-template <typename scalar_t>
-__device__ inline void mul_product(const scalar_t* Ps, const scalar_t* Xs,
-                                   int S, int w, int lane,
-                                   scalar_t acc[A_MAX]) {
-  scalar_t s[A_MAX];
-#pragma unroll
-  for (int i = 0; i < A_MAX; ++i) s[i] = 0;
-  for (int b = 0; b < S; ++b) {
-    const scalar_t xb = Xs[b * TPS + lane];
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int a = w + NW * i;
-      if (a < S) s[i] += Ps[a * S + b] * xb;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < A_MAX; ++i) acc[i] *= s[i];
-}
-
-// out[i] = sum_a Ps[a, b] Os[a, lane] for the thread's states b = w + NW i
-template <typename scalar_t>
-__device__ inline void transpose_product(const scalar_t* Ps,
-                                         const scalar_t* Os, int S, int w,
-                                         int lane, scalar_t out[A_MAX]) {
-#pragma unroll
-  for (int i = 0; i < A_MAX; ++i) out[i] = 0;
-  for (int a = 0; a < S; ++a) {
-    const scalar_t oa = Os[a * TPS + lane];
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int b = w + NW * i;
-      if (b < S) out[i] += Ps[a * S + b] * oa;
-    }
-  }
-}
 
 // One level of the postorder: grid (pattern tiles, nodes of the level).
 // smem: Ps [S*S], Xs [S*TPS], Rs [C*S*TPS], red [NW*TP].

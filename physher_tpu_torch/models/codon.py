@@ -11,7 +11,9 @@ differing at exactly one nucleotide are classified statically into
 with Q_ij = R_ij * pi_j, normalized to mean rate 1. Multi-nucleotide changes
 have rate 0. The classification is a numpy table built once; Q assembly is
 a gather and an elementwise product, and P(t) goes through
-``p_t_reversible`` like every other reversible model.
+``p_t_reversible`` like every other reversible model. A batch of parameter
+dicts (MCMC chains: parameters ``[L]``, frequencies ``[L, S]``) gives
+``Q [L, S, S]``.
 """
 
 from __future__ import annotations
@@ -69,10 +71,12 @@ class _CodonModel(SubstitutionModel):
         return params[self.key("frequencies")]
 
     def _q_from_class_rates(self, class_rates, pi):
-        """class_rates: [5] with entry 0 == 0."""
+        """class_rates: [(L,) 5] with entry 0 == 0, frequencies pi [(L,) S]
+        -> Q [(L,) S, S]."""
         idx = torch.as_tensor(self.classes, dtype=torch.long,
                               device=class_rates.device)
-        Q = _set_diagonal_neg_rowsum(class_rates[idx] * pi[..., None, :])
+        Q = _set_diagonal_neg_rowsum(class_rates[..., idx]
+                                     * pi[..., None, :])
         return normalize_q(Q, pi)
 
 
@@ -96,7 +100,7 @@ class MG94(_CodonModel):
         beta = params[self.key("beta")]
         rates = torch.stack([
             torch.zeros_like(kappa), kappa * alpha, alpha, kappa * beta,
-            beta])
+            beta], -1)
         return self._q_from_class_rates(rates, self.frequencies(params))
 
 
@@ -117,5 +121,5 @@ class GY94(_CodonModel):
         omega = params[self.key("omega")]
         one = torch.ones_like(kappa)
         rates = torch.stack([
-            torch.zeros_like(kappa), kappa, one, kappa * omega, omega])
+            torch.zeros_like(kappa), kappa, one, kappa * omega, omega], -1)
         return self._q_from_class_rates(rates, self.frequencies(params))

@@ -17,6 +17,10 @@ Engines (``engine=``):
   take;
 - ``"torch"``: the plain engine on any device.
 
+``batch_engine=`` is the choice for a batch of two or more chains where it
+differs (the config builder maps the JAX package's engine names by device,
+state count and chains, ``config/builder.route_engine``).
+
 ``"auto"`` and ``"cuda"`` choose the kernels by the model's shape
 (:func:`select_engine`): K5'/K6' (``ops/loop.py``) for a batch of chains
 and for S = 4 polytomies, K3'/K4' (``ops/staged.py``) for S = 4 on a binary
@@ -27,8 +31,8 @@ says which one a model takes.
 A batch of parameter dicts (tensors ``[L, ...]``, the chains of an MCMC
 run) gives ``[L]`` log-likelihoods: the batch runs through the model as a
 leading axis (branch lengths ``[L, N]``, P matrices ``[L, N, C, S, S]``)
-into the plain engine on the CPU and K5'/K6' on the card. Only nucleotide
-models (S = 4) take a batch yet.
+into the plain engine on the CPU and K5'/K6' on the card, for every state
+count the kernels take (2 to 64: nucleotide, protein and codon models).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from torch import nn
 
 from ..data.sitepattern import SitePattern
 from ..ops.fused import fused_tree_log_likelihood
-from ..ops.loop import loop_tree_log_likelihood
+from ..ops.loop import STATES, loop_tree_log_likelihood
 from ..ops.pruning import tree_log_likelihood, pad_patterns
 from ..ops.staged import staged_tree_log_likelihood
 from ..ops.wide import wide_tree_log_likelihood
@@ -63,9 +67,6 @@ _ENGINE_FUNCTIONS = {"cuda-fused": fused_tree_log_likelihood,
                      "torch": tree_log_likelihood}
 # the engines whose functions take a leading chain axis
 _BATCH_ENGINES = ("torch", "cuda-loop")
-_BATCH_NOT_PORTED = ("a batch of chains with {S} states is not ported yet: "
-                     "the card has batched kernels for S = 4 only (ROADMAP "
-                     "Queue 2, K5'/K6' for S != 4)")
 # The staged kernels' gate, measured on an NVIDIA H100 (``python3
 # chip_profile.py --gate``, run twice: balanced, caterpillar and random
 # binary trees of 16-512 taxa and the fluA tree, 256-32768 patterns, C = 1
@@ -86,15 +87,15 @@ def select_engine(engine: str, device_type: str, n_states: int,
     model's tensors, its state count, the most children of a node, the rate
     categories, the mean internal nodes per tree level and the number of
     chains ``batch`` (None: one parameter dict, no batch axis):
-    ``"cuda-loop"`` (K5'/K6', a batch of two or more chains at S = 4, or
-    S = 4 on a tree with a polytomy), ``"cuda-staged"`` (K3'/K4', S = 4 on
-    a binary tree with ``n_categories * nodes_per_level >=
+    ``"cuda-loop"`` (K5'/K6', a batch of two or more chains at any S from 2
+    to 64, or S = 4 on a tree with a polytomy), ``"cuda-staged"`` (K3'/K4',
+    S = 4 on a binary tree with ``n_categories * nodes_per_level >=
     STAGED_MIN_LEVEL_WORK``), ``"cuda-fused"`` (K1'/K2', any other S = 4
-    model), ``"cuda-wide"`` (K7'/K8', any other S) or ``"torch"`` (the plain
-    engine, every batch on the CPU). A batch of one chain is routed as one
-    parameter dict. A CUDA engine on a non-CUDA device, a named kernel that
-    cannot take the state count or a batch, and a batch on the card with
-    S != 4, raise."""
+    model), ``"cuda-wide"`` (K7'/K8', any other S from 2 to 64) or
+    ``"torch"`` (the plain engine, every batch on the CPU). A batch of one
+    chain is routed as one parameter dict. A CUDA engine on a non-CUDA
+    device, a state count outside 2 to 64 on the card, and a named kernel
+    that cannot take the state count or a batch, raise."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     on_cuda = device_type == "cuda"
@@ -103,23 +104,23 @@ def select_engine(engine: str, device_type: str, n_states: int,
                          f"lives on {device_type}")
     if engine == "torch" or not on_cuda:
         return "torch"
+    # K5'/K6' and K7'/K8' take the same state counts (csrc/tiles.cuh)
+    if not STATES[0] <= n_states <= STATES[1]:
+        raise ValueError(f"{n_states} states: the CUDA kernels take "
+                         f"{STATES[0]} to {STATES[1]}")
     chains = batch is not None and batch >= 2
-    if chains and n_states != 4:
-        raise NotImplementedError(_BATCH_NOT_PORTED.format(S=n_states))
-    if engine in ("cuda-fused", "cuda-staged", "cuda-loop") \
-            and n_states != 4:
+    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
         raise ValueError(f"engine={engine!r} takes 4 states, not {n_states}")
-    if engine == "cuda-wide" and not 2 <= n_states <= 64:
-        raise ValueError(f"engine='cuda-wide' takes 2 to 64 states, not "
-                         f"{n_states}")
     if chains and engine in KERNEL_ENGINES and engine != "cuda-loop":
         raise ValueError(f"engine={engine!r} takes no batch of chains; "
                          f"'cuda-loop' does")
     if engine in KERNEL_ENGINES:
         return engine
+    if chains:
+        return "cuda-loop"
     if n_states != 4:
         return "cuda-wide"
-    if chains or max_children != 2:
+    if max_children != 2:
         return "cuda-loop"
     if n_categories * nodes_per_level >= STAGED_MIN_LEVEL_WORK:
         return "cuda-staged"
@@ -150,13 +151,15 @@ class TreeLikelihood(nn.Module):
                  include_jacobian: bool = False, tipstates: bool = False,
                  use_ambiguities: bool = True, rescale: bool | None = None,
                  pattern_pad_multiple: int = 1, prefix: str = "tree.",
-                 engine: str = "auto", height_transform: str = "ratio"):
+                 engine: str = "auto", batch_engine: str | None = None,
+                 height_transform: str = "ratio"):
         super().__init__()
         device = torch.device(device)
         if site_model is None:
             site_model = ConstantSiteModel(dtype=dtype, device=device)
-        if engine not in ENGINES:
-            raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+        for name in (engine, batch_engine or engine):
+            if name not in ENGINES:
+                raise ValueError(f"unknown engine {name!r}; one of {ENGINES}")
         self.sp = site_pattern
         self.topo = topo
         self.subst = subst_model
@@ -166,6 +169,8 @@ class TreeLikelihood(nn.Module):
         self.include_jacobian = include_jacobian
         self.prefix = prefix
         self.engine = engine
+        # the engine= choice for a batch of two or more chains (None: engine)
+        self.batch_engine = batch_engine
         self.dtype = dtype
         # RATIO / RATIO_NAIVE / PROPORTION share one transform in the
         # reference; SHIFT is a distinct parameterization with |J| = 1
@@ -261,9 +266,12 @@ class TreeLikelihood(nn.Module):
         """The engine this model runs for one parameter dict (``batch``
         None) or a batch of that many: ``"cuda-fused"``, ``"cuda-staged"``,
         ``"cuda-wide"``, ``"cuda-loop"`` or ``"torch"`` (see
-        :func:`select_engine`)."""
+        :func:`select_engine`); ``batch_engine`` is the choice for two or
+        more chains, if given."""
         topo = self.topo
-        args = (self.engine, self.tip_partials.device.type,
+        chains = batch is not None and batch >= 2
+        engine = (self.batch_engine or self.engine) if chains else self.engine
+        args = (engine, self.tip_partials.device.type,
                 self.tip_partials.shape[1], int(topo.child_count.max()),
                 self.site_model.cat_count, topo.I / len(topo.levels))
         return (select_engine(*args) if batch is None
@@ -273,8 +281,6 @@ class TreeLikelihood(nn.Module):
         bl = self.branch_lengths(params)                  # [(L,) N]
         batch = bl.shape[0] if bl.dim() == 2 else None
         S = self.tip_partials.shape[1]
-        if batch is not None and S != 4:
-            raise NotImplementedError(_BATCH_NOT_PORTED.format(S=S))
         name = self.engine_name(batch)
         rates, props = self.site_model.rates_props(params)
         blc = bl[..., :, None] * rates[..., None, :]       # [(L,) N, C]

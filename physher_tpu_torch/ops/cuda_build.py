@@ -2,11 +2,12 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. :func:`build_library`
 compiles one with ``nvcc`` for ``sm_90a`` into ``_build/`` (the file name
-keyed on a hash of the source and the flags, so a changed source is rebuilt
-and an unchanged one is not), and loads it with ctypes. Nothing is built
-when a module is imported: the wrappers call it at their first launch.
+keyed on a hash of the source, the ``csrc/*.cuh`` headers and the flags, so
+a changed source is rebuilt and an unchanged one is not), and loads it with
+ctypes. Nothing is built when a module is imported: the wrappers call it at
+their first launch.
 
-:func:`pruning_dims` checks the inputs that the four pruning kernel pairs
+:func:`pruning_dims` checks the inputs that the pruning kernel pairs
 (``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``, ``ops/loop.py``)
 share, and
 :func:`level_schedule` is the tree-level schedule that the staged and wide
@@ -51,7 +52,10 @@ def nvcc() -> str:
 def build_library(source: Path) -> tuple[ctypes.CDLL, str]:
     """Compile ``source`` (once per source hash) and load it; returns the
     library and nvcc's output (empty when the library was already built)."""
-    src = source.read_bytes()
+    # the headers beside it (csrc/*.cuh), which it may include, are part of
+    # what is built
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
     log = ""

@@ -6,13 +6,16 @@ there, ``_kernel`` (``build_loop_forward``) and ``_backward_kernel``
 (``build_loop_backward``), become kernels K5' and K6' of ``csrc/loop.cu``:
 the flat postorder over nodes with any number of children, optional
 rescaling, the root ``props . (freqs @ root)``, and a backward that gives
-d pmats, d freqs and d props directly, for S = 4. What the JAX package got
-from ``jax.custom_batching.sequential_vmap`` is a leading batch axis L here
-(one chain per grid row): ``pmats [L, N, C, 4, 4]``, ``freqs [L, 4]``,
-``props [L, C]`` -> ``site_log [L, P]``, the tips ``[T, 4, P]`` shared by
-every chain. Unbatched inputs (``pmats [N, C, 4, 4]``) give ``[P]``. The
-source note in ``csrc/loop.cu`` says what bounds them on the card and what
-the design does about it.
+d pmats, d freqs and d props, for any state count S from 2 to 64: S = 4
+takes the register kernels ``loop_forward_kernel`` /
+``loop_backward_kernel``, every other S the shared-memory ones
+``loop_wide_forward_kernel`` / ``loop_wide_backward_kernel``. What the JAX
+package got from ``jax.custom_batching.sequential_vmap`` is a leading batch
+axis L here (one chain per grid row): ``pmats [L, N, C, S, S]``, ``freqs
+[L, S]``, ``props [L, C]`` -> ``site_log [L, P]``, the tips ``[T, S, P]``
+shared by every chain. Unbatched inputs (``pmats [N, C, S, S]``) give
+``[P]``. The source note in ``csrc/loop.cu`` says what bounds them on the
+card and what the design does about it.
 
 - :func:`loop_site_log` / :func:`loop_tree_log_likelihood` are the entry
   points (the JAX signatures without ``block`` and ``interpret``). On a
@@ -21,7 +24,7 @@ the design does about it.
   array engine of ``ops/pruning.py``).
 - :func:`loop_forward` / :func:`loop_backward` are the launch wrappers;
   ``LOOP_FORWARD_LAUNCHES`` / ``LOOP_BACKWARD_LAUNCHES`` count their calls
-  (one CUDA launch each, whatever L).
+  (one CUDA launch each, whatever L and S).
 - The kernels are built at first use by ``nvcc`` (``ops/cuda_build.py``).
 """
 
@@ -47,8 +50,15 @@ MAX_CHILDREN = 16
 # the grid is L x 8 blocks, 128 of the H100's 132 SMs at L = 16, where
 # 128-pattern blocks would fill 32 (csrc/loop.cu)
 BLOCK = 32
+# patterns per block of the backward at S != 4 (4 tiles of 32, as K8'): the
+# per-block dP scratch [L, ceil(P / 128), N, C, S, S] is 240 MB in float32
+# at GY94 32 x 4096, L = 8
+WIDE_BACKWARD_BLOCK = 128
 # CUDA's bound on gridDim.y, which carries the chains
 MAX_CHAINS = 65535
+# the state counts the kernels take: S = 4 in registers, any other S in
+# shared memory (8 warps of 8 states each)
+STATES = (2, 64)
 
 _SOURCE = cuda_build.PKG / "csrc" / "loop.cu"
 
@@ -70,40 +80,57 @@ def build() -> ctypes.CDLL:
         bwd = getattr(lib, f"loop_backward_{dt}")
         bwd.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
         bwd.restype = i32
+        wfwd = getattr(lib, f"loop_wide_forward_{dt}")
+        wfwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        wfwd.restype = i32
+        wbwd = getattr(lib, f"loop_wide_backward_{dt}")
+        wbwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        wbwd.restype = i32
     _lib = lib
     return lib
 
 
 def _dims(tips, pmats, children, freqs, props):
-    """Validate the kernels' inputs; returns (L, T, I, C, maxc, P)."""
-    T, I, C, _, maxc, P = cuda_build.pruning_dims(
-        "loop pruning", tips, pmats, children, None,
+    """Validate the kernels' inputs; returns (L, T, I, C, S, maxc, P)."""
+    T, I, C, S, maxc, P = cuda_build.pruning_dims(
+        "loop pruning", tips, pmats, children, None, states=STATES,
         max_children=MAX_CHILDREN, batched=True)
     L = pmats.shape[0]
     if not 1 <= L <= MAX_CHAINS:
         raise ValueError(f"{L} chains; the loop kernels take 1 to "
                          f"{MAX_CHAINS}")
-    check("freqs", freqs, tips.device, tips.dtype, (L, 4))
+    check("freqs", freqs, tips.device, tips.dtype, (L, S))
     check("props", props, tips.device, tips.dtype, (L, C))
-    return L, T, I, C, maxc, P
+    return L, T, I, C, S, maxc, P
+
+
+def _entry(lib, name: str, tips):
+    """The C entry point ``name`` for the tips' dtype."""
+    return getattr(lib, name + ("_f32" if tips.dtype == torch.float32
+                                else "_f64"))
 
 
 def loop_forward(tips, pmats, children, freqs, props, rescale: bool = True):
-    """Launch K5': returns (site_log [L, P], partials [L, I, C, 4, P],
+    """Launch K5': returns (site_log [L, P], partials [L, I, C, S, P],
     scale [L, I, P])."""
     global LOOP_FORWARD_LAUNCHES
-    L, T, I, C, maxc, P = _dims(tips, pmats, children, freqs, props)
+    L, T, I, C, S, maxc, P = _dims(tips, pmats, children, freqs, props)
     lib = build()
-    partials = tips.new_empty((L, I, C, 4, P))
+    partials = tips.new_empty((L, I, C, S, P))
     scale = tips.new_empty((L, I, P))
     site_log = tips.new_empty((L, P))
-    fn = (lib.loop_forward_f32 if tips.dtype == torch.float32
-          else lib.loop_forward_f64)
+    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+            freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
+            scale.data_ptr(), site_log.data_ptr())
     with torch.cuda.device(tips.device):
-        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
-                 scale.data_ptr(), site_log.data_ptr(), T, I, C, maxc, P, L,
-                 int(bool(rescale)), BLOCK, stream(tips))
+        if S == 4:
+            err = _entry(lib, "loop_forward", tips)(
+                *ptrs, T, I, C, maxc, P, L, int(bool(rescale)), BLOCK,
+                stream(tips))
+        else:
+            err = _entry(lib, "loop_wide_forward", tips)(
+                *ptrs, T, I, C, S, maxc, P, L, int(bool(rescale)),
+                stream(tips))
     LOOP_FORWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"loop forward kernel launch failed: "
@@ -112,37 +139,47 @@ def loop_forward(tips, pmats, children, freqs, props, rescale: bool = True):
 
 
 def loop_backward(tips, pmats, children, freqs, props, partials, scale, g):
-    """Launch K6': returns (d pmats [L, N, C, 4, 4], d freqs [L, 4],
+    """Launch K6': returns (d pmats [L, N, C, S, S], d freqs [L, S],
     d props [L, C])."""
     global LOOP_BACKWARD_LAUNCHES
-    L, T, I, C, maxc, P = _dims(tips, pmats, children, freqs, props)
-    check("partials", partials, tips.device, tips.dtype, (L, I, C, 4, P))
+    L, T, I, C, S, maxc, P = _dims(tips, pmats, children, freqs, props)
+    check("partials", partials, tips.device, tips.dtype, (L, I, C, S, P))
     check("scale", scale, tips.device, tips.dtype, (L, I, P))
     check("g", g, tips.device, tips.dtype, (L, P))
     lib = build()
     N = T + I
-    n_blocks = -(-P // BLOCK)
-    gbuf = tips.new_empty((L, I, C, 4, P))
-    dP_part = tips.new_empty((L, n_blocks, N, C, 16))
+    n_blocks = -(-P // (BLOCK if S == 4 else WIDE_BACKWARD_BLOCK))
+    gbuf = tips.new_empty((L, I, C, S, P))
+    dP_part = tips.new_empty((L, n_blocks, N, C, S * S))
     dP_part[:, :, N - 1].zero_()  # the root is no node's child
-    dfreqs_part = tips.new_empty((L, n_blocks, 4))
-    dprops_part = tips.new_empty((L, n_blocks, C))
-    fn = (lib.loop_backward_f32 if tips.dtype == torch.float32
-          else lib.loop_backward_f64)
+    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+            freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
+            scale.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
+            dP_part.data_ptr())
     with torch.cuda.device(tips.device):
-        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
-                 scale.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
-                 dP_part.data_ptr(), dfreqs_part.data_ptr(),
-                 dprops_part.data_ptr(), T, I, C, maxc, P, L, BLOCK,
-                 stream(tips))
+        if S == 4:
+            dfreqs_part = tips.new_empty((L, n_blocks, 4))
+            dprops_part = tips.new_empty((L, n_blocks, C))
+            err = _entry(lib, "loop_backward", tips)(
+                *ptrs, dfreqs_part.data_ptr(), dprops_part.data_ptr(), T, I,
+                C, maxc, P, L, BLOCK, stream(tips))
+        else:
+            drootw_part = tips.new_empty((L, n_blocks, C, S))
+            err = _entry(lib, "loop_wide_backward", tips)(
+                *ptrs, drootw_part.data_ptr(), T, I, C, S, maxc, P, L,
+                stream(tips))
     LOOP_BACKWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"loop backward kernel launch failed: "
                            f"cudaError {err}")
     # deterministic second pass over the per-block partial sums
-    return (dP_part.sum(1).view(L, N, C, 4, 4), dfreqs_part.sum(1),
-            dprops_part.sum(1))
+    dP = dP_part.sum(1).view(L, N, C, S, S)
+    if S == 4:
+        return dP, dfreqs_part.sum(1), dprops_part.sum(1)
+    # d rootw -> d freqs, d props through rootw = props (x) freqs
+    drootw = drootw_part.sum(1)
+    return (dP, (props[:, :, None] * drootw).sum(1),
+            (freqs[:, None, :] * drootw).sum(2))
 
 
 class _LoopSiteLog(torch.autograd.Function):
@@ -173,8 +210,8 @@ loop_site_log_reference = rescaled_site_log
 
 def loop_site_log(topo: Topology, rescale: bool, tip_partials, pmats, freqs,
                   props):
-    """Per-pattern site log-likelihoods, ``[L, P]`` for ``pmats [L, N, C, 4,
-    4]``, ``freqs [L, 4]``, ``props [L, C]`` (``[P]`` unbatched),
+    """Per-pattern site log-likelihoods, ``[L, P]`` for ``pmats [L, N, C, S,
+    S]``, ``freqs [L, S]``, ``props [L, C]`` (``[P]`` unbatched),
     differentiable w.r.t. pmats/freqs/props (tips are constants). CUDA
     tensors go through K5'/K6' (or raise); CPU tensors through the plain
     version."""

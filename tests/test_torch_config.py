@@ -29,7 +29,8 @@ from physher_tpu.models import distributions as j_dist
 from physher_tpu.models import substitution as j_subst
 from physher_tpu.utils.optim import adam as j_adam
 from physher_tpu_torch import cli
-from physher_tpu_torch.config.builder import build_config, load_json
+from physher_tpu_torch.config.builder import (
+    build_config, load_json, route_engine)
 from physher_tpu_torch.inference import vb as vb_mod
 from physher_tpu_torch.models import coalescent, distributions, substitution
 from physher_tpu_torch.models.parameters import (
@@ -472,7 +473,53 @@ def test_unported_raises(data_dir, tmp_path, what):
     ("pallas-wide", "cuda-wide"), ("pallas-loop", "cuda-loop"),
     ("xla", "torch"), ("auto", "auto")])
 def test_engine_names_map(data_dir, engine, expected):
+    """A config's engine name is the port's ``expected`` on the card at
+    S = 4; built on the CPU, a JAX kernel's name runs the plain engine."""
     cfg = load_json(os.path.join(data_dir, "fluA-elbo.json"))
     cfg["model"]["distributions"][0]["engine"] = engine
     ctx, _ = build_config(cfg, base_dir=data_dir, **KW)
-    assert ctx.objects["treelikelihood"].engine == expected
+    assert route_engine(engine, "cuda", 4) == expected
+    assert ctx.objects["treelikelihood"].engine == (
+        "torch" if engine.startswith("pallas-") else expected)
+
+
+@pytest.mark.parametrize("engine", ["pallas-fused", "pallas-staged",
+                                    "pallas-wide", "pallas-loop"])
+def test_pallas_engine_names_run_on_cpu(data_dir, tmp_path, engine):
+    """The JAX package runs a config's pallas-* engine off the TPU in
+    interpret mode; the port runs it on the CPU through the plain engine:
+    fluA-elbo.json with the name on its tree likelihood, through the CLI's
+    builder, gives the auto build's logP (1e-12) and ``engine_name()`` says
+    "torch". A direct cuda-* engine on CPU tensors still raises."""
+    cfg = load_json(os.path.join(data_dir, "fluA-elbo.json"))
+    for name in ("fluA.fa", "fluA-rooted.nxs"):
+        (tmp_path / name).symlink_to(os.path.join(data_dir, name))
+    logps = {}
+    for eng in ("auto", engine):
+        cfg["model"]["distributions"][0]["engine"] = eng
+        path = tmp_path / f"{eng}.json"
+        path.write_text(json.dumps(cfg))
+        ctx, _ = build_config(load_json(str(path)), base_dir=str(tmp_path),
+                              **KW)
+        tlk = ctx.objects["treelikelihood"]
+        with torch.no_grad():
+            logps[eng] = float(tlk.log_likelihood(
+                tlk.param_space().init_params(**KW)))
+        assert tlk.engine_name() == tlk.engine_name(4) == "torch"
+    np.testing.assert_allclose(logps[engine], logps["auto"], rtol=1e-12)
+    tlk.engine = "cuda-fused"
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tlk.log_likelihood(tlk.param_space().init_params(**KW))
+
+
+@pytest.mark.parametrize("engine,device,S,batch,expected", [
+    ("pallas-fused", "cuda", 20, None, "cuda-wide"),   # Queue 2 item 2
+    ("pallas-staged", "cuda", 61, None, "cuda-wide"),  # Queue 2 item 3
+    ("pallas-loop", "cuda", 61, 8, "cuda-loop"),
+    ("pallas-loop", "cuda", 20, None, "cuda-loop"),
+    ("pallas-fused", "cuda", 4, 4, "cuda-loop"),       # chains: K5'/K6'
+    ("pallas-wide", "cpu", 20, 4, "torch"),
+    ("xla", "cuda", 61, 8, "torch")])
+def test_engine_names_route_by_device_and_states(engine, device, S, batch,
+                                                 expected):
+    assert route_engine(engine, device, S, batch) == expected

@@ -1,6 +1,6 @@
 """The CUDA pruning kernels (K1'/K2' of ops/fused.py, K3'/K4' of
-ops/staged.py, K5'/K6' of ops/loop.py, K7'/K8' of ops/wide.py) against their
-plain PyTorch version, on the card.
+ops/staged.py, K5'/K6' of ops/loop.py at S = 4 and at S from 2 to 64,
+K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -178,15 +178,15 @@ def test_staged_kernels_match_plain(device, dtype, shape, P, C):
                                    atol=grtol * float(b.abs().max()))
 
 
-def _chains(topo, P, C, L, dtype, device, seed=0):
-    """Tips [T,4,P] and L chains' pmats [L,N,C,4,4], freqs [L,4], props
+def _chains(topo, P, C, L, dtype, device, seed=0, S=4):
+    """Tips [T,S,P] and L chains' pmats [L,N,C,S,S], freqs [L,S], props
     [L,C], and a cotangent [L,P]."""
     rng = np.random.default_rng(seed)
-    tips = np.eye(4)[rng.integers(0, 4, (topo.T, P))].transpose(0, 2, 1)
+    tips = np.eye(S)[rng.integers(0, S, (topo.T, P))].transpose(0, 2, 1)
     tips[:, :, -3:] = 1.0
-    Q = rng.random((L, topo.N, C, 4, 4)) + 0.1
+    Q = rng.random((L, topo.N, C, S, S)) + 0.1
     arrays = (tips, Q / Q.sum(-1, keepdims=True),
-              rng.dirichlet(np.ones(4), L), rng.dirichlet(np.ones(C), L),
+              rng.dirichlet(np.ones(S), L), rng.dirichlet(np.ones(C), L),
               rng.uniform(0.5, 2.0, (L, P)))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=device) for a in arrays]
@@ -223,6 +223,57 @@ def test_loop_kernels_match_plain(device, dtype, shape, P, C, L, rescale):
     for a, b in zip(grads_k, grads_p):
         torch.testing.assert_close(a, b, rtol=grtol,
                                    atol=grtol * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,S,C,L,P,rescale", [
+    ("balanced", 5, 4, 3, 300, True), ("balanced", 20, 4, 3, 257, True),
+    ("balanced", 61, 1, 1, 129, True), ("caterpillar", 61, 1, 3, 64, False),
+    ("polytomy", 20, 1, 3, 100, False), ("polytomy", 5, 4, 1, 33, True)])
+def test_loop_wide_kernels_match_plain(device, dtype, shape, S, C, L, P,
+                                       rescale):
+    """K5'/K6' at S != 4 (loop_wide_*_kernel) against the plain version:
+    S in {5, 20, 61}, C in {1, 4}, L in {1, 3}, balanced, caterpillar and
+    polytomy trees, rescale on and off, ragged P."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy}[shape]()
+    tips, pm, freqs, props, g = _chains(topo, P, C, L, dtype, device, S=S)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+        site = fn(leaves)
+        return site.detach(), torch.autograd.grad(torch.sum(g * site),
+                                                  leaves)
+    f0, b0 = loop.LOOP_FORWARD_LAUNCHES, loop.LOOP_BACKWARD_LAUNCHES
+    site_k, grads_k = run(lambda x: loop.loop_site_log(topo, rescale, tips,
+                                                       *x))
+    torch.cuda.synchronize()
+    assert (loop.LOOP_FORWARD_LAUNCHES,
+            loop.LOOP_BACKWARD_LAUNCHES) == (f0 + 1, b0 + 1)
+    site_p, grads_p = run(lambda x: loop.loop_site_log_reference(
+        tips, x[0], topo, x[1], x[2], rescale=rescale))
+    rtol, atol, grtol = _tolerances(dtype)
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def test_loop_wide_wrapper_rejects_bad_input(device):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _chains(topo, 64, 2, 2, torch.float32,
+                                        device, S=20)
+    children = torch.as_tensor(topo.children, device=device)
+    n0 = loop.LOOP_FORWARD_LAUNCHES
+    with pytest.raises(ValueError, match="freqs"):
+        loop.loop_forward(tips, pm, children, freqs[:, :4].contiguous(),
+                          props)
+    tips65, pm65, freqs65, props65, _ = _chains(
+        topo, 64, 1, 2, torch.float32, device, S=65)
+    with pytest.raises(ValueError, match="2 to 64"):
+        loop.loop_forward(tips65, pm65, children, freqs65, props65)
+    assert loop.LOOP_FORWARD_LAUNCHES == n0
 
 
 def test_loop_wrapper_rejects_bad_input(device):

@@ -6,8 +6,11 @@ interpret mode with the cases and tolerances of
 tests/test_pallas_engine.py (float32: logL rtol 1e-5, site logs rtol 2e-4,
 gradients rtol 5e-4 with an absolute floor of 1e-4 of the largest entry),
 the kernels' own schedule emulated against the plain version (float64,
-1e-12), the routing of ``select_engine``, and a batch of parameter dicts
-through the models (float64, 1e-12 against one dict at a time).
+1e-12; S = 4 and the S != 4 kernels' schedule at S = 5, 20 and 61), the
+routing of ``select_engine``, a batch of parameter dicts through the models
+(float64, 1e-12 against one dict at a time), and batches through the codon
+and protein models against ``jax.vmap`` of the JAX package's (float64, rtol
+1e-10: 20 x 20 and 61 x 61 eigendecompositions by two LAPACK paths).
 """
 
 from collections import OrderedDict
@@ -18,19 +21,30 @@ import numpy as np
 import pytest
 import torch
 
+from physher_tpu.data.distance import distance_matrix as j_distance_matrix
 from physher_tpu.data.sitepattern import SitePattern as JSitePattern
 from physher_tpu.io.treeio import read_newick as j_read_newick
+from physher_tpu.models import codon as j_codon
+from physher_tpu.models import protein as j_protein
+from physher_tpu.models.sitemodel import GammaSiteModel as JGammaSiteModel
+from physher_tpu.models.treelikelihood import TreeLikelihood as JTreeLikelihood
 from physher_tpu.ops.pallas_pruning_loop import (
     TILE as J_TILE, loop_tree_log_likelihood as j_loop_tree_log_likelihood)
 from physher_tpu.ops.pruning import (
     pruning_root_levels as j_pruning_root_levels,
     tree_log_likelihood as j_tree_log_likelihood)
+from physher_tpu.trees.build import nj as j_nj
 from physher_tpu.trees.topology import Topology as JTopology
 from physher_tpu.utils.synthetic import balanced_topology as j_balanced
+from physher_tpu_torch.data.distance import distance_matrix
+from physher_tpu_torch.data.sitepattern import SitePattern
+from physher_tpu_torch.io.seqio import read_alignment
 from physher_tpu_torch.io.treeio import read_newick
 from physher_tpu_torch.models.clock import StrictClock
-from physher_tpu_torch.models.codon import GY94
-from physher_tpu_torch.models.parameters import ParamSpace, ParamSpec
+from physher_tpu_torch.models.codon import GY94, MG94
+from physher_tpu_torch.models.parameters import (
+    ParamSpace, ParamSpec, params_from_numpy)
+from physher_tpu_torch.models.protein import LG, WAG
 from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import F81, GTR, HKY, JC69, K80
 from physher_tpu_torch.models.treelikelihood import (
@@ -38,6 +52,7 @@ from physher_tpu_torch.models.treelikelihood import (
 from physher_tpu_torch.ops import loop
 from physher_tpu_torch.ops.pruning import (
     pad_patterns, pruning_root_levels, tree_log_likelihood)
+from physher_tpu_torch.trees.build import nj
 from physher_tpu_torch.trees.timetree import TimeTreeData
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
@@ -149,24 +164,38 @@ def test_unbatched_is_one_chain():
 
 
 def _loop_case(case):
-    """tests/test_pallas_engine.py's inputs, float32, patterns padded to the
-    TPU tile: (port topology, JAX topology, tips, pmats, freqs, props, w)."""
+    """tests/test_pallas_engine.py's inputs ("binary", "multifurcating") and
+    two at S != 4 ("aa": S = 20 on a balanced 8-taxon tree, C = 2; "codon":
+    S = 61 on the 5-taxon polytomy, C = 1; 100 random sites each), float32,
+    patterns padded to the TPU tile: (port topology, JAX topology, tips,
+    pmats, freqs, props, w)."""
     if case == "binary":
         topo, jtopo = balanced_topology(16), j_balanced(16)
         sp = random_sitepattern(16, 200, seed=0)
-        C, seed, freqs = 4, 0, np.full(4, 0.25)
+        C, seed = 4, 0
+    elif case == "aa":
+        topo, jtopo = balanced_topology(8), j_balanced(8)
+        sp = random_sitepattern(8, 100, seed=0, datatype="aminoacid")
+        C, seed = 2, 20
     else:
-        seqs = OrderedDict([("a", "ACGTACGTAC"), ("b", "ACGTACCTAA"),
-                            ("c", "AGGTACGTAT"), ("d", "ACGAACGTAA"),
-                            ("e", "CCGTACGTAA")])
         topo, _ = read_newick(POLYTOMY)
         jtopo, _ = j_read_newick(POLYTOMY)
-        sp = JSitePattern.from_alignment(seqs)
-        C, seed, freqs = 2, 1, np.full(4, 0.25)
+        if case == "codon":
+            sp = random_sitepattern(5, 100, seed=1, datatype="codon")
+            sp.taxa = list(topo.taxa)
+            C, seed = 1, 61
+        else:
+            seqs = OrderedDict([("a", "ACGTACGTAC"), ("b", "ACGTACCTAA"),
+                                ("c", "AGGTACGTAT"), ("d", "ACGAACGTAA"),
+                                ("e", "CCGTACGTAA")])
+            sp = JSitePattern.from_alignment(seqs)
+            C, seed = 2, 1
+    S = sp.datatype.state_count
     P = pad_patterns(sp.pattern_count, J_TILE)
     tips = sp.tip_partials(pad_to=P)[[sp.taxa.index(t) for t in topo.taxa]]
     rng = np.random.default_rng(seed)
-    Q = rng.random((topo.N, C, 4, 4)) + 0.1
+    Q = rng.random((topo.N, C, S, S)) + 0.1
+    freqs = np.full(4, 0.25) if S == 4 else rng.dirichlet(np.full(S, 5.0))
     arrays = [np.asarray(a, np.float32) for a in (
         tips, Q / Q.sum(-1, keepdims=True), freqs, np.full(C, 1.0 / C),
         sp.padded_weights(P))]
@@ -175,10 +204,13 @@ def _loop_case(case):
 
 @pytest.mark.parametrize("case,block,rescale", [
     ("binary", 4, True), ("multifurcating", 1, True),
-    ("multifurcating", 3, True), ("multifurcating", 2, False)])
+    ("multifurcating", 3, True), ("multifurcating", 2, False),
+    ("aa", 2, True), ("aa", 2, False), ("codon", 2, True),
+    ("codon", 2, False)])
 def test_plain_matches_jax_loop_kernel(case, block, rescale):
     """logL, site logs and d pmats / d freqs / d props of the plain version
-    against the JAX loop kernel (interpret mode, its block sizes)."""
+    against the JAX loop kernel (interpret mode, its block sizes), which
+    takes any S: S = 4, 20 and 61."""
     topo, jtopo, tips, pm, freqs, props, w = _loop_case(case)
 
     def jf(pm_, fr, pr):
@@ -245,7 +277,8 @@ def _apply_p(pm, x):
 
 def _child(tips, partials, ch, c, T):
     L = partials.shape[0]
-    return tips[ch].expand(L, 4, -1) if ch < T else partials[:, ch - T, c]
+    return (tips[ch].expand(L, -1, -1) if ch < T
+            else partials[:, ch - T, c])
 
 
 def _emulate_forward(tips, pmats, children, freqs, props, rescale):
@@ -276,12 +309,12 @@ def _emulate_forward(tips, pmats, children, freqs, props, rescale):
     return torch.log(site) + log_sum, partials, scale
 
 
-def _block_sums(v):
-    """[..., P] -> per-block sums [..., n_blocks] over loop.BLOCK patterns."""
+def _block_sums(v, block=loop.BLOCK):
+    """[..., P] -> per-block sums [..., n_blocks] over ``block`` patterns."""
     P = v.shape[-1]
-    nb = -(-P // loop.BLOCK)
-    v = torch.nn.functional.pad(v, (0, nb * loop.BLOCK - P))
-    return v.reshape(*v.shape[:-1], nb, loop.BLOCK).sum(-1)
+    nb = -(-P // block)
+    v = torch.nn.functional.pad(v, (0, nb * block - P))
+    return v.reshape(*v.shape[:-1], nb, block).sum(-1)
 
 
 def _emulate_backward(tips, pmats, children, freqs, props, partials, scale,
@@ -353,6 +386,140 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale):
                                    atol=1e-12 * float(b.abs().max()))
 
 
+# The S != 4 kernels (loop_wide_forward_kernel / loop_wide_backward_kernel)
+# follow another schedule: one block per (32-pattern tile, chain) walks the
+# postorder; per node, category and child an [S, S] @ [S, 32] product from
+# shared memory, warp w owning states w, w + 8, ...; the node's categories
+# meet before the per-pattern max over (C, S); the root's sum taken per warp
+# over its states, then across the 8 warps; the backward in blocks of
+# loop.WIDE_BACKWARD_BLOCK patterns, each with its own sums of dP and of
+# d rootw (turned into d freqs and d props by the caller).
+
+_WARPS = 8
+_WIDE_BLOCK = loop.WIDE_BACKWARD_BLOCK
+
+
+def _wide_mul(pm, x):
+    """[L, S, S] @ [L, S, P]."""
+    return torch.einsum("lab,lbp->lap", pm, x)
+
+
+def _emulate_wide_forward(tips, pmats, children, freqs, props, rescale):
+    T, S, P = tips.shape
+    L, _, C = pmats.shape[:3]
+    I, maxc = children.shape
+    tiny = torch.finfo(tips.dtype).tiny
+    partials = tips.new_empty((L, I, C, S, P))
+    scale = tips.new_ones((L, I, P))
+    log_sum = tips.new_zeros((L, P))
+    m = tips.new_ones((L, P))
+    for k in range(I):
+        Rs = tips.new_empty((L, C, S, P))
+        for c in range(C):
+            acc = tips.new_ones((L, S, P))
+            for j in range(maxc):
+                ch = int(children[k, j])
+                if ch >= 0:
+                    acc = acc * _wide_mul(pmats[:, ch, c],
+                                          _child(tips, partials, ch, c,
+                                                      T))
+            Rs[:, c] = acc
+        m = tips.new_ones((L, P))
+        if rescale:
+            m = torch.clamp(Rs.amax((1, 2)), min=tiny)
+            log_sum = log_sum + torch.log(m)
+            scale[:, k] = m
+        partials[:, k] = Rs / m[:, None, None]
+    # the root, the last node's raw products: per warp, then across warps
+    per_state = (props[:, :, None, None] * freqs[:, None, :, None]
+                 * Rs).sum(1)                                  # [L, S, P]
+    warps = [per_state[:, w::_WARPS].sum(1) / m for w in range(_WARPS)]
+    site = torch.clamp(sum(warps), min=tiny)
+    return torch.log(site) + log_sum, partials, scale
+
+
+def _emulate_wide_backward(tips, pmats, children, freqs, props, partials,
+                           scale, g):
+    T, S, P = tips.shape
+    L, N, C = pmats.shape[:3]
+    I, maxc = children.shape
+    tiny = torch.finfo(tips.dtype).tiny
+    gbuf = tips.new_empty((L, I, C, S, P))
+    root = partials[:, I - 1]                                # [L, C, S, P]
+    rootw = props[:, :, None] * freqs[:, None, :]            # [L, C, S]
+    inv = g / torch.clamp((rootw[..., None] * root).sum((1, 2)), min=tiny)
+    gbuf[:, I - 1] = rootw[..., None] * inv[:, None, None]
+    drootw_part = _block_sums(root * inv[:, None, None], _WIDE_BLOCK)
+    nb = drootw_part.shape[-1]
+    dP_part = tips.new_full((L, nb, N, C, S, S), float("nan"))
+    dP_part[:, :, N - 1] = 0.0
+    for k in range(I - 1, -1, -1):
+        for c in range(C):
+            g_raw = gbuf[:, k, c] / scale[:, k, None]
+            for i in range(maxc):
+                ch = int(children[k, i])
+                if ch < 0:
+                    continue
+                other = g_raw
+                for j in range(maxc):
+                    cj = int(children[k, j])
+                    if j != i and cj >= 0:
+                        other = other * _wide_mul(
+                            pmats[:, cj, c],
+                            _child(tips, partials, cj, c, T))
+                x = _child(tips, partials, ch, c, T)
+                dP_part[:, :, ch, c] = _block_sums(
+                    other[:, :, None] * x[:, None], _WIDE_BLOCK).movedim(-1,
+                                                                         1)
+                if ch >= T:
+                    gbuf[:, ch - T, c] = _wide_mul(
+                        pmats[:, ch, c].transpose(-1, -2), other)
+    assert torch.isfinite(dP_part).all(), "a dP row was never written"
+    drootw = drootw_part.sum(-1)                             # [L, C, S]
+    return (dP_part.sum(1), (props[:, :, None] * drootw).sum(1),
+            (freqs[:, None, :] * drootw).sum(2))
+
+
+def _wide_batch(topo, L, C, S, n_sites=300, seed=0):
+    """Numpy inputs of L chains at S states: one-hot tips [T,S,P] with some
+    all-ones (ambiguous) columns, pmats [L,N,C,S,S], freqs [L,S], props
+    [L,C], weights [P]."""
+    rng = np.random.default_rng(seed)
+    tips = np.eye(S)[rng.integers(0, S, (topo.T, n_sites))].transpose(0, 2,
+                                                                       1)
+    tips[:, :, rng.random(n_sites) < 0.1] = 1.0
+    Q = rng.random((L, topo.N, C, S, S)) + 0.1
+    return (np.ascontiguousarray(tips), Q / Q.sum(-1, keepdims=True),
+            rng.dirichlet(np.full(S, 5.0), L),
+            rng.dirichlet(np.full(C, 5.0), L), rng.uniform(0.5, 2.0, n_sites))
+
+
+@pytest.mark.parametrize("shape,S,C,L,rescale", [
+    ("balanced", 5, 4, 3, True), ("caterpillar", 20, 2, 2, False),
+    ("polytomy", 61, 1, 2, True), ("polytomy", 20, 3, 1, False)])
+def test_wide_kernel_schedule_matches_plain(shape, S, C, L, rescale):
+    """float64: the emulated schedule of the S != 4 kernels against the
+    plain version (site logs, d pmats, d freqs, d props) to rounding; 300
+    patterns span ten tiles and three backward blocks, both ragged."""
+    topo = _topologies(shape)[0]
+    tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
+                                 _wide_batch(topo, L, C, S, seed=S))
+    children = torch.as_tensor(topo.children)
+    g = w.expand(L, -1) * torch.linspace(0.5, 1.5, L, **F64)[:, None]
+    site, partials, scale = _emulate_wide_forward(tips, pm, children, freqs,
+                                                  props, rescale)
+    dP, dfreqs, dprops = _emulate_wide_backward(
+        tips, pm, children, freqs, props, partials, scale, g)
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    ref = loop.loop_site_log_reference(tips, *leaves[:1], topo, *leaves[1:],
+                                       rescale=rescale)
+    grads = torch.autograd.grad(torch.sum(g * ref), leaves)
+    torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
+    for a, b in zip((dP, dfreqs, dprops), grads):
+        torch.testing.assert_close(a, b, rtol=1e-12,
+                                   atol=1e-12 * float(b.abs().max()))
+
+
 # -- routing ------------------------------------------------------------------
 
 
@@ -367,22 +534,29 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale):
     ("torch", "cuda", 4, 2, 4, 18.0, 16, "torch"),
     ("cuda-loop", "cuda", 4, 2, 1, 2.06, None, "cuda-loop"),
     ("auto", "cuda", 20, 2, 4, 18.0, 1, "cuda-wide"),
+    ("auto", "cuda", 20, 2, 4, 18.0, 4, "cuda-loop"),   # WAG+G4 chains
+    ("cuda", "cuda", 61, 2, 1, 1.5, 2, "cuda-loop"),    # GY94 chains
+    ("auto", "cuda", 61, 3, 1, 1.5, 8, "cuda-loop"),
+    ("auto", "cuda", 2, 2, 1, 1.5, 2, "cuda-loop"),
+    ("cuda-loop", "cuda", 64, 2, 8, 1.5, None, "cuda-loop"),
+    ("auto", "cuda", 61, 3, 1, 1.5, None, "cuda-wide"),  # one dict: K7'
 ])
 def test_engine_routing(engine, device, S, maxc, C, npl, batch, expected):
-    """Batches of two or more chains at S = 4 and S = 4 polytomies go to
-    K5'/K6' on the card, every batch to the plain engine on the CPU."""
+    """Batches of two or more chains at any S from 2 to 64 and S = 4
+    polytomies go to K5'/K6' on the card, every batch to the plain engine
+    on the CPU."""
     assert select_engine(engine, device, S, maxc, C, npl, batch) == expected
 
 
 @pytest.mark.parametrize("engine,device,S,batch,error", [
-    ("auto", "cuda", 20, 4, NotImplementedError),    # no batched S != 4
-    ("cuda", "cuda", 61, 2, NotImplementedError),
+    ("auto", "cuda", 65, 4, ValueError),             # past the kernels' 64
+    ("cuda", "cuda", 65, 2, ValueError),
     ("cuda-fused", "cuda", 4, 4, ValueError),        # no batch axis
     ("cuda-staged", "cuda", 4, 16, ValueError),
     ("cuda-loop", "cpu", 4, 4, ValueError),
-    ("cuda-loop", "cuda", 20, None, ValueError)])
+    ("cuda-loop", "cuda", 65, None, ValueError)])
 def test_engine_routing_refuses(engine, device, S, batch, error):
-    with pytest.raises(error):
+    with pytest.raises(error, match="2 to 64" if S == 65 else None):
         select_engine(engine, device, S, 2, 1, 2.0, batch)
 
 
@@ -447,19 +621,101 @@ def test_batched_model_matches_one_dict_at_a_time(flu_tree, which):
     torch.testing.assert_close(flat, z.detach(), rtol=1e-10, atol=1e-10)
 
 
-def test_batch_of_codon_model_raises():
-    """A model type that takes no batch yet names its ROADMAP item; it never
-    loops over the chains."""
+def test_batch_of_codon_model_runs():
+    """A batch of a codon model runs as one batch on the CPU (the plain
+    engine), each chain as it would alone; on the card it is K5'/K6'."""
     topo = balanced_topology(4)
     sp = random_sitepattern(4, 30, seed=1, datatype="codon")
     tlk = TreeLikelihood(sp, topo, GY94(fixed_freqs=True, **F64), **F64)
     space = tlk.param_space()
     u = space.flatten_unconstrained(space.unconstrain(
         space.init_params(**F64)))
-    params = space.constrain(space.unflatten_unconstrained(
-        u.expand(2, -1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlk.log_likelihood(params)
+    z = u + torch.as_tensor(np.random.default_rng(2).normal(0, 0.2,
+                                                            (2, len(u))))
+    val = tlk.log_likelihood(space.constrain(space.unflatten_unconstrained(
+        z)))
+    assert val.shape == (2,) and tlk.engine_name(2) == "torch"
+    for i in range(2):
+        one = tlk.log_likelihood(space.constrain(
+            space.unflatten_unconstrained(z[i])))
+        np.testing.assert_allclose(float(val[i]), float(one), rtol=1e-12)
+
+
+# -- codon and protein models over a batch, against jax.vmap ------------------
+
+
+def _codon_models(data_dir, which):
+    seqs = read_alignment(f"{data_dir}/codon_small.fa")
+    with open(f"{data_dir}/codon_small.nwk") as fh:
+        newick = fh.read().strip()
+    topo, dist = read_newick(newick)
+    jtopo, _ = j_read_newick(newick)
+    # MG94 with free frequencies: a batch of simplexes [L, 61]
+    fixed = which == "gy94"
+    maker, jmaker = {"gy94": (GY94, j_codon.GY94),
+                     "mg94": (MG94, j_codon.MG94)}[which]
+    tlk = TreeLikelihood(SitePattern.from_alignment(seqs, "codon"), topo,
+                         maker(fixed_freqs=fixed, **F64),
+                         distances_init=dist, **F64)
+    jtlk = JTreeLikelihood(JSitePattern.from_alignment(seqs, "codon"), jtopo,
+                           jmaker(fixed_freqs=fixed), distances_init=dist)
+    return tlk, jtlk
+
+
+def _protein_models(data_dir, which):
+    seqs = read_alignment(f"{data_dir}/tiny_aa.fa")
+    sp = SitePattern.from_alignment(seqs, "aa")
+    jsp = JSitePattern.from_alignment(seqs, "aa")
+    topo, dist = nj(sp.taxa, distance_matrix(sp, "kimura"))
+    jtopo, _ = j_nj(jsp.taxa, j_distance_matrix(jsp, "kimura"))
+    dist0 = np.nan_to_num(dist[: topo.N - 1], nan=0.1)
+    if which == "wag-g4":
+        subst, jsubst = WAG(**F64), j_protein.WAG()
+        site = GammaSiteModel(4, prefix="site.", **F64)
+        jsite = JGammaSiteModel(4, prefix="site.")
+    else:  # LG+F: free frequencies, one rate
+        subst, jsubst = LG(free_freqs=True, **F64), j_protein.LG(
+            free_freqs=True)
+        site = jsite = None
+    tlk = TreeLikelihood(sp, topo, subst, site, distances_init=dist0,
+                         tipstates=True, **F64)
+    jtlk = JTreeLikelihood(jsp, jtopo, jsubst, jsite, distances_init=dist0,
+                           tipstates=True)
+    return tlk, jtlk
+
+
+@pytest.mark.parametrize("which", ["gy94", "mg94", "wag-g4", "lg-f"])
+def test_batched_codon_protein_match_jax_vmap(data_dir, which):
+    """L = 3 chains of GY94 and MG94 (free frequencies) on codon_small and
+    WAG+G4 and LG+F on tiny_aa: the port's batched log-likelihoods and
+    their gradients w.r.t. every parameter against jax.vmap of the JAX
+    package's (float64, rtol 1e-10)."""
+    tlk, jtlk = (_codon_models if which in ("gy94", "mg94")
+                 else _protein_models)(data_dir, which)
+    rng = np.random.default_rng(5)
+    params = {}
+    for k, v in jtlk.param_space().init_params().items():
+        v = np.asarray(v, np.float64)
+        if k.endswith("frequencies"):
+            params[k] = rng.dirichlet(v * 200.0 + 1.0, 3)
+        else:
+            params[k] = v * np.exp(rng.normal(0.0, 0.2, (3,) + v.shape))
+    leaves = {k: v.requires_grad_(True)
+              for k, v in params_from_numpy(params, **F64).items()}
+    val = tlk.log_likelihood(leaves)
+    val.sum().backward()
+    jval, jg = jax.jit(jax.vmap(jax.value_and_grad(jtlk.log_likelihood)))(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    assert val.shape == (3,) and tlk.engine_name(3) == "torch"
+    np.testing.assert_allclose(val.detach().numpy(), np.asarray(jval),
+                               rtol=1e-10)
+    # the gradients go through the eigenvectors (Daleckii-Krein): up to
+    # 4e-10 of the largest entry apart here, where
+    # test_torch_codon_protein.py holds one dict's at rtol 1e-8
+    for k, v in leaves.items():
+        jgk = np.asarray(jg[k])
+        np.testing.assert_allclose(v.grad.numpy(), jgk, rtol=1e-9,
+                                   atol=1e-9 * np.abs(jgk).max(), err_msg=k)
 
 
 def test_param_space_batch():

@@ -11,7 +11,9 @@ marginallikelihood actions on the CPU, held against the JAX package.
   (rtol 1e-10).
 - mcmc, mmcmc and marginallikelihood configs through the port's CLI on the
   CPU and the JAX package's Runner: the same printed lines (up to the
-  random numbers) and the same log headers.
+  random numbers) and the same log headers; an mcmc config over a codon
+  model (GY94 on codon_small, 2 chains as one batch) likewise, its logged
+  values recomputed one chain at a time (float64, rtol 1e-10).
 """
 
 import io
@@ -310,3 +312,73 @@ def test_cli_mcmc_mmcmc_marginal_match_jax(data_dir, tmp_path):
                                rtol=1e-9)
     temps, lls, ladder = runner.results["mmcmc"]
     assert ladder.samples_u.shape[1] == 4 and len(lls) == 4
+
+
+def _gy94_config(data_dir):
+    """GY94 (free frequencies) over tests/data/codon_small.fa on its tree
+    with branch lengths, and an mcmc action with 2 chains, 40 steps and a
+    tabular logger."""
+    with open(os.path.join(data_dir, "codon_small.nwk")) as fh:
+        newick = fh.read().strip()
+    return {
+        "model": {
+            "id": "treelikelihood", "type": "treelikelihood",
+            "sitepattern": {"id": "patterns", "type": "sitepattern",
+                            "datatype": "codon",
+                            "alignment": {"id": "seqs", "type": "alignment",
+                                          "file": "codon_small.fa"}},
+            "sitemodel": {"id": "sitemodel", "type": "sitemodel",
+                          "substitutionmodel": {
+                              "id": "sm", "type": "substitutionmodel",
+                              "model": "gy94", "datatype": "codon"}},
+            "tree": {"id": "tree", "type": "tree", "newick": newick}},
+        "physher": [
+            {"id": "mc", "type": "mcmc", "model": "&treelikelihood",
+             "length": 40, "chains": 2,
+             "operators": [{"id": "op", "type": "operator",
+                            "algorithm": "scaler", "x": "%sm.omega",
+                            "weight": 20.0}],
+             "log": [{"id": "lg", "type": "logger", "every": 10,
+                      "file": "mc.log", "models": ["&treelikelihood"],
+                      "x": ["%sm.kappa", "%sm.omega"]}]}]}
+
+
+def test_cli_mcmc_codon_matches_jax(data_dir, tmp_path):
+    """mcmc over a GY94 config through the port's CLI on the CPU (the two
+    chains one batch through the model) and the JAX Runner: the same
+    printed line up to the numbers and the same log header; the logged
+    log-likelihoods of chain 0 are the model's, recomputed one chain at a
+    time."""
+    cfg = _gy94_config(data_dir)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    for d in (jdir, pdir):
+        d.mkdir()
+        (d / "codon_small.fa").symlink_to(
+            os.path.join(data_dir, "codon_small.fa"))
+        (d / "config.json").write_text(json.dumps(cfg))
+    jctx, jactions = j_build_config(cfg, base_dir=str(jdir))
+    jout = io.StringIO()
+    JRunner(jctx, seed=0, out=jout).run(jactions)
+    out = io.StringIO()
+    runner = cli.run([str(pdir / "config.json"), "--device", "cpu"],
+                     out=out)
+    lines = out.getvalue().splitlines()
+    assert [_masked(x) for x in lines[:-1]] == [
+        _masked(x) for x in jout.getvalue().splitlines()]
+    assert lines[0].startswith("MCMC finished: 40 iterations; acceptance ")
+    text = (pdir / "mc.log").read_text().splitlines()
+    assert text[0] == (jdir / "mc.log").read_text().splitlines()[0] == \
+        "state\ttreelikelihood\tsm.kappa\tsm.omega"
+    res = runner.results["mc"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    # 14 branch lengths, kappa, omega and the 61 frequencies' 60
+    assert res.samples_u.shape == (4, 2, 76)
+    assert tlk.engine_name(2) == "torch"
+    logged = np.loadtxt(pdir / "mc.log", skiprows=1)
+    with torch.no_grad():
+        again = [float(tlk.log_likelihood(res.params_at(i)))
+                 for i in range(len(logged))]
+    np.testing.assert_allclose(logged[:, 1], again, rtol=1e-10)
+    # the sampler's own value of its target without the Jacobian
+    np.testing.assert_allclose(logged[:, 1], res.log_likelihood[:, 0],
+                               rtol=1e-9)
