@@ -28,8 +28,24 @@ number of chains L = 1, 4, 16, 64: host time per step (mean of at least
 200), device time, launches and busy share per step from the profiler, and
 the engine (K1'/K2' as one dict at L = 1, K5' from L = 2).
 
+With ``--wide-backward``, only K5'/K6' at S != 4 alone (CUDA events, median
+of 100) against the plain version, with their bounds, on chains of GY94 M0
+32 x 4096 (L = 8) and WAG+G4 64 x 8192 (L = 4), float32, then HMC with 4
+chains on WAG+G4 (``chip_smoke.hmc_wag``, its ms per leapfrog step), and
+nvcc's register and spill lines for ``csrc/loop.cu``. It uses only the
+entry points of ``ops/loop.py`` and ``chip_smoke.py``, so the same script
+also times an older checkout of the port (run it from that checkout's
+root).
+
+With ``--k6-bounds``, only the float32 register budget of K6' at S != 4:
+``csrc/loop.cu`` as committed (2 blocks an SM where a step takes four
+tiles, 3 where it takes one) and rebuilt with its kernel's
+``__launch_bounds__`` asking for 1, 2 or 3 blocks an SM at every step
+shape, each build's registers and spills, and K6' alone through each
+(median of 50, three rounds in turns) at the two shapes above.
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
-                            [--mcmc]
+                            [--mcmc] [--wide-backward] [--k6-bounds]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -265,6 +281,93 @@ def profile_mcmc(dev, n_steps: int):
             flush=True)
 
 
+def wide_backward(dev):
+    """K5'/K6' at S != 4 alone against plain at the sixth slice's shapes
+    (float32), then HMC on WAG+G4."""
+    by_kernel = getattr(cs, "ptxas_by_kernel", None)  # not in older trees
+    print(json.dumps({"ptxas_loop": by_kernel(loop.build_log,
+                                              "loop_wide_backward")
+                      if by_kernel else cs.ptxas_lines(loop.build_log)}),
+          flush=True)
+    for name, make, L, seed in (
+            ("gy94-32x4096-L8", cs.gy94_m0_fit_model, 8, 5),
+            ("wag-g4-64x8192-L4", cs.wag_g4_large, 4, 6)):
+        tlk = make(torch.float32, dev)
+        tips, pm, fr, pr, w = cs.engine_inputs(tlk, cs.chain_params(tlk, L,
+                                                                    seed))
+        cs.loop_alone(name, tlk.topo, tips, pm, fr, pr,
+                      w.expand(L, -1).contiguous(), timed=True,
+                      tol=cs.TOL[torch.float32], phase="wide_backward")
+        del tlk, tips, pm, fr, pr, w
+        torch.cuda.empty_cache()
+    cs.hmc_wag(dev)
+
+
+K6_BOUNDS = ("__launch_bounds__(THREADS,\n"
+             "                                  sizeof(scalar_t) == 4 ? "
+             "(CP == 4 ? 2 : 3)\n")
+
+
+def k6_bounds(dev):
+    """K6' at S != 4 (float32) as committed and at 1, 2 and 3 blocks an SM
+    for every step shape."""
+    src = (cuda_build.PKG / "csrc" / "loop.cu").read_text()
+    if K6_BOUNDS not in src:
+        raise SystemExit("csrc/loop.cu no longer has the launch bounds "
+                         "this measurement varies")
+    budgets = ("committed", 1, 2, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for blocks in budgets:
+            d = Path(tmp) / f"blocks-{blocks}"
+            d.mkdir()
+            for h in (cuda_build.PKG / "csrc").glob("*.cuh"):
+                (d / h.name).write_text(h.read_text())
+            # a first line of its own, so that each build is compiled here
+            # (and its registers printed) even where the committed source
+            # was built before
+            text = src if blocks == "committed" else src.replace(
+                K6_BOUNDS, K6_BOUNDS.replace("(CP == 4 ? 2 : 3)",
+                                             str(blocks)))
+            (d / "loop.cu").write_text(f"// blocks an SM: {blocks}\n" + text)
+            paths[blocks] = d / "loop.cu"
+        with ThreadPoolExecutor(len(paths)) as pool:
+            built = dict(zip(paths, pool.map(cuda_build.build_library,
+                                             paths.values())))
+    libs = {}
+    for blocks, (lib, log) in built.items():
+        loop.bind(lib)
+        libs[blocks] = lib
+        print(json.dumps({"k6_blocks_per_sm": blocks,
+                          "ptxas": cs.ptxas_by_kernel(
+                              log, "loop_wide_backward_kernelIf")}), flush=True)
+    cases = []
+    for name, make, L, seed in (
+            ("gy94-32x4096-L8", cs.gy94_m0_fit_model, 8, 5),
+            ("wag-g4-64x8192-L4", cs.wag_g4_large, 4, 6)):
+        tlk = make(torch.float32, dev)
+        tips, pm, fr, pr, w = cs.engine_inputs(tlk, cs.chain_params(tlk, L,
+                                                                    seed))
+        children = cs.topo_constant(tlk.topo, "children",
+                                    lambda: tlk.topo.children, tips,
+                                    torch.int32)
+        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+        cases.append((name, (tips, pm, children, fr, pr, part, sc,
+                             w.expand(L, -1).contiguous())))
+    saved = loop._lib
+    try:
+        for rnd in range(3):
+            for blocks, lib in libs.items():
+                loop._lib = lib
+                row = {"k6_blocks_per_sm": blocks, "round": rnd}
+                for name, args in cases:
+                    row[f"{name}_ms"] = cs.median_ms(
+                        lambda: loop.loop_backward(*args), reps=50)
+                print(json.dumps(row), flush=True)
+    finally:
+        loop._lib = saved
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -272,6 +375,10 @@ def main() -> int:
                     help="only the staged-against-fused measurement")
     ap.add_argument("--mcmc", action="store_true",
                     help="only the MH step against the number of chains")
+    ap.add_argument("--wide-backward", action="store_true",
+                    help="only K5'/K6' at S != 4 and HMC on WAG+G4")
+    ap.add_argument("--k6-bounds", action="store_true",
+                    help="only K6' at S != 4 at 1, 2, 3 blocks an SM")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
@@ -279,6 +386,14 @@ def main() -> int:
     smi = cs.nvidia_smi()
     with ThreadPoolExecutor(3) as pool:
         list(pool.map(lambda m: m.build(), (fused, staged, loop)))
+    if args.k6_bounds:
+        k6_bounds(dev)
+        print(smi, flush=True)
+        return 0
+    if args.wide_backward:
+        wide_backward(dev)
+        print(smi, flush=True)
+        return 0
     if args.mcmc:
         profile_mcmc(dev, max(args.steps, 200))
         print(smi, flush=True)

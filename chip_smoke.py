@@ -24,7 +24,9 @@ slices' main paths through them and times kernel against plain:
   32 taxa x 4096 codons, WAG+G4 at 64 taxa x 8192 patterns and a WAG tree
   with polytomies, mcmc with 8 chains through the CLI on a GY94 config over
   data simulated on the card, HMC with 4 chains on WAG+G4 through the API,
-  and the config engine names pallas-fused and pallas-loop on the card.
+  and the config engine names pallas-fused and pallas-loop on the card;
+  K6' at S != 4 (redesigned) also on one small case per instantiation,
+  twice on the same inputs (bit for bit), with its registers and spills.
 
     python3 chip_smoke.py
 
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -550,6 +553,35 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
     return rec
 
 
+# (S, C) of the small K5'/K6' cases: with the sixth slice's shapes (S = 20
+# and 61), one for each instantiation of K6' at S != 4 (A rows a thread: 2
+# to 16 at S <= 32, 5 to 8 above)
+WIDE_BUCKET_S = [(2, 1), (8, 2), (12, 8), (16, 1), (24, 2), (28, 1),
+                 (32, 1), (33, 2), (48, 1), (56, 2), (64, 1)]
+
+
+def wide_dp_scratch_bytes(topo, tips, pmats):
+    """Bytes of K6''s per-(chain, block) dP scratch at S != 4: L x
+    ceil(P / WIDE_BACKWARD_BLOCK) x N x C x S^2 scalars."""
+    L, N, C, S = pmats.shape[:4]
+    nb = -(-tips.shape[2] // loop.WIDE_BACKWARD_BLOCK)
+    return L * nb * N * C * S * S * tips.element_size()
+
+
+def k6_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
+    """K6' twice on the same inputs: bit-identical d pmats, d freqs and
+    d props."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    _, partials, scale = loop.loop_forward(tips, pmats, children, freqs,
+                                           props)
+    g = g.contiguous()
+    runs = [loop.loop_backward(tips, pmats, children, freqs, props,
+                               partials, scale, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def adam_step_ms(tlk, params, n_steps=20, lr=0.01):
     """Mean host time of one Adam step (after 3 warm-up steps)."""
     space = tlk.param_space()
@@ -572,6 +604,20 @@ def timed_build(mod):
 def ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def ptxas_by_kernel(log: str, part: str) -> dict:
+    """nvcc -Xptxas -v's register and spill lines of each kernel whose
+    (mangled) name contains ``part``."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            name = m.group(1)
+        elif name and part in name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
 
 
 # kernel-against-plain shapes: (name, n_tips, patterns, categories); n_tips
@@ -1643,9 +1689,13 @@ def main() -> int:
     # chains of GY94 M0 (32 x 4096, L = 8, the codon mcmc's batch) and of
     # WAG+G4 (64 x 8192, L = 4, the HMC chains), and a WAG tree with
     # polytomies at L = 1 and 4; float32, and float64 with rescale on and
-    # off, at the kernel tolerances of TOL
-    wide_loop_times = {"card": smi}
+    # off, at the kernel tolerances of TOL; then one small case for each
+    # instantiation of K6' (WIDE_BUCKET_S), and K6' twice on the same
+    # inputs (bit-identical: no atomics)
+    wide_loop_times = {"card": smi, "k6_ptxas": ptxas_by_kernel(
+        loop.build_log, "loop_wide_backward")}
     wag_poly = collapsed_topology(balanced_topology(64))
+    bucket_topo = balanced_topology(16)
     for dtype in (torch.float32, torch.float64):
         gy, wg = gy94_m0_fit_model(dtype, dev), wag_g4_large(dtype, dev)
         cases = [("gy94-32x4096-L8", gy.topo,
@@ -1660,6 +1710,8 @@ def main() -> int:
                                  timed=timed, tol=TOL[dtype],
                                  phase="loop_wide_kernel_vs_plain")
                 if timed:
+                    rec["dP_scratch_bytes"] = wide_dp_scratch_bytes(
+                        topo, tips, pm)
                     wide_loop_times[name] = rec
             for L in (1, 4):
                 loop_alone(f"wag-polytomy-L{L}", wag_poly,
@@ -1667,6 +1719,18 @@ def main() -> int:
                                           dtype, dev, S=20),
                            rescale=rescale, tol=TOL[dtype],
                            phase="loop_wide_kernel_vs_plain")
+            for S, C in WIDE_BUCKET_S:
+                loop_alone(f"bucket-S{S}-C{C}", bucket_topo,
+                           *random_chains(bucket_topo, 1000, C, 2, S, dtype,
+                                          dev, S=S),
+                           rescale=rescale, tol=TOL[dtype],
+                           phase="loop_wide_kernel_vs_plain")
+        if dtype == torch.float32:
+            name, topo, (tips, pm, fr, pr, w) = cases[1]
+            wide_loop_times["k6_bit_identical"] = k6_deterministic(
+                topo, tips, pm, fr, pr, w.expand(pm.shape[0], -1))
+            check(wide_loop_times["k6_bit_identical"],
+                  "K6' twice on the same inputs, bit for bit")
         del gy, wg, cases
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

@@ -50,9 +50,10 @@ MAX_CHILDREN = 16
 # the grid is L x 8 blocks, 128 of the H100's 132 SMs at L = 16, where
 # 128-pattern blocks would fill 32 (csrc/loop.cu)
 BLOCK = 32
-# patterns per block of the backward at S != 4 (4 tiles of 32, as K8'): the
-# per-block dP scratch [L, ceil(P / 128), N, C, S, S] is 240 MB in float32
-# at GY94 32 x 4096, L = 8
+# patterns per block of the backward at S != 4 (4 tiles of 32; the grid is
+# (blocks, C, L)): the per-block dP scratch [L, ceil(P / 128), N, C, S, S]
+# is 240 MB in float32 at GY94 32 x 4096, L = 8, 208 MB at WAG+G4 64 x
+# 8192, L = 4
 WIDE_BACKWARD_BLOCK = 128
 # CUDA's bound on gridDim.y, which carries the chains
 MAX_CHAINS = 65535
@@ -72,6 +73,12 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib, build_log = cuda_build.build_library(_SOURCE)
+    _lib = bind(lib)
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"loop_forward_{dt}")
@@ -86,7 +93,6 @@ def build() -> ctypes.CDLL:
         wbwd = getattr(lib, f"loop_wide_backward_{dt}")
         wbwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
         wbwd.restype = i32
-    _lib = lib
     return lib
 
 

@@ -225,19 +225,38 @@ def test_loop_kernels_match_plain(device, dtype, shape, P, C, L, rescale):
                                    atol=grtol * float(b.abs().max()))
 
 
+def _star():
+    """A root with 16 children (K6''s largest maxc): 15 tips and a
+    cherry."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    return Topology.from_nested({"name": None, "children": [
+        *(tip(i) for i in range(15)),
+        {"name": None, "length": 0.1, "children": [tip(15), tip(16)]}]})[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape,S,C,L,P,rescale", [
     ("balanced", 5, 4, 3, 300, True), ("balanced", 20, 4, 3, 257, True),
     ("balanced", 61, 1, 1, 129, True), ("caterpillar", 61, 1, 3, 64, False),
-    ("polytomy", 20, 1, 3, 100, False), ("polytomy", 5, 4, 1, 33, True)])
+    ("polytomy", 20, 1, 3, 100, False), ("polytomy", 5, 4, 1, 33, True),
+    # with those, one case per instantiation of K6' (A rows a thread: 2 to
+    # 16 at S <= 32, 5 to 8 above), C = 8 and maxc = 16
+    ("balanced", 2, 1, 2, 77, False), ("caterpillar", 12, 8, 2, 100, True),
+    ("balanced", 16, 4, 2, 130, False), ("caterpillar", 28, 1, 2, 77, True),
+    ("balanced", 24, 8, 1, 45, False), ("balanced", 32, 2, 2, 161, True),
+    ("polytomy", 33, 1, 2, 95, True), ("balanced", 48, 1, 1, 70, False),
+    ("caterpillar", 56, 2, 1, 45, True), ("star", 64, 2, 2, 99, False),
+    ("star", 20, 8, 1, 50, True)])
 def test_loop_wide_kernels_match_plain(device, dtype, shape, S, C, L, P,
                                        rescale):
     """K5'/K6' at S != 4 (loop_wide_*_kernel) against the plain version:
-    S in {5, 20, 61}, C in {1, 4}, L in {1, 3}, balanced, caterpillar and
-    polytomy trees, rescale on and off, ragged P."""
+    S from 2 to 64 (every instantiation of K6'), C in {1, 2, 4, 8},
+    L in {1, 2, 3}, balanced, caterpillar and polytomy trees (up to 16
+    children), rescale on and off, ragged P."""
     topo = {"balanced": lambda: balanced_topology(16),
             "caterpillar": lambda: caterpillar_topology(12),
-            "polytomy": _polytomy}[shape]()
+            "polytomy": _polytomy, "star": _star}[shape]()
     tips, pm, freqs, props, g = _chains(topo, P, C, L, dtype, device, S=S)
 
     def run(fn):
@@ -258,6 +277,21 @@ def test_loop_wide_kernels_match_plain(device, dtype, shape, S, C, L, P,
     for a, b in zip(grads_k, grads_p):
         torch.testing.assert_close(a, b, rtol=grtol,
                                    atol=grtol * float(b.abs().max()))
+
+
+def test_loop_wide_backward_is_deterministic(device):
+    """K6' at S != 4 sums without atomics: two launches on the same inputs
+    give bit-identical d pmats, d freqs and d props."""
+    topo = balanced_topology(16)
+    tips, pm, freqs, props, g = _chains(topo, 1000, 4, 2, torch.float32,
+                                        device, S=20)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    _, partials, scale = loop.loop_forward(tips, pm, children, freqs, props)
+    runs = [loop.loop_backward(tips, pm, children, freqs, props, partials,
+                               scale, g) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_loop_wide_wrapper_rejects_bad_input(device):

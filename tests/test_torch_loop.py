@@ -6,7 +6,8 @@ interpret mode with the cases and tolerances of
 tests/test_pallas_engine.py (float32: logL rtol 1e-5, site logs rtol 2e-4,
 gradients rtol 5e-4 with an absolute floor of 1e-4 of the largest entry),
 the kernels' own schedule emulated against the plain version (float64,
-1e-12; S = 4 and the S != 4 kernels' schedule at S = 5, 20 and 61), the
+1e-12; S = 4 and the S != 4 kernels' schedule at S from 2 to 64, C up to
+8, polytomies of up to 16 children), the
 routing of ``select_engine``, a batch of parameter dicts through the models
 (float64, 1e-12 against one dict at a time), and batches through the codon
 and protein models against ``jax.vmap`` of the JAX package's (float64, rtol
@@ -81,8 +82,19 @@ def _nested_polytomy(cls):
         tip(6)]})[0]
 
 
+def _star(cls):
+    """A root with 16 children, 15 tips and a cherry."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    return cls.from_nested({"name": None, "children": [
+        *(tip(i) for i in range(15)),
+        {"name": None, "length": 0.1, "children": [tip(15), tip(16)]}]})[0]
+
+
 def _topologies(shape):
     """(port topology, JAX topology) with the same node ids."""
+    if shape == "star":
+        return _star(Topology), _star(JTopology)
     if shape == "balanced":
         return balanced_topology(12), j_balanced(12)
     if shape == "caterpillar":
@@ -387,16 +399,22 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale):
 
 
 # The S != 4 kernels (loop_wide_forward_kernel / loop_wide_backward_kernel)
-# follow another schedule: one block per (32-pattern tile, chain) walks the
-# postorder; per node, category and child an [S, S] @ [S, 32] product from
-# shared memory, warp w owning states w, w + 8, ...; the node's categories
-# meet before the per-pattern max over (C, S); the root's sum taken per warp
-# over its states, then across the 8 warps; the backward in blocks of
-# loop.WIDE_BACKWARD_BLOCK patterns, each with its own sums of dP and of
-# d rootw (turned into d freqs and d props by the caller).
+# follow another schedule. The forward: one block per (32-pattern tile,
+# chain) walks the postorder; per node, category and child an [S, S] @
+# [S, 32] product from shared memory, warp w owning states w, w + 8, ...; the
+# node's categories meet before the per-pattern max over (C, S); the root's
+# sum taken per warp over its states, then across the 8 warps. The backward:
+# one block per (loop.WIDE_BACKWARD_BLOCK patterns, category, chain) walks
+# the reverse postorder in steps of 128 patterns at S <= 32, of 32 above; at
+# a node of at most two children each child's y = P x is computed once and
+# the sibling's `other` taken from it, at a polytomy the siblings' products
+# are recomputed for each child; dP summed per step, then over the block's
+# steps, and d rootw per (block, category) (turned into d freqs and d props
+# by the caller).
 
 _WARPS = 8
 _WIDE_BLOCK = loop.WIDE_BACKWARD_BLOCK
+_TILE = 32
 
 
 def _wide_mul(pm, x):
@@ -444,38 +462,61 @@ def _emulate_wide_backward(tips, pmats, children, freqs, props, partials,
     L, N, C = pmats.shape[:3]
     I, maxc = children.shape
     tiny = torch.finfo(tips.dtype).tiny
-    gbuf = tips.new_empty((L, I, C, S, P))
+    gbuf = tips.new_full((L, I, C, S, P), float("nan"))
     root = partials[:, I - 1]                                # [L, C, S, P]
     rootw = props[:, :, None] * freqs[:, None, :]            # [L, C, S]
     inv = g / torch.clamp((rootw[..., None] * root).sum((1, 2)), min=tiny)
-    gbuf[:, I - 1] = rootw[..., None] * inv[:, None, None]
-    drootw_part = _block_sums(root * inv[:, None, None], _WIDE_BLOCK)
-    nb = drootw_part.shape[-1]
+    nb = -(-P // _WIDE_BLOCK)
     dP_part = tips.new_full((L, nb, N, C, S, S), float("nan"))
     dP_part[:, :, N - 1] = 0.0
-    for k in range(I - 1, -1, -1):
-        for c in range(C):
+    drootw_part = tips.new_full((L, nb, C, S), float("nan"))
+
+    # patterns a step: the block's four tiles at once at S <= 32, one tile
+    # at a time above
+    step = _WIDE_BLOCK if S <= 32 else _TILE
+
+    def block_sums(v):
+        """[..., P] -> [..., nb]: sums per step, then over a block's steps"""
+        return _block_sums(_block_sums(v, step), _WIDE_BLOCK // step)
+
+    for c in range(C):  # the grid's category axis
+        gbuf[:, I - 1, c] = rootw[:, c, :, None] * inv[:, None]
+        drootw_part[:, :, c] = block_sums(root[:, c] * inv[:, None]
+                                          ).movedim(-1, 1)
+        for k in range(I - 1, -1, -1):
             g_raw = gbuf[:, k, c] / scale[:, k, None]
-            for i in range(maxc):
-                ch = int(children[k, i])
+            kids = [int(ch) for ch in children[k]]
+            if maxc <= 2:
+                # each child's product once, reused for its sibling
+                ys = [_wide_mul(pmats[:, ch, c], _child(tips, partials, ch,
+                                                        c, T))
+                      if ch >= 0 else None for ch in kids]
+                others = [g_raw * ys[1 - i] if maxc == 2
+                          and ys[1 - i] is not None else g_raw
+                          for i in range(maxc)]
+            else:
+                # a polytomy: the siblings' products recomputed per child
+                others = []
+                for i in range(maxc):
+                    other = g_raw
+                    for j, cj in enumerate(kids):
+                        if j != i and cj >= 0:
+                            other = other * _wide_mul(
+                                pmats[:, cj, c],
+                                _child(tips, partials, cj, c, T))
+                    others.append(other)
+            for ch, other in zip(kids, others):
                 if ch < 0:
                     continue
-                other = g_raw
-                for j in range(maxc):
-                    cj = int(children[k, j])
-                    if j != i and cj >= 0:
-                        other = other * _wide_mul(
-                            pmats[:, cj, c],
-                            _child(tips, partials, cj, c, T))
                 x = _child(tips, partials, ch, c, T)
-                dP_part[:, :, ch, c] = _block_sums(
-                    other[:, :, None] * x[:, None], _WIDE_BLOCK).movedim(-1,
-                                                                         1)
+                dP_part[:, :, ch, c] = block_sums(
+                    other[:, :, None] * x[:, None]).movedim(-1, 1)
                 if ch >= T:
                     gbuf[:, ch - T, c] = _wide_mul(
                         pmats[:, ch, c].transpose(-1, -2), other)
     assert torch.isfinite(dP_part).all(), "a dP row was never written"
-    drootw = drootw_part.sum(-1)                             # [L, C, S]
+    assert torch.isfinite(drootw_part).all()
+    drootw = drootw_part.sum(1)                              # [L, C, S]
     return (dP_part.sum(1), (props[:, :, None] * drootw).sum(1),
             (freqs[:, None, :] * drootw).sum(2))
 
@@ -496,11 +537,15 @@ def _wide_batch(topo, L, C, S, n_sites=300, seed=0):
 
 @pytest.mark.parametrize("shape,S,C,L,rescale", [
     ("balanced", 5, 4, 3, True), ("caterpillar", 20, 2, 2, False),
-    ("polytomy", 61, 1, 2, True), ("polytomy", 20, 3, 1, False)])
+    ("polytomy", 61, 1, 2, True), ("polytomy", 20, 3, 1, False),
+    ("balanced", 2, 1, 2, False), ("caterpillar", 33, 3, 2, True),
+    ("balanced", 64, 8, 1, True), ("star", 12, 2, 2, True)])
 def test_wide_kernel_schedule_matches_plain(shape, S, C, L, rescale):
     """float64: the emulated schedule of the S != 4 kernels against the
     plain version (site logs, d pmats, d freqs, d props) to rounding; 300
-    patterns span ten tiles and three backward blocks, both ragged."""
+    patterns span ten tiles and three backward blocks, both ragged; S from
+    2 to 64 (the backward's thread tiles of A = ceil(S / 8) rows: 1, 3, 5,
+    8), C up to 8, binary nodes and polytomies of 4 and 16 children."""
     topo = _topologies(shape)[0]
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _wide_batch(topo, L, C, S, seed=S))
