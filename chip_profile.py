@@ -37,6 +37,22 @@ entry points of ``ops/loop.py`` and ``chip_smoke.py``, so the same script
 also times an older checkout of the port (run it from that checkout's
 root).
 
+With ``--k8``, only K7'/K8' alone (CUDA events, median of 100) against the
+plain version, with their bounds, at GY94 M0 32 x 4096 (C = 1) and WAG+G4
+64 x 8192 (C = 4), float32, beside each model's value-and-gradient through
+them and its Adam step (host clock), and nvcc's register and spill lines
+for K8'. Then the device time of each of K8''s launches (the root seed,
+then the levels root first) from torch.profiler. Like ``--wide-backward``
+it uses only entry points that older checkouts have, so a copy run from an
+older checkout's root times that checkout.
+
+With ``--k8-blocks``, only K8' (float32) at GY94 M0 32 x 4096 with
+``csrc/wide.cu`` as committed (128 patterns a block) and rebuilt with
+``BWD_P`` at 64 and 32 (the dP scratch grows as the block shrinks): each
+build's registers and spills, K8' alone (median of 100, three rounds in
+turns), each launch's device time and each build's largest difference
+from the committed one.
+
 With ``--k6-bounds``, only the float32 register budget of K6' at S != 4:
 ``csrc/loop.cu`` as committed (2 blocks an SM where a step takes four
 tiles, 3 where it takes one) and rebuilt with its kernel's
@@ -45,7 +61,8 @@ shape, each build's registers and spills, and K6' alone through each
 (median of 50, three rounds in turns) at the two shapes above.
 
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
-                            [--mcmc] [--wide-backward] [--k6-bounds]
+                            [--mcmc] [--wide-backward] [--k8]
+                            [--k8-blocks] [--k6-bounds]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -74,7 +91,7 @@ from physher_tpu_torch.io.treeio import read_newick
 from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import GTR
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
-from physher_tpu_torch.ops import cuda_build, fused, loop, staged
+from physher_tpu_torch.ops import cuda_build, fused, loop, staged, wide
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology, random_sitepattern)
 
@@ -303,6 +320,136 @@ def wide_backward(dev):
     cs.hmc_wag(dev)
 
 
+def launch_device_us(run, names, n_runs=20):
+    """Device time (us, mean over ``n_runs`` calls of ``run()``) of each
+    kernel launch whose name contains one of ``names``, in launch order, from
+    torch.profiler; None where the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_runs):
+            run()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and any(n in e.name for n in names)),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % n_runs:
+        return None
+    per_run = len(evs) // n_runs
+    return [sum(evs[r * per_run + i].time_range.elapsed_us()
+                for r in range(n_runs)) / n_runs for i in range(per_run)]
+
+
+def k8(dev):
+    """K7'/K8' alone against plain, value-and-gradient and the Adam step at
+    GY94 M0 and WAG+G4 (float32), and the device time of K8''s launches."""
+    print(json.dumps({"ptxas_k8": cs.ptxas_by_kernel(wide.build_log,
+                                                     "backward_level")}),
+          flush=True)
+    kw = dict(dtype=torch.float32, device=dev)
+    for name, make in (("gy94-32x4096", cs.gy94_m0_fit_model),
+                       ("wag-g4-64x8192", cs.wag_g4_large)):
+        tlk = make(torch.float32, dev)
+        params = tlk.param_space().init_params(**kw)
+        inputs = cs.engine_inputs(tlk, params)
+        rec = {"k8": name, "patterns": tlk.sp.pattern_count,
+               "kernel_alone": cs.kernels_alone(wide, tlk.topo, *inputs),
+               "value_and_grad_kernel_ms": cs.median_ms(
+                   lambda: cs.value_and_grad(wide.wide_site_log, tlk.topo,
+                                             *inputs), reps=100),
+               "adam_step_ms": cs.adam_step_ms(tlk, params, n_steps=50)}
+        bwd = k8_call(tlk, inputs)
+        # the root seed, then the levels root first
+        rec["level_nodes"] = [len(lv) for lv in tlk.topo.levels][::-1]
+        rec["launch_us"] = launch_device_us(bwd, ("backward_root",
+                                                  "backward_level"))
+        print(json.dumps(rec), flush=True)
+        del tlk, inputs, bwd
+        torch.cuda.empty_cache()
+
+
+def k8_call(tlk, inputs):
+    """K8' on one model's inputs, after K7', as a call without arguments."""
+    tips, pm, fr, pr, w = inputs
+    children = cs.topo_constant(tlk.topo, "children",
+                                lambda: tlk.topo.children, tips, torch.int32)
+    rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+    schedule = cuda_build.level_schedule(tlk.topo, tips)
+    _, part, sc = wide.wide_forward(tips, pm, children, rootw, schedule)
+    return lambda: wide.wide_backward(tips, pm, children, rootw, schedule,
+                                      part, sc, w)
+
+
+K8_BLOCK = "constexpr int BWD_P = TP * BWD_CHUNKS;"
+
+
+def k8_blocks(dev):
+    """K8' (float32) at GY94 M0 32 x 4096 with ``csrc/wide.cu`` as
+    committed (128 patterns a block) and rebuilt at 64 and 32."""
+    tiles = (cuda_build.PKG / "csrc" / "tiles.cuh").read_text()
+    if K8_BLOCK not in tiles:
+        raise SystemExit("csrc/tiles.cuh no longer has the block size "
+                         "this measurement varies")
+    source = (cuda_build.PKG / "csrc" / "wide.cu").read_text()
+    # a rebuilt block is a multiple of the step's 32 patterns only at
+    # S > 32 (at S <= 32 a step takes 128): these builds run GY94 alone
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for block in (64, 32):
+            d = Path(tmp) / f"block-{block}"
+            d.mkdir()
+            for h in (cuda_build.PKG / "csrc").glob("*.cuh"):
+                (d / h.name).write_text(h.read_text().replace(
+                    K8_BLOCK, f"constexpr int BWD_P = {block};"))
+            (d / "wide.cu").write_text(f"// patterns a block: {block}\n"
+                                       + source)
+            paths[block] = d / "wide.cu"
+        with ThreadPoolExecutor(len(paths)) as pool:
+            built = dict(zip(paths, pool.map(cuda_build.build_library,
+                                             paths.values())))
+    libs = {wide.BWD_PATTERNS: wide.build()}
+    print(json.dumps({"k8_block": wide.BWD_PATTERNS,
+                      "ptxas": cs.ptxas_by_kernel(wide.build_log,
+                                                  "backward_levelIf")}),
+          flush=True)
+    for block, (lib, log) in built.items():
+        libs[block] = wide.bind(lib)
+        print(json.dumps({"k8_block": block,
+                          "ptxas": cs.ptxas_by_kernel(log,
+                                                      "backward_levelIf")}),
+              flush=True)
+    tlk = cs.gy94_m0_fit_model(torch.float32, dev)
+    inputs = cs.engine_inputs(tlk, tlk.param_space().init_params(
+        dtype=torch.float32, device=dev))
+    bwd = k8_call(tlk, inputs)
+    saved = wide._lib, wide.BWD_PATTERNS
+    try:
+        ref = None
+        for rnd in range(3):
+            for block, lib in libs.items():
+                wide._lib, wide.BWD_PATTERNS = lib, block
+                row = {"k8_block": block, "round": rnd,
+                       "gy94-32x4096_ms": cs.median_ms(bwd, reps=100)}
+                if rnd == 0:
+                    dP, drootw = bwd()
+                    ref = ref or (dP, drootw)
+                    row["max_abs_err_vs_128"] = max(
+                        cs.max_err(dP, ref[0])[0],
+                        cs.max_err(drootw, ref[1])[0])
+                    row["launch_us"] = launch_device_us(
+                        bwd, ("backward_root", "backward_level"))
+                    row["dP_scratch_bytes"] = (
+                        -(-tlk.sp.pattern_count // block) * dP.numel()
+                        * dP.element_size())
+                print(json.dumps(row), flush=True)
+    finally:
+        wide._lib, wide.BWD_PATTERNS = saved
+
+
 K6_BOUNDS = ("__launch_bounds__(THREADS,\n"
              "                                  sizeof(scalar_t) == 4 ? "
              "(CP == 4 ? 2 : 3)\n")
@@ -377,6 +524,10 @@ def main() -> int:
                     help="only the MH step against the number of chains")
     ap.add_argument("--wide-backward", action="store_true",
                     help="only K5'/K6' at S != 4 and HMC on WAG+G4")
+    ap.add_argument("--k8", action="store_true",
+                    help="only K7'/K8' and their models' steps")
+    ap.add_argument("--k8-blocks", action="store_true",
+                    help="only K8' at GY94 at 128, 64, 32 patterns a block")
     ap.add_argument("--k6-bounds", action="store_true",
                     help="only K6' at S != 4 at 1, 2, 3 blocks an SM")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
@@ -384,14 +535,22 @@ def main() -> int:
     args = ap.parse_args()
     dev = cs.cuda_device()
     smi = cs.nvidia_smi()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda m: m.build(), (fused, staged, loop)))
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda m: m.build(), (fused, staged, loop, wide)))
     if args.k6_bounds:
         k6_bounds(dev)
         print(smi, flush=True)
         return 0
     if args.wide_backward:
         wide_backward(dev)
+        print(smi, flush=True)
+        return 0
+    if args.k8:
+        k8(dev)
+        print(smi, flush=True)
+        return 0
+    if args.k8_blocks:
+        k8_blocks(dev)
         print(smi, flush=True)
         return 0
     if args.mcmc:

@@ -7,7 +7,11 @@ slices' main paths through them and times kernel against plain:
   that ``select_engine`` picks;
 - codon and protein (K7'/K8', ``csrc/wide.cu``): the libphyc and WAG
   goldens, a GY94 M0 fit to data simulated on the card at 32 taxa x 4096
-  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns;
+  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns; K8'
+  (redesigned around K6''s node step, ``csrc/wide_backward.cuh``) also on
+  one small case per tile shape and a WAG tree with polytomies, twice on
+  the same inputs (bit for bit), with its registers, spills and dP
+  scratch;
 - large nucleotide alignments (K3'/K4', ``csrc/staged.cu``) and the
   JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
@@ -25,8 +29,8 @@ slices' main paths through them and times kernel against plain:
   with polytomies, mcmc with 8 chains through the CLI on a GY94 config over
   data simulated on the card, HMC with 4 chains on WAG+G4 through the API,
   and the config engine names pallas-fused and pallas-loop on the card;
-  K6' at S != 4 (redesigned) also on one small case per instantiation,
-  twice on the same inputs (bit for bit), with its registers and spills.
+  K6' at S != 4 also on one small case per instantiation, twice on the
+  same inputs (bit for bit), with its registers and spills.
 
     python3 chip_smoke.py
 
@@ -389,14 +393,16 @@ def pruning_work(backward, T, I, C, S, maxc, P, itemsize):
     and each output written once (forward: tips, pmats, rootw, children in;
     partials, scalers, site logs out; backward: tips, pmats, rootw,
     children, partials, scalers, cotangent in; d pmats, d rootw out), and
-    2 S^2 + S operations per (branch, category, pattern) forward, 6 S^2 + S
-    backward (the sibling's product again, the dP outer product, the
-    child's cotangent), plus the rescaling and the root."""
+    2 S^2 + S operations per (branch, category, pattern) forward; backward
+    6 S^2 + S above an internal node (the sibling's product again, the dP
+    outer product, the child's cotangent) and 4 S^2 + S above a tip, which
+    takes no cotangent; plus the rescaling and the root."""
     N = T + I
     pm, parts = N * C * S * S, I * C * S * P
     if backward:
         n = T * S * P + pm + C * S + parts + I * P + P + pm + C * S
-        flops = P * ((N - 1) * C * (6 * S * S + S) + 4 * C * S)
+        flops = P * (C * ((I - 1) * (6 * S * S + S) + T * (4 * S * S + S))
+                     + 4 * C * S)
     else:
         n = T * S * P + pm + C * S + parts + I * P + P
         flops = P * ((N - 1) * C * (2 * S * S + S) + I * 2 * C * S
@@ -553,9 +559,10 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
     return rec
 
 
-# (S, C) of the small K5'/K6' cases: with the sixth slice's shapes (S = 20
-# and 61), one for each instantiation of K6' at S != 4 (A rows a thread: 2
-# to 16 at S <= 32, 5 to 8 above)
+# (S, C) of the small K6' and K8' cases: with the main paths' shapes (S = 20
+# and 61), one for each tile shape of their shared node step
+# (csrc/wide_backward.cuh; A rows a thread: 2 to 16 at S <= 32, 5 to 8
+# above)
 WIDE_BUCKET_S = [(2, 1), (8, 2), (12, 8), (16, 1), (24, 2), (28, 1),
                  (32, 1), (33, 2), (48, 1), (56, 2), (64, 1)]
 
@@ -568,6 +575,21 @@ def wide_dp_scratch_bytes(topo, tips, pmats):
     return L * nb * N * C * S * S * tips.element_size()
 
 
+def k8_dp_scratch_bytes(tips, pmats):
+    """Bytes of K8''s per-block dP scratch: ceil(P / its pattern block) x N
+    x C x S^2 scalars."""
+    N, C, S = pmats.shape[:3]
+    nb = -(-tips.shape[2] // wide.BWD_PATTERNS)
+    return nb * N * C * S * S * tips.element_size()
+
+
+def bit_identical(run) -> bool:
+    """``run()`` twice: bit-identical tensors."""
+    runs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def k6_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     """K6' twice on the same inputs: bit-identical d pmats, d freqs and
     d props."""
@@ -576,10 +598,21 @@ def k6_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     _, partials, scale = loop.loop_forward(tips, pmats, children, freqs,
                                            props)
     g = g.contiguous()
-    runs = [loop.loop_backward(tips, pmats, children, freqs, props,
-                               partials, scale, g) for _ in range(2)]
-    torch.cuda.synchronize()
-    return all(torch.equal(a, b) for a, b in zip(*runs))
+    return bit_identical(lambda: loop.loop_backward(
+        tips, pmats, children, freqs, props, partials, scale, g))
+
+
+def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
+    """K8' twice on the same inputs: bit-identical d pmats and d rootw."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    schedule = cuda_build.level_schedule(topo, tips)
+    _, partials, scale = wide.wide_forward(tips, pmats, children, rootw,
+                                           schedule)
+    g = g.contiguous()
+    return bit_identical(lambda: wide.wide_backward(
+        tips, pmats, children, rootw, schedule, partials, scale, g))
 
 
 def adam_step_ms(tlk, params, n_steps=20, lr=0.01):
@@ -1495,15 +1528,28 @@ def main() -> int:
     times["build_seconds"] = build_s
     emit("times", **times)
 
-    # ---- 8. K7'/K8' against plain at both full shapes and the caterpillar
+    # ---- 8. K7'/K8' against plain at both full shapes and the caterpillar,
+    # then one small case for each tile shape of K8' (WIDE_BUCKET_S; 1000
+    # patterns, ragged) and a WAG tree with polytomies
     wide_shapes = [(name, make(), P, C, datatype, seed)
                    for name, make, P, C, datatype, seed in WIDE_SHAPES]
+    wag_poly = collapsed_topology(balanced_topology(64))
+    bucket_topo = balanced_topology(16)
     for dtype in (torch.float32, torch.float64):
         for name, topo, P, C, datatype, seed in wide_shapes:
             compare(name, topo, random_inputs(topo, P, C, seed, dtype, dev,
                                               datatype), dtype, mod=wide,
                     phase="wide_kernel_vs_plain")
             torch.cuda.synchronize()
+        cases = [(f"bucket-S{S}-C{C}", bucket_topo, 1000, C, S)
+                 for S, C in WIDE_BUCKET_S]
+        cases.append(("wag-polytomy-2048-C4", wag_poly, 2048, 4, 20))
+        for name, topo, P, C, S in cases:
+            tips, pm, fr, pr, w = random_chains(topo, P, C, 1, S, dtype,
+                                                dev, S=S)
+            compare(name, topo, (tips, pm[0], fr[0], pr[0], w[0]), dtype,
+                    mod=wide, phase="wide_kernel_vs_plain")
+        torch.cuda.synchronize()
 
     # ---- 9. codon and protein goldens through K7'/K8' (float64)
     kw64 = dict(dtype=torch.float64, device=dev)
@@ -1576,8 +1622,10 @@ def main() -> int:
     check(ok, "GY94 M0 recovery and WAG+G4 Adam steps through the wide "
               "kernels")
 
-    # ---- 11. times of K7'/K8' (float32)
-    times = {"card": smi}
+    # ---- 11. times of K7'/K8' (float32), K8''s dP scratch, registers and
+    # spills, and K8' twice on the same inputs (bit-identical: no atomics)
+    times = {"card": smi, "k8_ptxas": ptxas_by_kernel(wide.build_log,
+                                                      "backward_level")}
     m0_params = {k: v.detach() for k, v in fit.params.items()}
     for name, tlk, params in (("gy94-32x4096", m0, m0_params),
                               ("wag-g4-64x8192", wag32, wag_start)):
@@ -1590,7 +1638,11 @@ def main() -> int:
                 wide.wide_site_log_reference, tlk.topo, *inputs)),
             "kernel_alone": kernels_alone(wide, tlk.topo, *inputs),
             "adam_step_ms": adam_step_ms(tlk, params),
+            "dP_scratch_bytes": k8_dp_scratch_bytes(inputs[0], inputs[1]),
+            "k8_bit_identical": k8_deterministic(tlk.topo, *inputs),
         }
+        check(times[name]["k8_bit_identical"],
+              f"K8' twice on the same inputs, bit for bit, at {name}")
     times["build_seconds"] = build_wide_s
     emit("wide_times", **times)
     wide_alone = times["gy94-32x4096"]["kernel_alone"]
@@ -1694,8 +1746,6 @@ def main() -> int:
     # inputs (bit-identical: no atomics)
     wide_loop_times = {"card": smi, "k6_ptxas": ptxas_by_kernel(
         loop.build_log, "loop_wide_backward")}
-    wag_poly = collapsed_topology(balanced_topology(64))
-    bucket_topo = balanced_topology(16)
     for dtype in (torch.float32, torch.float64):
         gy, wg = gy94_m0_fit_model(dtype, dev), wag_g4_large(dtype, dev)
         cases = [("gy94-32x4096-L8", gy.topo,

@@ -82,55 +82,30 @@
 //   dynamic limit is raised above 48 KB where needed).
 //
 // K6' at S != 4, redesigned for this card. What bounds it: per branch,
-// category and pattern 6 S^2 FLOPs (the child's product P x, its dP outer
-// product, its cotangent P^T other) against a few S scalars read, so the
-// FLOPs bound the function (0.60 ms at WAG+G4 64 x 8192, C = 4, L = 4; 0.68
-// ms at GY94 32 x 4096, L = 8). The first design, one block per (128
-// patterns, chain) walking every node x category x child x 32-pattern tile
-// in sequence, tiles laid out for S = 64 at every S and each sibling's P
-// restaged per tile, waited on latency at 36x that bound. The design now:
+// category and pattern 6 S^2 FLOPs above an internal node and 4 S^2 above
+// a tip (no cotangent) against a few S scalars read, so the FLOPs bound the
+// function (0.50 ms at WAG+G4 64 x 8192, C = 4, L = 4; 0.56 ms at GY94
+// 32 x 4096, L = 8). The first design, one block per (128 patterns, chain)
+// walking every node x category x child x 32-pattern tile in sequence,
+// tiles laid out for S = 64 at every S and each sibling's P restaged per
+// tile, waited on latency at 43x that bound. The design now:
 // - Categories on the grid: (pattern blocks of 128, C, L). A category's
-//   backward needs nothing of the others (m_k is read from `scale`; gbuf[k,
-//   c] and dP[ch, c] are disjoint per c), so each block walks 1/C of the
+//   backward needs nothing of the others, so each block walks 1/C of the
 //   former steps and there are C times as many blocks (1024 at WAG+G4
 //   L = 4). Each block recomputes the root's site over all categories for
 //   its seed. The dP scratch keeps its size, L x ceil(P / 128) x N x C x
 //   S^2 (208 MB at WAG+G4 L = 4, 240 MB at GY94 L = 8 in float32).
-// - Each child staged once per node: at a node of at most two children, the
-//   block stages both children's P and P^T once per (node, category), both
-//   children's partials once per step, computes each y_j = P_j x_j once in
-//   registers and forms other_i = g_raw * y_{1-i} from it (the TPU kernel's
-//   order): three barriers a step. Polytomies (maxc 3 to 16) stage child i's
-//   P and P^T once per node and recompute its siblings' products per step.
-// - Steps shaped to S: at S <= 32 the block takes its four 32-pattern tiles
-//   at once (two warps a tile, one step a node); above, one tile a step
-//   (eight warps a tile). A thread owns A rows of its lane's pattern in the
-//   products, A a template parameter (12 instantiations a type, chosen at
-//   launch from S rounded up to a 16-byte vector), so P x and P^T other
-//   spend almost no FMA on padding (at S = 20 none); the dP pass gives each
-//   thread rows w + 8 i and columns lane + 32 j of the [S, S] sum, reading
-//   X and O as 16-byte vectors along the patterns (row stride of a tile one
-//   vector more than its width, so that eight lanes' vectors fall in
-//   distinct banks) and P, P^T as 16-byte broadcasts: about 0.3-0.6 shared-
-//   memory wavefronts per warp FMA instruction.
-// - Staging by cp.async: a thread's copies of P, P^T and the tiles are all
-//   in flight at once instead of waiting in turn on loads through its
-//   registers. A second tile buffer, fetching the next step while this one
-//   computes, gained nothing measurable on the card and is not kept.
+// - Each node is one step of csrc/wide_backward.cuh, which K8' shares: each
+//   child staged once per node, tiles and thread work shaped to S, staging
+//   by cp.async (the header says how).
 // - Registers: in float32 the launch bounds trade spills for resident
 //   blocks (chip_profile.py --k6-bounds measures the choice).
-// - Sums stay deterministic: per-thread registers over the block's patterns,
-//   written to the per-(chain, block) scratch that the caller sums.
-// Tensor cores wait: in float32 they take TF32, which keeps about three
-// digits, and TF32 stays off in this port; keeping float32 accuracy needs a
-// 3xTF32 split of each product (three mma.sync where there was one FMA
-// pass), the next lever for K6' and K8'. Float64 keeps CUDA-core FMAs.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 
 #include "tiles.cuh"
+#include "wide_backward.cuh"
 
 namespace {
 
@@ -566,146 +541,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // K6' for S from 2 to 64: grid (pattern blocks of BWD_P, C, L), 256 threads.
-// A block takes its 128 patterns in steps of CP tiles of 32 (CP = 4: the
-// whole block at once, at S <= 32; CP = 1: four steps, at S > 32). In the
-// products each tile has WPC = 8 / CP warps, and a thread owns A rows
-// a = wi + WPC i (wi its warp within the tile) of its lane's pattern; in the
-// dP pass a thread owns rows w + 8 i (i < AD) and columns lane + 32 j
-// (j < J) of each child's [S, S] sum over the step's patterns.
-// Tiles, in shared memory: Ps, Pts [2][RA][SP] (P[ch, c] and its transpose
-// for two children, zero outside [S, S]); Xs [2][XR][TX] (the children's
-// partials); Os [2][OR][TX] (their `other`), with RA = WPC A rows, SP = S
-// rounded up to a 16-byte vector, XR = 32 J, OR = 8 AD and a row stride
-// TX = 32 CP + one vector, so that the products read P, Pᵀ, X and O as
-// 16-byte vectors without bank conflicts.
+// A block walks the reverse postorder of chain l at category c for its 128
+// patterns, one WideBackwardStep a node (csrc/wide_backward.cuh).
 // gbuf [L, I, C, S, P]; dP_part [L, nb, N, C, S, S] (the caller zeroes the
 // root's rows); drootw_part [L, nb, C, S].
-
-// 16-byte vectors of the tiles: 4 floats or 2 doubles
-template <typename scalar_t> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ static void load(const float* p, float o[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-  }
-};
-template <> struct Vec<double> {
-  static constexpr int n = 2;
-  __device__ static void load(const double* p, double o[2]) {
-    const double2 v = *reinterpret_cast<const double2*>(p);
-    o[0] = v.x, o[1] = v.y;
-  }
-};
-
-// Shape of K6''s tiles at A product rows per thread and CP tiles a step
-template <typename scalar_t, int A, int CP> struct WideTiles {
-  static_assert(BWD_CHUNKS % CP == 0 && NW % CP == 0, "tiles per step");
-  static constexpr int V = Vec<scalar_t>::n;
-  static constexpr int WPC = NW / CP;           // warps per tile
-  static constexpr int RA = WPC * A;            // product rows, >= SP
-  static constexpr int AD = (RA + NW - 1) / NW;  // dP rows per thread
-  static constexpr int J = (RA + 31) / 32;       // dP columns per lane
-  static constexpr int XR = 32 * J, OR = NW * AD;
-  static constexpr int TQ = TP * CP, TX = TQ + V;
-  __host__ __device__ static int sp(int S) { return (S + V - 1) / V * V; }
-  __host__ __device__ static size_t smem_scalars(int S) {
-    return 4 * (size_t)RA * sp(S) + 2 * (size_t)XR * TX + 2 * (size_t)OR * TX;
-  }
-};
-
-// The staging below copies with cp.async, one scalar a piece (zero-filled
-// where `in` is false, reading nothing): a thread's copies are all in flight
-// at once, where loads through registers would wait in turn. The caller
-// commits, waits and then synchronizes the block.
-template <typename scalar_t>
-__device__ inline void copy_async(scalar_t* dst, const scalar_t* src,
-                                  bool in) {
-  __pipeline_memcpy_async(dst, src, sizeof(scalar_t),
-                          in ? 0 : sizeof(scalar_t));
-}
-
-// Pd [RA][SP] <- P ([S, S], row-major) and, unless Ptd is null, Ptd <- Pᵀ;
-// zero outside [S, S]
-template <typename scalar_t>
-__device__ inline void stage_pmat(const scalar_t* __restrict__ pm, int RA,
-                                  int S, int SP, scalar_t* Pd, scalar_t* Ptd) {
-  for (int t = threadIdx.x; t < RA * SP; t += blockDim.x) {
-    const int r = t / SP, col = t - r * SP;
-    const bool in = r < S && col < S;
-    copy_async(Pd + t, pm + (in ? r * S + col : 0), in);
-    if (Ptd) copy_async(Ptd + t, pm + (in ? col * S + r : 0), in);
-  }
-}
-
-// Xd [XR][TX] <- src [S, P] at patterns p0 .. p0 + TQ - 1, zero outside
-template <typename scalar_t>
-__device__ inline void stage_tile(const scalar_t* __restrict__ src, int S,
-                                  int P, int p0, int XR, int TQ, int TX,
-                                  scalar_t* Xd) {
-  for (int t = threadIdx.x; t < XR * TQ; t += blockDim.x) {
-    const int b = t / TQ, q = t - b * TQ, p = p0 + q;
-    const bool in = b < S && p < P;
-    copy_async(Xd + b * TX + q, src + (in ? (size_t)b * P + p : 0), in);
-  }
-}
-
-// this thread's copies have landed; the caller then synchronizes the block
-__device__ inline void staged() {
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-}
-
-// y[i] = sum_b M[r0 + step i, b] Z[b, col] over b < SP: M [RA][SP],
-// Z [>= SP][TX]
-template <typename scalar_t, int A>
-__device__ inline void rows_product(const scalar_t* M, const scalar_t* Z,
-                                    int SP, int TX, int r0, int step,
-                                    int col, scalar_t y[A]) {
-  constexpr int V = Vec<scalar_t>::n;
-#pragma unroll
-  for (int i = 0; i < A; ++i) y[i] = 0;
-  // not unrolled: an unrolled step keeps A more vectors live, and the
-  // float32 kernels must stay within 128 registers
-#pragma unroll 1
-  for (int b0 = 0; b0 < SP; b0 += V) {
-    scalar_t z[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) z[v] = Z[(b0 + v) * TX + col];
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
-      scalar_t m[V];
-      Vec<scalar_t>::load(M + (r0 + step * i) * SP + b0, m);
-#pragma unroll
-      for (int v = 0; v < V; ++v) y[i] += m[v] * z[v];
-    }
-  }
-}
-
-// acc[i][j] += sum_q O[w + NW i, q] X[lane + 32 j, q] over q < TQ:
-// O [OR][TX], X [XR][TX]
-template <typename scalar_t, int AD, int J>
-__device__ inline void dp_accumulate(const scalar_t* O, const scalar_t* X,
-                                     int TQ, int TX, int w, int lane,
-                                     scalar_t acc[AD][J]) {
-  constexpr int V = Vec<scalar_t>::n;
-#pragma unroll 1
-  for (int q0 = 0; q0 < TQ; q0 += V) {
-    scalar_t x[J][V];
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-      Vec<scalar_t>::load(X + (lane + 32 * j) * TX + q0, x[j]);
-#pragma unroll
-    for (int i = 0; i < AD; ++i) {
-      scalar_t o[V];
-      Vec<scalar_t>::load(O + (w + NW * i) * TX + q0, o);
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[i][j] += o[v] * x[j][v];
-    }
-  }
-}
 
 // Registers: float32 at two blocks an SM (128 registers) where a step takes
 // the block's four tiles, at three (80 registers, with spills) where it
@@ -724,18 +563,8 @@ __global__ void __launch_bounds__(THREADS,
         scalar_t* gbuf, scalar_t* __restrict__ dP_part,
         scalar_t* __restrict__ drootw_part, int T, int I, int C, int S,
         int maxc, int P) {
-  using Tiles = WideTiles<scalar_t, A, CP>;
-  constexpr int WPC = Tiles::WPC, RA = Tiles::RA, AD = Tiles::AD;
-  constexpr int J = Tiles::J, XR = Tiles::XR, OR = Tiles::OR;
-  constexpr int TQ = Tiles::TQ, TX = Tiles::TX;
-  const int SP = Tiles::sp(S);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
-  scalar_t* Pts = Ps + 2 * RA * SP;
-  scalar_t* Xs = Pts + 2 * RA * SP;
-  scalar_t* Os = Xs + 2 * XR * TX;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int wi = w % WPC, col = (w / WPC) * TP + lane;  // product mapping
+  const auto sm = WideSmem<scalar_t>::template at<A, CP>(smem_raw, S);
   const int c = blockIdx.y, l = blockIdx.z;
   const int nb = gridDim.x;
   const int N = T + I;
@@ -754,7 +583,7 @@ __global__ void __launch_bounds__(THREADS,
   // d rootw[c] summed over the block's patterns; site (over every category,
   // in scaled coordinates as the forward had it) is recomputed by each of
   // the C blocks of a pattern block
-  scalar_t* inv_s = Os;  // [BWD_P], free until the first node
+  scalar_t* inv_s = sm.Os;  // [BWD_P], free until the first node
   const size_t root = (size_t)(I - 1) * CS * P;
   const scalar_t tiny = Limits<scalar_t>::tiny();
   for (int r = threadIdx.x; r < BWD_P; r += blockDim.x) {
@@ -786,175 +615,17 @@ __global__ void __launch_bounds__(THREADS,
       acc += part[root_c + (size_t)s * P + pb + r] * inv_s[r];
     drootw_part[(blk * C + c) * S + s] = acc;
   }
-  __syncthreads();  // inv_s is read; the O rows no product writes are zeroed
-  for (int t = RA * TX + threadIdx.x; t < OR * TX; t += blockDim.x)
-    Os[t] = Os[OR * TX + t] = 0;
-
-  auto pmat = [&](int ch) { return pm + ((size_t)ch * C + c) * SS; };
-  auto src = [&](int ch) {
-    return ch < T ? tips + (size_t)ch * S * P
-                  : part + ((size_t)(ch - T) * C + c) * S * P;
-  };
-  // g_raw = gbuf[k, c] / m_k (the max is a constant) at this thread's
-  // product rows of pattern p
-  auto load_graw = [&](int k, int p, scalar_t gr[A]) {
-    const bool valid = p < P;
-    const scalar_t m = valid ? sc[(size_t)k * P + p] : scalar_t(1);
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
-      const int a = wi + WPC * i;
-      gr[i] = (valid && a < S)
-                  ? gb[(((size_t)k * C + c) * S + a) * P + p] / m
-                  : scalar_t(0);
-    }
-  };
-  auto store_other = [&](scalar_t* O, const scalar_t o[A]) {
-#pragma unroll
-    for (int i = 0; i < A; ++i) O[(wi + WPC * i) * TX + col] = o[i];
-  };
-  // the child's cotangent P_ch^T other, from Pts and O, to gbuf
-  auto child_cotangent = [&](int ch, const scalar_t* Pt, const scalar_t* O,
-                             int p) {
-    scalar_t gch[A];
-    rows_product<scalar_t, A>(Pt, O, SP, TX, wi, WPC, col, gch);
-    if (p < P) {
-#pragma unroll
-      for (int i = 0; i < A; ++i) {
-        const int b = wi + WPC * i;
-        if (b < S)
-          gb[((((size_t)(ch - T)) * C + c) * S + b) * P + p] = gch[i];
-      }
-    }
-  };
-  auto write_dp = [&](int ch, scalar_t acc[AD][J]) {
-    scalar_t* out = dP + ((size_t)ch * C + c) * SS;
-#pragma unroll
-    for (int i = 0; i < AD; ++i)
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int a = w + NW * i, b = lane + 32 * j;
-        if (a < S && b < S) out[a * S + b] = acc[i][j];
-      }
-  };
-
-  // ---- reverse postorder, category c. For node k and each step:
-  //   y_j = P_j @ x_j,  other_i = gbuf[k, c] / m_k * prod_{j != i} y_j
-  //   dP[child i, c] += other_i @ x_i^T   (summed over the block's patterns)
-  //   gbuf[child i, c] = P_i^T @ other_i  (internal children only)
-  // g_raw at (a, p) is read by the thread that wrote it as a child
-  // cotangent (the same rows and column), so it needs no barrier.
+  __syncthreads();  // inv_s is read
+  zero_spare_o_rows<scalar_t, A, CP>(sm.Os);
+  // ---- reverse postorder, category c
+  const WideBackwardStep<scalar_t, A, CP> step(tips, pm, children, part, sc,
+                                               gb, dP, sm, T, C, S, maxc, P,
+                                               c, pb, min(pb + BWD_P, P));
   if (maxc <= 2) {
-    // binary nodes: each child's P and Pᵀ staged once per node, its x once
-    // per step, y computed once and reused for the sibling's other
-    for (int k = I - 1; k >= 0; --k) {
-      const int ch0 = __ldg(children + k * maxc);
-      const int ch1 = maxc > 1 ? __ldg(children + k * maxc + 1) : -1;
-      scalar_t acc0[AD][J], acc1[AD][J];
-#pragma unroll
-      for (int i = 0; i < AD; ++i)
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc0[i][j] = acc1[i][j] = 0;
-      for (int p0 = pb; p0 < pb + BWD_P && p0 < P; p0 += TQ) {
-        const int p = p0 + col;
-        scalar_t gr[A], y[A];
-        load_graw(k, p, gr);
-        __syncthreads();  // the last step's reads of every tile are done
-        if (p0 == pb) {
-          if (ch0 >= 0)
-            stage_pmat(pmat(ch0), RA, S, SP, Ps, ch0 >= T ? Pts : nullptr);
-          if (ch1 >= 0)
-            stage_pmat(pmat(ch1), RA, S, SP, Ps + RA * SP,
-                       ch1 >= T ? Pts + RA * SP : nullptr);
-        }
-        if (ch0 >= 0) stage_tile(src(ch0), S, P, p0, XR, TQ, TX, Xs);
-        if (ch1 >= 0)
-          stage_tile(src(ch1), S, P, p0, XR, TQ, TX, Xs + XR * TX);
-        staged();
-        __syncthreads();
-        const scalar_t* X0 = Xs;
-        const scalar_t* X1 = Xs + XR * TX;
-        // the other of child 1 is g_raw y_0, that of child 0 g_raw y_1; a
-        // missing child contributes 1
-        if (ch0 >= 0) {
-          rows_product<scalar_t, A>(Ps, X0, SP, TX, wi, WPC, col, y);
-        } else {
-#pragma unroll
-          for (int i = 0; i < A; ++i) y[i] = 1;
-        }
-#pragma unroll
-        for (int i = 0; i < A; ++i) y[i] *= gr[i];
-        store_other(Os + OR * TX, y);
-        if (ch1 >= 0) {
-          rows_product<scalar_t, A>(Ps + RA * SP, X1, SP, TX, wi, WPC, col,
-                                    y);
-        } else {
-#pragma unroll
-          for (int i = 0; i < A; ++i) y[i] = 1;
-        }
-#pragma unroll
-        for (int i = 0; i < A; ++i) y[i] *= gr[i];
-        store_other(Os, y);
-        __syncthreads();
-        if (ch0 >= 0) {
-          dp_accumulate<scalar_t, AD, J>(Os, X0, TQ, TX, w, lane, acc0);
-          if (ch0 >= T) child_cotangent(ch0, Pts, Os, p);
-        }
-        if (ch1 >= 0) {
-          dp_accumulate<scalar_t, AD, J>(Os + OR * TX, X1, TQ, TX, w, lane,
-                                         acc1);
-          if (ch1 >= T)
-            child_cotangent(ch1, Pts + RA * SP, Os + OR * TX, p);
-        }
-      }
-      if (ch0 >= 0) write_dp(ch0, acc0);
-      if (ch1 >= 0) write_dp(ch1, acc1);
-    }
+    for (int k = I - 1; k >= 0; --k) step.pair(k);
     return;
   }
-  // polytomies (maxc from 3 to 16): child i's P and Pᵀ staged once per node
-  // in slot 0; its siblings' products recomputed per step in slot 1
-  for (int k = I - 1; k >= 0; --k) {
-    const int* kids = children + k * maxc;
-    for (int i = 0; i < maxc; ++i) {
-      const int ch = __ldg(kids + i);
-      if (ch < 0) continue;
-      __syncthreads();  // the last child's reads of the tiles are done
-      stage_pmat(pmat(ch), RA, S, SP, Ps, ch >= T ? Pts : nullptr);
-      scalar_t acc[AD][J];
-#pragma unroll
-      for (int u = 0; u < AD; ++u)
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc[u][j] = 0;
-      for (int p0 = pb; p0 < pb + BWD_P && p0 < P; p0 += TQ) {
-        const int p = p0 + col;
-        scalar_t o[A];
-        load_graw(k, p, o);
-        for (int jj = 0; jj < maxc; ++jj) {
-          const int cj = __ldg(kids + jj);
-          if (jj == i || cj < 0) continue;
-          __syncthreads();  // slot 1's last reads are done
-          stage_pmat(pmat(cj), RA, S, SP, Ps + RA * SP,
-                     static_cast<scalar_t*>(nullptr));
-          stage_tile(src(cj), S, P, p0, XR, TQ, TX, Xs + XR * TX);
-          staged();
-          __syncthreads();
-          scalar_t y[A];
-          rows_product<scalar_t, A>(Ps + RA * SP, Xs + XR * TX, SP, TX, wi,
-                                    WPC, col, y);
-#pragma unroll
-          for (int u = 0; u < A; ++u) o[u] *= y[u];
-        }
-        __syncthreads();  // the last step's reads of Xs and Os are done
-        stage_tile(src(ch), S, P, p0, XR, TQ, TX, Xs);
-        store_other(Os, o);
-        staged();
-        __syncthreads();
-        dp_accumulate<scalar_t, AD, J>(Os, Xs, TQ, TX, w, lane, acc);
-        if (ch >= T) child_cotangent(ch, Pts, Os, p);
-      }
-      write_dp(ch, acc);
-    }
-  }
+  for (int k = I - 1; k >= 0; --k) step.polytomy(k);
 }
 
 bool wide_bad_dims(int C, int S, int maxc, int L) {
@@ -986,37 +657,34 @@ cudaError_t launch_wide_forward(const void* tips, const void* pmats,
   return cudaGetLastError();
 }
 
-template <typename scalar_t, int A, int CP>
-cudaError_t launch_wide_backward_a(const void* tips, const void* pmats,
-                                   const void* children, const void* freqs,
-                                   const void* props, const void* partials,
-                                   const void* scale, const void* g,
-                                   void* gbuf, void* dP_part,
-                                   void* drootw_part, int T, int I, int C,
-                                   int S, int maxc, int P, int L,
-                                   cudaStream_t stream) {
-  const size_t smem =
-      WideTiles<scalar_t, A, CP>::smem_scalars(S) * sizeof(scalar_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      loop_wide_backward_kernel<scalar_t, A, CP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((P + BWD_P - 1) / BWD_P, C, L);
-  loop_wide_backward_kernel<scalar_t, A, CP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
-      static_cast<const int*>(children), static_cast<const scalar_t*>(freqs),
-      static_cast<const scalar_t*>(props),
-      static_cast<const scalar_t*>(partials),
-      static_cast<const scalar_t*>(scale), static_cast<const scalar_t*>(g),
-      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),
-      static_cast<scalar_t*>(drootw_part), T, I, C, S, maxc, P);
-  return cudaGetLastError();
-}
+template <typename scalar_t, int A, int CP> struct LoopWideBackward {
+  static cudaError_t run(const void* tips, const void* pmats,
+                         const void* children, const void* freqs,
+                         const void* props, const void* partials,
+                         const void* scale, const void* g, void* gbuf,
+                         void* dP_part, void* drootw_part, int T, int I, int C,
+                         int S, int maxc, int P, int L, cudaStream_t stream) {
+    const size_t smem =
+        WideTiles<scalar_t, A, CP>::smem_scalars(S) * sizeof(scalar_t);
+    cudaError_t e = cudaFuncSetAttribute(
+        loop_wide_backward_kernel<scalar_t, A, CP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((P + BWD_P - 1) / BWD_P, C, L);
+    loop_wide_backward_kernel<scalar_t, A, CP><<<grid, THREADS, smem, stream>>>(
+        static_cast<const scalar_t*>(tips),
+        static_cast<const scalar_t*>(pmats),
+        static_cast<const int*>(children),
+        static_cast<const scalar_t*>(freqs),
+        static_cast<const scalar_t*>(props),
+        static_cast<const scalar_t*>(partials),
+        static_cast<const scalar_t*>(scale), static_cast<const scalar_t*>(g),
+        static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),
+        static_cast<scalar_t*>(drootw_part), T, I, C, S, maxc, P);
+    return cudaGetLastError();
+  }
+};
 
-// The instantiations: at S <= 32 the block's four tiles at once (CP = 4,
-// two warps a tile), A = SP / 2 rounded up to an even count (2 to 16); at
-// S > 32 one tile a step (CP = 1, eight warps a tile), A = ceil(SP / 8)
-// (5 to 8), SP being S rounded up to a 16-byte vector.
 template <typename scalar_t>
 cudaError_t launch_wide_backward(const void* tips, const void* pmats,
                                  const void* children, const void* freqs,
@@ -1026,35 +694,9 @@ cudaError_t launch_wide_backward(const void* tips, const void* pmats,
                                  int I, int C, int S, int maxc, int P, int L,
                                  cudaStream_t stream) {
   if (wide_bad_dims(C, S, maxc, L)) return cudaErrorInvalidValue;
-  const int SP = WideTiles<scalar_t, 1, 1>::sp(S);
-#define PHYSHER_WIDE_BWD_CASE(AA, CC)                                         \
-  case AA:                                                                    \
-    return launch_wide_backward_a<scalar_t, AA, CC>(                          \
-        tips, pmats, children, freqs, props, partials, scale, g, gbuf,        \
-        dP_part, drootw_part, T, I, C, S, maxc, P, L, stream);
-  if (S <= 32) {
-    switch ((SP + 3) / 4 * 2) {
-      PHYSHER_WIDE_BWD_CASE(2, 4)
-      PHYSHER_WIDE_BWD_CASE(4, 4)
-      PHYSHER_WIDE_BWD_CASE(6, 4)
-      PHYSHER_WIDE_BWD_CASE(8, 4)
-      PHYSHER_WIDE_BWD_CASE(10, 4)
-      PHYSHER_WIDE_BWD_CASE(12, 4)
-      PHYSHER_WIDE_BWD_CASE(14, 4)
-      PHYSHER_WIDE_BWD_CASE(16, 4)
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
-  switch ((SP + NW - 1) / NW) {
-    PHYSHER_WIDE_BWD_CASE(5, 1)
-    PHYSHER_WIDE_BWD_CASE(6, 1)
-    PHYSHER_WIDE_BWD_CASE(7, 1)
-    PHYSHER_WIDE_BWD_CASE(8, 1)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PHYSHER_WIDE_BWD_CASE
+  return with_wide_tiles<scalar_t, LoopWideBackward>(
+      S, tips, pmats, children, freqs, props, partials, scale, g, gbuf,
+      dP_part, drootw_part, T, I, C, S, maxc, P, L, stream);
 }
 
 }  // namespace

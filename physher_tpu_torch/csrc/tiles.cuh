@@ -1,9 +1,11 @@
-// Shared-memory tiles of the pruning kernels for any state count S from 2
-// to 64: K7'/K8' (csrc/wide.cu) and K5'/K6' at S != 4 (csrc/loop.cu).
-// A block of 8 warps stages one child's P matrix ([S, S]) and its [S, 32]
-// partials tile in shared memory; warp w owns states w, w + 8, ... (at most
-// 8, so S <= 64) of its lane's pattern and reads P as a broadcast. The tile
-// rows are padded to 33 so that a warp's 32 lanes hit 32 banks.
+// Shared-memory tiles of the forward pruning kernels for any state count S
+// from 2 to 64: K7' (csrc/wide.cu) and K5' at S != 4 (csrc/loop.cu), and the
+// constants that the reverse sweeps' node step (csrc/wide_backward.cuh)
+// shares with them. A block of 8 warps stages one child's P matrix ([S, S])
+// and its [S, 32] partials tile in shared memory; warp w owns states w,
+// w + 8, ... (at most 8, so S <= 64) of its lane's pattern and reads P as a
+// broadcast. The tile rows are padded to 33 so that a warp's 32 lanes hit
+// 32 banks.
 
 #pragma once
 
@@ -18,12 +20,8 @@ constexpr int TPS = TP + 1;            // padded row stride of [S][TP] tiles
 constexpr int A_MAX = 8;               // states per thread in the products
 constexpr int MAX_S = NW * A_MAX;      // 64
 constexpr int MAX_C = 8;
-constexpr int DT = 16;                 // the dP tile: DT x DT threads ...
-constexpr int DA = 4;                  // ... of DA x DA entries (DT * DA >= MAX_S)
 constexpr int BWD_CHUNKS = 4;          // pattern tiles per backward block
 constexpr int BWD_P = TP * BWD_CHUNKS;
-
-static_assert(DT * DT == THREADS && DT * DA >= MAX_S, "dP tiling");
 
 // Ps <- P[ch, c] ([S, S]); Xs[b][q] <- child ch's partials (category c) at
 // pattern p0 + q, or `pad` past P. `partials` may have been written earlier
@@ -62,23 +60,6 @@ __device__ inline void mul_product(const scalar_t* Ps, const scalar_t* Xs,
   }
 #pragma unroll
   for (int i = 0; i < A_MAX; ++i) acc[i] *= s[i];
-}
-
-// out[i] = sum_a Ps[a, b] Os[a, lane] for the thread's states b = w + NW i
-template <typename scalar_t>
-__device__ inline void transpose_product(const scalar_t* Ps,
-                                         const scalar_t* Os, int S, int w,
-                                         int lane, scalar_t out[A_MAX]) {
-#pragma unroll
-  for (int i = 0; i < A_MAX; ++i) out[i] = 0;
-  for (int a = 0; a < S; ++a) {
-    const scalar_t oa = Os[a * TPS + lane];
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int b = w + NW * i;
-      if (b < S) out[i] += Ps[a * S + b] * oa;
-    }
-  }
 }
 
 }  // namespace

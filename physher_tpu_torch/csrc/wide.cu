@@ -39,16 +39,46 @@
 //   patterns of its lanes, and reads P as a broadcast.
 // - The node's categories meet in shared memory before the division by the
 //   per-pattern max over (C, S), as the rescaling requires.
-// - The backward gives each block 4 tiles (128 patterns) and sums dP over
-//   them in registers (a 16 x 16 grid of threads, 4 x 4 entries each) into
-//   one per-block partial sum per (child, category); each (block, child)
-//   row is written by exactly one block, and the caller sums the block
-//   axis in a fixed order: deterministic, no atomics.
+//
+// K8', redesigned for this card. Per branch, category and pattern it does
+// 6 S^2 FLOPs above an internal node (the child's product P x, its dP outer
+// product, its cotangent P^T other) and 4 S^2 above a tip (no cotangent)
+// against a few S scalars read, so the FLOPs bound it (0.124 ms at WAG+G4
+// 64 x 8192, C = 4; 0.070 ms at GY94 32 x 4096, C = 1). The first design,
+// one block per (128 patterns, node) walking every category x child x
+// 32-pattern tile in sequence, with tiles laid out for S = 64 at every S,
+// each sibling restaged and its product recomputed per tile, and loads
+// through registers, waited on latency at 40x that bound. It is now K6''s
+// node step (csrc/wide_backward.cuh), launched once per level:
+// - Grid (pattern blocks, C, nodes of the level), one launch per level, root
+//   first. A block takes one (node, category) and runs one node step: each
+//   child's P and P^T staged once, its partials once per step, each
+//   y_j = P_j x_j computed once, tiles shaped to S, cp.async staging. The
+//   categories are independent blocks (m_k is read from `scale`; gbuf[k, c]
+//   and dP[ch, c] are disjoint per c), and the stream orders the levels, so
+//   a child's gbuf rows written by one launch are read by the next. At
+//   WAG+G4 the root level is 256 blocks, where it was 64.
+// - A level of at most one block an SM (the top of a codon tree: C = 1, 32
+//   pattern blocks at the root of GY94 32 x 4096) gives each child of a
+//   node its own blocks (WideBackwardStep::child): at a binary node half the
+//   work a block for twice the blocks, with no arithmetic added, since each
+//   y_j serves only its sibling's `other`. The other levels keep one block
+//   per node, which stages each child once.
+// - Patterns per block: BWD_P (128), a multiple of every step's (128 at
+//   S <= 32, 32 above). 64-pattern blocks at S > 32 widen the top levels of
+//   a codon tree, but every other level and the dP scratch with them, for
+//   no clear gain (chip_profile.py --k8-blocks).
+// - The root seed (gbuf[root], d rootw, and the root's zero dP rows) is a
+//   launch of its own before the levels.
+// - Each (block, child, category) dP row is written by exactly one block,
+//   and the caller sums the block axis in a fixed order: deterministic, no
+//   atomics.
 
 #include <cuda_runtime.h>
 #include <cfloat>
 
 #include "tiles.cuh"
+#include "wide_backward.cuh"
 
 namespace {
 
@@ -141,17 +171,21 @@ __global__ void forward_root(const scalar_t* __restrict__ partials,
 }
 
 // Root seed of the reverse sweep, per block of BWD_P patterns:
-// gbuf[root] = rootw * g / site; drootw_part[block] = sum_p root * g / site.
+// gbuf[root] = rootw * g / site; drootw_part[block] = sum_p root * g / site;
+// dP_part[block, root] = 0 (the root is no node's child).
 template <typename scalar_t>
 __global__ void backward_root(const scalar_t* __restrict__ partials,
                               const scalar_t* __restrict__ rootw,
                               const scalar_t* __restrict__ g,
                               scalar_t* __restrict__ gbuf,
-                              scalar_t* __restrict__ drootw_part, int I,
-                              int CS, int P) {
+                              scalar_t* __restrict__ drootw_part,
+                              scalar_t* __restrict__ dP_part, int I, int N,
+                              int C, int S, int P) {
   __shared__ scalar_t inv_s[BWD_P];
-  const int p0 = blockIdx.x * BWD_P;
+  const int CS = C * S, p0 = blockIdx.x * BWD_P;
   const size_t root = (size_t)(I - 1) * CS * P;
+  scalar_t* dP_root = dP_part + ((size_t)blockIdx.x * N + N - 1) * CS * S;
+  for (int t = threadIdx.x; t < CS * S; t += blockDim.x) dP_root[t] = 0;
   const scalar_t tiny = Limits<scalar_t>::tiny();
   for (int q = threadIdx.x; q < BWD_P; q += blockDim.x) {
     const int p = p0 + q;
@@ -178,15 +212,17 @@ __global__ void backward_root(const scalar_t* __restrict__ partials,
   }
 }
 
-// One level of the reverse sweep: grid (pattern blocks of BWD_P, nodes of
-// the level). For node k, category c, child i and each tile of the block:
-//   other = gbuf[k, c] / m_k * prod_{j != i} P_j @ x_j
-//   dP[child i, c] += other @ x_i^T    (summed over the block's patterns)
-//   gbuf[child i, c] = P_i^T @ other   (internal children only)
-// smem: Ps [S*S], Xs [S*TPS], Os [S*TPS].
-// dP_part: [gridDim.x, N, C, S, S]; the caller zeroes the root's row.
-template <typename scalar_t>
-__global__ void __launch_bounds__(THREADS)
+// One level of the reverse sweep: grid (pattern blocks of BWD_P, C, nodes of
+// the level), one node step a block (csrc/wide_backward.cuh); with `split`,
+// grid (pattern blocks, C, nodes x maxc), one child of a node a block.
+// dP_part: [gridDim.x, N, C, S, S]; every row but the root's.
+// Registers as K6''s: float32 at two blocks an SM where a step takes the
+// block's four tiles, at three (80 registers, with spills) where it takes
+// one; float64 at one.
+template <typename scalar_t, int A, int CP>
+__global__ void __launch_bounds__(THREADS,
+                                  sizeof(scalar_t) == 4 ? (CP == 4 ? 2 : 3)
+                                                        : 1)
     backward_level(const scalar_t* __restrict__ tips,
                    const scalar_t* __restrict__ pmats,
                    const int* __restrict__ children,
@@ -194,94 +230,27 @@ __global__ void __launch_bounds__(THREADS)
                    const scalar_t* __restrict__ partials,
                    const scalar_t* __restrict__ scale, scalar_t* gbuf,
                    scalar_t* __restrict__ dP_part, int T, int N, int C, int S,
-                   int maxc, int P) {
+                   int maxc, int P, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
-  scalar_t* Xs = Ps + S * S;
-  scalar_t* Os = Xs + S * TPS;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int tx = threadIdx.x % DT, ty = threadIdx.x / DT;
-  const int k = __ldg(nodes + blockIdx.y);
-  for (int c = 0; c < C; ++c) {
-    for (int i = 0; i < maxc; ++i) {
-      const int ch = __ldg(children + k * maxc + i);
-      if (ch < 0) continue;
-      scalar_t acc[DA][DA];
-#pragma unroll
-      for (int u = 0; u < DA; ++u)
-#pragma unroll
-        for (int v = 0; v < DA; ++v) acc[u][v] = 0;
-      for (int chunk = 0; chunk < BWD_CHUNKS; ++chunk) {
-        const int p0 = (blockIdx.x * BWD_CHUNKS + chunk) * TP;
-        if (p0 >= P) break;  // block-uniform
-        const int p = p0 + lane;
-        const bool valid = p < P;
-        // cotangent of the raw (pre-rescale) product; the max is a constant
-        const scalar_t m = valid ? scale[(size_t)k * P + p] : scalar_t(1);
-        scalar_t o[A_MAX];
-#pragma unroll
-        for (int u = 0; u < A_MAX; ++u) {
-          const int a = w + NW * u;
-          o[u] = (valid && a < S)
-                     ? gbuf[(((size_t)k * C + c) * S + a) * P + p] / m
-                     : scalar_t(0);
-        }
-        for (int j = 0; j < maxc; ++j) {
-          const int cj = __ldg(children + k * maxc + j);
-          if (j == i || cj < 0) continue;
-          __syncthreads();
-          stage_child(tips, pmats, partials, cj, c, T, C, S, P, p0,
-                      scalar_t(0), Ps, Xs);
-          __syncthreads();
-          mul_product(Ps, Xs, S, w, lane, o);
-        }
-        __syncthreads();  // every read of Ps, Xs and Os above is done
-#pragma unroll
-        for (int u = 0; u < A_MAX; ++u) {
-          const int a = w + NW * u;
-          if (a < S) Os[a * TPS + lane] = o[u];
-        }
-        stage_child(tips, pmats, partials, ch, c, T, C, S, P, p0,
-                    scalar_t(0), Ps, Xs);
-        __syncthreads();
-        // dP[ch, c, a, b] += sum_q other[a, q] x[b, q]
-        for (int q = 0; q < TP; ++q) {
-          scalar_t oa[DA], xb[DA];
-#pragma unroll
-          for (int u = 0; u < DA; ++u) {
-            const int a = ty + DT * u, b = tx + DT * u;
-            oa[u] = a < S ? Os[a * TPS + q] : scalar_t(0);
-            xb[u] = b < S ? Xs[b * TPS + q] : scalar_t(0);
-          }
-#pragma unroll
-          for (int u = 0; u < DA; ++u)
-#pragma unroll
-            for (int v = 0; v < DA; ++v) acc[u][v] += oa[u] * xb[v];
-        }
-        if (ch >= T) {
-          scalar_t gch[A_MAX];
-          transpose_product(Ps, Os, S, w, lane, gch);
-          if (valid) {
-#pragma unroll
-            for (int u = 0; u < A_MAX; ++u) {
-              const int b = w + NW * u;
-              if (b < S)
-                gbuf[((((size_t)(ch - T)) * C + c) * S + b) * P + p] = gch[u];
-            }
-          }
-        }
-      }
-      scalar_t* out = dP_part + (((size_t)blockIdx.x * N + ch) * C + c) * S * S;
-#pragma unroll
-      for (int u = 0; u < DA; ++u)
-#pragma unroll
-        for (int v = 0; v < DA; ++v) {
-          const int a = ty + DT * u, b = tx + DT * v;
-          if (a < S && b < S) out[a * S + b] = acc[u][v];
-        }
-    }
+  const auto sm = WideSmem<scalar_t>::template at<A, CP>(smem_raw, S);
+  zero_spare_o_rows<scalar_t, A, CP>(sm.Os);
+  const int pb = blockIdx.x * BWD_P;
+  const WideBackwardStep<scalar_t, A, CP> step(
+      tips, pmats, children, partials, scale, gbuf,
+      dP_part + (size_t)blockIdx.x * N * C * S * S, sm, T, C, S, maxc, P,
+      blockIdx.y, pb, min(pb + BWD_P, P));
+  if (split) {
+    step.child(__ldg(nodes + blockIdx.z / maxc), blockIdx.z % maxc);
+    return;
   }
+  const int k = __ldg(nodes + blockIdx.z);
+  if (maxc <= 2)
+    step.pair(k);
+  else
+    step.polytomy(k);
 }
+
+constexpr long MAX_GRID_Z = 65535;
 
 bool bad_dims(int C, int S, int maxc) {
   return S < 2 || S > MAX_S || C < 1 || C > MAX_C || maxc < 1;
@@ -327,6 +296,45 @@ cudaError_t launch_forward(const void* tips, const void* pmats,
   return cudaGetLastError();
 }
 
+// The levels of the reverse sweep, root first, at one tile shape
+template <typename scalar_t, int A, int CP> struct BackwardLevels {
+  static cudaError_t run(const void* tips, const void* pmats,
+                         const void* children, const int* nodes,
+                         const int* offsets, int n_levels,
+                         const void* partials, const void* scale, void* gbuf,
+                         void* dP_part, int T, int I, int C, int S, int maxc,
+                         int P, cudaStream_t stream) {
+    const size_t smem =
+        WideTiles<scalar_t, A, CP>::smem_scalars(S) * sizeof(scalar_t);
+    cudaError_t e = allow_smem(backward_level<scalar_t, A, CP>, smem);
+    if (e != cudaSuccess) return e;
+    int device, sms;
+    e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    const int blocks = (P + BWD_P - 1) / BWD_P;
+    for (int l = n_levels - 1; l >= 0; --l) {
+      // a level of at most one block an SM (the top of a codon tree, C = 1)
+      // gives each child of a node its own blocks, where grid.z holds them
+      const int nodes_l = offsets[l + 1] - offsets[l];
+      const int split = (long)blocks * C * nodes_l <= sms &&
+                        (long)nodes_l * maxc <= MAX_GRID_Z;
+      const dim3 grid(blocks, C, split ? nodes_l * maxc : nodes_l);
+      backward_level<scalar_t, A, CP><<<grid, THREADS, smem, stream>>>(
+          static_cast<const scalar_t*>(tips),
+          static_cast<const scalar_t*>(pmats),
+          static_cast<const int*>(children), nodes + offsets[l],
+          static_cast<const scalar_t*>(partials),
+          static_cast<const scalar_t*>(scale), static_cast<scalar_t*>(gbuf),
+          static_cast<scalar_t*>(dP_part), T, T + I, C, S, maxc, P, split);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+};
+
 template <typename scalar_t>
 cudaError_t launch_backward(const void* tips, const void* pmats,
                             const void* children, const void* nodes,
@@ -337,31 +345,17 @@ cudaError_t launch_backward(const void* tips, const void* pmats,
                             int C, int S, int maxc, int P,
                             cudaStream_t stream) {
   if (bad_dims(C, S, maxc)) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(S * S + 2 * S * TPS) * sizeof(scalar_t);
-  cudaError_t e = allow_smem(backward_level<scalar_t>, smem);
-  if (e != cudaSuccess) return e;
   const int blocks = (P + BWD_P - 1) / BWD_P;
   backward_root<scalar_t><<<blocks, THREADS, 0, stream>>>(
       static_cast<const scalar_t*>(partials),
       static_cast<const scalar_t*>(rootw), static_cast<const scalar_t*>(g),
-      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(drootw_part), I,
-      C * S, P);
-  e = cudaGetLastError();
+      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(drootw_part),
+      static_cast<scalar_t*>(dP_part), I, T + I, C, S, P);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int* nodes_ = static_cast<const int*>(nodes);
-  for (int l = n_levels - 1; l >= 0; --l) {
-    const dim3 grid(blocks, offsets[l + 1] - offsets[l]);
-    backward_level<scalar_t><<<grid, THREADS, smem, stream>>>(
-        static_cast<const scalar_t*>(tips),
-        static_cast<const scalar_t*>(pmats),
-        static_cast<const int*>(children), nodes_ + offsets[l],
-        static_cast<const scalar_t*>(partials),
-        static_cast<const scalar_t*>(scale), static_cast<scalar_t*>(gbuf),
-        static_cast<scalar_t*>(dP_part), T, T + I, C, S, maxc, P);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+  return with_wide_tiles<scalar_t, BackwardLevels>(
+      S, tips, pmats, children, static_cast<const int*>(nodes), offsets,
+      n_levels, partials, scale, gbuf, dP_part, T, I, C, S, maxc, P, stream);
 }
 
 }  // namespace

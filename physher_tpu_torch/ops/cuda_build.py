@@ -32,7 +32,7 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
 # rate categories that every pruning kernel takes (their C template values)
 MAX_CATEGORIES = 8
-# CUDA's bound on gridDim.y, which carries the nodes of one level
+# CUDA's bound on gridDim.y and gridDim.z, which carry the nodes of one level
 MAX_LEVEL_NODES = 65535
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -53,6 +53,12 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib, build_log = cuda_build.build_library(_SOURCE)
+    _lib = bind(lib)
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"wide_forward_{dt}")
@@ -61,7 +67,6 @@ def build() -> ctypes.CDLL:
         bwd = getattr(lib, f"wide_backward_{dt}")
         bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
         bwd.restype = i32
-    _lib = lib
     return lib
 
 
@@ -97,8 +102,9 @@ def wide_forward(tips, pmats, children, rootw, schedule):
 
 
 def wide_backward(tips, pmats, children, rootw, schedule, partials, scale, g):
-    """Launch K8' (the root seed, then one launch per level, root first):
-    returns (d pmats [N, C, S, S], d rootw [C * S])."""
+    """Launch K8' (the root seed, then one launch per level, root first, its
+    grid (pattern blocks, C, nodes of the level)): returns (d pmats [N, C,
+    S, S], d rootw [C * S])."""
     global WIDE_BACKWARD_LAUNCHES
     T, I, C, S, maxc, P = _dims(tips, pmats, children, rootw, schedule)
     check("partials", partials, tips.device, tips.dtype, (I, C, S, P))
@@ -109,7 +115,6 @@ def wide_backward(tips, pmats, children, rootw, schedule, partials, scale, g):
     n_blocks = -(-P // BWD_PATTERNS)
     gbuf = tips.new_empty((I, C, S, P))
     dP_part = tips.new_empty((n_blocks, N, C, S, S))
-    dP_part[:, N - 1].zero_()  # the root is no node's child
     drootw_part = tips.new_empty((n_blocks, C * S))
     offsets, n_levels = offsets_arg(schedule)
     fn = (lib.wide_backward_f32 if tips.dtype == torch.float32

@@ -107,13 +107,28 @@ def _tolerances(dtype):
     ("balanced", 61, 1, 300), ("balanced", 20, 4, 257),
     ("caterpillar", 61, 4, 129), ("caterpillar", 20, 1, 64),
     ("polytomy", 5, 4, 300), ("polytomy", 20, 1, 100),
-    ("balanced", 5, 1, 33)])
+    ("balanced", 5, 1, 33),
+    # with those, one case per tile shape of K8' (A rows a thread: 2 to 16
+    # at S <= 32, 5 to 8 above), C = 8, polytomies up to 16 children
+    ("balanced", 2, 1, 77), ("caterpillar", 12, 8, 100),
+    ("balanced", 16, 4, 130), ("caterpillar", 28, 1, 77),
+    ("balanced", 24, 8, 45), ("balanced", 32, 2, 161),
+    ("polytomy", 33, 1, 95), ("balanced", 48, 1, 70),
+    ("caterpillar", 56, 2, 45), ("star", 64, 2, 99),
+    ("star", 20, 8, 50), ("polytomy", 40, 8, 300),
+    # enough patterns that the lower levels of the 16-taxon tree outgrow one
+    # block an SM, so that K8' takes a whole node a block there (its child a
+    # block above)
+    ("balanced", 20, 4, 2048), ("balanced", 32, 8, 2048),
+    ("balanced", 61, 4, 2100)])
 def test_wide_kernels_match_plain(device, dtype, shape, S, C, P):
-    """K7'/K8' against the plain version: S in {5, 20, 61}, C in {1, 4},
-    balanced, caterpillar and polytomy trees, ragged P."""
+    """K7'/K8' against the plain version: S from 2 to 64 (every tile shape
+    of K8'), C in {1, 2, 4, 8}, balanced, caterpillar and polytomy trees (up
+    to 16 children), ragged P, levels of a node a block and of a child a
+    block."""
     topo = {"balanced": lambda: balanced_topology(16),
             "caterpillar": lambda: caterpillar_topology(12),
-            "polytomy": _polytomy}[shape]()
+            "polytomy": _polytomy, "star": _star}[shape]()
     inputs = _inputs(topo, P, C, dtype, device, S=S)
     f0, b0 = wide.WIDE_FORWARD_LAUNCHES, wide.WIDE_BACKWARD_LAUNCHES
     site_k, grads_k = _value_and_grad(wide.wide_site_log, topo, *inputs)
@@ -292,6 +307,25 @@ def test_loop_wide_backward_is_deterministic(device):
                                scale, g) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_wide_backward_is_deterministic(device):
+    """K8' sums without atomics: two launches on the same inputs give
+    bit-identical d pmats and d rootw."""
+    topo = balanced_topology(16)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    for S, C in ((20, 4), (61, 1)):
+        tips, pm, freqs, props, g = _inputs(topo, 1000, C, torch.float32,
+                                            device, S=S)
+        rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+        schedule = cuda_build.level_schedule(topo, tips)
+        _, partials, scale = wide.wide_forward(tips, pm, children, rootw,
+                                               schedule)
+        runs = [wide.wide_backward(tips, pm, children, rootw, schedule,
+                                   partials, scale, g) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def test_loop_wide_wrapper_rejects_bad_input(device):

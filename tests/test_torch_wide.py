@@ -137,11 +137,16 @@ def test_plain_matches_pruning_f64(datatype, C, shape):
 # categories meeting before the division by the per-pattern max over (C, S),
 # partials [I, C, S, P] and scalers [I, P] kept in device memory, a root
 # launch summing log m over the ranks in order; then the root seed (d rootw
-# summed per block of BWD_PATTERNS patterns) and one reverse launch per
-# level, root first, with other_i = gbuf / m * prod_{j != i} P_j @ x_j,
-# dP summed per block of BWD_PATTERNS patterns and gbuf[child] = P_i^T @
-# other_i. The card holds the kernels themselves against the plain version
-# (tests/test_torch_cuda.py, chip_smoke.py).
+# summed per block of BWD_PATTERNS patterns) and one reverse launch
+# per level, root first, whose blocks each take one (pattern block, category,
+# node) and walk the block's patterns in steps (128 patterns at S <= 32, 32
+# above): at a node of at most two children each y_j = P_j @ x_j once per
+# step and other_i = gbuf / m * y_{1-i}, at a polytomy the siblings'
+# products recomputed for each child; dP summed per block over its steps and
+# gbuf[child] = P_i^T @ other_i. A level of at most one block an SM takes
+# one (pattern block, category, child) a block instead, each computing its
+# siblings' products. The card holds the kernels themselves against the
+# plain version (tests/test_torch_cuda.py, chip_smoke.py).
 
 
 def _x(tips, partials, ch, c, T):
@@ -183,37 +188,51 @@ def _block_sums(v):
 
 
 def _emulate_backward(tips, pmats, children, rootw, levels, partials, scale,
-                      g):
+                      g, sms):
     T, S, P = tips.shape
     N, C = pmats.shape[:2]
     I, maxc = children.shape
+    B = wide.BWD_PATTERNS
+    step = 128 if S <= 32 else 32            # patterns a step takes
     tiny = torch.finfo(tips.dtype).tiny
     gbuf = torch.full((I, C, S, P), float("nan"), dtype=tips.dtype)
     root = partials[I - 1].reshape(C * S, P)   # the root seed launch
     inv = g / torch.clamp((rootw[:, None] * root).sum(0), min=tiny)
     gbuf[I - 1] = (rootw[:, None] * inv).view(C, S, P)
     drootw_part = _block_sums(root * inv)
-    dP_part = torch.full((drootw_part.shape[0], N, C, S, S), float("nan"),
-                         dtype=tips.dtype)
-    dP_part[:, N - 1] = 0.0
+    nb = drootw_part.shape[0]
+    dP_part = torch.full((nb, N, C, S, S), float("nan"), dtype=tips.dtype)
+    dP_part[:, N - 1] = 0.0                    # the root is no node's child
     for level in reversed(levels):             # one launch per level
-        for k in level:
-            for c in range(C):
-                for i in range(maxc):
-                    ch = int(children[k, i])
-                    if ch < 0:
-                        continue
-                    other = gbuf[k, c] / scale[k]
-                    for j in range(maxc):
-                        cj = int(children[k, j])
-                        if j != i and cj >= 0:
-                            other = other * (pmats[cj, c]
-                                             @ _x(tips, partials, cj, c, T))
-                    x = _x(tips, partials, ch, c, T)
-                    dP_part[:, ch, c] = _block_sums(
-                        other[:, None, :] * x[None, :, :])
-                    if ch >= T:
-                        gbuf[ch - T, c] = pmats[ch, c].T @ other
+        # a level of at most one block an SM gives each child its own
+        # blocks, which compute its siblings' products themselves
+        split = nb * C * len(level) <= sms
+        for k in level:                        # grid.z: the level's nodes
+            kids = [int(ch) for ch in children[k] if ch >= 0]
+            shared = maxc <= 2 and not split   # each y_j once per step
+            for c in range(C):                 # grid.y: the categories
+                for b in range(nb):            # grid.x: the pattern blocks
+                    acc = {ch: torch.zeros(S, S, dtype=tips.dtype)
+                           for ch in kids}
+                    for p0 in range(b * B, min((b + 1) * B, P), step):
+                        q = slice(p0, min(p0 + step, P))
+                        x = {ch: _x(tips, partials, ch, c, T)[:, q]
+                             for ch in kids}
+                        g_raw = gbuf[k, c, :, q] / scale[k, q]
+                        if shared:
+                            y = {ch: pmats[ch, c] @ x[ch] for ch in kids}
+                        for ch in kids:
+                            other = g_raw
+                            for cj in kids:
+                                if cj != ch:
+                                    other = other * (
+                                        y[cj] if shared
+                                        else pmats[cj, c] @ x[cj])
+                            acc[ch] += other @ x[ch].T
+                            if ch >= T:
+                                gbuf[ch - T, c, :, q] = pmats[ch, c].T @ other
+                    for ch in kids:
+                        dP_part[b, ch, c] = acc[ch]
     assert torch.isfinite(dP_part).all(), "a dP row was never written"
     return dP_part.sum(0), drootw_part.sum(0)
 
@@ -242,11 +261,17 @@ def _random_inputs(topo, S, C, P, seed):
 
 
 @pytest.mark.parametrize("shape,S,C", [
-    ("balanced", 61, 1), ("caterpillar", 20, 4), ("polytomy", 5, 3)])
-def test_kernel_schedule_matches_plain(shape, S, C):
+    ("balanced", 61, 1), ("caterpillar", 20, 4), ("polytomy", 5, 3),
+    ("balanced", 2, 1), ("caterpillar", 32, 8), ("balanced", 33, 2),
+    ("balanced", 64, 1), ("polytomy", 40, 8)])
+@pytest.mark.parametrize("sms", [0, 132])
+def test_kernel_schedule_matches_plain(shape, S, C, sms):
     """float64: the kernels' emulated schedule against the plain version
-    (value, d pmats, d rootw) to 1e-12; 300 patterns span three backward
-    blocks, the last one ragged."""
+    (value, d pmats, d rootw) to 1e-12, at S on each side of the step shapes
+    (2 to 32: one step a block; 33 to 64: 32-pattern steps), C up to 8 and
+    polytomies, with every level's nodes whole (no SMs to fill) and with the
+    narrow levels split by child (the H100's 132 SMs); 300 patterns span
+    three backward blocks, the last one ragged."""
     topo = {"balanced": lambda: balanced_topology(12),
             "caterpillar": lambda: caterpillar_topology(9),
             "polytomy": _polytomy}[shape]()
@@ -256,7 +281,7 @@ def test_kernel_schedule_matches_plain(shape, S, C):
     site, partials, scale = _emulate_forward(tips, pm, children, rootw,
                                              topo.levels)
     dP, drootw = _emulate_backward(tips, pm, children, rootw, topo.levels,
-                                   partials, scale, w)
+                                   partials, scale, w, sms)
 
     leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
     ref = wide.wide_site_log_reference(tips, leaves[0], topo, leaves[1],
