@@ -37,6 +37,18 @@ entry points of ``ops/loop.py`` and ``chip_smoke.py``, so the same script
 also times an older checkout of the port (run it from that checkout's
 root).
 
+With ``--wide-forward``, only K5' at S != 4 and K7' (their shared forward
+node step): K5'/K6' alone (CUDA events, median of 100) against the plain
+version on chains of GY94 M0 32 x 4096 (L = 8) and WAG+G4 64 x 8192
+(L = 4), K7'/K8' alone at one chain of each, WAG+G4's and GY94's
+value-and-gradient through K7'/K8', the device time of each of K7''s
+launches (the levels, leaves first, then the root) from torch.profiler,
+then HMC with 4 chains on WAG+G4 (``chip_smoke.hmc_wag``), nvcc's register
+and spill lines for both forward kernels and, where the checkout has them,
+the most clusters resident at once. Like ``--wide-backward`` it uses only
+entry points that older checkouts have, so a copy run from an older
+checkout's root times that checkout.
+
 With ``--k8``, only K7'/K8' alone (CUDA events, median of 100) against the
 plain version, with their bounds, at GY94 M0 32 x 4096 (C = 1) and WAG+G4
 64 x 8192 (C = 4), float32, beside each model's value-and-gradient through
@@ -60,9 +72,13 @@ tiles, 3 where it takes one) and rebuilt with its kernel's
 shape, each build's registers and spills, and K6' alone through each
 (median of 50, three rounds in turns) at the two shapes above.
 
+With ``--k5-bounds``, the same for K5' at S != 4: ``csrc/loop.cu`` as
+committed (float32 at 4 blocks an SM) and rebuilt at 2 and 3, and K5'
+alone through each at the two shapes above.
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
-                            [--mcmc] [--wide-backward] [--k8]
-                            [--k8-blocks] [--k6-bounds]
+                            [--mcmc] [--wide-forward] [--wide-backward]
+                            [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -320,6 +336,53 @@ def wide_backward(dev):
     cs.hmc_wag(dev)
 
 
+def wide_forward(dev):
+    """K5' at S != 4 and K7' alone against plain at both main shapes
+    (float32), WAG+G4's value-and-gradient, the device time of K7''s
+    launches, then HMC on WAG+G4."""
+    print(json.dumps({
+        "ptxas_k5": cs.ptxas_by_kernel(loop.build_log, "loop_wide_forward"),
+        "ptxas_k7": cs.ptxas_by_kernel(wide.build_log, "forward_level")}),
+        flush=True)
+    occupancy = getattr(cs, "cluster_occupancy", None)  # not in older trees
+    if occupancy:
+        print(json.dumps({"max_active_clusters": occupancy()}), flush=True)
+    kw = dict(dtype=torch.float32, device=dev)
+    for name, make, L, seed in (
+            ("gy94-32x4096", cs.gy94_m0_fit_model, 8, 5),
+            ("wag-g4-64x8192", cs.wag_g4_large, 4, 6)):
+        tlk = make(torch.float32, dev)
+        tips, pm, fr, pr, w = cs.engine_inputs(tlk, cs.chain_params(tlk, L,
+                                                                    seed))
+        cs.loop_alone(f"{name}-L{L}", tlk.topo, tips, pm, fr, pr,
+                      w.expand(L, -1).contiguous(), timed=True,
+                      tol=cs.TOL[torch.float32], phase="wide_forward_k5")
+        del tips, pm, fr, pr, w
+        inputs = cs.engine_inputs(tlk, tlk.param_space().init_params(**kw))
+        tips, pm, fr, pr, _ = inputs
+        children = cs.topo_constant(tlk.topo, "children",
+                                    lambda: tlk.topo.children, tips,
+                                    torch.int32)
+        rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+        schedule = cuda_build.level_schedule(tlk.topo, tips)
+        rec = {"phase": "wide_forward_k7", "shape": name,
+               "patterns": tlk.sp.pattern_count,
+               "kernel_alone": cs.kernels_alone(wide, tlk.topo, *inputs),
+               "value_and_grad_kernel_ms": cs.median_ms(
+                   lambda: cs.value_and_grad(wide.wide_site_log, tlk.topo,
+                                             *inputs), reps=100),
+               # the levels, leaves first, then the root
+               "level_nodes": [len(lv) for lv in tlk.topo.levels],
+               "launch_us": launch_device_us(
+                   lambda: wide.wide_forward(tips, pm, children, rootw,
+                                             schedule),
+                   ("forward_level", "forward_root"))}
+        print(json.dumps(rec), flush=True)
+        del tlk, inputs, tips, pm
+        torch.cuda.empty_cache()
+    cs.hmc_wag(dev)
+
+
 def launch_device_us(run, names, n_runs=20):
     """Device time (us, mean over ``n_runs`` calls of ``run()``) of each
     kernel launch whose name contains one of ``names``, in launch order, from
@@ -453,41 +516,47 @@ def k8_blocks(dev):
 K6_BOUNDS = ("__launch_bounds__(THREADS,\n"
              "                                  sizeof(scalar_t) == 4 ? "
              "(CP == 4 ? 2 : 3)\n")
+K5_BOUNDS = ("__launch_bounds__(THREADS, sizeof(scalar_t) == 4 ? 4 : 2)\n"
+             "    loop_wide_forward_kernel(")
 
 
-def k6_bounds(dev):
-    """K6' at S != 4 (float32) as committed and at 1, 2 and 3 blocks an SM
-    for every step shape."""
+def loop_builds(marker: str, budgets: dict, kernel: str) -> dict:
+    """``csrc/loop.cu`` rebuilt with ``marker`` replaced by each of
+    ``budgets`` ({label: text}, None for the committed source), bound
+    (``ops/loop.bind``); prints each build's registers and spills of the
+    kernels whose name contains ``kernel``. Returns {label: library}."""
     src = (cuda_build.PKG / "csrc" / "loop.cu").read_text()
-    if K6_BOUNDS not in src:
+    if marker not in src:
         raise SystemExit("csrc/loop.cu no longer has the launch bounds "
                          "this measurement varies")
-    budgets = ("committed", 1, 2, 3)
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
-        for blocks in budgets:
-            d = Path(tmp) / f"blocks-{blocks}"
+        for label, text in budgets.items():
+            d = Path(tmp) / f"blocks-{label}"
             d.mkdir()
             for h in (cuda_build.PKG / "csrc").glob("*.cuh"):
                 (d / h.name).write_text(h.read_text())
             # a first line of its own, so that each build is compiled here
             # (and its registers printed) even where the committed source
             # was built before
-            text = src if blocks == "committed" else src.replace(
-                K6_BOUNDS, K6_BOUNDS.replace("(CP == 4 ? 2 : 3)",
-                                             str(blocks)))
-            (d / "loop.cu").write_text(f"// blocks an SM: {blocks}\n" + text)
-            paths[blocks] = d / "loop.cu"
+            body = src if text is None else src.replace(marker, text)
+            (d / "loop.cu").write_text(f"// blocks an SM: {label}\n" + body)
+            paths[label] = d / "loop.cu"
         with ThreadPoolExecutor(len(paths)) as pool:
             built = dict(zip(paths, pool.map(cuda_build.build_library,
                                              paths.values())))
     libs = {}
-    for blocks, (lib, log) in built.items():
-        loop.bind(lib)
-        libs[blocks] = lib
-        print(json.dumps({"k6_blocks_per_sm": blocks,
-                          "ptxas": cs.ptxas_by_kernel(
-                              log, "loop_wide_backward_kernelIf")}), flush=True)
+    for label, (lib, log) in built.items():
+        libs[label] = loop.bind(lib)
+        print(json.dumps({"blocks_per_sm": label, "kernel": kernel,
+                          "ptxas": cs.ptxas_by_kernel(log, kernel)}),
+              flush=True)
+    return libs
+
+
+def loop_cases(dev):
+    """(name, K5' arguments, K6' arguments) at GY94 M0 32 x 4096, L = 8 and
+    WAG+G4 64 x 8192, L = 4 (float32)."""
     cases = []
     for name, make, L, seed in (
             ("gy94-32x4096-L8", cs.gy94_m0_fit_model, 8, 5),
@@ -499,20 +568,80 @@ def k6_bounds(dev):
                                     lambda: tlk.topo.children, tips,
                                     torch.int32)
         _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
-        cases.append((name, (tips, pm, children, fr, pr, part, sc,
-                             w.expand(L, -1).contiguous())))
+        cases.append((name, (tips, pm, children, fr, pr),
+                      (tips, pm, children, fr, pr, part, sc,
+                       w.expand(L, -1).contiguous())))
+    return cases
+
+
+def time_builds(libs: dict, cases, fn, label: str, reps: int):
+    """``fn(*args)`` through each build (median of ``reps``, three rounds in
+    turns) at each case."""
     saved = loop._lib
     try:
         for rnd in range(3):
             for blocks, lib in libs.items():
                 loop._lib = lib
-                row = {"k6_blocks_per_sm": blocks, "round": rnd}
+                row = {label: blocks, "round": rnd}
                 for name, args in cases:
-                    row[f"{name}_ms"] = cs.median_ms(
-                        lambda: loop.loop_backward(*args), reps=50)
+                    row[f"{name}_ms"] = cs.median_ms(lambda: fn(*args),
+                                                     reps=reps)
                 print(json.dumps(row), flush=True)
     finally:
         loop._lib = saved
+
+
+def k6_bounds(dev):
+    """K6' at S != 4 (float32) as committed and at 1, 2 and 3 blocks an SM
+    for every step shape."""
+    libs = loop_builds(K6_BOUNDS, {"committed": None, **{
+        b: K6_BOUNDS.replace("(CP == 4 ? 2 : 3)", str(b)) for b in (1, 2, 3)}},
+        "loop_wide_backward_kernelIf")
+    cases = [(name, bwd) for name, _, bwd in loop_cases(dev)]
+    time_builds(libs, cases, loop.loop_backward, "k6_blocks_per_sm", 50)
+
+
+def k5_bounds(dev):
+    """K5' at S != 4 (float32) as committed (four blocks an SM) and at 2
+    and 3."""
+    libs = loop_builds(K5_BOUNDS, {"committed": None, **{
+        b: K5_BOUNDS.replace("? 4 : 2", f"? {b} : 2") for b in (2, 3)}},
+        "loop_wide_forward_kernelIf")
+    cases = [(name, fwd) for name, fwd, _ in loop_cases(dev)]
+    time_builds(libs, cases, loop.loop_forward, "k5_blocks_per_sm", 50)
+
+
+ROWS_LOAD = "      Vec<scalar_t>::load(M + (r0 + step * i) * SP + b0, m);\n"
+
+
+def k5_loads(dev):
+    """K5' at S != 4 (float32) as committed and rebuilt with the products'
+    P rows read as four 4-byte broadcasts (volatile, so not merged) in
+    place of one 16-byte broadcast: if a 16-byte broadcast costs a
+    shared-memory wavefront per quarter-warp, both builds move the same
+    wavefronts per FMA and time alike."""
+    tiles = (cuda_build.PKG / "csrc" / "tiles.cuh").read_text()
+    if ROWS_LOAD not in tiles:
+        raise SystemExit("csrc/tiles.cuh no longer has the load this "
+                         "measurement varies")
+    scalar = ("#pragma unroll\n      for (int v = 0; v < V; ++v)\n"
+              "        m[v] = static_cast<const volatile scalar_t*>(M)"
+              "[(r0 + step * i) * SP + b0 + v];\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "scalar"
+        d.mkdir()
+        for h in (cuda_build.PKG / "csrc").glob("*.cuh"):
+            text = h.read_text()
+            (d / h.name).write_text(text.replace(ROWS_LOAD, scalar))
+        (d / "loop.cu").write_text(
+            "// P rows as 4-byte loads\n"
+            + (cuda_build.PKG / "csrc" / "loop.cu").read_text())
+        lib, log = cuda_build.build_library(d / "loop.cu")
+    print(json.dumps({"p_loads": "4-byte", "ptxas": cs.ptxas_by_kernel(
+        log, "loop_wide_forward_kernelIf")}), flush=True)
+    libs = {"16-byte": loop.build(), "4-byte": loop.bind(lib)}
+    cases = [(name, fwd) for name, fwd, _ in loop_cases(dev)]
+    time_builds(libs, cases, loop.loop_forward, "p_loads", 50)
 
 
 def main() -> int:
@@ -524,12 +653,18 @@ def main() -> int:
                     help="only the MH step against the number of chains")
     ap.add_argument("--wide-backward", action="store_true",
                     help="only K5'/K6' at S != 4 and HMC on WAG+G4")
+    ap.add_argument("--wide-forward", action="store_true",
+                    help="only K5' at S != 4 and K7', and HMC on WAG+G4")
     ap.add_argument("--k8", action="store_true",
                     help="only K7'/K8' and their models' steps")
     ap.add_argument("--k8-blocks", action="store_true",
                     help="only K8' at GY94 at 128, 64, 32 patterns a block")
     ap.add_argument("--k6-bounds", action="store_true",
                     help="only K6' at S != 4 at 1, 2, 3 blocks an SM")
+    ap.add_argument("--k5-bounds", action="store_true",
+                    help="only K5' at S != 4 at 2, 3, 4 blocks an SM")
+    ap.add_argument("--k5-loads", action="store_true",
+                    help="only K5' at S != 4 with P rows as 4-byte loads")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
@@ -539,6 +674,18 @@ def main() -> int:
         list(pool.map(lambda m: m.build(), (fused, staged, loop, wide)))
     if args.k6_bounds:
         k6_bounds(dev)
+        print(smi, flush=True)
+        return 0
+    if args.k5_bounds:
+        k5_bounds(dev)
+        print(smi, flush=True)
+        return 0
+    if args.k5_loads:
+        k5_loads(dev)
+        print(smi, flush=True)
+        return 0
+    if args.wide_forward:
+        wide_forward(dev)
         print(smi, flush=True)
         return 0
     if args.wide_backward:

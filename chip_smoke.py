@@ -7,11 +7,11 @@ slices' main paths through them and times kernel against plain:
   that ``select_engine`` picks;
 - codon and protein (K7'/K8', ``csrc/wide.cu``): the libphyc and WAG
   goldens, a GY94 M0 fit to data simulated on the card at 32 taxa x 4096
-  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns; K8'
-  (redesigned around K6''s node step, ``csrc/wide_backward.cuh``) also on
-  one small case per tile shape and a WAG tree with polytomies, twice on
-  the same inputs (bit for bit), with its registers, spills and dP
-  scratch;
+  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns; K7' and K8'
+  (redesigned around K5''s and K6''s node steps, ``csrc/wide_forward.cuh``
+  and ``csrc/wide_backward.cuh``) also on one small case per tile shape and
+  cluster size and a WAG tree with polytomies, K8' twice on the same
+  inputs (bit for bit), with its registers, spills and dP scratch;
 - large nucleotide alignments (K3'/K4', ``csrc/staged.cu``) and the
   JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
@@ -29,8 +29,10 @@ slices' main paths through them and times kernel against plain:
   with polytomies, mcmc with 8 chains through the CLI on a GY94 config over
   data simulated on the card, HMC with 4 chains on WAG+G4 through the API,
   and the config engine names pallas-fused and pallas-loop on the card;
-  K6' at S != 4 also on one small case per instantiation, twice on the
-  same inputs (bit for bit), with its registers and spills.
+  K5' and K6' at S != 4 also on one small case per instantiation and
+  cluster size; K6', K5' and K7' twice on the same inputs (bit for bit; the
+  forward's rescaled partials peaking at exactly 1), with their registers,
+  spills and the most clusters of K5' and K7' resident at once.
 
     python3 chip_smoke.py
 
@@ -565,6 +567,11 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
 # above)
 WIDE_BUCKET_S = [(2, 1), (8, 2), (12, 8), (16, 1), (24, 2), (28, 1),
                  (32, 1), (33, 2), (48, 1), (56, 2), (64, 1)]
+# (S, C) of the small K5' and K7' cases beside those: their forward node
+# step (csrc/wide_forward.cuh) has the same instantiations, and launches the
+# C category blocks as one thread-block cluster; these take the cluster
+# sizes the cases above do not (3, 5, 6, 7) on both step shapes
+FORWARD_CLUSTER_S = [(12, 3), (20, 5), (24, 6), (28, 7), (40, 3), (61, 7)]
 
 
 def wide_dp_scratch_bytes(topo, tips, pmats):
@@ -613,6 +620,40 @@ def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     g = g.contiguous()
     return bit_identical(lambda: wide.wide_backward(
         tips, pmats, children, rootw, schedule, partials, scale, g))
+
+
+def forward_checks(topo, tips, pmats, freqs, props) -> dict:
+    """K5' at S != 4 (``pmats [L, N, C, S, S]``) and K7' (on chain 0), each
+    twice on the same inputs: bit-identical site logs, partials and
+    scalers, and rescaled partials that peak at exactly 1 over (C, S) at
+    every node and pattern (x / max x: the cluster's blocks met)."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1).contiguous()
+    schedule = cuda_build.level_schedule(topo, tips)
+    out = {}
+    for name, run, dims in (
+            ("k5", lambda: loop.loop_forward(tips, pmats, children, freqs,
+                                             props), (2, 3)),
+            ("k7", lambda: wide.wide_forward(tips, pmats[0].contiguous(),
+                                             children, rootw, schedule),
+             (1, 2))):
+        runs = [run() for _ in range(2)]
+        torch.cuda.synchronize()
+        out[f"{name}_bit_identical"] = all(
+            torch.equal(a, b) for a, b in zip(*runs))
+        out[f"{name}_partials_peak_1"] = bool(
+            torch.all(runs[0][1].amax(dims) == 1))
+    return out
+
+
+def cluster_occupancy() -> dict:
+    """The most clusters of K5' and K7' resident at once, float32, at the
+    main paths' S and C = 4 and 8."""
+    return {f"{name}_S{S}_C{C}": fn(torch.float32, S, C)
+            for name, fn in (("k5", loop.wide_forward_clusters),
+                             ("k7", wide.forward_clusters))
+            for S in (20, 61) for C in (4, 8)}
 
 
 def adam_step_ms(tlk, params, n_steps=20, lr=0.01):
@@ -1530,7 +1571,8 @@ def main() -> int:
 
     # ---- 8. K7'/K8' against plain at both full shapes and the caterpillar,
     # then one small case for each tile shape of K8' (WIDE_BUCKET_S; 1000
-    # patterns, ragged) and a WAG tree with polytomies
+    # patterns, ragged), the cluster sizes those leave out
+    # (FORWARD_CLUSTER_S) and a WAG tree with polytomies
     wide_shapes = [(name, make(), P, C, datatype, seed)
                    for name, make, P, C, datatype, seed in WIDE_SHAPES]
     wag_poly = collapsed_topology(balanced_topology(64))
@@ -1542,7 +1584,7 @@ def main() -> int:
                     phase="wide_kernel_vs_plain")
             torch.cuda.synchronize()
         cases = [(f"bucket-S{S}-C{C}", bucket_topo, 1000, C, S)
-                 for S, C in WIDE_BUCKET_S]
+                 for S, C in WIDE_BUCKET_S + FORWARD_CLUSTER_S]
         cases.append(("wag-polytomy-2048-C4", wag_poly, 2048, 4, 20))
         for name, topo, P, C, S in cases:
             tips, pm, fr, pr, w = random_chains(topo, P, C, 1, S, dtype,
@@ -1625,7 +1667,8 @@ def main() -> int:
     # ---- 11. times of K7'/K8' (float32), K8''s dP scratch, registers and
     # spills, and K8' twice on the same inputs (bit-identical: no atomics)
     times = {"card": smi, "k8_ptxas": ptxas_by_kernel(wide.build_log,
-                                                      "backward_level")}
+                                                      "backward_level"),
+             "k7_ptxas": ptxas_by_kernel(wide.build_log, "forward_level")}
     m0_params = {k: v.detach() for k, v in fit.params.items()}
     for name, tlk, params in (("gy94-32x4096", m0, m0_params),
                               ("wag-g4-64x8192", wag32, wag_start)):
@@ -1742,10 +1785,15 @@ def main() -> int:
     # WAG+G4 (64 x 8192, L = 4, the HMC chains), and a WAG tree with
     # polytomies at L = 1 and 4; float32, and float64 with rescale on and
     # off, at the kernel tolerances of TOL; then one small case for each
-    # instantiation of K6' (WIDE_BUCKET_S), and K6' twice on the same
-    # inputs (bit-identical: no atomics)
+    # instantiation of K6' and K5' (WIDE_BUCKET_S) and for each cluster size
+    # of K5' those leave out (FORWARD_CLUSTER_S); K6' twice on the same
+    # inputs (bit-identical: no atomics), K5' and K7' twice (bit-identical,
+    # the partials peaking at 1), their registers and spills and the most
+    # clusters resident at once
     wide_loop_times = {"card": smi, "k6_ptxas": ptxas_by_kernel(
-        loop.build_log, "loop_wide_backward")}
+        loop.build_log, "loop_wide_backward"), "k5_ptxas": ptxas_by_kernel(
+        loop.build_log, "loop_wide_forward"),
+        "max_active_clusters": cluster_occupancy()}
     for dtype in (torch.float32, torch.float64):
         gy, wg = gy94_m0_fit_model(dtype, dev), wag_g4_large(dtype, dev)
         cases = [("gy94-32x4096-L8", gy.topo,
@@ -1769,7 +1817,7 @@ def main() -> int:
                                           dtype, dev, S=20),
                            rescale=rescale, tol=TOL[dtype],
                            phase="loop_wide_kernel_vs_plain")
-            for S, C in WIDE_BUCKET_S:
+            for S, C in WIDE_BUCKET_S + FORWARD_CLUSTER_S:
                 loop_alone(f"bucket-S{S}-C{C}", bucket_topo,
                            *random_chains(bucket_topo, 1000, C, 2, S, dtype,
                                           dev, S=S),
@@ -1781,6 +1829,12 @@ def main() -> int:
                 topo, tips, pm, fr, pr, w.expand(pm.shape[0], -1))
             check(wide_loop_times["k6_bit_identical"],
                   "K6' twice on the same inputs, bit for bit")
+            # K5' and K7' twice on the same inputs at both main shapes
+            for name, topo, (tips, pm, fr, pr, w) in cases:
+                rec = forward_checks(topo, tips, pm, fr, pr)
+                wide_loop_times[f"forward_checks_{name}"] = rec
+                check(all(rec.values()), f"K5' and K7' bit for bit, their "
+                                         f"partials peaking at 1, at {name}")
         del gy, wg, cases
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1828,10 +1882,16 @@ def main() -> int:
                    "physher_tpu/ops/pallas_pruning_loop.py:314",
                    hmc_launches["backward"], loop_times["fluA-jc69-L4"],
                    "backward"),
-        kernel_row("loop_forward_wide", loop_src,
-                   "physher_tpu/ops/pallas_pruning_loop.py:119",
-                   codon_launches["forward"],
-                   wide_loop_times["gy94-32x4096-L8"], "forward"),
+        dict(kernel_row("loop_forward_wide", loop_src,
+                        "physher_tpu/ops/pallas_pruning_loop.py:119",
+                        codon_launches["forward"],
+                        wide_loop_times["gy94-32x4096-L8"], "forward"),
+             # the HMC chains' shape beside the codon mcmc's
+             wag_g4_64x8192_L4_ms=wide_loop_times["wag-g4-64x8192-L4"][
+                 "forward_ms"],
+             wag_g4_64x8192_L4_bound_ms=wide_loop_times["wag-g4-64x8192-L4"][
+                 "forward_bound_ms"],
+             wag_g4_64x8192_L4_launches=hmc_wag_launches["forward"]),
         kernel_row("loop_backward_wide", loop_src,
                    "physher_tpu/ops/pallas_pruning_loop.py:314",
                    hmc_wag_launches["backward"],

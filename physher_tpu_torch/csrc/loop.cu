@@ -63,23 +63,23 @@
 // float32 (the H100's float32 ridge is ~20). At the slice's shapes the
 // FLOPs bound them: GY94 on 32 taxa x 4096 codons, C = 1, L = 8 chains is
 // about 15 GFLOP a forward sweep (0.23 ms at 67 TFLOP/s), WAG+G4 on 64 taxa
-// x 8192 patterns, L = 4 about 13 GFLOP. The design is the simple one of
-// csrc/wide.cu, with the walk over the postorder inside the block as in the
-// S = 4 kernels:
-// - Grid (32-pattern tiles, L chains), 256 threads (8 warps). One block
-//   walks the whole postorder for its 32 patterns of one chain, one launch
-//   per sweep, with __syncthreads() between the steps of the walk (the
-//   partials a block reads back were written by other warps of the same
-//   block, so the barrier makes them visible; plain loads, not __ldg).
-// - For each node, category and child K5' stages P[l, ch, c] ([S, S])
-//   and the child's [S, 32] tile in shared memory (row stride 33, so that
-//   the 32 lanes of a warp hit 32 banks); warp w owns states w, w + 8, ...
-//   (at most 8, so S <= 64) for its lane's pattern and reads P as a
-//   broadcast. A node's C categories meet in shared memory ([C, S, 33])
-//   before the division by the per-pattern max over (C, S), which the 8
-//   warps reduce through a small shared array. Shared memory: at S = 61,
-//   C = 1 in float32 about 31 KB; at S = 64, C = 8 in float64 186 KB (the
-//   dynamic limit is raised above 48 KB where needed).
+// x 8192 patterns, L = 4 about 13 GFLOP (bounds of 0.23 and 0.21 ms).
+//
+// K5' at S != 4, redesigned for this card. The first design, one block per
+// (32-pattern tile, chain) walking every node x category x child in turn
+// through K7''s first tiles (P read as one scalar load per FMA, eight rows a
+// thread at every S), ran at 23-25x that bound. The design now:
+// - Categories on the grid: (pattern blocks of one step, C, L), launched
+//   as thread-block clusters (1, C, 1), 1024 blocks at both shapes above.
+//   A block walks the whole postorder of one chain at one category, one
+//   launch per sweep; a node's category-c partials need only its
+//   children's, which the same block wrote (a barrier orders them). The
+//   per-pattern max over (C, S) that the rescaling needs meets across the
+//   cluster through distributed shared memory, one cluster barrier a node
+//   (none at C = 1); the root's sum over categories too, in a fixed order.
+// - Each node is one step of csrc/wide_forward.cuh, which K7' shares: each
+//   child staged once by cp.async, tiles and thread work shaped to S (the
+//   header says how).
 //
 // K6' at S != 4, redesigned for this card. What bounds it: per branch,
 // category and pattern 6 S^2 FLOPs above an internal node and 4 S^2 above
@@ -102,23 +102,12 @@
 //   blocks (chip_profile.py --k6-bounds measures the choice).
 
 #include <cuda_runtime.h>
-#include <cfloat>
 
 #include "tiles.cuh"
 #include "wide_backward.cuh"
+#include "wide_forward.cuh"
 
 namespace {
-
-template <typename scalar_t> struct Limits;
-template <> struct Limits<float> {
-  __device__ static float tiny() { return FLT_MIN; }
-};
-template <> struct Limits<double> {
-  __device__ static double tiny() { return DBL_MIN; }
-};
-
-__device__ inline float log_(float x) { return logf(x); }
-__device__ inline double log_(double x) { return log(x); }
 
 // The 4 partials of child `ch` in category c at pattern p. `part` is this
 // chain's partials, written earlier in the same launch by the same thread:
@@ -442,11 +431,16 @@ cudaError_t launch_backward(const void* tips, const void* pmats,
 
 // ---- any state count, S from 2 to 64 (the tiles of csrc/tiles.cuh) -------
 
-// K5' for S from 2 to 64: grid (pattern tiles, L). One block walks the
-// whole postorder for its tile of one chain.
-// smem: Ps [S*S], Xs [S*TPS], Rs [C*S*TPS], red [NW*TP].
-template <typename scalar_t>
-__global__ void __launch_bounds__(THREADS)
+// K5' for S from 2 to 64: grid (pattern blocks of one step, C, L), as
+// clusters (1, C, 1). A block walks the postorder of chain l at category c
+// for its patterns (128 at S <= 32, 32 above), one WideForwardStep a node
+// (csrc/wide_forward.cuh); the C blocks of a cluster meet for each node's
+// per-pattern max and for the root.
+// Registers: float32 at four blocks an SM (64 registers, up to 32 B
+// spilled), float64 at two; at three or two blocks an SM float32 spills
+// less and runs 3-25 % slower (chip_profile.py --k5-bounds).
+template <typename scalar_t, int A, int CP>
+__global__ void __launch_bounds__(THREADS, sizeof(scalar_t) == 4 ? 4 : 2)
     loop_wide_forward_kernel(const scalar_t* __restrict__ tips,
                              const scalar_t* __restrict__ pmats,
                              const int* __restrict__ children,
@@ -456,88 +450,17 @@ __global__ void __launch_bounds__(THREADS)
                              scalar_t* __restrict__ site_log, int T, int I,
                              int C, int S, int maxc, int P, int rescale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
-  scalar_t* Xs = Ps + S * S;
-  scalar_t* Rs = Xs + S * TPS;
-  scalar_t* red = Rs + C * S * TPS;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int p0 = blockIdx.x * TP, p = p0 + lane;
-  const bool valid = p < P;
-  const int l = blockIdx.y;
+  using Step = WideForwardStep<scalar_t, A, CP>;
+  const int c = blockIdx.y, l = blockIdx.z;
   const int N = T + I;
-  const scalar_t* pm = pmats + (size_t)l * N * C * S * S;
-  scalar_t* part = partials + (size_t)l * I * C * S * P;
-  const scalar_t tiny = Limits<scalar_t>::tiny();
-  scalar_t m = 1, log_sum = 0;
-  for (int k = 0; k < I; ++k) {
-    scalar_t mx = tiny;
-    for (int c = 0; c < C; ++c) {
-      scalar_t acc[A_MAX];
-#pragma unroll
-      for (int i = 0; i < A_MAX; ++i) acc[i] = 1;
-      for (int j = 0; j < maxc; ++j) {
-        const int ch = __ldg(children + k * maxc + j);
-        if (ch < 0) continue;  // a missing child contributes 1
-        __syncthreads();       // the previous child's tiles are consumed
-        stage_child(tips, pm, part, ch, c, T, C, S, P, p0, scalar_t(1), Ps,
-                    Xs);
-        __syncthreads();
-        mul_product(Ps, Xs, S, w, lane, acc);
-      }
-#pragma unroll
-      for (int i = 0; i < A_MAX; ++i) {
-        const int a = w + NW * i;
-        if (a < S) {
-          Rs[(c * S + a) * TPS + lane] = acc[i];
-          mx = acc[i] > mx ? acc[i] : mx;
-        }
-      }
-    }
-    m = 1;
-    if (rescale) {
-      // the per-pattern max over all (C, S): the 8 warps meet in `red`
-      red[w * TP + lane] = mx;
-      __syncthreads();
-      m = red[lane];
-      for (int v = 1; v < NW; ++v)
-        m = red[v * TP + lane] > m ? red[v * TP + lane] : m;
-      log_sum += log_(m);
-    }
-    // each thread divides the entries it wrote to Rs itself
-    if (valid) {
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int i = 0; i < A_MAX; ++i) {
-          const int a = w + NW * i;
-          if (a < S)
-            part[(((size_t)k * C + c) * S + a) * P + p] =
-                Rs[(c * S + a) * TPS + lane] / m;
-        }
-      if (w == 0) scale[((size_t)l * I + k) * P + p] = m;
-    }
-    __syncthreads();  // node k's partials are visible; `red` is free
-  }
-  // the root (rank I - 1): site = sum_c props_c sum_s freqs_s root[c, s]
-  const scalar_t* fr = freqs + (size_t)l * S;
-  const scalar_t* pr = props + (size_t)l * C;
-  scalar_t part_sum = 0;
-  for (int c = 0; c < C; ++c) {
-    scalar_t per_cat = 0;
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int a = w + NW * i;
-      if (a < S) per_cat += __ldg(fr + a) * Rs[(c * S + a) * TPS + lane];
-    }
-    part_sum += __ldg(pr + c) * per_cat;
-  }
-  red[w * TP + lane] = part_sum / m;
-  __syncthreads();
-  if (w == 0 && valid) {
-    scalar_t site = 0;
-    for (int v = 0; v < NW; ++v) site += red[v * TP + lane];
-    site = site > tiny ? site : tiny;
-    site_log[(size_t)l * P + p] = log_(site) + log_sum;
-  }
+  const Step step(tips, pmats + (size_t)l * N * C * S * S, children,
+                  partials + (size_t)l * I * C * S * P,
+                  scale + (size_t)l * I * P, smem_raw, T, C, S, maxc, P, c,
+                  blockIdx.x * Step::TQ, rescale);
+  scalar_t x[A], log_sum = 0;
+  for (int k = 0; k < I; ++k) log_sum += step.node(k, k & 1, x);
+  step.root(freqs + (size_t)l * S, props + (size_t)l * C, x, log_sum,
+            site_log + (size_t)l * P);
 }
 
 // K6' for S from 2 to 64: grid (pattern blocks of BWD_P, C, L), 256 threads.
@@ -633,6 +556,30 @@ bool wide_bad_dims(int C, int S, int maxc, int L) {
          L > 65535;
 }
 
+template <typename scalar_t, int A, int CP> struct LoopWideForward {
+  static size_t smem(int S) {
+    return WideForwardStep<scalar_t, A, CP>::smem_scalars(S) *
+           sizeof(scalar_t);
+  }
+  static cudaError_t run(const void* tips, const void* pmats,
+                         const void* children, const void* freqs,
+                         const void* props, void* partials, void* scale,
+                         void* site_log, int T, int I, int C, int S, int maxc,
+                         int P, int L, int rescale, cudaStream_t stream) {
+    constexpr int TQ = WideForwardStep<scalar_t, A, CP>::TQ;
+    return launch_clusters(
+        loop_wide_forward_kernel<scalar_t, A, CP>,
+        dim3((P + TQ - 1) / TQ, C, L), smem(S), stream,
+        static_cast<const scalar_t*>(tips),
+        static_cast<const scalar_t*>(pmats),
+        static_cast<const int*>(children),
+        static_cast<const scalar_t*>(freqs),
+        static_cast<const scalar_t*>(props), static_cast<scalar_t*>(partials),
+        static_cast<scalar_t*>(scale), static_cast<scalar_t*>(site_log), T, I,
+        C, S, maxc, P, rescale);
+  }
+};
+
 template <typename scalar_t>
 cudaError_t launch_wide_forward(const void* tips, const void* pmats,
                                 const void* children, const void* freqs,
@@ -641,21 +588,19 @@ cudaError_t launch_wide_forward(const void* tips, const void* pmats,
                                 int maxc, int P, int L, int rescale,
                                 cudaStream_t stream) {
   if (wide_bad_dims(C, S, maxc, L)) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(S * S + S * TPS + C * S * TPS + NW * TP) *
-                      sizeof(scalar_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      loop_wide_forward_kernel<scalar_t>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((P + TP - 1) / TP, L);
-  loop_wide_forward_kernel<scalar_t><<<grid, THREADS, smem, stream>>>(
-      static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
-      static_cast<const int*>(children), static_cast<const scalar_t*>(freqs),
-      static_cast<const scalar_t*>(props), static_cast<scalar_t*>(partials),
-      static_cast<scalar_t*>(scale), static_cast<scalar_t*>(site_log), T, I,
-      C, S, maxc, P, rescale);
-  return cudaGetLastError();
+  return with_wide_tiles<scalar_t, LoopWideForward>(
+      S, tips, pmats, children, freqs, props, partials, scale, site_log, T, I,
+      C, S, maxc, P, L, rescale, stream);
 }
+
+// The most clusters of K5' at (S, C) resident at once
+template <typename scalar_t, int A, int CP> struct LoopWideForwardClusters {
+  static cudaError_t run(int S, int C, int* clusters) {
+    return cluster_occupancy(loop_wide_forward_kernel<scalar_t, A, CP>, C,
+                             LoopWideForward<scalar_t, A, CP>::smem(S),
+                             clusters);
+  }
+};
 
 template <typename scalar_t, int A, int CP> struct LoopWideBackward {
   static cudaError_t run(const void* tips, const void* pmats,
@@ -775,6 +720,11 @@ cudaError_t loop_backward_f64(const void* tips, const void* pmats,
                                       partials, scale, g, gbuf, dP_part,      \
                                       drootw_part, T, I, C, S, maxc, P, L,    \
                                       static_cast<cudaStream_t>(stream));     \
+  }                                                                           \
+  cudaError_t loop_wide_forward_clusters_##SUFFIX(int S, int C,               \
+                                                  int* clusters) {            \
+    if (C < 1 || C > MAX_C) return cudaErrorInvalidValue;                     \
+    return with_wide_tiles<TYPE, LoopWideForwardClusters>(S, S, C, clusters); \
   }
 
 PHYSHER_LOOP_WIDE_ENTRY(f32, float)

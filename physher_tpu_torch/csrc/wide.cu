@@ -28,17 +28,21 @@
 // [S, S] @ [S, patterns], 2 S^2 FLOPs per pattern against S partials read
 // and written: 2 S FLOP per element, 30 FLOP per byte at S = 61 in float32,
 // so codon models are compute-heavy for plain FMAs, and protein models
-// (S = 20, C = 4, more nodes) sit near the ridge. The design does the simple
-// thing about it:
-// - Parallelism across nodes as well as patterns: one launch per level of
-//   the postorder (the nodes of a level are independent), grid (pattern
-//   tiles, nodes of the level). A block takes one node and 32 patterns.
-// - A block stages one child's P matrix and its [S, 32] partials tile in
-//   shared memory (dynamic, above 48 KB where S and the type need it); each
-//   warp owns states w, w + 8, ... (at most 8, so S <= 64) for the 32
-//   patterns of its lanes, and reads P as a broadcast.
-// - The node's categories meet in shared memory before the division by the
-//   per-pattern max over (C, S), as the rescaling requires.
+// (S = 20, C = 4, more nodes) sit near the ridge.
+//
+// K7', redesigned for this card. The first design (one block per (32
+// patterns, node) walking every category x child in turn, tiles laid out for
+// S = 64 at every S, P read as one scalar load per FMA and staged through
+// registers) ran at 25x its bound. It is now K5''s forward node step
+// (csrc/wide_forward.cuh), launched once per level:
+// - Grid (pattern blocks of one step, C, nodes of the level), as thread-
+//   block clusters (1, C, 1): a block takes one (node, category) and runs
+//   one node step, each child staged once by cp.async, tiles shaped to S;
+//   the C blocks of a cluster meet for the per-pattern max over (C, S)
+//   through distributed shared memory. The stream orders the levels, so a
+//   child's partials written by one launch are read by the next.
+// - The root's site (forward_root) is a launch of its own after the levels:
+//   it sums log m over every node, which the level launches cannot.
 //
 // K8', redesigned for this card. Per branch, category and pattern it does
 // 6 S^2 FLOPs above an internal node (the child's product P x, its dP outer
@@ -75,28 +79,19 @@
 //   atomics.
 
 #include <cuda_runtime.h>
-#include <cfloat>
 
 #include "tiles.cuh"
 #include "wide_backward.cuh"
+#include "wide_forward.cuh"
 
 namespace {
 
-template <typename scalar_t> struct Limits;
-template <> struct Limits<float> {
-  __device__ static float tiny() { return FLT_MIN; }
-};
-template <> struct Limits<double> {
-  __device__ static double tiny() { return DBL_MIN; }
-};
-
-__device__ inline float log_(float x) { return logf(x); }
-__device__ inline double log_(double x) { return log(x); }
-
-// One level of the postorder: grid (pattern tiles, nodes of the level).
-// smem: Ps [S*S], Xs [S*TPS], Rs [C*S*TPS], red [NW*TP].
-template <typename scalar_t>
-__global__ void __launch_bounds__(THREADS)
+// One level of the postorder: grid (pattern blocks of one step, C, nodes of
+// the level), as clusters (1, C, 1); one WideForwardStep a block
+// (csrc/wide_forward.cuh). Registers: float32 at three blocks an SM (K5'
+// measured best at four; this budget was not swept), float64 at two.
+template <typename scalar_t, int A, int CP>
+__global__ void __launch_bounds__(THREADS, sizeof(scalar_t) == 4 ? 3 : 2)
     forward_level(const scalar_t* __restrict__ tips,
                   const scalar_t* __restrict__ pmats,
                   const int* __restrict__ children,
@@ -104,51 +99,12 @@ __global__ void __launch_bounds__(THREADS)
                   scalar_t* __restrict__ scale, int T, int C, int S, int maxc,
                   int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
-  scalar_t* Xs = Ps + S * S;
-  scalar_t* Rs = Xs + S * TPS;
-  scalar_t* red = Rs + C * S * TPS;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int p0 = blockIdx.x * TP, p = p0 + lane;
-  const int k = __ldg(nodes + blockIdx.y);
-  scalar_t mx = Limits<scalar_t>::tiny();
-  for (int c = 0; c < C; ++c) {
-    scalar_t acc[A_MAX];
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) acc[i] = 1;
-    for (int j = 0; j < maxc; ++j) {
-      const int ch = __ldg(children + k * maxc + j);
-      if (ch < 0) continue;  // a missing child contributes 1
-      __syncthreads();       // the previous child's tiles are consumed
-      stage_child(tips, pmats, partials, ch, c, T, C, S, P, p0, scalar_t(1),
-                  Ps, Xs);
-      __syncthreads();
-      mul_product(Ps, Xs, S, w, lane, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int a = w + NW * i;
-      if (a < S) {
-        Rs[(c * S + a) * TPS + lane] = acc[i];
-        mx = acc[i] > mx ? acc[i] : mx;
-      }
-    }
-  }
-  // the per-pattern max over all (C, S): the categories have met
-  red[w * TP + lane] = mx;
-  __syncthreads();
-  scalar_t m = red[lane];
-  for (int v = 1; v < NW; ++v) m = red[v * TP + lane] > m ? red[v * TP + lane] : m;
-  if (p >= P) return;
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int i = 0; i < A_MAX; ++i) {
-      const int a = w + NW * i;
-      if (a < S)
-        partials[(((size_t)k * C + c) * S + a) * P + p] =
-            Rs[(c * S + a) * TPS + lane] / m;
-    }
-  if (w == 0) scale[(size_t)k * P + p] = m;
+  using Step = WideForwardStep<scalar_t, A, CP>;
+  const Step step(tips, pmats, children, partials, scale, smem_raw, T, C, S,
+                  maxc, P, blockIdx.y, blockIdx.x * Step::TQ, 1);
+  scalar_t x[A];
+  step.node(__ldg(nodes + blockIdx.z), 0, x);
+  step.leave();
 }
 
 // site_log[p] = log(max(rootw . root, tiny)) + sum_k log scale[k, p]
@@ -263,6 +219,42 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// The levels of the forward sweep, leaves first, at one tile shape
+template <typename scalar_t, int A, int CP> struct ForwardLevels {
+  static size_t smem(int S) {
+    return WideForwardStep<scalar_t, A, CP>::smem_scalars(S) *
+           sizeof(scalar_t);
+  }
+  static cudaError_t run(const void* tips, const void* pmats,
+                         const void* children, const int* nodes,
+                         const int* offsets, int n_levels, void* partials,
+                         void* scale, int T, int C, int S, int maxc, int P,
+                         cudaStream_t stream) {
+    constexpr int TQ = WideForwardStep<scalar_t, A, CP>::TQ;
+    for (int l = 0; l < n_levels; ++l) {
+      const dim3 grid((P + TQ - 1) / TQ, C, offsets[l + 1] - offsets[l]);
+      const cudaError_t e = launch_clusters(
+          forward_level<scalar_t, A, CP>, grid, smem(S), stream,
+          static_cast<const scalar_t*>(tips),
+          static_cast<const scalar_t*>(pmats),
+          static_cast<const int*>(children), nodes + offsets[l],
+          static_cast<scalar_t*>(partials), static_cast<scalar_t*>(scale), T,
+          C, S, maxc, P);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+};
+
+// The most clusters of forward_level at (S, C) resident at once
+template <typename scalar_t, int A, int CP> struct ForwardClusters {
+  static cudaError_t run(int S, int C, int* clusters) {
+    return cluster_occupancy(forward_level<scalar_t, A, CP>, C,
+                             ForwardLevels<scalar_t, A, CP>::smem(S),
+                             clusters);
+  }
+};
+
 template <typename scalar_t>
 cudaError_t launch_forward(const void* tips, const void* pmats,
                            const void* children, const void* nodes,
@@ -271,23 +263,10 @@ cudaError_t launch_forward(const void* tips, const void* pmats,
                            void* site_log, int T, int I, int C, int S,
                            int maxc, int P, cudaStream_t stream) {
   if (bad_dims(C, S, maxc)) return cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(S * S + S * TPS + C * S * TPS + NW * TP) * sizeof(scalar_t);
-  cudaError_t e = allow_smem(forward_level<scalar_t>, smem);
+  cudaError_t e = with_wide_tiles<scalar_t, ForwardLevels>(
+      S, tips, pmats, children, static_cast<const int*>(nodes), offsets,
+      n_levels, partials, scale, T, C, S, maxc, P, stream);
   if (e != cudaSuccess) return e;
-  const int tiles = (P + TP - 1) / TP;
-  const int* nodes_ = static_cast<const int*>(nodes);
-  for (int l = 0; l < n_levels; ++l) {
-    const dim3 grid(tiles, offsets[l + 1] - offsets[l]);
-    forward_level<scalar_t><<<grid, THREADS, smem, stream>>>(
-        static_cast<const scalar_t*>(tips),
-        static_cast<const scalar_t*>(pmats),
-        static_cast<const int*>(children), nodes_ + offsets[l],
-        static_cast<scalar_t*>(partials), static_cast<scalar_t*>(scale), T,
-        C, S, maxc, P);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
   forward_root<scalar_t><<<(P + 255) / 256, 256, 0, stream>>>(
       static_cast<const scalar_t*>(partials),
       static_cast<const scalar_t*>(scale),
@@ -383,6 +362,10 @@ extern "C" {
                                  n_levels, rootw, partials, scale, g, gbuf,    \
                                  dP_part, drootw_part, T, I, C, S, maxc, P,    \
                                  static_cast<cudaStream_t>(stream));           \
+  }                                                                            \
+  cudaError_t wide_forward_clusters_##SUFFIX(int S, int C, int* clusters) {    \
+    if (C < 1 || C > MAX_C) return cudaErrorInvalidValue;                      \
+    return with_wide_tiles<TYPE, ForwardClusters>(S, S, C, clusters);          \
   }
 
 PHYSHER_WIDE_ENTRY(f32, float)

@@ -73,6 +73,19 @@ def build_library(source: Path) -> tuple[ctypes.CDLL, str]:
     return ctypes.CDLL(str(out)), log
 
 
+def cluster_occupancy(lib: ctypes.CDLL, entry: str, dtype, S: int,
+                      C: int) -> int:
+    """``lib``'s ``entry`` (``_f32`` or ``_f64`` by ``dtype``): the most
+    thread-block clusters of C blocks of a forward kernel at S states that
+    the current card keeps resident at once."""
+    n = ctypes.c_int(0)
+    fn = getattr(lib, entry + ("_f32" if dtype == torch.float32 else "_f64"))
+    err = fn(S, C, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    return n.value
+
+
 def check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     """Raise ValueError unless ``t`` has this device, dtype and shape and
     is contiguous."""

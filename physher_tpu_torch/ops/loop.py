@@ -9,7 +9,10 @@ rescaling, the root ``props . (freqs @ root)``, and a backward that gives
 d pmats, d freqs and d props, for any state count S from 2 to 64: S = 4
 takes the register kernels ``loop_forward_kernel`` /
 ``loop_backward_kernel``, every other S the shared-memory ones
-``loop_wide_forward_kernel`` / ``loop_wide_backward_kernel``. What the JAX
+``loop_wide_forward_kernel`` / ``loop_wide_backward_kernel`` (their node
+steps ``csrc/wide_forward.cuh`` / ``csrc/wide_backward.cuh``, shared with
+K7'/K8'; the forward launched as thread-block clusters of its C category
+blocks). What the JAX
 package got from ``jax.custom_batching.sequential_vmap`` is a leading batch
 axis L here (one chain per grid row): ``pmats [L, N, C, S, S]``, ``freqs
 [L, S]``, ``props [L, C]`` -> ``site_log [L, P]``, the tips ``[T, S, P]``
@@ -93,6 +96,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         wbwd = getattr(lib, f"loop_wide_backward_{dt}")
         wbwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
         wbwd.restype = i32
+        occ = getattr(lib, f"loop_wide_forward_clusters_{dt}")
+        occ.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        occ.restype = i32
     return lib
 
 
@@ -142,6 +148,13 @@ def loop_forward(tips, pmats, children, freqs, props, rescale: bool = True):
         raise RuntimeError(f"loop forward kernel launch failed: "
                            f"cudaError {err}")
     return site_log, partials, scale
+
+
+def wide_forward_clusters(dtype, S: int, C: int) -> int:
+    """The most clusters of K5' at S != 4 (one per pattern block and chain,
+    C blocks each) that the current card keeps resident at once."""
+    return cuda_build.cluster_occupancy(build(), "loop_wide_forward_clusters",
+                                        dtype, S, C)
 
 
 def loop_backward(tips, pmats, children, freqs, props, partials, scale, g):

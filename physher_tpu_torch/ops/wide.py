@@ -67,6 +67,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         bwd = getattr(lib, f"wide_backward_{dt}")
         bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
         bwd.restype = i32
+        occ = getattr(lib, f"wide_forward_clusters_{dt}")
+        occ.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        occ.restype = i32
     return lib
 
 
@@ -99,6 +102,13 @@ def wide_forward(tips, pmats, children, rootw, schedule):
         raise RuntimeError(f"wide forward kernel launch failed: "
                            f"cudaError {err}")
     return site_log, partials, scale
+
+
+def forward_clusters(dtype, S: int, C: int) -> int:
+    """The most clusters of K7''s level kernel (C blocks each) that the
+    current card keeps resident at once."""
+    return cuda_build.cluster_occupancy(build(), "wide_forward_clusters",
+                                        dtype, S, C)
 
 
 def wide_backward(tips, pmats, children, rootw, schedule, partials, scale, g):

@@ -1,6 +1,8 @@
 """The CUDA pruning kernels (K1'/K2' of ops/fused.py, K3'/K4' of
 ops/staged.py, K5'/K6' of ops/loop.py at S = 4 and at S from 2 to 64,
-K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card.
+K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card;
+the forward of K5' at S != 4 and K7' (thread-block clusters of the C
+category blocks) also at every cluster size, bit for bit run to run.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -326,6 +328,106 @@ def test_wide_backward_is_deterministic(device):
                                    partials, scale, g) for _ in range(2)]
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+# K5' at S != 4 and K7' share one forward node step (csrc/wide_forward.cuh):
+# with the cases above, one case per instantiation (A rows a thread: 2 to
+# 16 at S <= 32, 5 to 8 above) at every cluster size C from 1 to 8, a
+# 16-child star and a caterpillar at P >= 2048: (shape, S, C, P)
+FORWARD_CASES = [
+    ("balanced", 2, 1, 300), ("balanced", 8, 2, 300),
+    ("balanced", 12, 3, 300), ("balanced", 16, 4, 300),
+    ("balanced", 20, 5, 300), ("balanced", 24, 6, 300),
+    ("balanced", 28, 7, 300), ("balanced", 32, 8, 300),
+    ("balanced", 33, 3, 300), ("balanced", 48, 5, 300),
+    ("balanced", 56, 7, 300), ("balanced", 64, 8, 300),
+    ("star", 20, 3, 2048), ("star", 61, 7, 2100),
+    ("caterpillar", 40, 6, 2049)]
+
+
+def _check_rescaled(partials, scale, rescale, cs_dims):
+    """Rescaled partials peak at exactly 1 over (C, S) at every node and
+    pattern (x / max x); unrescaled ones have scale 1."""
+    if rescale:
+        assert torch.all(partials.amax(cs_dims) == 1)
+    else:
+        assert torch.all(scale == 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,S,C,P", FORWARD_CASES)
+def test_forward_clusters_match_plain(device, dtype, shape, S, C, P):
+    """K5' (L = 2, rescale on and off) and K7' against the plain version:
+    site logs, the rescaled partials' peak of 1 (the cluster's max over
+    every category), and the gradients of K6' and K8', which read the
+    forward's partials and scalers."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "star": _star}[shape]()
+    tips, pm, freqs, props, g = _chains(topo, P, C, 2, dtype, device, S=S)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    rtol, atol, grtol = _tolerances(dtype)
+    for rescale in (True, False):
+        site, part, scale = loop.loop_forward(tips, pm, children, freqs,
+                                              props, rescale)
+        ref = loop.loop_site_log_reference(tips, pm, topo, freqs, props,
+                                           rescale=rescale)
+        torch.testing.assert_close(site, ref, rtol=rtol, atol=atol)
+        _check_rescaled(part, scale, rescale, (2, 3))
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    grads_k = torch.autograd.grad(torch.sum(g * loop.loop_site_log(
+        topo, True, tips, *leaves)), leaves)
+    grads_p = torch.autograd.grad(torch.sum(g * loop.loop_site_log_reference(
+        tips, leaves[0], topo, leaves[1], leaves[2])), leaves)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+    rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
+    schedule = cuda_build.level_schedule(topo, tips)
+    site, part, scale = wide.wide_forward(tips, pm[0], children, rootw,
+                                          schedule)
+    ref = wide.wide_site_log_reference(tips, pm[0], topo, freqs[0], props[0])
+    torch.testing.assert_close(site, ref, rtol=rtol, atol=atol)
+    _check_rescaled(part, scale, True, (1, 2))
+    inputs = (tips, pm[0], freqs[0], props[0], g[0])
+    _, grads_k = _value_and_grad(wide.wide_site_log, topo, *inputs)
+    _, grads_p = _value_and_grad(wide.wide_site_log_reference, topo, *inputs)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+def test_forward_is_deterministic(device):
+    """K5' at S != 4 and K7' take fixed orders for every sum (the cluster's
+    root sum over categories included): two launches on the same inputs
+    give bit-identical site logs, partials and scalers."""
+    topo = balanced_topology(16)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    for S, C in ((20, 4), (61, 1), (33, 7)):
+        tips, pm, freqs, props, _ = _chains(topo, 1000, C, 2, torch.float32,
+                                            device, S=S)
+        runs = [loop.loop_forward(tips, pm, children, freqs, props)
+                for _ in range(2)]
+        rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
+        schedule = cuda_build.level_schedule(topo, tips)
+        runs += [wide.wide_forward(tips, pm[0], children, rootw, schedule)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs[:2]):
+            assert torch.equal(a, b)
+        for a, b in zip(*runs[2:]):
+            assert torch.equal(a, b)
+
+
+def test_forward_cluster_occupancy(device):
+    """Clusters of every size up to 8 fit on the card at S = 20 and 61."""
+    for dtype in (torch.float32, torch.float64):
+        for S in (20, 61):
+            for C in (1, 4, 8):
+                assert loop.wide_forward_clusters(dtype, S, C) >= 1
+                assert wide.forward_clusters(dtype, S, C) >= 1
 
 
 def test_loop_wide_wrapper_rejects_bad_input(device):

@@ -399,11 +399,15 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale):
 
 
 # The S != 4 kernels (loop_wide_forward_kernel / loop_wide_backward_kernel)
-# follow another schedule. The forward: one block per (32-pattern tile,
-# chain) walks the postorder; per node, category and child an [S, S] @
-# [S, 32] product from shared memory, warp w owning states w, w + 8, ...; the
-# node's categories meet before the per-pattern max over (C, S); the root's
-# sum taken per warp over its states, then across the 8 warps. The backward:
+# follow another schedule. The forward: one block per (pattern block,
+# category, chain) walks the postorder, the C category blocks of a pattern
+# block and chain forming one thread-block cluster; per node each block
+# forms its category's product over children of P_j @ x_j (a missing child
+# contributes 1), reduces it to a per-pattern max, and the cluster's blocks
+# meet for the max over (C, S); at the root each block sums its category's
+# freqs-weighted rescaled partials over a thread's rows a = wi + WPC i (WPC
+# warps a tile: 2 at S <= 32, 8 above), then over its warps, times props_c,
+# and the cluster sums the blocks in order c = 0 .. C - 1. The backward:
 # one block per (loop.WIDE_BACKWARD_BLOCK patterns, category, chain) walks
 # the reverse postorder in steps of 128 patterns at S <= 32, of 32 above; at
 # a node of at most two children each child's y = P x is computed once and
@@ -427,32 +431,42 @@ def _emulate_wide_forward(tips, pmats, children, freqs, props, rescale):
     L, _, C = pmats.shape[:3]
     I, maxc = children.shape
     tiny = torch.finfo(tips.dtype).tiny
-    partials = tips.new_empty((L, I, C, S, P))
-    scale = tips.new_ones((L, I, P))
+    wpc = _WARPS // 4 if S <= 32 else _WARPS   # warps a 32-pattern tile
+    partials = tips.new_full((L, I, C, S, P), float("nan"))
+    scale = tips.new_full((L, I, P), float("nan"))
     log_sum = tips.new_zeros((L, P))
-    m = tips.new_ones((L, P))
     for k in range(I):
-        Rs = tips.new_empty((L, C, S, P))
+        blocks = []                            # grid.y: one per category
         for c in range(C):
             acc = tips.new_ones((L, S, P))
             for j in range(maxc):
                 ch = int(children[k, j])
                 if ch >= 0:
                     acc = acc * _wide_mul(pmats[:, ch, c],
-                                          _child(tips, partials, ch, c,
-                                                      T))
-            Rs[:, c] = acc
+                                          _child(tips, partials, ch, c, T))
+            blocks.append(acc)
         m = tips.new_ones((L, P))
         if rescale:
-            m = torch.clamp(Rs.amax((1, 2)), min=tiny)
+            # each block's per-pattern max, then the cluster's blocks meet
+            maxima = [torch.clamp(acc.amax(1), min=tiny) for acc in blocks]
+            m = maxima[0]
+            for b in maxima[1:]:
+                m = torch.maximum(m, b)
             log_sum = log_sum + torch.log(m)
-            scale[:, k] = m
-        partials[:, k] = Rs / m[:, None, None]
-    # the root, the last node's raw products: per warp, then across warps
-    per_state = (props[:, :, None, None] * freqs[:, None, :, None]
-                 * Rs).sum(1)                                  # [L, S, P]
-    warps = [per_state[:, w::_WARPS].sum(1) / m for w in range(_WARPS)]
-    site = torch.clamp(sum(warps), min=tiny)
+        for c in range(C):
+            partials[:, k, c] = blocks[c] / m[:, None]
+        scale[:, k] = m
+    # the root: per block over a thread's rows, then its warps, times
+    # props_c; the cluster sums the blocks in category order
+    site = None
+    for c in range(C):
+        per_state = freqs[:, :, None] * partials[:, I - 1, c]   # [L, S, P]
+        v = per_state[:, 0::wpc].sum(1)
+        for wi in range(1, wpc):
+            v = v + per_state[:, wi::wpc].sum(1)
+        v = v * props[:, c, None]
+        site = v if site is None else site + v
+    site = torch.clamp(site, min=tiny)
     return torch.log(site) + log_sum, partials, scale
 
 
@@ -539,13 +553,20 @@ def _wide_batch(topo, L, C, S, n_sites=300, seed=0):
     ("balanced", 5, 4, 3, True), ("caterpillar", 20, 2, 2, False),
     ("polytomy", 61, 1, 2, True), ("polytomy", 20, 3, 1, False),
     ("balanced", 2, 1, 2, False), ("caterpillar", 33, 3, 2, True),
-    ("balanced", 64, 8, 1, True), ("star", 12, 2, 2, True)])
+    ("balanced", 64, 8, 1, True), ("star", 12, 2, 2, True),
+    # with those, the forward's clusters: S = 2, 20, 32, 33, 61 and 64 at
+    # C = 1, 3 and 8, polytomies of 4 and 16 children, rescale on and off
+    ("star", 32, 8, 1, False), ("star", 61, 1, 1, True),
+    ("balanced", 32, 3, 2, True), ("caterpillar", 2, 8, 1, True),
+    ("polytomy", 33, 8, 1, True), ("star", 20, 1, 2, False),
+    ("balanced", 61, 3, 1, False), ("polytomy", 64, 3, 2, False)])
 def test_wide_kernel_schedule_matches_plain(shape, S, C, L, rescale):
     """float64: the emulated schedule of the S != 4 kernels against the
     plain version (site logs, d pmats, d freqs, d props) to rounding; 300
-    patterns span ten tiles and three backward blocks, both ragged; S from
-    2 to 64 (the backward's thread tiles of A = ceil(S / 8) rows: 1, 3, 5,
-    8), C up to 8, binary nodes and polytomies of 4 and 16 children."""
+    patterns span three forward blocks at S <= 32 and ten above, and three
+    backward blocks, all ragged; S from 2 to 64 (the thread tiles of A rows
+    and 2 or 8 warps a tile), C up to 8 (clusters of 1 to 8 blocks), binary
+    nodes and polytomies of 4 and 16 children, rescale on and off."""
     topo = _topologies(shape)[0]
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _wide_batch(topo, L, C, S, seed=S))

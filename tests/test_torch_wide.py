@@ -133,10 +133,13 @@ def test_plain_matches_pruning_f64(datatype, C, shape):
 # -- the CUDA kernels' schedule, emulated on the CPU --------------------------
 #
 # csrc/wide.cu cannot run here. These functions follow its launches: one
-# forward launch per level of topo.levels (leaves first), each node's
-# categories meeting before the division by the per-pattern max over (C, S),
-# partials [I, C, S, P] and scalers [I, P] kept in device memory, a root
-# launch summing log m over the ranks in order; then the root seed (d rootw
+# forward launch per level of topo.levels (leaves first), one block per
+# (pattern block, category, node), the C category blocks of a node forming
+# one thread-block cluster: each block forms its category's product over
+# children, reduces it to a per-pattern max, and the cluster's blocks meet
+# for the max over (C, S) before the division; partials [I, C, S, P] and
+# scalers [I, P] kept in device memory, a root launch summing log m over the
+# ranks in order; then the root seed (d rootw
 # summed per block of BWD_PATTERNS patterns) and one reverse launch
 # per level, root first, whose blocks each take one (pattern block, category,
 # node) and walk the block's patterns in steps (128 patterns at S <= 32, 32
@@ -161,15 +164,24 @@ def _emulate_forward(tips, pmats, children, rootw, levels):
     partials = torch.full((I, C, S, P), float("nan"), dtype=tips.dtype)
     scale = torch.full((I, P), float("nan"), dtype=tips.dtype)
     for level in levels:                       # one launch per level
-        for k in level:                        # grid.y: the level's nodes
-            res = tips.new_ones((C, S, P))
+        for k in level:                        # grid.z: the level's nodes
+            blocks = []                        # grid.y: the categories
             for c in range(C):
+                acc = tips.new_ones((S, P))
                 for j in range(maxc):
                     ch = int(children[k, j])
                     if ch >= 0:
-                        res[c] *= pmats[ch, c] @ _x(tips, partials, ch, c, T)
-            m = torch.clamp(res.amax((0, 1)), min=tiny)
-            partials[k], scale[k] = res / m, m
+                        acc = acc * (pmats[ch, c]
+                                     @ _x(tips, partials, ch, c, T))
+                blocks.append(acc)
+            # each block's per-pattern max; the cluster's blocks meet
+            maxima = [torch.clamp(acc.amax(0), min=tiny) for acc in blocks]
+            m = maxima[0]
+            for b in maxima[1:]:
+                m = torch.maximum(m, b)
+            for c in range(C):
+                partials[k, c] = blocks[c] / m
+            scale[k] = m
     root = partials[I - 1]                     # the root launch
     site = torch.clamp((rootw.view(C, S, 1) * root).sum((0, 1)), min=tiny)
     log_sum = torch.zeros(P, dtype=tips.dtype)
@@ -248,6 +260,15 @@ def _polytomy():
     return Topology.from_nested(nested)[0]
 
 
+def _star():
+    """A root with 16 children, 15 tips and a cherry."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+    return Topology.from_nested({"name": None, "children": [
+        *(tip(i) for i in range(15)),
+        {"name": None, "length": 0.1, "children": [tip(15), tip(16)]}]})[0]
+
+
 def _random_inputs(topo, S, C, P, seed):
     """float64 tensors: one-hot tips of random states with a few all-ones
     columns, row-stochastic pmats, freqs, props, weights."""
@@ -263,18 +284,23 @@ def _random_inputs(topo, S, C, P, seed):
 @pytest.mark.parametrize("shape,S,C", [
     ("balanced", 61, 1), ("caterpillar", 20, 4), ("polytomy", 5, 3),
     ("balanced", 2, 1), ("caterpillar", 32, 8), ("balanced", 33, 2),
-    ("balanced", 64, 1), ("polytomy", 40, 8)])
+    ("balanced", 64, 1), ("polytomy", 40, 8),
+    # with those, the forward's clusters: S = 2, 20, 32, 33, 61 and 64 at
+    # C = 1, 3 and 8, polytomies of 4 and 16 children
+    ("star", 20, 3), ("star", 61, 1), ("polytomy", 64, 8),
+    ("caterpillar", 2, 3), ("balanced", 32, 1), ("polytomy", 33, 3)])
 @pytest.mark.parametrize("sms", [0, 132])
 def test_kernel_schedule_matches_plain(shape, S, C, sms):
     """float64: the kernels' emulated schedule against the plain version
     (value, d pmats, d rootw) to 1e-12, at S on each side of the step shapes
-    (2 to 32: one step a block; 33 to 64: 32-pattern steps), C up to 8 and
-    polytomies, with every level's nodes whole (no SMs to fill) and with the
-    narrow levels split by child (the H100's 132 SMs); 300 patterns span
-    three backward blocks, the last one ragged."""
+    (2 to 32: one step a block; 33 to 64: 32-pattern steps), C up to 8
+    (clusters of 1 to 8 blocks) and polytomies of 4 and 16 children, with
+    every level's nodes whole (no SMs to fill) and with the narrow levels
+    split by child (the H100's 132 SMs); 300 patterns span three blocks of
+    either step and three backward blocks, the last ones ragged."""
     topo = {"balanced": lambda: balanced_topology(12),
             "caterpillar": lambda: caterpillar_topology(9),
-            "polytomy": _polytomy}[shape]()
+            "polytomy": _polytomy, "star": _star}[shape]()
     tips, pm, freqs, props, w = _random_inputs(topo, S, C, 300, seed=2)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
     children = torch.as_tensor(topo.children)
