@@ -58,6 +58,25 @@ then the levels root first) from torch.profiler. Like ``--wide-backward``
 it uses only entry points that older checkouts have, so a copy run from an
 older checkout's root times that checkout.
 
+With ``--staged``, only K3'/K4' alone (CUDA events, median of 100) against
+the plain version, with their bounds and the level-by-level design's floor
+(the bytes it must move through device memory), at the balanced
+128 x 16384 tree (C = 4) and at the 128-taxon GTR+G4 config model that
+``chip_smoke.py`` simulates (about 16 000 patterns, 14 levels), float32 and
+float64, beside the staged value-and-gradient, the device time of each of
+K3''s and K4''s launches (torch.profiler; the levels leaves first for K3',
+root first for K4') and nvcc's register and spill lines. Like
+``--wide-backward`` it uses only entry points that older checkouts have, so
+a copy run from an older checkout's root times that checkout.
+
+With ``--k4-variants``, only K4' (float32) at the config model and the
+balanced 128 x 16384 tree through ``csrc/staged.cu`` as committed and
+rebuilt with no, two and six patterns staged ahead (``BWD_DEPTH``) and at
+three blocks an SM (``BWD_BLOCKS``): each build's registers and spills, K4'
+alone (median of 50, three rounds in turns) and its launches' device time;
+then the committed build at other ``MAX_PPT`` and ``FIXED`` of
+``ops/staged.level_ppt``.
+
 With ``--k8-blocks``, only K8' (float32) at GY94 M0 32 x 4096 with
 ``csrc/wide.cu`` as committed (128 patterns a block) and rebuilt with
 ``BWD_P`` at 64 and 32 (the dP scratch grows as the block shrinks): each
@@ -79,6 +98,7 @@ alone through each at the two shapes above.
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
                             [--mcmc] [--wide-forward] [--wide-backward]
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
+                            [--staged] [--k4-variants]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -87,6 +107,7 @@ line per config and per kernel shape, then the card's name and power limit from 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -447,6 +468,189 @@ def k8_call(tlk, inputs):
                                       part, sc, w)
 
 
+def host_us(run, n=50):
+    """Host time (us, median of ``n``) of one call of ``run()`` started on
+    an idle card: the wrapper's Python and its launches."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    return sorted(times)[n // 2]
+
+
+def staged_design_floor_ms(T, I, C, P, itemsize):
+    """(K3', K4') floors of the level-by-level design, ms at 3.35 TB/s: the
+    bytes it must move through device memory, where every internal node's
+    partials and cotangent pass between levels. K3': tips and the internal
+    children's partials read, every node's partials and scalers written.
+    K4': tips, partials, scalers and the site cotangent read, every node's
+    cotangent written and read."""
+    fwd = 4 * T * P + 4 * C * P * (I - 1) + 4 * C * P * I + I * P
+    bwd = 4 * T * P + 3 * 4 * C * P * I + I * P + P
+    return tuple(n * itemsize / cs.PEAK_BYTES_PER_S * 1e3 for n in (fwd, bwd))
+
+
+def staged_kernels(dev):
+    """K3'/K4' alone against plain, the design's floors, the staged
+    value-and-gradient and each launch's device time, at the balanced
+    128 x 16384 tree and the 128-taxon GTR+G4 config model, float32 and
+    float64."""
+    print(json.dumps({
+        "ptxas_k3": cs.ptxas_by_kernel(staged.build_log, "forward"),
+        "ptxas_k4": cs.ptxas_by_kernel(staged.build_log, "backward")}),
+        flush=True)
+    topo128 = balanced_topology(128)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = cs.large_config(Path(tmp), 128, 20480, dev)
+        for dtype in (torch.float32, torch.float64):
+            ctx, _ = build_config(load_json(str(path)),
+                                  base_dir=str(path.parent), dtype=dtype,
+                                  device=dev)
+            tlk = ctx.objects["treelikelihood"]
+            params = tlk.param_space().init_params(dtype=dtype, device=dev)
+            for name, topo, inputs in (
+                    ("config-128", tlk.topo, cs.engine_inputs(tlk, params)),
+                    ("balanced-128x16384", topo128, cs.random_inputs(
+                        topo128, 16384, 4, 7, dtype, dev))):
+                tips, pm, fr, pr, w = inputs
+                children = cs.topo_constant(topo, "children",
+                                            lambda: topo.children, tips,
+                                            torch.int32)
+                rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+                schedule = cuda_build.level_schedule(topo, tips)
+                _, part, ls = staged.staged_forward(tips, pm, children, rootw,
+                                                    schedule)
+                floors = staged_design_floor_ms(
+                    topo.T, topo.I, pm.shape[1], tips.shape[2],
+                    tips.element_size())
+                rec = {"phase": "staged", "shape": name,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "patterns": tips.shape[2],
+                       "level_nodes": [len(lv) for lv in topo.levels],
+                       "kernel_alone": cs.kernels_alone(staged, topo,
+                                                        *inputs),
+                       "forward_design_floor_ms": floors[0],
+                       "backward_design_floor_ms": floors[1],
+                       "value_and_grad_ms": cs.median_ms(
+                           lambda: cs.value_and_grad(
+                               staged.staged_site_log, topo, *inputs),
+                           reps=100),
+                       # the levels leaves first, the root's last
+                       "forward_launch_us": launch_device_us(
+                           lambda: staged.staged_forward(
+                               tips, pm, children, rootw, schedule),
+                           ("forward_level",)),
+                       "forward_host_us": host_us(
+                           lambda: staged.staged_forward(
+                               tips, pm, children, rootw, schedule)),
+                       "backward_host_us": host_us(
+                           lambda: staged.staged_backward(
+                               tips, pm, children, rootw, schedule, part, ls,
+                               w)),
+                       # the root seed, the levels root first, the last sum
+                       "backward_launch_us": launch_device_us(
+                           lambda: staged.staged_backward(
+                               tips, pm, children, rootw, schedule, part, ls,
+                               w), ("backward_root", "backward_level",
+                                    "backward_sum"))}
+                print(json.dumps(rec), flush=True)
+                del inputs, tips, pm, part, ls
+            del ctx, tlk
+            torch.cuda.empty_cache()
+
+
+K4_DEPTH = "constexpr int BWD_DEPTH = 4;"
+K4_BLOCKS = "constexpr int BWD_BLOCKS = 2;"
+
+
+def k4_variants(dev):
+    """K4' (float32) at the config model and balanced 128 x 16384 through
+    ``csrc/staged.cu`` as committed (BWD_DEPTH 4, BWD_BLOCKS 2) and
+    rebuilt with no patterns staged ahead (depth 1), two and six, and at
+    three blocks an SM; each build's registers and spills, K4' alone
+    (median of 50, three rounds in turns) and its launches' device time;
+    then the committed build at other MAX_PPT and FIXED of level_ppt."""
+    src = (cuda_build.PKG / "csrc" / "staged.cu").read_text()
+    if K4_DEPTH not in src or K4_BLOCKS not in src:
+        raise SystemExit("csrc/staged.cu no longer has the constants this "
+                         "measurement varies")
+    variants = {"depth4-blocks2": src, "depth1-blocks2": src.replace(
+        K4_DEPTH, "constexpr int BWD_DEPTH = 1;"),
+        "depth2-blocks2": src.replace(K4_DEPTH, "constexpr int BWD_DEPTH = 2;"),
+        "depth6-blocks2": src.replace(K4_DEPTH, "constexpr int BWD_DEPTH = 6;"),
+        "depth4-blocks3": src.replace(K4_BLOCKS,
+                                      "constexpr int BWD_BLOCKS = 3;")}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for label, text in variants.items():
+            d = Path(tmp) / label
+            d.mkdir()
+            # a first line of its own: each build is compiled here
+            (d / "staged.cu").write_text(f"// {label}\n" + text)
+            paths[label] = d / "staged.cu"
+        with ThreadPoolExecutor(len(paths)) as pool:
+            built = dict(zip(paths, pool.map(cuda_build.build_library,
+                                             paths.values())))
+    libs = {}
+    for label, (lib, log) in built.items():
+        libs[label] = staged.bind(lib)
+        print(json.dumps({"k4_build": label, "ptxas": {
+            k: v for k, v in cs.ptxas_by_kernel(log, "backward_level").items()
+            if "Li4E" in k}}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = cs.large_config(Path(tmp), 128, 20480, dev)
+        ctx, _ = build_config(load_json(str(path)), base_dir=str(path.parent),
+                              dtype=torch.float32, device=dev)
+    tlk = ctx.objects["treelikelihood"]
+    topo128 = balanced_topology(128)
+    cases = []
+    for name, topo, inputs in (
+            ("config-128", tlk.topo, cs.engine_inputs(
+                tlk, tlk.param_space().init_params(dtype=torch.float32,
+                                                   device=dev))),
+            ("balanced-128x16384", topo128, cs.random_inputs(
+                topo128, 16384, 4, 7, torch.float32, dev))):
+        tips, pm, fr, pr, w = inputs
+        children = cs.topo_constant(topo, "children", lambda: topo.children,
+                                    tips, torch.int32)
+        rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+        schedule = cuda_build.level_schedule(topo, tips)
+        _, part, ls = staged.staged_forward(tips, pm, children, rootw,
+                                            schedule)
+        cases.append((name, functools.partial(
+            staged.staged_backward, tips, pm, children, rootw, schedule,
+            part, ls, w)))
+    saved = staged._lib
+    try:
+        for rnd in range(3):
+            for label, lib in libs.items():
+                staged._lib = lib
+                row = {"k4_build": label, "round": rnd}
+                for name, run in cases:
+                    row[f"{name}_ms"] = cs.median_ms(run, reps=50)
+                    if rnd == 0:
+                        row[f"{name}_launch_us"] = launch_device_us(
+                            run, ("backward_root", "backward_level",
+                                  "backward_sum"))
+                print(json.dumps(row), flush=True)
+        staged._lib = libs["depth4-blocks2"]
+        rule = (staged.MAX_PPT, staged.FIXED)
+        for rnd in range(2):
+            for most, fixed in ((16, 4), (8, 4), (32, 4), (64, 4), (16, 1),
+                                (16, 16)):
+                staged.MAX_PPT, staged.FIXED = most, fixed
+                row = {"max_ppt": most, "fixed": fixed, "round": rnd}
+                for name, run in cases:
+                    row[f"{name}_ms"] = cs.median_ms(run, reps=50)
+                print(json.dumps(row), flush=True)
+        staged.MAX_PPT, staged.FIXED = rule
+    finally:
+        staged._lib = saved
+
+
 K8_BLOCK = "constexpr int BWD_P = TP * BWD_CHUNKS;"
 
 
@@ -665,6 +869,12 @@ def main() -> int:
                     help="only K5' at S != 4 at 2, 3, 4 blocks an SM")
     ap.add_argument("--k5-loads", action="store_true",
                     help="only K5' at S != 4 with P rows as 4-byte loads")
+    ap.add_argument("--k4-variants", action="store_true",
+                    help="only K4' at other pipeline depths, register "
+                         "budgets and patterns a thread")
+    ap.add_argument("--staged", action="store_true",
+                    help="only K3'/K4' alone, their launches and "
+                         "value-and-gradient")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
@@ -672,6 +882,14 @@ def main() -> int:
     smi = cs.nvidia_smi()
     with ThreadPoolExecutor(4) as pool:
         list(pool.map(lambda m: m.build(), (fused, staged, loop, wide)))
+    if args.k4_variants:
+        k4_variants(dev)
+        print(smi, flush=True)
+        return 0
+    if args.staged:
+        staged_kernels(dev)
+        print(smi, flush=True)
+        return 0
     if args.k6_bounds:
         k6_bounds(dev)
         print(smi, flush=True)

@@ -16,7 +16,9 @@ slices' main paths through them and times kernel against plain:
   JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
   ADVI and ML of a GTR+G4 config on 128 taxa x about 16 000 patterns
-  simulated on the card (through K3'/K4');
+  simulated on the card (through K3'/K4'); K3'/K4' against plain also at
+  C = 1 and 8 and on a tree with polytomies, their launches' device times
+  at the config's model and both twice on the same inputs (bit for bit);
 - MCMC and marginal likelihood over a batch of chains (K5'/K6',
   ``csrc/loop.cu``): the kernels against plain on chains of the fluA
   models and on a fluA tree with polytomies, mmcmc (16 temperatures as one
@@ -622,6 +624,34 @@ def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
         tips, pmats, children, rootw, schedule, partials, scale, g))
 
 
+def staged_checks(topo, tips, pmats, freqs, props, g) -> dict:
+    """K3' and K4' on one model's inputs: each launch's device time (us,
+    torch.profiler; K3''s levels leaves first, K4''s root seed, levels root
+    first and last sum) and both twice on the same inputs (bit-identical
+    site logs, partials, scalers, d pmats and d rootw)."""
+    # chip_profile imports this module, so it is imported here
+    from chip_profile import launch_device_us
+
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    schedule = cuda_build.level_schedule(topo, tips)
+    g = g.contiguous()
+
+    def fwd():
+        return staged.staged_forward(tips, pmats, children, rootw, schedule)
+    _, partials, logscale = fwd()
+
+    def bwd():
+        return staged.staged_backward(tips, pmats, children, rootw, schedule,
+                                      partials, logscale, g)
+    return {"forward_launch_us": launch_device_us(fwd, ("forward_level",)),
+            "backward_launch_us": launch_device_us(
+                bwd, ("backward_root", "backward_level", "backward_sum")),
+            "forward_bit_identical": bit_identical(fwd),
+            "backward_bit_identical": bit_identical(bwd)}
+
+
 def forward_checks(topo, tips, pmats, freqs, props) -> dict:
     """K5' at S != 4 (``pmats [L, N, C, S, S]``) and K7' (on chain 0), each
     twice on the same inputs: bit-identical site logs, partials and
@@ -714,11 +744,16 @@ WIDE_SHAPES = [
 
 # K3'/K4' against plain: (name, topology, patterns, categories): the JAX
 # package's large shape, a caterpillar (one node per level, the prototype
-# K9's many-step case) and a ragged pattern count
+# K9's many-step case), a ragged pattern count, C = 1 and 8 (one and eight
+# warps a pattern row in K4') and a tree with polytomies (K4''s general path)
 STAGED_SHAPES = [
     ("balanced-128x16384-C4", lambda: balanced_topology(128), 16384, 4),
     ("caterpillar-64x8192-C4", lambda: caterpillar_topology(64), 8192, 4),
     ("balanced-128x8229-C4", lambda: balanced_topology(128), 8192 + 37, 4),
+    ("balanced-64x2000-C1", lambda: balanced_topology(64), 2000, 1),
+    ("caterpillar-32x700-C8", lambda: caterpillar_topology(32), 700, 8),
+    ("polytomy-64x1500-C4",
+     lambda: collapsed_topology(balanced_topology(64)), 1500, 4),
 ]
 
 
@@ -1717,13 +1752,19 @@ def main() -> int:
     # at 128 taxa x about 16 000 patterns through the CLI (K3'/K4')
     runner, staged_launches = cli_staged_large(dev)
 
-    # ---- 16. times of K3'/K4', K1'/K2' and plain at that model's inputs
+    # ---- 16. times of K3'/K4', K1'/K2' and plain at that model's inputs,
+    # each K3'/K4' launch's device time, and both twice on the same inputs
+    # (bit-identical: fixed sum orders, no atomics)
     tlk = runner.ctx.objects["treelikelihood"]
     params = runner.params_for(tlk.param_space())
     inputs = engine_inputs(tlk, params)
     staged_alone = kernels_alone(staged, tlk.topo, *inputs)
     times = {"card": smi, "patterns": tlk.sp.pattern_count,
-             "kernel_alone": staged_alone}
+             "level_nodes": [len(lv) for lv in tlk.topo.levels],
+             "kernel_alone": staged_alone,
+             **staged_checks(tlk.topo, *inputs)}
+    check(times["forward_bit_identical"] and times["backward_bit_identical"],
+          "K3' and K4' twice on the same inputs, bit for bit")
     for label, fn in (("staged", staged.staged_site_log),
                       ("fused", fused.fused_site_log),
                       ("plain", staged.staged_site_log_reference)):

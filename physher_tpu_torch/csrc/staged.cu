@@ -33,40 +33,80 @@
 // product per pattern, 32 FLOPs against 16 bytes of child partials read and
 // 16 bytes written in float32: about 1 FLOP per byte, far below the H100's
 // float32 ridge (67 TFLOP/s over 3.35 TB/s, about 20 FLOP per byte), so both
-// kernels are bound by device-memory (or L2) bandwidth. The design does the
-// simple thing about it:
-// - Parallelism across the nodes of a level as well as across patterns:
-//   grid (pattern tiles of 128, nodes of the level), one thread per pattern,
-//   the C x 4 partials in registers (C a template parameter), the pattern
-//   axis innermost so every load and store is coalesced. At 128 taxa x 16384
-//   patterns the first level is 64 x 128 = 8192 blocks, where the fused
-//   kernel (csrc/pruning.cu), which walks the whole postorder in one launch,
-//   has 128.
-// - A block stages its node's children's C x maxc x 16 P entries in shared
-//   memory once; every thread reads them as broadcasts.
-// - A tip child's 4 states are loaded once for all C categories.
-// - The root's level holds the root alone; its launch also computes
-//   site_log, so a forward sweep is one launch per level.
-// - K4' is a root launch (the seed g / site and d rootw), then one launch per
-//   level, root first. A block reads its node's cotangent [C, 4, 128] from
-//   device memory and writes each internal child's. It sums dP over its 128
-//   patterns (warp shuffles, then shared memory across the 4 warps) into one
-//   per-block partial sum per (child, category); each (block, child) row is
-//   written by exactly one block, and the caller sums the block axis in a
-//   fixed order: deterministic, no atomics.
+// kernels are bound by device-memory (or L2) bandwidth. In this
+// level-by-level design every internal node's partials and cotangent pass
+// through device memory, so the design's own floor is above the function's
+// bound (at 128 taxa x 16 291 patterns, C = 4, float32, 0.091 ms for K3'
+// and 0.131 ms for K4' against 0.052; chip_profile.staged_design_floor_ms).
+//
+// K3': grid (pattern tiles of 128, nodes of the level), one thread per
+// pattern, the C x 4 partials in registers (C a template parameter). A block
+// stages its node's children's C x maxc x 16 P entries in shared memory; a
+// tip child's 4 states are loaded once for all C categories. The root's
+// level holds the root alone; its launch also computes site_log. Three
+// other designs were measured and not kept (chip_profile.py --staged; at
+// 128 x 16 291, C = 4, the levels' launches sum to about 182 us): K4''s
+// threads (categories across the warps, up to 4 patterns a thread) took
+// 1.25x longer, their max over categories costing two barriers a pattern;
+// each node writing its subtree's sum of log-scalers for its parent took
+// the root's launch from 15 to 7 us but the wide levels 5-10 % longer (the
+// extra bytes and registers); the root's level as a kernel of its own,
+// four warps on each 32 patterns' sum, took it to 13 us, 1 % of the sweep.
+//
+// K4', redesigned for this card. The first design (one thread per pattern
+// walking every category and child, each dP entry reduced over every
+// 128-pattern block by its own 5-shuffle warp sum, each sibling reloaded and
+// its product recomputed per child) spent more shuffles than arithmetic
+// and ran at 10x the function's bound. What it does now:
+// - Categories across the warps of a block (Lanes): CP warps a pattern row,
+//   C rounded up to a power of two, warp w taking category w % CP and lane
+//   l pattern l of the row, so every warp's load and store is a whole
+//   128-byte line (categories across the lanes of a warp, four 32-byte
+//   pieces a load, took 10 % longer), the C warps of a pattern meet a tip
+//   child's states and the node's scaler in the same lines, and every level
+//   has C times the threads of one thread a pattern.
+// - dP accumulated over many patterns before any reduction: a thread takes
+//   ppt patterns of its block, strided by the block's row of QB, and the
+//   block reduces once, by a butterfly over the warp's lanes that halves
+//   the values a lane holds at each step (31 shuffles for 32 values, not 32
+//   x 5), then the category's warps in a fixed order. ppt is chosen per
+//   level by the caller (ops/staged.py level_ppt) from the level's waves of
+//   blocks: the wide levels take 16 patterns a thread, the root's one.
+// - A binary node: each child's P in registers, its partials and its
+//   product u_j = P_j x_j once per category and pattern, the two "other"
+//   vectors from the cotangent and the sibling's u. A thread's log m,
+//   cotangent and children's partials are copied by cp.async into its own
+//   shared-memory slots BWD_DEPTH - 1 patterns ahead of the arithmetic
+//   (10-15 % off the wide levels against none). A polytomy (or a missing
+//   child) takes the general loop, one child at a time.
+// - The per-block partial sums go to a scratch laid out per node (rows:
+//   its offset and block count, from the caller; 2.1 MB at 128 taxa x
+//   16 291 patterns, C = 4, where the first design's was 8.4), and one more
+//   launch sums each (child, category, entry) over its blocks in a fixed
+//   order and writes d pmats and d rootw: deterministic, no atomics.
+// What bounds it now (chip_profile.py --staged): the wide levels move
+// about 1.4 TB/s, 40 % of the card's byte rate; the narrow ones take about
+// 5 us each, near the host's 6 us to launch one.
 // Every buffer the caller hands in is fully written before it is read: each
 // internal node is in one level, each non-root node is the child of one
-// parent, and the caller zeroes the root's row of the dP partial sums, which
-// no block writes.
+// parent, and the sum launch zeroes the root's d pmats row.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 
 namespace {
 
-constexpr int THREADS = 128;           // one pattern per thread
-constexpr int NW = THREADS / 32;
-constexpr int MAX_CS = 32;             // C <= 8 categories of 4 states
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NW = 8;                  // warps per block
+constexpr int THREADS = NW * 32;
+constexpr int FWD_THREADS = 128;       // K3': one pattern a thread
+// K4''s binary node: scalars staged a pattern (log m, the cotangent, two
+// children), patterns staged ahead (BWD_DEPTH - 1), and the blocks an SM its
+// registers allow in float32 (float64 takes one)
+constexpr int STAGED = 13;
+constexpr int BWD_DEPTH = 4;
+constexpr int BWD_BLOCKS = 2;
 
 template <typename scalar_t> struct Limits;
 template <> struct Limits<float> {
@@ -81,12 +121,96 @@ __device__ inline double log_(double x) { return log(x); }
 __device__ inline float exp_(float x) { return expf(x); }
 __device__ inline double exp_(double x) { return exp(x); }
 
+// *dst <- row[p] by cp.async, or zero where !valid (row[0] is then named,
+// and nothing is read)
 template <typename scalar_t>
-__device__ inline scalar_t warp_sum(scalar_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
+__device__ inline void copy_scalar(scalar_t* dst, const scalar_t* row, int p,
+                                   bool valid) {
+  __pipeline_memcpy_async(dst, row + (valid ? p : 0), sizeof(scalar_t),
+                          valid ? 0 : sizeof(scalar_t));
+}
+
+// The threads: CP warps a pattern row (C rounded up to a power of two),
+// warp w taking category w % CP and lane l pattern l of its row, so each
+// warp's loads and stores are whole 128-byte lines; a block row covers QB
+// patterns (ops/staged.py block_patterns).
+template <int C> struct Lanes {
+  static constexpr int CP = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
+  static constexpr int QB = NW / CP * 32;
+  int lane, w, c, cc, q;
+  bool act;  // c < C; the other warps of a pattern row hold zeros
+  __device__ Lanes()
+      : lane(threadIdx.x & 31), w(threadIdx.x >> 5), c(w & (CP - 1)),
+        cc(c < C ? c : 0), q((w / CP) * 32 + lane), act(c < C) {}
+};
+
+// The sum of v over the categories of a pattern, in the order c = 0 .. C -
+// 1; every thread of the pattern gets it.
+// buf: THREADS scalars of shared memory; every thread of the block calls it.
+template <int C, typename scalar_t>
+__device__ inline scalar_t category_sum(scalar_t v, scalar_t* buf) {
+  using L = Lanes<C>;
+  const L t;
+  buf[t.c * L::QB + t.q] = v;
+  __syncthreads();
+  v = buf[t.q];
+  for (int c = 1; c < C; ++c) v += buf[c * L::QB + t.q];
+  __syncthreads();
   return v;
+}
+
+// v[0 .. N) summed over the lanes that differ in the lane bits M, 2M, ...,
+// 16: each step sends half the values a lane holds to its partner and adds
+// the half it keeps, so a lane ends with N / 2^steps sums, of entries base
+// .. (or, once a lane holds one, the remaining steps add it whole and
+// `owner` marks one lane of the pair).
+template <typename scalar_t, int N, int M> struct Butterfly {
+  __device__ static void run(scalar_t* v, int lane, int& base, bool& owner) {
+    if constexpr (M < 32) {
+      if constexpr (N > 1) {
+        constexpr int H = N / 2;
+        const bool up = lane & M;
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          const scalar_t send = up ? v[i] : v[i + H];
+          const scalar_t keep = up ? v[i + H] : v[i];
+          v[i] = keep + __shfl_xor_sync(FULL, send, M);
+        }
+        if (up) base += H;
+        Butterfly<scalar_t, H, 2 * M>::run(v, lane, base, owner);
+      } else {
+        v[0] += __shfl_xor_sync(FULL, v[0], M);
+        if (lane & M) owner = false;
+        Butterfly<scalar_t, 1, 2 * M>::run(v, lane, base, owner);
+      }
+    }
+  }
+};
+
+// v[0 .. V) of each thread summed over the block's threads of each category
+// in a fixed order (the butterfly over a warp's lanes, then the category's
+// warps in turn); entry i of category c goes to dst[(i / E) * C * E + c * E
+// + i % E]. red: NW x V scalars. Every thread of the block calls it.
+template <typename scalar_t, int C, int V, int E>
+__device__ inline void block_sum(scalar_t* v, scalar_t* red,
+                                 scalar_t* __restrict__ dst) {
+  using L = Lanes<C>;
+  const L t;
+  int base = 0;
+  bool owner = true;
+  Butterfly<scalar_t, V, 1>::run(v, t.lane, base, owner);
+  constexpr int held = V / 32 > 0 ? V / 32 : 1;
+  if (owner)
+#pragma unroll
+    for (int i = 0; i < held; ++i) red[t.w * V + base + i] = v[i];
+  __syncthreads();
+  for (int u = threadIdx.x; u < C * V; u += THREADS) {
+    const int c = u / V, i = u - c * V;
+    scalar_t s = 0;
+    for (int w = c; w < NW; w += L::CP) s += red[w * V + i];
+    dst[(i / E) * C * E + c * E + i % E] = s;
+  }
+  __syncthreads();
 }
 
 // Ps[j, c, :, :] <- P of node k's child j in category c (zero for a missing
@@ -104,13 +228,21 @@ __device__ inline void stage_pmats(const scalar_t* __restrict__ pmats,
   }
 }
 
+// child ch's partials in category c: [4, P] rows (a tip's whatever c)
+template <typename scalar_t>
+__device__ inline const scalar_t* child_rows(const scalar_t* tips,
+                                             const scalar_t* partials, int ch,
+                                             int c, int T, int C, int P) {
+  return ch < T ? tips + (size_t)ch * 4 * P
+                : partials + ((size_t)(ch - T) * C + c) * 4 * P;
+}
+
 // x[b] <- child ch's partials (category c) at pattern p
 template <typename scalar_t>
 __device__ inline void load_child(const scalar_t* __restrict__ tips,
                                   const scalar_t* partials, int ch, int c,
                                   int T, int C, int P, int p, scalar_t x[4]) {
-  const scalar_t* src = ch < T ? tips + (size_t)ch * 4 * P
-                               : partials + ((size_t)(ch - T) * C + c) * 4 * P;
+  const scalar_t* src = child_rows(tips, partials, ch, c, T, C, P);
 #pragma unroll
   for (int b = 0; b < 4; ++b) x[b] = src[(size_t)b * P + p];
 }
@@ -128,10 +260,23 @@ __device__ inline void apply_p(const scalar_t* Pm, const scalar_t x[4],
   }
 }
 
+// dst[b * P] = sum_a Pm[a, b] * o[a]: a child's cotangent
+template <typename scalar_t>
+__device__ inline void store_pt(const scalar_t* Pm, const scalar_t o[4],
+                                scalar_t* dst, int P) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    scalar_t s = 0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) s += Pm[a * 4 + b] * o[a];
+    dst[(size_t)b * P] = s;
+  }
+}
+
 // One level of the postorder: grid (pattern tiles, nodes of the level).
 // smem: Ps [maxc, C, 16].
 template <typename scalar_t, int C>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS)
     forward_level(const scalar_t* __restrict__ tips,
                   const scalar_t* __restrict__ pmats,
                   const int* __restrict__ children,
@@ -194,122 +339,275 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Root seed of the reverse sweep, per block of THREADS patterns:
-// gbuf[root] = rootw * g / site; drootw_part[block] = sum_p root * g / site.
-template <typename scalar_t>
+// Root seed of the reverse sweep: grid (blocks of QB x ppt patterns),
+// threads as Lanes<C>. gbuf[root] = rootw * g / site; drootw_part[block] =
+// the sum over the block's patterns of root * g / site.
+template <typename scalar_t, int C>
 __global__ void __launch_bounds__(THREADS)
     backward_root(const scalar_t* __restrict__ partials,
                   const scalar_t* __restrict__ rootw,
                   const scalar_t* __restrict__ g, scalar_t* __restrict__ gbuf,
-                  scalar_t* __restrict__ drootw_part, int I, int CS, int P) {
-  __shared__ scalar_t red[NW][MAX_CS];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = p < P;  // threads past P join the shuffles with zeros
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const size_t root = (size_t)(I - 1) * CS * P;
-  scalar_t site = 0;
-  if (valid)
-    for (int cs = 0; cs < CS; ++cs)
-      site += __ldg(rootw + cs) * partials[root + (size_t)cs * P + p];
+                  scalar_t* __restrict__ drootw_part, int I, int P, int ppt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scalar_t* red = reinterpret_cast<scalar_t*>(smem_raw);
+  scalar_t* buf = red + NW * 4;
+  using L = Lanes<C>;
+  const L t;
+  const size_t rows = ((size_t)(I - 1) * C + t.cc) * 4 * P;
+  const scalar_t* root = partials + rows;
+  scalar_t* groot = gbuf + rows;
+  scalar_t rw[4], dr[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) rw[a] = t.act ? __ldg(rootw + t.c * 4 + a) : 0;
   const scalar_t tiny = Limits<scalar_t>::tiny();
-  site = site > tiny ? site : tiny;
-  const scalar_t inv = valid ? g[p] / site : scalar_t(0);
-  for (int cs = 0; cs < CS; ++cs) {
-    const size_t idx = root + (size_t)cs * P + p;
-    const scalar_t x = valid ? partials[idx] : scalar_t(0);
-    if (valid) gbuf[idx] = __ldg(rootw + cs) * inv;
-    const scalar_t s = warp_sum(x * inv);
-    if (lane == 0) red[w][cs] = s;
+  const int p0 = blockIdx.x * L::QB * ppt;
+  for (int it = 0; it < ppt; ++it) {
+    const int p = p0 + it * L::QB + t.q;
+    const bool in = p < P, valid = in && t.act;
+    scalar_t r[4] = {0, 0, 0, 0}, s = 0;
+    if (valid)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) r[a] = root[(size_t)a * P + p];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) s += rw[a] * r[a];
+    scalar_t site = category_sum<C>(s, buf);
+    site = site > tiny ? site : tiny;
+    const scalar_t inv = in ? g[p] / site : scalar_t(0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (valid) groot[(size_t)a * P + p] = rw[a] * inv;
+      dr[a] += r[a] * inv;
+    }
   }
-  __syncthreads();
-  for (int cs = threadIdx.x; cs < CS; cs += blockDim.x) {
-    scalar_t s = 0;
-    for (int v = 0; v < NW; ++v) s += red[v][cs];
-    drootw_part[(size_t)blockIdx.x * CS + cs] = s;
+  block_sum<scalar_t, C, 4, 4>(dr, red,
+                               drootw_part + (size_t)blockIdx.x * C * 4);
+}
+
+// A binary node k of the reverse sweep, one category a warp:
+//   other_0 = gbuf[k, c] / m_k * u_1,  other_1 = gbuf[k, c] / m_k * u_0
+//   dP[child i, c] += other_i x_i^T   (over the block's patterns)
+//   gbuf[child i, c] = P_i^T other_i  (internal children only)
+template <typename scalar_t, int C>
+__device__ inline void backward_pair(
+    const scalar_t* __restrict__ tips, const scalar_t* partials,
+    const scalar_t* __restrict__ logscale, scalar_t* gbuf, const scalar_t* Ps,
+    scalar_t* red, scalar_t* stage, scalar_t* __restrict__ out, int k,
+    int ch0, int ch1, int T, int P, int ppt) {
+  using L = Lanes<C>;
+  const L t;
+  scalar_t P0[16], P1[16], acc[32];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    P0[e] = Ps[t.cc * 16 + e];
+    P1[e] = Ps[(C + t.cc) * 16 + e];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0;
+  const scalar_t* x0s = child_rows(tips, partials, ch0, t.cc, T, C, P);
+  const scalar_t* x1s = child_rows(tips, partials, ch1, t.cc, T, C, P);
+  const scalar_t* gk = gbuf + ((size_t)k * C + t.cc) * 4 * P;
+  const scalar_t* lk = logscale + (size_t)k * P;
+  scalar_t* g0 =
+      ch0 < T ? nullptr : gbuf + ((size_t)(ch0 - T) * C + t.cc) * 4 * P;
+  scalar_t* g1 =
+      ch1 < T ? nullptr : gbuf + ((size_t)(ch1 - T) * C + t.cc) * 4 * P;
+  const int p0 = blockIdx.x * L::QB * ppt;
+  // pattern it's STAGED scalars (log m, the cotangent, both children) are
+  // copied into this thread's own slots of stage[it % BWD_DEPTH], BWD_DEPTH
+  // - 1 patterns ahead of the arithmetic: each thread reads only what it
+  // copied, so no barrier is needed
+  auto prefetch = [&](int it) {
+    if (it < ppt) {
+      const int p = p0 + it * L::QB + t.q;
+      const bool valid = t.act && p < P;
+      scalar_t* s = stage + (size_t)(it % BWD_DEPTH) * STAGED * THREADS +
+                    threadIdx.x;
+      copy_scalar(s, lk, p, valid);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        copy_scalar(s + (1 + a) * THREADS, gk + (size_t)a * P, p, valid);
+        copy_scalar(s + (5 + a) * THREADS, x0s + (size_t)a * P, p, valid);
+        copy_scalar(s + (9 + a) * THREADS, x1s + (size_t)a * P, p, valid);
+      }
+    }
+    __pipeline_commit();
+  };
+  for (int it = 0; it < BWD_DEPTH - 1; ++it) prefetch(it);
+  for (int it = 0; it < ppt; ++it) {
+    prefetch(it + BWD_DEPTH - 1);
+    __pipeline_wait_prior(BWD_DEPTH - 1);
+    const int p = p0 + it * L::QB + t.q;
+    const bool valid = t.act && p < P;
+    const scalar_t* s = stage + (size_t)(it % BWD_DEPTH) * STAGED * THREADS +
+                        threadIdx.x;
+    scalar_t x0[4], x1[4], u0[4], u1[4], o0[4], o1[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      x0[a] = s[(5 + a) * THREADS];
+      x1[a] = s[(9 + a) * THREADS];
+    }
+    // cotangent of the raw (pre-rescale) product: the max is a constant
+    const scalar_t minv = valid ? exp_(-s[0]) : scalar_t(0);
+    apply_p(P0, x0, u0);
+    apply_p(P1, x1, u1);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const scalar_t ga = s[(1 + a) * THREADS] * minv;
+      o0[a] = ga * u1[a];
+      o1[a] = ga * u0[a];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        acc[a * 4 + b] += o0[a] * x0[b];
+        acc[16 + a * 4 + b] += o1[a] * x1[b];
+      }
+    }
+    if (valid) {
+      if (g0) store_pt(P0, o0, g0 + p, P);
+      if (g1) store_pt(P1, o1, g1 + p, P);
+    }
+  }
+  block_sum<scalar_t, C, 32, 16>(acc, red, out);
+}
+
+// Any other node (a polytomy, or a missing child): one child at a time,
+// every sibling's product recomputed for it
+template <typename scalar_t, int C>
+__device__ inline void backward_general(
+    const scalar_t* __restrict__ tips, const scalar_t* partials,
+    const scalar_t* __restrict__ logscale, scalar_t* gbuf,
+    const int* __restrict__ children, const scalar_t* Ps, scalar_t* red,
+    scalar_t* __restrict__ out, int k, int T, int maxc, int P, int ppt) {
+  using L = Lanes<C>;
+  const L t;
+  const scalar_t* gk = gbuf + ((size_t)k * C + t.cc) * 4 * P;
+  const int p0 = blockIdx.x * L::QB * ppt;
+  for (int i = 0; i < maxc; ++i) {
+    const int ch = __ldg(children + k * maxc + i);
+    if (ch < 0) continue;  // block-uniform
+    scalar_t Pi[16], acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      Pi[e] = Ps[(i * C + t.cc) * 16 + e];
+      acc[e] = 0;
+    }
+    const scalar_t* xs = child_rows(tips, partials, ch, t.cc, T, C, P);
+    scalar_t* gi =
+        ch < T ? nullptr : gbuf + ((size_t)(ch - T) * C + t.cc) * 4 * P;
+    for (int it = 0; it < ppt; ++it) {
+      const int p = p0 + it * L::QB + t.q;
+      const bool valid = t.act && p < P;
+      scalar_t o[4] = {0, 0, 0, 0}, x[4] = {0, 0, 0, 0};
+      if (valid) {
+        const scalar_t minv = exp_(-logscale[(size_t)k * P + p]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          o[a] = gk[(size_t)a * P + p] * minv;
+          x[a] = xs[(size_t)a * P + p];
+        }
+        for (int j = 0; j < maxc; ++j) {
+          const int cj = __ldg(children + k * maxc + j);
+          if (j == i || cj < 0) continue;
+          scalar_t xj[4], u[4];
+          load_child(tips, partials, cj, t.cc, T, C, P, p, xj);
+          apply_p(Ps + (j * C + t.cc) * 16, xj, u);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) o[a] *= u[a];
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a * 4 + b] += o[a] * x[b];
+      if (valid && gi) store_pt(Pi, o, gi + p, P);
+    }
+    block_sum<scalar_t, C, 16, 16>(acc, red, out + i * C * 16);
   }
 }
 
-// One level of the reverse sweep: grid (pattern tiles, nodes of the level).
-// For node k, category c and child i, per pattern:
-//   other = gbuf[k, c] / m_k * prod_{j != i} P_j @ x_j
-//   dP[child i, c] += other x_i^T    (summed over the block's patterns)
-//   gbuf[child i, c] = P_i^T @ other (internal children only)
-// smem: Ps [maxc, C, 16], red [NW, maxc * C * 16].
-// dP_part: [gridDim.x, N, C, 16]; the caller zeroes the root's row.
+// One level of the reverse sweep: grid (blocks of QB x ppt patterns, nodes
+// of the level), threads as Lanes<C>. Block (b, y) writes its per-block sums
+// of d pmats for the children of node nodes[y] at dP_part + rows[2 y] +
+// b * maxc * C * 16, laid out [maxc, C, 16].
+// smem: Ps [maxc, C, 16], red [NW, 32], stage [BWD_DEPTH, STAGED, THREADS]
+// (a binary node's).
 template <typename scalar_t, int C>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS,
+                                  sizeof(scalar_t) == 4 ? BWD_BLOCKS : 1)
     backward_level(const scalar_t* __restrict__ tips,
                    const scalar_t* __restrict__ pmats,
                    const int* __restrict__ children,
                    const int* __restrict__ nodes,
+                   const long long* __restrict__ rows,
                    const scalar_t* __restrict__ partials,
                    const scalar_t* __restrict__ logscale, scalar_t* gbuf,
-                   scalar_t* __restrict__ dP_part, int T, int N, int maxc,
-                   int P) {
+                   scalar_t* __restrict__ dP_part, int T, int maxc, int P,
+                   int ppt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int width = maxc * C * 16;
   scalar_t* Ps = reinterpret_cast<scalar_t*>(smem_raw);
-  scalar_t* red = Ps + width;
+  scalar_t* red = Ps + maxc * 16 * C;
+  scalar_t* stage = red + NW * 32;
   const int k = __ldg(nodes + blockIdx.y);
   stage_pmats(pmats, children, k, C, maxc, Ps);
   __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = p < P;  // threads past P join the shuffles with zeros
+  scalar_t* out = dP_part + __ldg(rows + 2 * blockIdx.y) +
+                  (size_t)blockIdx.x * maxc * C * 16;
+  const int ch0 = __ldg(children + k * maxc);
+  const int ch1 = maxc == 2 ? __ldg(children + k * maxc + 1) : -1;
+  if (ch0 >= 0 && ch1 >= 0)
+    backward_pair<scalar_t, C>(tips, partials, logscale, gbuf, Ps, red, stage,
+                               out, k, ch0, ch1, T, P, ppt);
+  else
+    backward_general<scalar_t, C>(tips, partials, logscale, gbuf, children,
+                                  Ps, red, out, k, T, maxc, P, ppt);
+}
+
+// The last pass: d pmats[child] = the sum of its per-block rows, the
+// root's row zero; d rootw = the sum of drootw_part's rows. One output a
+// lane, 32 a block: warp w sums rows w, w + NW, ... in order, then the NW
+// warps' sums are added in order.
+template <typename scalar_t>
+__global__ void __launch_bounds__(THREADS)
+    backward_sum(const scalar_t* __restrict__ dP_part,
+                 const int* __restrict__ children,
+                 const int* __restrict__ nodes,
+                 const long long* __restrict__ rows,
+                 const scalar_t* __restrict__ drootw_part, int root_blocks,
+                 scalar_t* __restrict__ dP, scalar_t* __restrict__ drootw,
+                 int I, int N, int C, int maxc) {
+  __shared__ scalar_t red[NW][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // cotangent of the raw (pre-rescale) product: the max is a constant
-  const scalar_t minv =
-      valid ? exp_(-logscale[(size_t)k * P + p]) : scalar_t(0);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    scalar_t graw[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      graw[a] = valid ? gbuf[(((size_t)k * C + c) * 4 + a) * P + p] * minv
-                      : scalar_t(0);
-    for (int i = 0; i < maxc; ++i) {
-      const int ch = __ldg(children + k * maxc + i);
-      if (ch < 0) continue;  // block-uniform
-      scalar_t other[4] = {graw[0], graw[1], graw[2], graw[3]};
-      for (int j = 0; j < maxc; ++j) {
-        const int cj = __ldg(children + k * maxc + j);
-        if (j == i || cj < 0) continue;
-        scalar_t xj[4] = {0, 0, 0, 0}, cb[4];
-        if (valid) load_child(tips, partials, cj, c, T, C, P, p, xj);
-        apply_p(Ps + (j * C + c) * 16, xj, cb);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) other[a] *= cb[a];
-      }
-      scalar_t x[4] = {0, 0, 0, 0};
-      if (valid) load_child(tips, partials, ch, c, T, C, P, p, x);
-      // dP[ch, c, a, b] += other[a] * x[b], reduced over the warp
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const scalar_t s = warp_sum(other[a] * x[b]);
-          if (lane == 0) red[w * width + (i * C + c) * 16 + a * 4 + b] = s;
-        }
-      // the child's cotangent: sum_a P[ch, c, a, b] * other[a]
-      if (valid && ch >= T) {
-        const scalar_t* Pm = Ps + (i * C + c) * 16;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          scalar_t s = 0;
-#pragma unroll
-          for (int a = 0; a < 4; ++a) s += Pm[a * 4 + b] * other[a];
-          gbuf[((((size_t)(ch - T)) * C + c) * 4 + b) * P + p] = s;
-        }
-      }
+  const long long W = C * 16, n_dp = (long long)I * maxc * W;
+  const long long u = (long long)blockIdx.x * 32 + lane;
+  const scalar_t* src = nullptr;
+  scalar_t* dst = nullptr;
+  long long nb = 0, stride = 0;
+  if (u < n_dp) {
+    const int q = (int)(u / (maxc * W));
+    const long long r = u - q * maxc * W;
+    const int i = (int)(r / W);
+    const int ch = __ldg(children + __ldg(nodes + q) * maxc + i);
+    if (ch >= 0) {
+      src = dP_part + __ldg(rows + 2 * q) + r;
+      nb = __ldg(rows + 2 * q + 1);
+      stride = maxc * W;
+      dst = dP + ch * W + (r - i * W);
     }
+  } else if (u < n_dp + W) {
+    dst = dP + (N - 1) * W + (u - n_dp);  // the root is no node's child
+  } else if (u < n_dp + W + C * 4) {
+    src = drootw_part + (u - n_dp - W);
+    nb = root_blocks;
+    stride = C * 4;
+    dst = drootw + (u - n_dp - W);
   }
+  scalar_t s = 0;
+  for (long long b = w; b < nb; b += NW) s += src[b * stride];
+  red[w][lane] = s;
   __syncthreads();
-  for (int t = threadIdx.x; t < width; t += blockDim.x) {
-    const int i = t / (C * 16);
-    const int ch = __ldg(children + k * maxc + i);
-    if (ch < 0) continue;
-    scalar_t s = 0;
-    for (int v = 0; v < NW; ++v) s += red[v * width + t];
-    dP_part[((size_t)blockIdx.x * N + ch) * C * 16 + (t - i * C * 16)] = s;
+  if (w == 0 && dst) {
+    s = 0;
+    for (int v = 0; v < NW; ++v) s += red[v][lane];
+    *dst = s;
   }
 }
 
@@ -330,10 +628,10 @@ cudaError_t run_forward(const scalar_t* tips, const scalar_t* pmats,
   const size_t smem = (size_t)maxc * C * 16 * sizeof(scalar_t);
   cudaError_t e = allow_smem(forward_level<scalar_t, C>, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = (P + THREADS - 1) / THREADS;
+  const int tiles = (P + FWD_THREADS - 1) / FWD_THREADS;
   for (int l = 0; l < n_levels; ++l) {
     const dim3 grid(tiles, offsets[l + 1] - offsets[l]);
-    forward_level<scalar_t, C><<<grid, THREADS, smem, stream>>>(
+    forward_level<scalar_t, C><<<grid, FWD_THREADS, smem, stream>>>(
         tips, pmats, children, nodes + offsets[l], rootw, partials, logscale,
         site_log, T, I, maxc, P);
     e = cudaGetLastError();
@@ -345,29 +643,42 @@ cudaError_t run_forward(const scalar_t* tips, const scalar_t* pmats,
 template <typename scalar_t, int C>
 cudaError_t run_backward(const scalar_t* tips, const scalar_t* pmats,
                          const int* children, const int* nodes,
-                         const int* offsets, int n_levels,
-                         const scalar_t* rootw, const scalar_t* partials,
-                         const scalar_t* logscale, const scalar_t* g,
-                         scalar_t* gbuf, scalar_t* dP_part,
-                         scalar_t* drootw_part, int T, int I, int maxc, int P,
+                         const int* offsets, int n_levels, const int* ppt,
+                         const long long* rows, const scalar_t* rootw,
+                         const scalar_t* partials, const scalar_t* logscale,
+                         const scalar_t* g, scalar_t* gbuf, scalar_t* dP_part,
+                         scalar_t* drootw_part, scalar_t* dP,
+                         scalar_t* drootw, int T, int I, int maxc, int P,
                          cudaStream_t stream) {
-  const size_t smem = (size_t)maxc * C * 16 * (1 + NW) * sizeof(scalar_t);
+  constexpr int QB = Lanes<C>::QB;
+  const size_t smem =
+      ((size_t)maxc * 16 * C + NW * 32 +
+       (maxc == 2 ? (size_t)BWD_DEPTH * STAGED * THREADS : 0)) *
+      sizeof(scalar_t);
   cudaError_t e = allow_smem(backward_level<scalar_t, C>, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = (P + THREADS - 1) / THREADS;
-  backward_root<scalar_t><<<tiles, THREADS, 0, stream>>>(
-      partials, rootw, g, gbuf, drootw_part, I, C * 4, P);
+  const int root_ppt = ppt[n_levels - 1];
+  const int root_blocks = (P + QB * root_ppt - 1) / (QB * root_ppt);
+  backward_root<scalar_t, C>
+      <<<root_blocks, THREADS, (NW * 4 + THREADS) * sizeof(scalar_t),
+         stream>>>(
+          partials, rootw, g, gbuf, drootw_part, I, P, root_ppt);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   for (int l = n_levels - 1; l >= 0; --l) {
-    const dim3 grid(tiles, offsets[l + 1] - offsets[l]);
+    const dim3 grid((P + QB * ppt[l] - 1) / (QB * ppt[l]),
+                    offsets[l + 1] - offsets[l]);
     backward_level<scalar_t, C><<<grid, THREADS, smem, stream>>>(
-        tips, pmats, children, nodes + offsets[l], partials, logscale, gbuf,
-        dP_part, T, T + I, maxc, P);
+        tips, pmats, children, nodes + offsets[l], rows + 2 * offsets[l],
+        partials, logscale, gbuf, dP_part, T, maxc, P, ppt[l]);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  return cudaSuccess;
+  const long long n = (long long)I * maxc * C * 16 + C * 16 + C * 4;
+  backward_sum<scalar_t><<<(unsigned)((n + 31) / 32), THREADS, 0, stream>>>(
+      dP_part, children, nodes, rows, drootw_part, root_blocks, dP, drootw, I,
+      T + I, C, maxc);
+  return cudaGetLastError();
 }
 
 #define PHYSHER_STAGED_CASES(CALL) \
@@ -405,21 +716,27 @@ cudaError_t launch_forward(const void* tips, const void* pmats,
 template <typename scalar_t>
 cudaError_t launch_backward(const void* tips, const void* pmats,
                             const void* children, const void* nodes,
-                            const int* offsets, int n_levels,
-                            const void* rootw, const void* partials,
-                            const void* logscale, const void* g, void* gbuf,
-                            void* dP_part, void* drootw_part, int T, int I,
-                            int C, int maxc, int P, cudaStream_t stream) {
+                            const int* offsets, int n_levels, const int* ppt,
+                            const void* rows, const void* rootw,
+                            const void* partials, const void* logscale,
+                            const void* g, void* gbuf, void* dP_part,
+                            void* drootw_part, void* dP, void* drootw, int T,
+                            int I, int C, int maxc, int P,
+                            cudaStream_t stream) {
   if (maxc < 1 || n_levels < 1) return cudaErrorInvalidValue;
+  for (int l = 0; l < n_levels; ++l)
+    if (ppt[l] < 1) return cudaErrorInvalidValue;
 #define PHYSHER_BWD(CC)                                                       \
   run_backward<scalar_t, CC>(                                                 \
       static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats), \
       static_cast<const int*>(children), static_cast<const int*>(nodes),      \
-      offsets, n_levels, static_cast<const scalar_t*>(rootw),                 \
+      offsets, n_levels, ppt, static_cast<const long long*>(rows),            \
+      static_cast<const scalar_t*>(rootw),                                    \
       static_cast<const scalar_t*>(partials),                                 \
       static_cast<const scalar_t*>(logscale), static_cast<const scalar_t*>(g), \
       static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),          \
-      static_cast<scalar_t*>(drootw_part), T, I, maxc, P, stream)
+      static_cast<scalar_t*>(drootw_part), static_cast<scalar_t*>(dP),        \
+      static_cast<scalar_t*>(drootw), T, I, maxc, P, stream)
   PHYSHER_STAGED_CASES(PHYSHER_BWD)
 #undef PHYSHER_BWD
 }
@@ -443,14 +760,15 @@ extern "C" {
   }                                                                            \
   cudaError_t staged_backward_##SUFFIX(                                        \
       const void* tips, const void* pmats, const void* children,               \
-      const void* nodes, const int* offsets, int n_levels, const void* rootw,  \
-      const void* partials, const void* logscale, const void* g, void* gbuf,   \
-      void* dP_part, void* drootw_part, int T, int I, int C, int maxc, int P,  \
-      void* stream) {                                                          \
-    return launch_backward<TYPE>(tips, pmats, children, nodes, offsets,        \
-                                 n_levels, rootw, partials, logscale, g, gbuf, \
-                                 dP_part, drootw_part, T, I, C, maxc, P,       \
-                                 static_cast<cudaStream_t>(stream));           \
+      const void* nodes, const int* offsets, int n_levels, const int* ppt,     \
+      const void* rows, const void* rootw, const void* partials,               \
+      const void* logscale, const void* g, void* gbuf, void* dP_part,          \
+      void* drootw_part, void* dP, void* drootw, int T, int I, int C,          \
+      int maxc, int P, void* stream) {                                         \
+    return launch_backward<TYPE>(                                              \
+        tips, pmats, children, nodes, offsets, n_levels, ppt, rows, rootw,     \
+        partials, logscale, g, gbuf, dP_part, drootw_part, dP, drootw, T, I,   \
+        C, maxc, P, static_cast<cudaStream_t>(stream));                        \
   }
 
 PHYSHER_STAGED_ENTRY(f32, float)

@@ -73,10 +73,13 @@ _BATCH_ENGINES = ("torch", "cuda-loop")
 # and 4). K1'/K2' walk the internal nodes one after the other, at a cost per
 # node that grows with the categories C; K3'/K4' pay about as much per tree
 # level whatever its width. So K3'/K4' win where C x (internal nodes /
-# levels) is large, at every pattern count measured: they were faster on 227
-# of the 228 shapes from 8.2 up, K1'/K2' on all 60 below 3.7; between, the
-# two traded places (K1'/K2' ahead on 74 of 96).
-STAGED_MIN_LEVEL_WORK = 8.0
+# levels) is large, at every pattern count measured. With K4' redesigned
+# they were faster on all 114 shapes from 8.2 up in both runs, on 17 and
+# 18 of the 24 caterpillars at C = 4 (4.0), on 1 and 6 of the 12 shapes at
+# 3.75-3.88 and on 2 and 0 of the 30 below. A gate at 4 gave the least
+# summed time of both runs (88.2 and 77.8 ms, against 91.8 and 83.1 at 8,
+# the gate of the first K4').
+STAGED_MIN_LEVEL_WORK = 4.0
 
 
 def select_engine(engine: str, device_type: str, n_states: int,

@@ -21,13 +21,18 @@ the card and what the design does about it.
   ``STAGED_FORWARD_LAUNCHES`` / ``STAGED_BACKWARD_LAUNCHES`` count their
   calls: one forward sweep is ``len(topo.levels)`` CUDA launches (the root's
   launch also computes the site log-likelihoods), one reverse sweep
-  ``len(topo.levels) + 1``.
+  ``len(topo.levels) + 2`` (the root seed, the levels, the sum of the
+  per-block partial sums).
+- :func:`level_ppt` and :func:`backward_rows` are the reverse sweep's
+  schedule: the patterns a thread takes at each level and where each node's
+  per-block partial sums go.
 - The kernels are built at first use by ``nvcc`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,12 +45,21 @@ from .pruning import rescaled_site_log
 STAGED_FORWARD_LAUNCHES = 0
 STAGED_BACKWARD_LAUNCHES = 0
 
-# children per node: the backward stages [maxc, C, 4, 4] P entries and a
-# [4 warps, maxc, C, 16] reduction in shared memory, at most 82 KB in float64
+# children per node: the backward stages [maxc, C, 16] P entries and an
+# [8 warps, 32] reduction in shared memory, at most 18 KB in float64 (a
+# binary node's cp.async slots add 106 KB)
 MAX_CHILDREN = 16
-# patterns per block (csrc/staged.cu THREADS): the block axis of the
-# per-block dP and d rootw partial sums
-BLOCK = 128
+# K4''s blocks (csrc/staged.cu NW): 8 warps, CP of them (C rounded up to a
+# power of two) on each row of 32 patterns
+WARPS = 8
+# K4''s patterns a thread at a level (a power of two up to MAX_PPT): those
+# that minimize the level's waves of BLOCKS blocks an SM (csrc/staged.cu
+# BWD_BLOCKS) times a block's time, FIXED + ppt in units of one pattern
+# (staging, reduction, launch ramp), so a narrow level fills one wave and a
+# wide one takes the most a thread
+MAX_PPT = 16
+BLOCKS = 2
+FIXED = 4
 
 _SOURCE = cuda_build.PKG / "csrc" / "staged.cu"
 
@@ -56,19 +70,73 @@ build_log = ""
 def build() -> ctypes.CDLL:
     """Compile ``csrc/staged.cu`` (once per source hash) and load it."""
     global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = cuda_build.build_library(_SOURCE)
+    if _lib is None:
+        lib, build_log = cuda_build.build_library(_SOURCE)
+        _lib = bind(lib)
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"staged_forward_{dt}")
         fwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 4 + [i32] * 5 + [ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"staged_backward_{dt}")
-        bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+        bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 11 + [i32] * 5 + [ptr]
         bwd.restype = i32
-    _lib = lib
     return lib
+
+
+def block_patterns(C: int) -> int:
+    """Patterns one row of a K4' block covers at C categories."""
+    return WARPS * 32 // (1 << (C - 1).bit_length())
+
+
+def level_ppt(offsets, C: int, P: int, sms: int) -> tuple:
+    """K4''s patterns a thread at each level of the schedule ``offsets``."""
+    qb, slots, out = block_patterns(C), BLOCKS * sms, []
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        def cost(ppt):
+            waves = -(-(-(-P // (qb * ppt)) * (hi - lo)) // slots)
+            return waves * (FIXED + ppt), -ppt
+        out.append(min((1 << i for i in range(MAX_PPT.bit_length())),
+                       key=cost))
+    return tuple(out)
+
+
+def backward_rows(offsets, ppt, C: int, maxc: int, P: int):
+    """([(offset, blocks)] per schedule position, scratch size): node
+    ``nodes[q]``'s per-block partial sums of d pmats, [blocks, maxc, C, 16]
+    from that offset of K4''s scratch."""
+    qb, width = block_patterns(C), maxc * C * 16
+    rows, size = [], 0
+    for (lo, hi), n in zip(zip(offsets[:-1], offsets[1:]), ppt):
+        blocks = -(-P // (qb * n))
+        for _ in range(lo, hi):
+            rows.append((size, blocks))
+            size += blocks * width
+    return rows, size
+
+
+@functools.lru_cache(maxsize=64)
+def _backward_plan(offsets, C, maxc, P, device, *rule):
+    """K4''s launch arguments for one schedule, built once: (the level
+    offsets and patterns a thread as C arrays, the rows as a device
+    tensor, the scratch size, the root seed's blocks). ``rule`` keys the
+    cache on MAX_PPT, BLOCKS and FIXED."""
+    ppt = level_ppt(offsets, C, P, _sms(device))
+    rows, size = backward_rows(offsets, ppt, C, maxc, P)
+    n = len(ppt)
+    return ((ctypes.c_int * (n + 1))(*offsets), (ctypes.c_int * n)(*ppt),
+            torch.tensor(rows, dtype=torch.int64, device=device), size,
+            -(-P // (block_patterns(C) * ppt[-1])))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _dims(tips, pmats, children, rootw, schedule):
@@ -106,8 +174,9 @@ def staged_forward(tips, pmats, children, rootw, schedule):
 
 def staged_backward(tips, pmats, children, rootw, schedule, partials,
                     logscale, g):
-    """Launch K4' (the root seed, then one launch per level, root first):
-    returns (d pmats [N, C, 4, 4], d rootw [C * 4])."""
+    """Launch K4' (the root seed, one launch per level, root first, then
+    the sum of the per-block partial sums): returns (d pmats [N, C, 4, 4],
+    d rootw [C * 4])."""
     global STAGED_BACKWARD_LAUNCHES
     T, I, C, maxc, P = _dims(tips, pmats, children, rootw, schedule)
     check("partials", partials, tips.device, tips.dtype, (I, C, 4, P))
@@ -115,26 +184,30 @@ def staged_backward(tips, pmats, children, rootw, schedule, partials,
     check("g", g, tips.device, tips.dtype, (P,))
     lib = build()
     N = T + I
-    n_blocks = -(-P // BLOCK)
-    gbuf = tips.new_empty((I, C, 4, P))
-    dP_part = tips.new_empty((n_blocks, N, C, 16))
-    dP_part[:, N - 1].zero_()  # the root is no node's child
-    drootw_part = tips.new_empty((n_blocks, C * 4))
-    offsets, n_levels = offsets_arg(schedule)
+    offsets, ppt, rows, size, root_blocks = _backward_plan(
+        tuple(schedule[1]), C, maxc, P, tips.device, MAX_PPT, BLOCKS, FIXED)
+    # the reverse sweep's cotangents and per-block sums, one allocation;
+    # d pmats and d rootw another
+    work = tips.new_empty(I * C * 4 * P + size + root_blocks * C * 4)
+    gbuf = work[:I * C * 4 * P]
+    dP_part = work[I * C * 4 * P:I * C * 4 * P + size]
+    drootw_part = work[I * C * 4 * P + size:]
+    out = tips.new_empty(N * C * 16 + C * 4)
     fn = (lib.staged_backward_f32 if tips.dtype == torch.float32
           else lib.staged_backward_f64)
     with torch.cuda.device(tips.device):
         err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 schedule[0].data_ptr(), offsets, n_levels, rootw.data_ptr(),
-                 partials.data_ptr(), logscale.data_ptr(), g.data_ptr(),
-                 gbuf.data_ptr(), dP_part.data_ptr(), drootw_part.data_ptr(),
-                 T, I, C, maxc, P, stream(tips))
+                 schedule[0].data_ptr(), offsets, len(ppt), ppt,
+                 rows.data_ptr(), rootw.data_ptr(), partials.data_ptr(),
+                 logscale.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
+                 dP_part.data_ptr(), drootw_part.data_ptr(), out.data_ptr(),
+                 out[N * C * 16:].data_ptr(), T, I, C, maxc, P,
+                 stream(tips))
     STAGED_BACKWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"staged backward kernel launch failed: "
                            f"cudaError {err}")
-    # deterministic second pass over the per-block partial sums
-    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+    return out[:N * C * 16].view(N, C, 4, 4), out[N * C * 16:]
 
 
 class _StagedSiteLog(torch.autograd.Function):

@@ -171,16 +171,32 @@ def test_wide_wrapper_rejects_bad_input(device):
     assert wide.WIDE_FORWARD_LAUNCHES == n0
 
 
+STAGED_TOPOLOGIES = {"balanced": lambda: balanced_topology(16),
+                     "balanced64": lambda: balanced_topology(64),
+                     "caterpillar": lambda: caterpillar_topology(12),
+                     "polytomy": _polytomy}
+
+
+@pytest.mark.parametrize("ppt", ["card", "max"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape,P,C", [
     ("balanced", 300, 4), ("balanced", 128, 1), ("caterpillar", 257, 4),
-    ("caterpillar", 64, 1), ("polytomy", 129, 3), ("balanced", 8192 + 37, 4)])
-def test_staged_kernels_match_plain(device, dtype, shape, P, C):
+    ("caterpillar", 64, 1), ("polytomy", 129, 3), ("balanced", 8192 + 37, 4),
+    ("balanced", 1000 + 3, 4), ("balanced", 37, 8), ("balanced", 2000, 1),
+    ("caterpillar", 700, 8), ("polytomy", 1500, 4),
+    ("balanced64", 20000 + 5, 4)])
+def test_staged_kernels_match_plain(device, dtype, shape, P, C, ppt,
+                                    monkeypatch, request):
     """K3'/K4' against the plain version: balanced, caterpillar and polytomy
-    trees, C in {1, 3, 4}, ragged P."""
-    topo = {"balanced": lambda: balanced_topology(16),
-            "caterpillar": lambda: caterpillar_topology(12),
-            "polytomy": _polytomy}[shape]()
+    trees, C in {1, 3, 4, 8}, ragged P, P under one block; K4''s patterns a
+    thread as level_ppt picks them for this card and (ppt "max") MAX_PPT at
+    every level."""
+    if ppt == "max":
+        monkeypatch.setattr(staged, "level_ppt", lambda offsets, *_: (
+            staged.MAX_PPT,) * (len(offsets) - 1))
+        staged._backward_plan.cache_clear()
+        request.addfinalizer(staged._backward_plan.cache_clear)
+    topo = STAGED_TOPOLOGIES[shape]()
     inputs = _inputs(topo, P, C, dtype, device)
     f0, b0 = staged.STAGED_FORWARD_LAUNCHES, staged.STAGED_BACKWARD_LAUNCHES
     site_k, grads_k = _value_and_grad(staged.staged_site_log, topo, *inputs)
@@ -396,6 +412,29 @@ def test_forward_clusters_match_plain(device, dtype, shape, S, C, P):
     for a, b in zip(grads_k, grads_p):
         torch.testing.assert_close(a, b, rtol=grtol,
                                    atol=grtol * float(b.abs().max()))
+
+
+def test_staged_is_deterministic(device):
+    """K3' and K4' take fixed orders for every sum: two launches on the same
+    inputs give bit-identical site logs, partials, scalers, d pmats and
+    d rootw."""
+    for topo, P, C in ((balanced_topology(64), 20000 + 5, 4),
+                       (_polytomy(), 1500, 3)):
+        tips, pm, freqs, props, g = _inputs(topo, P, C, torch.float32,
+                                            device)
+        children = torch.as_tensor(topo.children, dtype=torch.int32,
+                                   device=device)
+        rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+        schedule = cuda_build.level_schedule(topo, tips)
+        runs = [staged.staged_forward(tips, pm, children, rootw, schedule)
+                for _ in range(2)]
+        runs += [staged.staged_backward(tips, pm, children, rootw, schedule,
+                                        *runs[0][1:], g) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs[:2]):
+            assert torch.equal(a, b)
+        for a, b in zip(*runs[2:]):
+            assert torch.equal(a, b)
 
 
 def test_forward_is_deterministic(device):

@@ -119,11 +119,21 @@ def test_plain_matches_pallas_staged(shape, P, C, dtype):
 #
 # csrc/staged.cu cannot run here. These functions follow its launches: one
 # per level of topo.levels, every node of a level at once (the grid's y
-# axis), one "thread" per pattern (vectorized), the node's partials divided
-# by their max over (C, 4) and its log-scaler stored, the root's launch
-# summing every scaler into the site log; the backward's root launch, then
-# the levels in reverse, each reading its nodes' cotangents and writing
-# their internal children's, with dP summed per block of BLOCK patterns.
+# axis), every category at once (vectorized: K3' holds them in one thread,
+# K4' in the warps of a block); K3''s node partials divided by their max
+# over (C, 4) and its log-scaler stored, the root's launch summing every
+# scaler into the site log; K4''s
+# root seed, then the levels in reverse, each reading its nodes' cotangents
+# and writing their internal children's.
+# A binary node computes each child's product once and forms both "other"
+# vectors from it; any other node takes one child at a time. dP is summed
+# over each block's patterns (block_patterns(C) x the level's patterns a
+# thread, level_ppt), the block sums go to the scratch rows of
+# backward_rows, and the last pass sums each child's rows in block order.
+# SMS: a card of one SM (the wide levels at MAX_PPT patterns a thread) and
+# the H100's 132.
+
+SMS = (1, 132)
 
 
 def _apply_p(pm, x):
@@ -170,49 +180,77 @@ def _emulate_forward(tips, pmats, topo, rootw):
     return site_log, partials, logscale
 
 
-def _block_sums(v):
-    """[..., P] -> per-block sums [n_blocks, ...] over BLOCK patterns."""
+def _block_sums(v, span):
+    """[..., P] -> per-block sums [n_blocks, ...] over blocks of ``span``
+    patterns."""
     P = v.shape[-1]
-    nb = -(-P // staged.BLOCK)
-    v = torch.nn.functional.pad(v, (0, nb * staged.BLOCK - P))
-    return v.reshape(*v.shape[:-1], nb, staged.BLOCK).sum(-1).movedim(-1, 0)
+    nb = -(-P // span)
+    v = torch.nn.functional.pad(v, (0, nb * span - P))
+    return v.reshape(*v.shape[:-1], nb, span).sum(-1).movedim(-1, 0)
 
 
-def _emulate_backward(tips, pmats, topo, rootw, partials, logscale, g):
+def _others(graw, u, ch):
+    """Each present child's "other" vector: the cotangent times every
+    sibling's product u. A binary node reuses each child's u once; any other
+    node recomputes the siblings' products for each child."""
+    present = [i for i in range(len(ch)) if ch[i] >= 0]
+    if len(ch) == 2 and len(present) == 2:
+        return {0: graw * u[1], 1: graw * u[0]}
+    out = {}
+    for i in present:
+        other = graw
+        for j in present:
+            if j != i:
+                other = other * u[j]
+        out[i] = other
+    return out
+
+
+def _emulate_backward(tips, pmats, topo, rootw, partials, logscale, g, sms):
     T, _, P = tips.shape
     N, C = pmats.shape[:2]
     I = topo.I
     maxc = topo.children.shape[1]
     tiny = torch.finfo(tips.dtype).tiny
+    nodes, offsets = level_schedule(topo, tips)
+    ppt = staged.level_ppt(offsets, C, P, sms)
+    qb = staged.block_patterns(C)
+    rows, size = staged.backward_rows(offsets, ppt, C, maxc, P)
     gbuf = tips.new_full((I, C, 4, P), float("nan"))
-    # the root launch
+    # the root seed, in blocks of the root's level
     root = partials[I - 1]
     inv = g / torch.clamp((rootw.view(C, 4, 1) * root).sum((0, 1)), min=tiny)
     gbuf[I - 1] = rootw.view(C, 4, 1) * inv
-    drootw_part = _block_sums((root * inv).reshape(C * 4, P))
-    dP_part = tips.new_full((drootw_part.shape[0], N, C, 16), float("nan"))
-    dP_part[:, N - 1] = 0.0
-    nodes, offsets = level_schedule(topo, tips)
-    for lo, hi in reversed(list(zip(offsets[:-1], offsets[1:]))):
-        for k in nodes[lo:hi].tolist():
+    drootw_part = _block_sums((root * inv).reshape(C * 4, P), qb * ppt[-1])
+    dP_part = tips.new_full((size,), float("nan"))
+    for lv in reversed(range(len(offsets) - 1)):
+        for q in range(offsets[lv], offsets[lv + 1]):
+            k = int(nodes[q])
             graw = gbuf[k] * torch.exp(-logscale[k])
             ch = torch.as_tensor(topo.children[k])
-            for i in range(maxc):
-                if ch[i] < 0:
-                    continue
-                other = graw
-                for j in range(maxc):
-                    if j != i and ch[j] >= 0:
-                        xj = _children_x(tips, partials, ch[j:j + 1], C, T)
-                        other = other * _apply_p(pmats[ch[j:j + 1]], xj)[0]
-                x = _children_x(tips, partials, ch[i:i + 1], C, T)[0]
-                dP_part[:, ch[i]] = _block_sums(
-                    (other[:, :, None] * x[:, None, :]).reshape(C, 16, P))
+            x = {i: _children_x(tips, partials, ch[i:i + 1], C, T)[0]
+                 for i in range(maxc) if ch[i] >= 0}
+            u = {i: _apply_p(pmats[ch[i:i + 1]], x[i][None])[0] for i in x}
+            base, nb = rows[q]
+            block = dP_part[base:base + nb * maxc * C * 16].view(
+                nb, maxc, C, 16)
+            for i, other in _others(graw, u, ch).items():
+                block[:, i] = _block_sums(
+                    (other[:, :, None] * x[i][:, None, :]).reshape(C, 16, P),
+                    qb * ppt[lv])
                 if ch[i] >= T:
                     gbuf[ch[i] - T] = torch.einsum(
                         "cab,cap->cbp", pmats[ch[i]], other)
-    assert torch.isfinite(dP_part).all(), "a dP row was never written"
-    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+    # the last pass: each child's block rows summed in order
+    dP = tips.new_full((N, C, 16), float("nan"))
+    dP[N - 1] = 0.0
+    for q, (base, nb) in enumerate(rows):
+        block = dP_part[base:base + nb * maxc * C * 16].view(nb, maxc, C, 16)
+        for i, c in enumerate(topo.children[int(nodes[q])]):
+            if c >= 0:
+                dP[c] = block[:, i].sum(0)
+    assert torch.isfinite(dP).all(), "a dP row was never written"
+    return dP.view(N, C, 4, 4), drootw_part.sum(0)
 
 
 def _polytomy():
@@ -227,28 +265,61 @@ def _polytomy():
 
 
 @pytest.mark.parametrize("shape,C,P", [
-    ("balanced", 4, 300), ("caterpillar", 1, 257), ("polytomy", 3, 129)])
+    ("balanced", 4, 300), ("caterpillar", 1, 257), ("polytomy", 3, 129),
+    ("balanced", 1, 1000), ("balanced", 8, 37), ("caterpillar", 8, 300),
+    ("polytomy", 4, 700)])
 def test_kernel_schedule_matches_plain(shape, C, P):
     """float64: the kernels' emulated level schedule against the plain
-    version (site logs, d pmats, d rootw) to rounding; ragged P spans
-    several blocks."""
+    version (site logs, d pmats, d rootw) to rounding, on a card of one SM
+    and of 132: ragged P over several blocks, P under one block (C = 8),
+    C = 1 and 8, a caterpillar (one node a level) and a polytomy."""
     topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _setup(topo, P, C, seed=2))
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
-    site, partials, logscale = _emulate_forward(tips, pm, topo,
-                                                rootw.detach())
-    dP, drootw = _emulate_backward(tips, pm, topo, rootw.detach(), partials,
-                                   logscale, w)
     # the plain sweep, differentiated with respect to rootw itself
     pm_ = pm.clone().requires_grad_(True)
     root, scal = pruning_root_levels(tips, pm_, topo, rescale=True)
     ref = torch.log(torch.einsum("cs,csp->p", rootw.view(C, 4), root)) + scal
     ref_dP, ref_drootw = torch.autograd.grad(torch.sum(w * ref), [pm_, rootw])
+    site, partials, logscale = _emulate_forward(tips, pm, topo,
+                                                rootw.detach())
     torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
-    torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
-                               atol=1e-12 * float(ref_dP.abs().max()))
-    torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12, atol=1e-12)
+    for sms in SMS:
+        dP, drootw = _emulate_backward(tips, pm, topo, rootw.detach(),
+                                       partials, logscale, w, sms)
+        torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
+                                   atol=1e-12 * float(ref_dP.abs().max()))
+        torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_backward_schedule():
+    """level_ppt: at each level the patterns a thread (a power of two up to
+    MAX_PPT) with the fewest waves x (FIXED + ppt), so the root's level
+    takes one and the leaves' MAX_PPT; backward_rows: each node's block rows
+    in turn, a level's blocks from its own patterns a thread."""
+    offsets = (0, 64, 96, 112, 120, 124, 126, 127)  # balanced, 128 taxa
+    assert staged.block_patterns(4) == 64
+    assert [staged.block_patterns(C) for C in (1, 2, 3, 5, 8)] == [
+        256, 128, 64, 32, 32]
+    ppt = staged.level_ppt(offsets, 4, 16384, 132)
+    slots = staged.BLOCKS * 132
+    for n, lo, hi in zip(ppt, offsets, offsets[1:]):
+        def cost(m):
+            blocks = -(-16384 // (64 * m)) * (hi - lo)
+            return -(-blocks // slots) * (staged.FIXED + m)
+        assert all(cost(n) <= cost(1 << i)
+                   for i in range(staged.MAX_PPT.bit_length()))
+    assert ppt[0] == staged.MAX_PPT and ppt[-1] == 1
+    rows, size = staged.backward_rows(offsets, ppt, 4, 2, 16384)
+    nb = [-(-16384 // (64 * n)) for n in ppt]
+    assert [b for _, b in rows] == [b for b, lo, hi in zip(
+        nb, offsets, offsets[1:]) for _ in range(lo, hi)]
+    assert all(b[0] - a[0] == a[1] * 2 * 4 * 16
+               for a, b in zip(rows, rows[1:]))
+    assert size == sum(b for _, b in rows) * 2 * 4 * 16
+    assert staged.level_ppt(offsets, 4, 100, 132) == (1,) * 7
 
 
 # -- CPU behaviour of the wrappers and the engine routing ---------------------
@@ -282,15 +353,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 # (C, mean internal nodes per level) on either side of the gate: the fluA
-# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar, and a
-# balanced 64-taxon tree with C = 1
+# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar at C = 4 (at
+# the gate) and 3, and a balanced 64-taxon tree with C = 1
 FLUA = 68 / 33
 
 
 @pytest.mark.parametrize("engine,device,S,maxc,C,npl,expected", [
     ("auto", "cuda", 4, 2, 4, FLUA, "cuda-staged"),
     ("auto", "cuda", 4, 2, 1, FLUA, "cuda-fused"),
-    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-fused"),     # a caterpillar
+    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-staged"),    # a caterpillar
+    ("auto", "cuda", 4, 2, 3, 1.0, "cuda-fused"),
     ("auto", "cuda", 4, 2, 1, 10.5, "cuda-staged"),
     ("auto", "cuda", 4, 2, 2, STAGED_MIN_LEVEL_WORK / 2, "cuda-staged"),
     ("auto", "cuda", 4, 2, 1, STAGED_MIN_LEVEL_WORK - 0.01, "cuda-fused"),
