@@ -95,10 +95,26 @@ With ``--k5-bounds``, the same for K5' at S != 4: ``csrc/loop.cu`` as
 committed (float32 at 4 blocks an SM) and rebuilt at 2 and 3, and K5'
 alone through each at the two shapes above.
 
+With ``--s4-backward``, only K6' at S = 4 and K2' (their shared reverse
+step, ``csrc/s4_backward.cuh``) alone (CUDA events, median of 100) against
+the plain version, float32 and float64: K6' at the checkpoint B model's
+chains (L = 4 and 16) and GTR+G4 fluA (L = 8), K2' at both models and the
+128-taxon caterpillar at 16 384 patterns (C = 1 and 2); each launch's
+device time (torch.profiler), the wrappers' host time, the design floor
+(preorder levels x one dependent L2 round trip and barrier, measured here,
+plus the dP pass at its byte bound), K6' at S = 4 through the S != 4
+design, nvcc's register lines, the cost of a level on caterpillars, then
+HMC on the checkpoint B model and the fluA ADVI step. ``--s4-trace``
+stamps each level of K2''s walk with clock64(); ``--s4-host`` gives only
+the wrappers' host time. ``--s4-backward`` and ``--s4-host`` use only entry
+points that older checkouts have, so a copy run from an older checkout's
+root times that checkout.
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
                             [--mcmc] [--wide-forward] [--wide-backward]
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
-                            [--staged] [--k4-variants]
+                            [--staged] [--k4-variants] [--s4-backward]
+                            [--s4-trace] [--s4-host]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -108,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import os
 import sys
@@ -212,10 +229,12 @@ def sweep_ms(mod, topo, tips, pmats, freqs, props, cot):
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
     extra = (() if mod is fused
              else (cuda_build.level_schedule(topo, tips),))
+    bwd_extra = s4_schedule(topo, tips) if mod is fused else extra
 
     def sweep():
         _, partials, scale = forward(tips, pmats, children, rootw, *extra)
-        backward(tips, pmats, children, rootw, *extra, partials, scale, cot)
+        backward(tips, pmats, children, rootw, *bwd_extra, partials, scale,
+                 cot)
     return cs.median_ms(sweep, reps=20)
 
 
@@ -235,6 +254,7 @@ def gate_trees():
 
 def gate_sweep(dev, out: Path):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
     with out.open("w") as fh:
         for kind, topo in gate_trees():
             for P in (256, 1024, 4096, 8192, 16384, 32768):
@@ -249,8 +269,27 @@ def gate_sweep(dev, out: Path):
                     line = json.dumps(row)
                     print(line, flush=True)
                     fh.write(line + "\n")
+                    rows.append(row)
                     del inputs
             torch.cuda.empty_cache()
+    print(json.dumps(gate_summary(rows)), flush=True)
+
+
+def gate_summary(rows, gates=(2, 3, 4, 5, 6, 8, 12, 16)) -> dict:
+    """The sweep's summed time (ms) under each gate G on C x internal nodes
+    / levels (K3'/K4' at or above G, K1'/K2' below), and the shapes each
+    pair won, by that work."""
+    work = [r["categories"] * r["internal"] / r["levels"] for r in rows]
+    summed = {str(G): sum(r["staged_ms"] if w >= G else r["fused_ms"]
+                          for r, w in zip(rows, work)) for G in gates}
+    won = {}
+    for r, w in zip(rows, work):
+        key = f"{w:.2f}"
+        n = won.setdefault(key, {"staged": 0, "fused": 0})
+        n["staged" if r["staged_ms"] < r["fused_ms"] else "fused"] += 1
+    return {"gate_summed_ms": summed, "best_gate": min(summed,
+                                                       key=summed.get),
+            "wins_by_work": won}
 
 
 def gate_end_to_end(dev):
@@ -562,6 +601,405 @@ def staged_kernels(dev):
             torch.cuda.empty_cache()
 
 
+# One dependent round trip through L2 (a single thread chasing pointers
+# through 8 MB, past L1 and inside L2, by ld.global.cg) and one barrier of
+# a 256-thread block, each timed by CUDA events over many steps
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const unsigned* __restrict__ next, int steps,
+                      unsigned* out) {
+  unsigned i = 0;
+  for (int s = 0; s < steps; ++s) i = __ldcg(next + i);
+  *out = i;
+}
+__global__ void barriers(int steps, int* out) {
+  int v = threadIdx.x;
+  for (int s = 0; s < steps; ++s) {
+    __syncthreads();
+    v += s;
+  }
+  if (v == -1) *out = v;
+}
+extern "C" int probe_chase(const void* next, int steps, void* out,
+                           void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const unsigned*)next, steps,
+                                           (unsigned*)out);
+  return cudaGetLastError();
+}
+extern "C" int probe_barriers(int steps, void* out, void* stream) {
+  barriers<<<1, 256, 0, (cudaStream_t)stream>>>(steps, (int*)out);
+  return cudaGetLastError();
+}
+// A value handed on `steps` times across barriers, as the walk hands a
+// cotangent from a level to the next: at step i one lane of warp i % 8
+// (warp 0 with `same`) reads slot i - 1 and writes slot i, in device memory
+// (mode 0: plain loads, 1: loads past L1) or in shared memory (mode 2)
+__global__ void handoff(float* buf, int steps, int same, int mode) {
+  __shared__ float sbuf[4096];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sbuf[0] = 0.0f;
+  __syncthreads();
+  for (int i = 1; i <= steps; ++i) {
+    if (w == (same ? 0 : i % 8) && lane == 0) {
+      if (mode == 2)
+        sbuf[i & 4095] = sbuf[(i - 1) & 4095] + 1.0f;
+      else
+        buf[i] = (mode == 1 ? __ldcg(buf + i - 1) : buf[i - 1]) + 1.0f;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0 && mode == 2) buf[0] = sbuf[steps & 4095];
+}
+extern "C" int probe_handoff(void* buf, int steps, int same, int mode,
+                             void* stream) {
+  handoff<<<1, 256, 0, (cudaStream_t)stream>>>((float*)buf, steps, same,
+                                               mode);
+  return cudaGetLastError();
+}
+"""
+
+
+def level_step_us(dev) -> dict:
+    """The time of one dependent L2 round trip and of one 256-thread block
+    barrier on this card (us), each the difference of two runs (2n and n
+    steps) over n, so that the launch cancels; and of one hand-off of a
+    value across a barrier through device or shared memory, to another
+    warp or the same one."""
+    import ctypes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "level_probe.cu"
+        path.write_text(PROBE_SOURCE)
+        lib, _ = cuda_build.build_library(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.probe_chase.argtypes = [ptr, i32, ptr, ptr]
+    lib.probe_barriers.argtypes = [i32, ptr, ptr]
+    lib.probe_handoff.argtypes = [ptr, i32, i32, i32, ptr]
+    # a random cycle through 65 536 slots 128 bytes apart (8 MB)
+    slots, stride = 65536, 32
+    perm = np.random.default_rng(0).permutation(slots)
+    nxt = np.zeros(slots * stride, dtype=np.uint32)
+    nxt[perm * stride] = np.roll(perm, -1) * stride
+    nxt_d = torch.as_tensor(nxt.view(np.int32), device=dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def per_step(launch, n):
+        times = {}
+        for steps in (n, 2 * n, n, 2 * n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(steps)
+            end.record()
+            end.synchronize()
+            if err:
+                raise RuntimeError(f"probe launch failed: cudaError {err}")
+            times.setdefault(steps, []).append(start.elapsed_time(end))
+        return (min(times[2 * n]) - min(times[n])) * 1e3 / n
+    l2 = per_step(lambda k: lib.probe_chase(nxt_d.data_ptr(), k,
+                                            out.data_ptr(), stream), 100000)
+    bar = per_step(lambda k: lib.probe_barriers(k, out.data_ptr(), stream),
+                   1000000)
+    buf = torch.zeros(2 * 20000 + 1, dtype=torch.float32, device=dev)
+    handoff = {
+        f"{where}_{who}_us": per_step(
+            lambda k: lib.probe_handoff(buf.data_ptr(), k, same, mode,
+                                        stream), 20000)
+        for where, mode in (("global", 0), ("global_cg", 1), ("shared", 2))
+        for who, same in (("other_warp", 0), ("same_warp", 1))}
+    return {"l2_round_trip_us": l2, "barrier_us": bar, "step_us": l2 + bar,
+            "handoff": handoff}
+
+
+def s4_design_floor_ms(levels, T, I, C, P, L, itemsize, step_us):
+    """The floor of the two-launch S = 4 reverse sweep (ms): the walk's
+    preorder levels, one dependent L2 round trip and barrier each
+    (``step_us``), plus the dP pass at 3.35 TB/s reading each chain's
+    cotangents, partials and scalers, the tips and 1 / site once and
+    writing the dP rows and d rootw."""
+    N = T + I
+    nbytes = (L * (8 * C * I * P + I * P + P + N * C * 16 + 4 * C)
+              + 4 * T * P) * itemsize
+    return levels * step_us * 1e-3 + nbytes / cs.PEAK_BYTES_PER_S * 1e3
+
+
+def wide_design_k6(tips, pmats, children, freqs, props, partials, scale, g):
+    """K6' at S = 4 through the S != 4 design (``loop_wide_backward``,
+    csrc/wide_backward.cuh) as a call without arguments: the wrapper's S !=
+    4 path at S = 4."""
+    L, N, C = pmats.shape[:3]
+    T, _, P = tips.shape
+    I, maxc = children.shape
+    nb = -(-P // loop.WIDE_BACKWARD_BLOCK)
+    fn = loop._entry(loop.build(), "loop_wide_backward", tips)
+
+    def run():
+        gbuf = tips.new_empty((L, I, C, 4, P))
+        dP_part = tips.new_empty((L, nb, N, C, 16))
+        dP_part[:, :, N - 1].zero_()
+        drootw_part = tips.new_empty((L, nb, C, 4))
+        err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
+                 freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
+                 scale.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
+                 dP_part.data_ptr(), drootw_part.data_ptr(), T, I, C, 4,
+                 maxc, P, L, loop.stream(tips))
+        if err:
+            raise RuntimeError(f"loop_wide_backward at S = 4: cudaError "
+                               f"{err}")
+        drootw = drootw_part.sum(1)
+        return (dP_part.sum(1).view(L, N, C, 4, 4),
+                (props[:, :, None] * drootw).sum(1),
+                (freqs[:, None, :] * drootw).sum(2))
+    return run
+
+
+# the S = 4 reverse sweeps' kernels by name: the parent's one kernel each
+# (loop_backward_kernel, backward_kernel), the shared step's two launches
+S4_NAMES = ("backward_kernel", "s4_walk", "s4_dp")
+
+
+def s4_schedule(topo, tips) -> tuple:
+    """The preorder schedule that this checkout's K2'/K6' wrappers take
+    (after rootw / props), as a tuple to splice into their arguments; empty
+    where the checkout's wrappers take none."""
+    if "schedule" in inspect.signature(fused.pruning_backward).parameters:
+        return (cuda_build.preorder_schedule(topo, tips),)
+    return ()
+
+
+def s4_backward(dev):
+    """K6' at S = 4 and K2' alone against plain, their launches' device
+    time, their wrappers' host time and the design floor, float32 and
+    float64; the S != 4 design at S = 4 beside K6' (where the tree has the
+    shared step); the HMC leapfrog step on the checkpoint B model and the
+    fluA ADVI step."""
+    step = level_step_us(dev)
+    new = hasattr(cuda_build, "preorder_schedule")
+    print(json.dumps({"phase": "s4_level_step", "tree": "change" if new
+                      else "parent", **step}), flush=True)
+    print(json.dumps({"phase": "s4_ptxas", "k6": cs.ptxas_by_kernel(
+        loop.build_log, "s4_" if new else "loop_backward_kernel"),
+        "k2": cs.ptxas_by_kernel(fused.build_log, "s4_" if new
+                                 else "backward_kernel")}), flush=True)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        jc, gtr = cs.load_fluA_time(dtype, dev), cs.load_gtrg4_fluA(dtype, dev)
+        for name, tlk, L, seed in (("fluA-jc69-L4", jc, 4, 2),
+                                   ("fluA-jc69-L16", jc, 16, 1),
+                                   ("fluA-gtrg4-L8", gtr, 8, 3)):
+            topo = tlk.topo
+            tips, pm, fr, pr, w = cs.engine_inputs(tlk, cs.chain_params(
+                tlk, L, seed))
+            g = w.expand(L, -1).contiguous()
+            rec = cs.loop_alone(name, topo, tips, pm, fr, pr, g, timed=True,
+                                phase="s4_k6")
+            children = cs.topo_constant(topo, "children",
+                                        lambda: topo.children, tips,
+                                        torch.int32)
+            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+            sched = s4_schedule(topo, tips)
+
+            def bwd():
+                return loop.loop_backward(tips, pm, children, fr, pr, *sched,
+                                          part, sc, g)
+            out = {"phase": "s4_k6_launches", "shape": name, "dtype": dt,
+                   "levels": len(topo.preorder_levels),
+                   "backward_ms": rec["backward_ms"],
+                   "backward_bound_ms": rec["backward_bound_ms"],
+                   "design_floor_ms": s4_design_floor_ms(
+                       len(topo.preorder_levels), topo.T, topo.I,
+                       pm.shape[2], tips.shape[2], L, tips.element_size(),
+                       step["step_us"]),
+                   "launch_us": launch_device_us(bwd, S4_NAMES),
+                   "host_us": host_us(bwd)}
+            if new:
+                wide_run = wide_design_k6(tips, pm, children, fr, pr, part,
+                                          sc, g)
+                out["wide_design_ms"] = cs.median_ms(wide_run, reps=100)
+                out["wide_design_err"] = max(
+                    cs.max_err(a, b)[0] for a, b in zip(wide_run(), bwd()))
+                out["wide_design_launch_us"] = launch_device_us(
+                    wide_run, ("loop_wide_backward",))
+            print(json.dumps(out), flush=True)
+        cat = caterpillar_topology(128)
+        kw = dict(dtype=dtype, device=dev)
+        cases = [("fluA-jc69", jc.topo, cs.engine_inputs(
+                     jc, jc.param_space().init_params(**kw))),
+                 ("fluA-gtrg4", gtr.topo, cs.engine_inputs(
+                     gtr, gtr.param_space().init_params(**kw)))]
+        cases += [(f"caterpillar-128x16384-C{C}", cat,
+                   cs.random_inputs(cat, 16384, C, 7, dtype, dev))
+                  for C in (1, 2)]
+        for name, topo, inputs in cases:
+            tips, pm, fr, pr, w = inputs
+            children = cs.topo_constant(topo, "children",
+                                        lambda: topo.children, tips,
+                                        torch.int32)
+            rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+            _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+            sched = s4_schedule(topo, tips)
+
+            def bwd():
+                return fused.pruning_backward(tips, pm, children, rootw,
+                                              *sched, part, sc, w)
+            alone = cs.kernels_alone(fused, topo, *inputs)
+            print(json.dumps({
+                "phase": "s4_k2", "shape": name, "dtype": dt,
+                "patterns": tips.shape[2], "categories": pm.shape[1],
+                "levels": len(topo.preorder_levels), "kernel_alone": alone,
+                "design_floor_ms": s4_design_floor_ms(
+                    len(topo.preorder_levels), topo.T, topo.I, pm.shape[1],
+                    tips.shape[2], 1, tips.element_size(), step["step_us"]),
+                "launch_us": launch_device_us(bwd, S4_NAMES),
+                "host_us": host_us(bwd)}), flush=True)
+        del jc, gtr, cases
+        torch.cuda.empty_cache()
+    # the cost of one level: K2''s launches on caterpillars (one node a
+    # preorder level) at 256 patterns, float32; the slope of their device
+    # time against the levels
+    rows = []
+    for n in (16, 32, 64, 128):
+        topo = caterpillar_topology(n)
+        tips, pm, fr, pr, w = cs.random_inputs(topo, 256, 1, 7,
+                                               torch.float32, dev)
+        children = cs.topo_constant(topo, "children", lambda: topo.children,
+                                    tips, torch.int32)
+        rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+        _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+        sched = s4_schedule(topo, tips)
+        rows.append((len(topo.preorder_levels), launch_device_us(
+            lambda: fused.pruning_backward(tips, pm, children, rootw, *sched,
+                                           part, sc, w), S4_NAMES)))
+    fit = {}
+    if all(r[1] for r in rows):
+        # the walk's launch, or the parent's one kernel
+        slope, intercept = np.polyfit([r[0] for r in rows],
+                                      [r[1][0] for r in rows], 1)
+        fit = {"us_per_level": slope, "us_at_0_levels": intercept}
+    print(json.dumps({"phase": "s4_level_cost",
+                      "levels": [r[0] for r in rows],
+                      "launch_us": [r[1] for r in rows], **fit}), flush=True)
+    cs.hmc_checkpoint_b(dev)
+    profile_advi("fluA-elbo", cs.DATA / "fluA-elbo.json", dev, 50)
+
+
+# where --s4-trace stamps the walk's levels (warp 0 of block 0)
+S4_TRACE_AT = (
+    ("    __pipeline_wait_prior(1);  // every group but level d + 1's has "
+     "landed\n",
+     "    const bool tr_ = blockIdx.x == 0 && blockIdx.y == 0 && "
+     "blockIdx.z == 0 && threadIdx.x == 0 && d < 4096;\n"
+     "    if (tr_) s4_trace[d][0] = clock64();\n"),
+    ("    if (t0 < items) gk = d == 0 ? seed() : valid ? gb[at(cur.k)] : "
+     "scalar_t(0);\n",
+     "    if (tr_) {\n      if (gk == scalar_t(-12345)) gb[0] = 1;\n"
+     "      s4_trace[d][1] = clock64();\n    }\n"),
+    ("    if (t0 < items) pair_cotangents(ch, cur, gk, gb, c, s, p, valid, "
+     "q0);\n",
+     "    if (tr_) s4_trace[d][2] = clock64();\n"))
+
+
+def s4_trace(dev):
+    """Where a level of K2''s walk goes: ``csrc/pruning.cu`` rebuilt with
+    clock64() stamps in the walk's binary loop (warp 0 of block 0, float32,
+    at the fluA JC69 model): each level's cycles to its parent's cotangent
+    (the stage's wait, gbuf[k] through L1), to the end of its step and from
+    there to the next level (the barrier)."""
+    import ctypes
+
+    csrc = cuda_build.PKG / "csrc"
+    header = (csrc / "s4_backward.cuh").read_text()
+    for at, _ in S4_TRACE_AT:
+        if at not in header:
+            raise SystemExit("csrc/s4_backward.cuh no longer has the lines "
+                             "this measurement stamps")
+    traced = header.replace("namespace {\n",
+                            "namespace {\n__device__ long long "
+                            "s4_trace[4096][3];\n", 1)
+    for at, stamp in S4_TRACE_AT:
+        traced = traced.replace(at, stamp + at if "__pipeline_wait" in at
+                                else at + stamp)
+    reader = ('\nextern "C" int s4_trace_read(void* host) {\n'
+              "  return cudaMemcpyFromSymbol(host, s4_trace, "
+              "sizeof(s4_trace));\n}\n")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    jc = cs.load_fluA_time(torch.float32, dev)
+    tips, pm, fr, pr, w = cs.engine_inputs(jc, jc.param_space().init_params(
+        dtype=torch.float32, device=dev))
+    children = cs.topo_constant(jc.topo, "children", lambda: jc.topo.children,
+                                tips, torch.int32)
+    rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+    sched = s4_schedule(jc.topo, tips)
+    n = len(jc.topo.preorder_levels)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for f in csrc.glob("*.cuh"):
+            (d / f.name).write_text(traced if f.name == "s4_backward.cuh"
+                                    else f.read_text())
+        (d / "pruning.cu").write_text("// traced\n" + (
+            csrc / "pruning.cu").read_text() + reader)
+        lib, _ = cuda_build.build_library(d / "pruning.cu")
+    b = lib.pruning_backward_f32
+    b.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+    b.restype = i32
+    lib.pruning_forward_f32.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    fused._lib = lib
+    for _ in range(5):
+        fused.pruning_backward(tips, pm, children, rootw, *sched, part, sc, w)
+    torch.cuda.synchronize()
+    fused._lib = None
+    stamps = np.zeros((4096, 3), dtype=np.int64)
+    if lib.s4_trace_read(ctypes.c_void_p(stamps.ctypes.data)):
+        raise RuntimeError("reading the walk's stamps failed")
+    t = stamps[:n]
+    print(json.dumps({
+        "phase": "s4_trace", "levels": n,
+        "to_cotangent": (t[:, 1] - t[:, 0]).tolist(),
+        "to_step_end": (t[:, 2] - t[:, 1]).tolist(),
+        "to_next_level": (t[1:, 0] - t[:-1, 2]).tolist(),
+        "cycles": int(t[n - 1, 2] - t[0, 0])}), flush=True)
+
+
+def s4_host(dev):
+    """The host time of K2''s and K6''s wrappers at S = 4 (``host_us``:
+    median of 200 calls, each started on an idle card; three rounds),
+    float32, K2' at the checkpoint B model, K6' at its L = 4 chains and at
+    GTR+G4 fluA's L = 8. It uses only entry points that older checkouts
+    have, so a copy run from an older checkout's root times that
+    checkout."""
+    jc, gtr = cs.load_fluA_time(torch.float32, dev), cs.load_gtrg4_fluA(
+        torch.float32, dev)
+    cases = []
+    for name, tlk, L, seed in (("k6-fluA-jc69-L4", jc, 4, 2),
+                               ("k6-fluA-gtrg4-L8", gtr, 8, 3)):
+        topo = tlk.topo
+        tips, pm, fr, pr, w = cs.engine_inputs(tlk, cs.chain_params(
+            tlk, L, seed))
+        children = cs.topo_constant(topo, "children", lambda: topo.children,
+                                    tips, torch.int32)
+        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+        cases.append((name, functools.partial(
+            loop.loop_backward, tips, pm, children, fr, pr,
+            *s4_schedule(topo, tips), part, sc, w.expand(L, -1).contiguous())))
+    tips, pm, fr, pr, w = cs.engine_inputs(jc, jc.param_space().init_params(
+        dtype=torch.float32, device=dev))
+    children = cs.topo_constant(jc.topo, "children", lambda: jc.topo.children,
+                                tips, torch.int32)
+    rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+    cases.append(("k2-fluA-jc69", functools.partial(
+        fused.pruning_backward, tips, pm, children, rootw,
+        *s4_schedule(jc.topo, tips), part, sc, w)))
+    for rnd in range(3):
+        print(json.dumps({"phase": "s4_host", "round": rnd,
+                          "schedule_argument": bool(s4_schedule(jc.topo,
+                                                                tips)),
+                          **{f"{name}_us": host_us(run, n=200)
+                             for name, run in cases}}), flush=True)
+
+
 K4_DEPTH = "constexpr int BWD_DEPTH = 4;"
 K4_BLOCKS = "constexpr int BWD_BLOCKS = 2;"
 
@@ -773,7 +1211,8 @@ def loop_cases(dev):
                                     torch.int32)
         _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
         cases.append((name, (tips, pm, children, fr, pr),
-                      (tips, pm, children, fr, pr, part, sc,
+                      (tips, pm, children, fr, pr,
+                       *s4_schedule(tlk.topo, tips), part, sc,
                        w.expand(L, -1).contiguous())))
     return cases
 
@@ -875,6 +1314,13 @@ def main() -> int:
     ap.add_argument("--staged", action="store_true",
                     help="only K3'/K4' alone, their launches and "
                          "value-and-gradient")
+    ap.add_argument("--s4-backward", action="store_true",
+                    help="only K6' at S = 4 and K2' alone, their launches, "
+                         "HMC and the ADVI step")
+    ap.add_argument("--s4-trace", action="store_true",
+                    help="only K2''s walk with clock64() stamps a level")
+    ap.add_argument("--s4-host", action="store_true",
+                    help="only the host time of K2''s and K6''s wrappers")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
@@ -888,6 +1334,18 @@ def main() -> int:
         return 0
     if args.staged:
         staged_kernels(dev)
+        print(smi, flush=True)
+        return 0
+    if args.s4_backward:
+        s4_backward(dev)
+        print(smi, flush=True)
+        return 0
+    if args.s4_host:
+        s4_host(dev)
+        print(smi, flush=True)
+        return 0
+    if args.s4_trace:
+        s4_trace(dev)
         print(smi, flush=True)
         return 0
     if args.k6_bounds:

@@ -24,7 +24,10 @@ slices' main paths through them and times kernel against plain:
   models and on a fluA tree with polytomies, mmcmc (16 temperatures as one
   batch) and marginallikelihood through the CLI on the checkpoint B model,
   mcmc with 8 chains and its loggers on GTR+G4 fluA, and HMC on the
-  checkpoint B model;
+  checkpoint B model; K6' at S = 4 and K2' (their shared reverse step,
+  ``csrc/s4_backward.cuh``) also at a 128-taxon caterpillar with 16 384
+  patterns and K2' on a fluA tree with polytomies, both twice on the same
+  inputs (bit for bit), with their launches' device times;
 - codon and protein MCMC over a batch of chains (K5'/K6' at S != 4, the
   same ``csrc/loop.cu``): the kernels against plain on chains of GY94 M0 at
   32 taxa x 4096 codons, WAG+G4 at 64 taxa x 8192 patterns and a WAG tree
@@ -386,7 +389,8 @@ def collapsed_topology(topo, every=7):
 
 
 # each kernel module's launch wrappers (forward, backward); the staged and
-# wide ones take the level schedule after rootw
+# wide ones take the level schedule after rootw, the fused backward the
+# preorder one
 WRAPPERS = {fused: (fused.pruning_forward, fused.pruning_backward),
             staged: (staged.staged_forward, staged.staged_backward),
             wide: (wide.wide_forward, wide.wide_backward)}
@@ -432,12 +436,14 @@ def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
     forward, backward = WRAPPERS[mod]
     schedule = cuda_build.level_schedule(topo, tips)
     extra = () if mod is fused else (schedule,)
+    bwd_extra = ((cuda_build.preorder_schedule(topo, tips),) if mod is fused
+                 else extra)
 
     def fwd():
         return forward(tips, pmats, children, rootw, *extra)
 
     def bwd(partials, scale):
-        return backward(tips, pmats, children, rootw, *extra, partials,
+        return backward(tips, pmats, children, rootw, *bwd_extra, partials,
                         scale, g)
     reference = SITE_LOG[mod][1]
     site_k, partials, scale = fwd()
@@ -511,9 +517,11 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
                                  rescale)
     site_k, partials, scale = fwd()
 
+    schedule = cuda_build.preorder_schedule(topo, tips)
+
     def bwd():
         return loop.loop_backward(tips, pmats, children, freqs, props,
-                                  partials, scale, g)
+                                  schedule, partials, scale, g)
     grads_k = bwd()
     leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
     site_graph = loop.loop_site_log_reference(tips, leaves[0], topo,
@@ -607,8 +615,30 @@ def k6_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     _, partials, scale = loop.loop_forward(tips, pmats, children, freqs,
                                            props)
     g = g.contiguous()
+    schedule = cuda_build.preorder_schedule(topo, tips)
     return bit_identical(lambda: loop.loop_backward(
-        tips, pmats, children, freqs, props, partials, scale, g))
+        tips, pmats, children, freqs, props, schedule, partials, scale, g))
+
+
+def k2_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
+    """K2' twice on the same inputs: bit-identical d pmats and d rootw."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    _, partials, scale = fused.pruning_forward(tips, pmats, children, rootw)
+    g = g.contiguous()
+    schedule = cuda_build.preorder_schedule(topo, tips)
+    return bit_identical(lambda: fused.pruning_backward(
+        tips, pmats, children, rootw, schedule, partials, scale, g))
+
+
+def s4_launch_us(run_backward) -> list:
+    """Device time (us, torch.profiler) of each launch of one K2' or K6'
+    call at S = 4: the walk, then the dP pass."""
+    # chip_profile imports this module, so it is imported here
+    from chip_profile import launch_device_us
+
+    return launch_device_us(run_backward, ("s4_walk", "s4_dp"))
 
 
 def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
@@ -729,6 +759,18 @@ def ptxas_by_kernel(log: str, part: str) -> dict:
 SHAPES = [("fluA-69x256-C1", None, 256, 1),
           ("fluA-69x256-C4", None, 256, 4),
           ("balanced-128x16384-C4", 128, 16384, 4)]
+# K2''s further shapes, for its reverse step (csrc/s4_backward.cuh, shared
+# with K6' at S = 4): (name, topology, patterns, categories); the 128-taxon
+# caterpillar has 127 preorder levels of one node and takes eight dP chunks
+# (C x internal nodes / levels is 1-2 there, under the staged gate, so the
+# main path reaches K2' at such P), and a fluA tree with polytomies
+S4_SHAPES = [
+    ("caterpillar-128x16384-C1", lambda: caterpillar_topology(128), 16384, 1),
+    ("caterpillar-128x16384-C2", lambda: caterpillar_topology(128), 16384, 2),
+    ("fluA-polytomy-238-C4",
+     lambda: collapsed_topology(load_fluA_time(torch.float64, "cpu").topo),
+     238, 4),
+]
 # the wide kernels' shapes: (name, topology, patterns, categories, datatype,
 # seed); GY94 M0 and WAG+G4 at the JAX package's benchmark sizes
 # (bench.py), and a caterpillar, the deepest tree
@@ -1541,15 +1583,22 @@ def main() -> int:
     emit("build_loop", seconds=build_loop_s, all_seconds=both_s,
          ptxas=ptxas_lines(loop.build_log))
 
-    # ---- 3. K1'/K2' against plain, on the card
+    # ---- 3. K1'/K2' against plain, on the card (K2' also at S4_SHAPES)
     flu_topo = load_fluA_time(torch.float64, "cpu").topo
     shapes = [(name, flu_topo if n is None else balanced_topology(n), P, C)
               for name, n, P, C in SHAPES]
+    s4_shapes = [(name, make(), P, C) for name, make, P, C in S4_SHAPES]
     for dtype in (torch.float32, torch.float64):
-        for name, topo, P, C in shapes:
+        for name, topo, P, C in shapes + s4_shapes:
             compare(name, topo, random_inputs(topo, P, C, 7, dtype,
                                                      dev), dtype)
             torch.cuda.synchronize()
+    # K2' twice on the same inputs at the caterpillar (bit-identical: fixed
+    # sum orders, no atomics)
+    name, topo, P, C = s4_shapes[1]
+    check(k2_deterministic(topo, *random_inputs(topo, P, C, 7,
+                                                torch.float32, dev)),
+          f"K2' twice on the same inputs, bit for bit, at {name}")
 
     # ---- 4. checkpoint A on the card
     checkpoint_a(dev)
@@ -1743,10 +1792,22 @@ def main() -> int:
     runner, launches_fused = cli_checkpoint_b(dev)
     runner_b_elbo = runner.results["sg"].elbo
     tlk = runner.ctx.objects["treelikelihood"]
-    fused_alone = kernels_alone(fused, tlk.topo, *engine_inputs(
-        tlk, runner.params_for(tlk.param_space())))
+    b_inputs = engine_inputs(tlk, runner.params_for(tlk.param_space()))
+    fused_alone = kernels_alone(fused, tlk.topo, *b_inputs)
+    tips, pm, fr, pr, w = b_inputs
+    children = topo_constant(tlk.topo, "children", lambda: tlk.topo.children,
+                             tips, torch.int32)
+    rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+    schedule = cuda_build.preorder_schedule(tlk.topo, tips)
+    k2_launch_us = s4_launch_us(lambda: fused.pruning_backward(
+        tips, pm, children, rootw, schedule, part, sc, w))
+    k2_same = k2_deterministic(tlk.topo, *b_inputs)
     emit("fused_times", card=smi, model="fluA-elbo JC69 float32",
-         patterns=tlk.sp.pattern_count, kernel_alone=fused_alone)
+         patterns=tlk.sp.pattern_count, kernel_alone=fused_alone,
+         k2_launch_us=k2_launch_us, k2_bit_identical=k2_same)
+    check(k2_same, "K2' twice on the same inputs, bit for bit, at the "
+                   "checkpoint B model")
 
     # ---- 15. the third slice's main path: ML then ADVI of a GTR+G4 config
     # at 128 taxa x about 16 000 patterns through the CLI (K3'/K4')
@@ -1782,10 +1843,14 @@ def main() -> int:
 
     # ---- 17. K5'/K6' against plain at the fourth slice's shapes: chains of
     # the checkpoint B model (L = 16, the mmcmc ladder; L = 4, the HMC
-    # chains) and of GTR+G4 fluA (L = 8), and a fluA tree with polytomies
-    # at L = 1 and 4; float32, and float64 with rescale on and off
-    loop_times = {"card": smi, "build_seconds": build_loop_s}
+    # chains) and of GTR+G4 fluA (L = 8), a fluA tree with polytomies at
+    # L = 1 and 4, and (K6''s reverse step at large P) a 128-taxon
+    # caterpillar at 16 384 patterns; float32, and float64 with rescale on
+    # and off; K6' at S = 4 twice on the same inputs
+    loop_times = {"card": smi, "build_seconds": build_loop_s,
+                  "k6_ptxas": ptxas_by_kernel(loop.build_log, "s4_")}
     poly = collapsed_topology(flu_topo)
+    cat128 = caterpillar_topology(128)
     for dtype in (torch.float32, torch.float64):
         jc, gtr = load_fluA_time(dtype, dev), load_gtrg4_fluA(dtype, dev)
         cases = [("fluA-jc69-L16", jc.topo,
@@ -1806,6 +1871,28 @@ def main() -> int:
                 loop_alone(f"fluA-polytomy-L{L}", poly,
                            *random_chains(poly, 238, 4, L, 11 + L, dtype,
                                           dev), rescale=rescale)
+            # K6''s reverse step at large P: 127 preorder levels of one
+            # node, eight dP chunks; 16 384 patterns a sum, so at the
+            # kernel tolerances of TOL, as K2' at this shape
+            loop_alone("caterpillar-128x16384-C2-L2", cat128,
+                       *random_chains(cat128, 16384, 2, 2, 31, dtype, dev),
+                       rescale=rescale, tol=TOL[dtype])
+        if dtype == torch.float32:
+            # K6' at S = 4 at the HMC chains: its launches and twice on the
+            # same inputs (bit-identical: fixed sum orders, no atomics)
+            name, topo, (tips, pm, fr, pr, w) = cases[1]
+            g = w.expand(pm.shape[0], -1).contiguous()
+            children = topo_constant(topo, "children", lambda: topo.children,
+                                     tips, torch.int32)
+            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+            schedule = cuda_build.preorder_schedule(topo, tips)
+            loop_times["k6_launch_us"] = s4_launch_us(
+                lambda: loop.loop_backward(tips, pm, children, fr, pr,
+                                           schedule, part, sc, g))
+            loop_times["k6_bit_identical"] = k6_deterministic(
+                topo, tips, pm, fr, pr, g)
+            check(loop_times["k6_bit_identical"],
+                  "K6' at S = 4 twice on the same inputs, bit for bit")
         torch.cuda.synchronize()
     emit("loop_times", **loop_times)
 

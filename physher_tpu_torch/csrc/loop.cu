@@ -27,17 +27,24 @@
 // Internal node k has id T + k; ids are postorder ranks and the root is
 // N - 1.
 //
-// What bounds them on this card, and what the design does about it: one
-// thread per (pattern, chain), grid (pattern blocks, L), walks the internal
-// nodes in postorder rank with the C x 4 partials in registers. Per node
-// and pattern a thread does maxc * C * (32 + 4) FLOPs against about
+// What bounds them on this card, and what the design does about it: per
+// node and pattern a sweep does maxc * C * (32 + 4) FLOPs against about
 // (maxc + 1) * C * 16 bytes of partials: about 1 FLOP per byte, far below
 // the H100's float32 ridge (~20), and at MCMC sizes (the fluA tree, 238
 // patterns, L = 16) the whole sweep is a few MB and a few tens of MFLOPs,
-// so neither bound matters: the time is the latency of each thread's chain
-// of I dependent node steps. The design answers with parallel width: blocks
-// of 32 patterns (one warp), so that L x blocks covers the 132 SMs (fluA at
-// L = 16: 8 x 16 = 128 blocks), instead of the 128-pattern blocks of K1'.
+// so neither bound matters: the time is the latency of the chain of
+// dependent node steps.
+// - K5' at S = 4: one thread per (pattern, chain), grid (pattern blocks,
+//   L), walks the internal nodes in postorder rank with the C x 4 partials
+//   in registers, in blocks of 32 patterns (one warp), so that L x blocks
+//   covers the 132 SMs (fluA at L = 16: 8 x 16 = 128 blocks), instead of
+//   the 128-pattern blocks of K1'.
+// - K6' at S = 4, redesigned for this card, is the reverse step of
+//   csrc/s4_backward.cuh, which K2' shares (one chain there): a walk that
+//   carries only the cotangents by preorder level (one barrier a level,
+//   threads on (pattern, state), grid (pattern blocks, C, L)), then a pass
+//   that sums every branch's d pmats at once and turns d rootw into
+//   d freqs and d props; the header says how.
 //
 // K5' writes each node's partials and scale to device memory, and K6'
 // reads them instead of recomputing the forward as the TPU kernel must
@@ -48,10 +55,10 @@
 // is L * I * (C * 4 + 1) * P scalars: 16.6 MB at fluA with L = 16, C = 4 in
 // float32.
 //
-// K6' reduces d pmats, d freqs and d props over the patterns of a block
-// (warp shuffles, then shared memory across the block's warps) into per-
-// (chain, block) partial sums that the caller sums over the block axis: no
-// atomics, so results are deterministic.
+// K6' sums d pmats and d rootw (at S = 4 d freqs and d props) over the
+// patterns of a block in a fixed order into per-(chain, block) partial sums
+// that the caller sums over the block axis: no atomics, so results are
+// deterministic.
 //
 // Any other state count, S from 2 to 64 (protein S = 20, codon S = 61):
 // loop_wide_forward_kernel (K5') and loop_wide_backward_kernel (K6'), the
@@ -103,6 +110,7 @@
 
 #include <cuda_runtime.h>
 
+#include "s4_backward.cuh"
 #include "tiles.cuh"
 #include "wide_backward.cuh"
 #include "wide_forward.cuh"
@@ -212,155 +220,6 @@ __global__ void loop_forward_kernel(const scalar_t* __restrict__ tips,
 }
 
 template <typename scalar_t>
-__device__ inline scalar_t warp_sum(scalar_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// smem: [n_warps, max(maxc * C * 16, 4 + C)] per-warp sums.
-// dP_part [L, nb, N, C, 16]; dfreqs_part [L, nb, 4]; dprops_part [L, nb, C];
-// gbuf [L, I, C, 4, P] cotangents of the (rescaled) partials.
-template <typename scalar_t>
-__global__ void loop_backward_kernel(
-    const scalar_t* __restrict__ tips, const scalar_t* __restrict__ pmats,
-    const int* __restrict__ children, const scalar_t* __restrict__ freqs,
-    const scalar_t* __restrict__ props, const scalar_t* __restrict__ partials,
-    const scalar_t* __restrict__ scale, const scalar_t* __restrict__ g,
-    scalar_t* gbuf, scalar_t* __restrict__ dP_part,
-    scalar_t* __restrict__ dfreqs_part, scalar_t* __restrict__ dprops_part,
-    int T, int I, int C, int maxc, int P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* smem = reinterpret_cast<scalar_t*>(smem_raw);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  const int nb = gridDim.x;
-  // threads past P take part in every shuffle and barrier with zeros
-  const bool valid = p < P;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int N = T + I;
-  const int width = maxc * C * 16;
-  const scalar_t* pm = pmats + (size_t)l * N * C * 16;
-  const scalar_t* part = partials + (size_t)l * I * C * 4 * P;
-  const scalar_t* sc = scale + (size_t)l * I * P;
-  scalar_t* gb = gbuf + (size_t)l * I * C * 4 * P;
-  const size_t blk = (size_t)l * nb + blockIdx.x;
-  scalar_t* dP = dP_part + blk * N * C * 16;
-  const scalar_t* fr = freqs + (size_t)l * 4;
-  const scalar_t* pr = props + (size_t)l * C;
-
-  // ---- root seed: site in scaled coordinates, as the forward computed it
-  {
-    const int root = I - 1;
-    scalar_t site = 0;
-    for (int c = 0; c < C; ++c) {
-      scalar_t per_cat = 0;
-      for (int a = 0; a < 4; ++a)
-        per_cat += valid ? __ldg(fr + a) *
-                               part[(((size_t)root * C + c) * 4 + a) * P + p]
-                         : scalar_t(0);
-      site += __ldg(pr + c) * per_cat;
-    }
-    const scalar_t tiny = Limits<scalar_t>::tiny();
-    site = site > tiny ? site : tiny;
-    const scalar_t inv = valid ? g[(size_t)l * P + p] / site : scalar_t(0);
-    scalar_t dfr[4] = {0, 0, 0, 0};
-    for (int c = 0; c < C; ++c) {
-      scalar_t per_cat = 0;
-      for (int a = 0; a < 4; ++a) {
-        const size_t idx = (((size_t)root * C + c) * 4 + a) * P + p;
-        const scalar_t x = valid ? part[idx] : scalar_t(0);
-        if (valid) gb[idx] = __ldg(pr + c) * __ldg(fr + a) * inv;
-        dfr[a] += __ldg(pr + c) * x * inv;
-        per_cat += __ldg(fr + a) * x;
-      }
-      const scalar_t s = warp_sum(per_cat * inv);
-      if (lane == 0) smem[n_warps * 4 + warp * C + c] = s;
-    }
-    for (int a = 0; a < 4; ++a) {
-      const scalar_t s = warp_sum(dfr[a]);
-      if (lane == 0) smem[warp * 4 + a] = s;
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < 4 + C; t += blockDim.x) {
-      scalar_t s = 0;
-      if (t < 4) {
-        for (int w = 0; w < n_warps; ++w) s += smem[w * 4 + t];
-        dfreqs_part[blk * 4 + t] = s;
-      } else {
-        for (int w = 0; w < n_warps; ++w)
-          s += smem[n_warps * 4 + w * C + (t - 4)];
-        dprops_part[blk * C + (t - 4)] = s;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- reverse postorder
-  for (int k = I - 1; k >= 0; --k) {
-    const scalar_t m = valid ? sc[(size_t)k * P + p] : scalar_t(1);
-    for (int c = 0; c < C; ++c) {
-      // cotangent of the raw (pre-rescale) product; the max is a constant
-      scalar_t graw[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        graw[a] = valid ? gb[(((size_t)k * C + c) * 4 + a) * P + p] / m
-                        : scalar_t(0);
-      for (int i = 0; i < maxc; ++i) {
-        const int ch = __ldg(children + k * maxc + i);
-        if (ch < 0) continue;
-        // other_i = graw * prod_{j != i} contrib_j
-        scalar_t other[4] = {graw[0], graw[1], graw[2], graw[3]};
-        for (int j = 0; j < maxc; ++j) {
-          const int cj = __ldg(children + k * maxc + j);
-          if (j == i || cj < 0) continue;
-          scalar_t xj[4] = {0, 0, 0, 0}, cb[4];
-          if (valid) load_child(tips, part, cj, c, T, C, P, p, xj);
-          apply_p(pm, cj, c, C, xj, cb);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) other[a] *= cb[a];
-        }
-        scalar_t x[4] = {0, 0, 0, 0};
-        if (valid) load_child(tips, part, ch, c, T, C, P, p, x);
-        // dP[ch, c, a, b] += other[a] * x[b], reduced over the warp
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const scalar_t s = warp_sum(other[a] * x[b]);
-            if (lane == 0)
-              smem[warp * width + (i * C + c) * 16 + a * 4 + b] = s;
-          }
-        // the child's cotangent: sum_a P[ch, c, a, b] * other[a]
-        if (valid && ch >= T) {
-          const scalar_t* q = pm + ((size_t)ch * C + c) * 16;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            scalar_t s = 0;
-#pragma unroll
-            for (int a = 0; a < 4; ++a) s += __ldg(q + a * 4 + b) * other[a];
-            gb[((((size_t)(ch - T)) * C + c) * 4 + b) * P + p] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < width; t += blockDim.x) {
-      const int i = t / (C * 16);
-      const int ch = __ldg(children + k * maxc + i);
-      if (ch < 0) continue;  // no d pmats row for a missing child
-      scalar_t s = 0;
-      for (int w = 0; w < n_warps; ++w) s += smem[w * width + t];
-      dP[(size_t)ch * C * 16 + (t - i * C * 16)] = s;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename scalar_t>
 cudaError_t launch_forward(const void* tips, const void* pmats,
                            const void* children, const void* freqs,
                            const void* props, void* partials, void* scale,
@@ -400,33 +259,27 @@ cudaError_t launch_forward(const void* tips, const void* pmats,
 
 template <typename scalar_t>
 cudaError_t launch_backward(const void* tips, const void* pmats,
-                            const void* children, const void* freqs,
+                            const void* children, const void* order,
+                            const void* offsets, const void* freqs,
                             const void* props, const void* partials,
                             const void* scale, const void* g, void* gbuf,
-                            void* dP_part, void* dfreqs_part,
-                            void* dprops_part, int T, int I, int C, int maxc,
-                            int P, int L, int threads, cudaStream_t stream) {
-  if (threads % 32 != 0 || C < 1 || C > 8 || L < 1 || L > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((P + threads - 1) / threads, L);
-  const int width = maxc * C * 16 > 4 + C ? maxc * C * 16 : 4 + C;
-  const size_t smem = (size_t)(threads / 32) * width * sizeof(scalar_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        loop_backward_kernel<scalar_t>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  loop_backward_kernel<scalar_t><<<grid, threads, smem, stream>>>(
+                            void* inv, void* dP_part, void* dfreqs_part,
+                            void* dprops_part, int n_levels, int T, int I,
+                            int C, int maxc, int P, int L, int dp_chunk,
+                            cudaStream_t stream) {
+  return launch_s4_backward<scalar_t>(
       static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
-      static_cast<const int*>(children), static_cast<const scalar_t*>(freqs),
-      static_cast<const scalar_t*>(props),
+      static_cast<const int*>(children), static_cast<const int*>(order),
+      static_cast<const int*>(offsets), n_levels,
+      FreqsProps<scalar_t>{static_cast<const scalar_t*>(freqs),
+                           static_cast<const scalar_t*>(props),
+                           static_cast<scalar_t*>(dfreqs_part),
+                           static_cast<scalar_t*>(dprops_part)},
       static_cast<const scalar_t*>(partials),
       static_cast<const scalar_t*>(scale), static_cast<const scalar_t*>(g),
-      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),
-      static_cast<scalar_t*>(dfreqs_part), static_cast<scalar_t*>(dprops_part),
-      T, I, C, maxc, P);
-  return cudaGetLastError();
+      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(inv),
+      static_cast<scalar_t*>(dP_part), T, I, C, maxc, P, L, dp_chunk,
+      stream);
 }
 
 // ---- any state count, S from 2 to 64 (the tiles of csrc/tiles.cuh) -------
@@ -670,34 +523,25 @@ cudaError_t loop_forward_f64(const void* tips, const void* pmats,
                                 threads, static_cast<cudaStream_t>(stream));
 }
 
-cudaError_t loop_backward_f32(const void* tips, const void* pmats,
-                              const void* children, const void* freqs,
-                              const void* props, const void* partials,
-                              const void* scale, const void* g, void* gbuf,
-                              void* dP_part, void* dfreqs_part,
-                              void* dprops_part, int T, int I, int C,
-                              int maxc, int P, int L, int threads,
-                              void* stream) {
-  return launch_backward<float>(tips, pmats, children, freqs, props,
-                                partials, scale, g, gbuf, dP_part,
-                                dfreqs_part, dprops_part, T, I, C, maxc, P, L,
-                                threads, static_cast<cudaStream_t>(stream));
-}
+#define PHYSHER_LOOP_BACKWARD_ENTRY(SUFFIX, TYPE)                             \
+  cudaError_t loop_backward_##SUFFIX(                                         \
+      const void* tips, const void* pmats, const void* children,              \
+      const void* order, const void* offsets, const void* freqs,              \
+      const void* props, const void* partials, const void* scale,             \
+      const void* g, void* gbuf, void* inv, void* dP_part, void* dfreqs_part, \
+      void* dprops_part, int n_levels, int T, int I, int C, int maxc, int P,  \
+      int L, int dp_chunk, void* stream) {                                    \
+    return launch_backward<TYPE>(tips, pmats, children, order, offsets,       \
+                                 freqs, props, partials, scale, g, gbuf, inv, \
+                                 dP_part, dfreqs_part, dprops_part, n_levels, \
+                                 T, I, C, maxc, P, L, dp_chunk,               \
+                                 static_cast<cudaStream_t>(stream));          \
+  }
 
-cudaError_t loop_backward_f64(const void* tips, const void* pmats,
-                              const void* children, const void* freqs,
-                              const void* props, const void* partials,
-                              const void* scale, const void* g, void* gbuf,
-                              void* dP_part, void* dfreqs_part,
-                              void* dprops_part, int T, int I, int C,
-                              int maxc, int P, int L, int threads,
-                              void* stream) {
-  return launch_backward<double>(tips, pmats, children, freqs, props,
-                                 partials, scale, g, gbuf, dP_part,
-                                 dfreqs_part, dprops_part, T, I, C, maxc, P,
-                                 L, threads,
-                                 static_cast<cudaStream_t>(stream));
-}
+PHYSHER_LOOP_BACKWARD_ENTRY(f32, float)
+PHYSHER_LOOP_BACKWARD_ENTRY(f64, double)
+
+#undef PHYSHER_LOOP_BACKWARD_ENTRY
 
 #define PHYSHER_LOOP_WIDE_ENTRY(SUFFIX, TYPE)                                 \
   cudaError_t loop_wide_forward_##SUFFIX(                                     \

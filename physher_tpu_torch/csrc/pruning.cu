@@ -24,32 +24,29 @@
 // far below the H100's ridge (~20 FLOP per byte for float32 on the CUDA
 // cores: 67 TFLOP/s over 3.35 TB/s), so both kernels are bound by
 // device-memory (or L2) bandwidth and, at small pattern counts, by the
-// latency of each thread's chain of dependent node steps. The design does the simple thing about it: one thread per pattern,
-// the pattern axis innermost so every load and store is coalesced, P matrices
-// read through the read-only cache (__ldg; every thread of a warp reads the
-// same address, a broadcast). F writes the rescaled partials and the scalers
-// to device memory anyway, so B keeps them instead of recomputing the forward
-// as the TPU kernel must (it has only VMEM); that costs no extra traffic in F.
+// latency of the chain of dependent node steps.
 //
-// B reduces dP and drootw over the patterns of a block deterministically:
-// warp shuffles, then shared memory across the warps of the block, into
-// per-block partial sums that the caller sums over the block axis.
+// F does the simple thing about it: one thread per pattern, the pattern
+// axis innermost so every load and store is coalesced, P matrices read
+// through the read-only cache (__ldg; every thread of a warp reads the same
+// address, a broadcast). F writes the rescaled partials and the scalers to
+// device memory anyway, so B keeps them instead of recomputing the forward
+// as the TPU kernel must (it has only VMEM); that costs no extra traffic in
+// F.
+//
+// B, redesigned for this card, is the reverse step of csrc/s4_backward.cuh
+// at one chain, which K6' at S = 4 shares: a walk that carries only the
+// cotangents by preorder level, then a pass that sums every branch's dP
+// and d rootw at once, in a fixed order into per-chunk partial sums that
+// the caller sums over the chunks (none up to 2048 patterns); the header
+// says how.
 
 #include <cuda_runtime.h>
-#include <cfloat>
+
+#include "s4_backward.cuh"
+#include "tiles.cuh"
 
 namespace {
-
-template <typename scalar_t> struct Limits;
-template <> struct Limits<float> {
-  __device__ static float tiny() { return FLT_MIN; }
-};
-template <> struct Limits<double> {
-  __device__ static double tiny() { return DBL_MIN; }
-};
-
-__device__ inline float log_(float x) { return logf(x); }
-__device__ inline double log_(double x) { return log(x); }
 
 // Loads the 4 partials of child `ch` in category c at pattern p.
 template <typename scalar_t>
@@ -139,130 +136,6 @@ __global__ void forward_kernel(const scalar_t* __restrict__ tips,
 }
 
 template <typename scalar_t>
-__device__ inline scalar_t warp_sum(scalar_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// smem: [n_warps, maxc * C * 16] per-warp sums of one node's dP rows.
-// dP_part: [gridDim.x, N, C, 16]; drootw_part: [gridDim.x, C * 4].
-// gbuf: [I, C, 4, P] cotangents of the rescaled partials of internal nodes.
-template <typename scalar_t>
-__global__ void backward_kernel(const scalar_t* __restrict__ tips,
-                                const scalar_t* __restrict__ pmats,
-                                const int* __restrict__ children,
-                                const scalar_t* __restrict__ rootw,
-                                const scalar_t* __restrict__ partials,
-                                const scalar_t* __restrict__ scale,
-                                const scalar_t* __restrict__ g,
-                                scalar_t* __restrict__ gbuf,
-                                scalar_t* __restrict__ dP_part,
-                                scalar_t* __restrict__ drootw_part, int T,
-                                int I, int C, int maxc, int P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* smem = reinterpret_cast<scalar_t*>(smem_raw);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past P take part in every shuffle and barrier with zeros
-  const bool valid = p < P;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int N = T + I;
-  const int width = maxc * C * 16;
-
-  // ---- root seed: site in scaled coordinates, as the forward computed it
-  {
-    const int root = I - 1;
-    scalar_t site = 0;
-    for (int c = 0; c < C; ++c)
-      for (int a = 0; a < 4; ++a)
-        site += valid ? __ldg(rootw + c * 4 + a) *
-                            partials[(((size_t)root * C + c) * 4 + a) * P + p]
-                      : scalar_t(0);
-    const scalar_t tiny = Limits<scalar_t>::tiny();
-    site = site > tiny ? site : tiny;
-    const scalar_t inv = valid ? g[p] / site : scalar_t(0);
-    for (int c = 0; c < C; ++c)
-      for (int a = 0; a < 4; ++a) {
-        const size_t idx = (((size_t)root * C + c) * 4 + a) * P + p;
-        scalar_t x = valid ? partials[idx] : scalar_t(0);
-        if (valid) gbuf[idx] = __ldg(rootw + c * 4 + a) * inv;
-        scalar_t s = warp_sum(x * inv);
-        if (lane == 0) smem[warp * C * 4 + c * 4 + a] = s;
-      }
-    __syncthreads();
-    for (int t = threadIdx.x; t < C * 4; t += blockDim.x) {
-      scalar_t s = 0;
-      for (int w = 0; w < n_warps; ++w) s += smem[w * C * 4 + t];
-      drootw_part[(size_t)blockIdx.x * C * 4 + t] = s;
-    }
-    __syncthreads();
-  }
-
-  // ---- reverse postorder
-  for (int k = I - 1; k >= 0; --k) {
-    const scalar_t m = valid ? scale[(size_t)k * P + p] : scalar_t(1);
-    for (int c = 0; c < C; ++c) {
-      // cotangent of the raw (pre-rescale) product; the max is a constant
-      scalar_t graw[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        graw[a] = valid ? gbuf[(((size_t)k * C + c) * 4 + a) * P + p] / m
-                        : scalar_t(0);
-      for (int i = 0; i < maxc; ++i) {
-        const int ch = __ldg(children + k * maxc + i);
-        if (ch < 0) continue;
-        // other_i = graw * prod_{j != i} contrib_j
-        scalar_t other[4] = {graw[0], graw[1], graw[2], graw[3]};
-        for (int j = 0; j < maxc; ++j) {
-          const int cj = __ldg(children + k * maxc + j);
-          if (j == i || cj < 0) continue;
-          scalar_t xj[4] = {0, 0, 0, 0}, cb[4];
-          if (valid) load_child(tips, partials, cj, c, T, C, P, p, xj);
-          apply_p(pmats, cj, c, C, xj, cb);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) other[a] *= cb[a];
-        }
-        scalar_t x[4] = {0, 0, 0, 0};
-        if (valid) load_child(tips, partials, ch, c, T, C, P, p, x);
-        // dP[ch, c, a, b] += other[a] * x[b], reduced over the warp
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            scalar_t s = warp_sum(other[a] * x[b]);
-            if (lane == 0)
-              smem[warp * width + (i * C + c) * 16 + a * 4 + b] = s;
-          }
-        // the child's cotangent: sum_a P[ch, c, a, b] * other[a]
-        if (valid && ch >= T) {
-          const scalar_t* pm = pmats + ((size_t)ch * C + c) * 16;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            scalar_t s = 0;
-#pragma unroll
-            for (int a = 0; a < 4; ++a) s += __ldg(pm + a * 4 + b) * other[a];
-            gbuf[((((size_t)(ch - T)) * C + c) * 4 + b) * P + p] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < width; t += blockDim.x) {
-      const int i = t / (C * 16);
-      const int ch = __ldg(children + k * maxc + i);
-      if (ch < 0) continue;
-      scalar_t s = 0;
-      for (int w = 0; w < n_warps; ++w) s += smem[w * width + t];
-      dP_part[((size_t)blockIdx.x * N + ch) * C * 16 + (t - i * C * 16)] = s;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename scalar_t>
 cudaError_t launch_forward(const void* tips, const void* pmats,
                            const void* children, const void* rootw,
                            void* partials, void* scale, void* site_log, int T,
@@ -299,29 +172,24 @@ cudaError_t launch_forward(const void* tips, const void* pmats,
 
 template <typename scalar_t>
 cudaError_t launch_backward(const void* tips, const void* pmats,
-                            const void* children, const void* rootw,
+                            const void* children, const void* order,
+                            const void* offsets, const void* rootw,
                             const void* partials, const void* scale,
-                            const void* g, void* gbuf, void* dP_part,
-                            void* drootw_part, int T, int I, int C, int maxc,
-                            int P, int threads, cudaStream_t stream) {
-  if (threads % 32 != 0 || C < 1 || C > 8) return cudaErrorInvalidValue;
-  const dim3 grid((P + threads - 1) / threads);
-  const int width = maxc * C * 16 > C * 4 ? maxc * C * 16 : C * 4;
-  const size_t smem = (size_t)(threads / 32) * width * sizeof(scalar_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        backward_kernel<scalar_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  backward_kernel<scalar_t><<<grid, threads, smem, stream>>>(
+                            const void* g, void* gbuf, void* inv,
+                            void* dP_part, void* drootw_part, int n_levels,
+                            int T, int I, int C, int maxc, int P,
+                            int dp_chunk, cudaStream_t stream) {
+  return launch_s4_backward<scalar_t>(
       static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
-      static_cast<const int*>(children), static_cast<const scalar_t*>(rootw),
+      static_cast<const int*>(children), static_cast<const int*>(order),
+      static_cast<const int*>(offsets), n_levels,
+      RootWeights<scalar_t>{static_cast<const scalar_t*>(rootw),
+                            static_cast<scalar_t*>(drootw_part)},
       static_cast<const scalar_t*>(partials),
       static_cast<const scalar_t*>(scale), static_cast<const scalar_t*>(g),
-      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(dP_part),
-      static_cast<scalar_t*>(drootw_part), T, I, C, maxc, P);
-  return cudaGetLastError();
+      static_cast<scalar_t*>(gbuf), static_cast<scalar_t*>(inv),
+      static_cast<scalar_t*>(dP_part), T, I, C, maxc, P, 1, dp_chunk,
+      stream);
 }
 
 }  // namespace
@@ -348,27 +216,23 @@ cudaError_t pruning_forward_f64(const void* tips, const void* pmats,
                                 static_cast<cudaStream_t>(stream));
 }
 
-cudaError_t pruning_backward_f32(const void* tips, const void* pmats,
-                                 const void* children, const void* rootw,
-                                 const void* partials, const void* scale,
-                                 const void* g, void* gbuf, void* dP_part,
-                                 void* drootw_part, int T, int I, int C,
-                                 int maxc, int P, int threads, void* stream) {
-  return launch_backward<float>(tips, pmats, children, rootw, partials, scale,
-                                g, gbuf, dP_part, drootw_part, T, I, C, maxc,
-                                P, threads, static_cast<cudaStream_t>(stream));
-}
+#define PHYSHER_PRUNING_BACKWARD_ENTRY(SUFFIX, TYPE)                          \
+  cudaError_t pruning_backward_##SUFFIX(                                      \
+      const void* tips, const void* pmats, const void* children,              \
+      const void* order, const void* offsets, const void* rootw,              \
+      const void* partials, const void* scale, const void* g, void* gbuf,     \
+      void* inv, void* dP_part, void* drootw_part, int n_levels, int T,       \
+      int I, int C, int maxc, int P, int dp_chunk, void* stream) {            \
+    return launch_backward<TYPE>(tips, pmats, children, order, offsets,       \
+                                 rootw, partials, scale, g, gbuf, inv,        \
+                                 dP_part, drootw_part, n_levels, T, I, C,     \
+                                 maxc, P, dp_chunk,                           \
+                                 static_cast<cudaStream_t>(stream));          \
+  }
 
-cudaError_t pruning_backward_f64(const void* tips, const void* pmats,
-                                 const void* children, const void* rootw,
-                                 const void* partials, const void* scale,
-                                 const void* g, void* gbuf, void* dP_part,
-                                 void* drootw_part, int T, int I, int C,
-                                 int maxc, int P, int threads, void* stream) {
-  return launch_backward<double>(tips, pmats, children, rootw, partials,
-                                 scale, g, gbuf, dP_part, drootw_part, T, I, C,
-                                 maxc, P, threads,
-                                 static_cast<cudaStream_t>(stream));
-}
+PHYSHER_PRUNING_BACKWARD_ENTRY(f32, float)
+PHYSHER_PRUNING_BACKWARD_ENTRY(f64, double)
+
+#undef PHYSHER_PRUNING_BACKWARD_ENTRY
 
 }  // extern "C"

@@ -68,18 +68,18 @@ _ENGINE_FUNCTIONS = {"cuda-fused": fused_tree_log_likelihood,
 # the engines whose functions take a leading chain axis
 _BATCH_ENGINES = ("torch", "cuda-loop")
 # The staged kernels' gate, measured on an NVIDIA H100 (``python3
-# chip_profile.py --gate``, run twice: balanced, caterpillar and random
-# binary trees of 16-512 taxa and the fluA tree, 256-32768 patterns, C = 1
-# and 4). K1'/K2' walk the internal nodes one after the other, at a cost per
-# node that grows with the categories C; K3'/K4' pay about as much per tree
-# level whatever its width. So K3'/K4' win where C x (internal nodes /
-# levels) is large, at every pattern count measured. With K4' redesigned
-# they were faster on all 114 shapes from 8.2 up in both runs, on 17 and
-# 18 of the 24 caterpillars at C = 4 (4.0), on 1 and 6 of the 12 shapes at
-# 3.75-3.88 and on 2 and 0 of the 30 below. A gate at 4 gave the least
-# summed time of both runs (88.2 and 77.8 ms, against 91.8 and 83.1 at 8,
-# the gate of the first K4').
-STAGED_MIN_LEVEL_WORK = 4.0
+# chip_profile.py --gate``: balanced, caterpillar and random binary trees
+# of 16-512 taxa and the fluA tree, 256-32768 patterns, C = 1 and 4).
+# K1'/K2' walk the tree one node (K1') or one preorder level (K2') at a
+# time, at a cost per step that grows with the categories C; K3'/K4' pay
+# about as much per tree level whatever its width. So K3'/K4' win where C x
+# (internal nodes / levels) is large, at every pattern count measured. With
+# K4' redesigned the sweep put the gate at 4 (two runs); with K2' on the
+# S = 4 reverse step of csrc/s4_backward.cuh, K1'/K2' won 18 and 17 of the
+# 24 caterpillars at C = 4 (4.0) in two runs, and a gate at 5 gave the
+# least summed time of both (68.3 and 72.8 ms, against 70.9 and 75.7 at 4;
+# 68.8 and 72.8 at 8).
+STAGED_MIN_LEVEL_WORK = 5.0
 
 
 def select_engine(engine: str, device_type: str, n_states: int,

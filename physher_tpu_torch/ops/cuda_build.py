@@ -9,9 +9,10 @@ their first launch.
 
 :func:`pruning_dims` checks the inputs that the pruning kernel pairs
 (``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``, ``ops/loop.py``)
-share, and
+share,
 :func:`level_schedule` is the tree-level schedule that the staged and wide
-pairs launch by.
+pairs launch by, and :func:`preorder_schedule` the root-first one that the
+S = 4 reverse sweep (``csrc/s4_backward.cuh``, K2' and K6') walks.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ BUILD_DIR = PKG / "_build"
 MAX_CATEGORIES = 8
 # CUDA's bound on gridDim.y and gridDim.z, which carry the nodes of one level
 MAX_LEVEL_NODES = 65535
+# patterns a block of the S = 4 reverse sweep's dP pass sums
+# (csrc/s4_backward.cuh S4_DP_CHUNK, which the launch checks against the
+# value passed): its per-block scratch has ceil(P / S4_DP_CHUNK) rows
+S4_DP_CHUNK = 2048
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,6 +118,21 @@ def level_schedule(topo: Topology, like: torch.Tensor):
     nodes = topo_constant(topo, "level_nodes",
                           lambda: np.concatenate(levels), like, torch.int32)
     return nodes, offsets
+
+
+def preorder_schedule(topo: Topology, like: torch.Tensor):
+    """(order, offsets): the internal ranks by preorder level, root first
+    (``topo.preorder_levels``), and the levels' bounds in ``order``, both
+    int32 tensors on ``like``'s device, where the S = 4 reverse sweep reads
+    them."""
+    levels = topo.preorder_levels
+    order = topo_constant(topo, "preorder_nodes",
+                          lambda: np.concatenate(levels), like, torch.int32)
+    offsets = topo_constant(
+        topo, "preorder_offsets",
+        lambda: np.cumsum([0] + [len(lv) for lv in levels]), like,
+        torch.int32)
+    return order, offsets
 
 
 def offsets_arg(schedule):

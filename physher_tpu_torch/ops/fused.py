@@ -3,11 +3,12 @@
 Port of ``physher_tpu/ops/pallas_fused.py``. The two TPU kernels there,
 ``_fused_fwd_kernel`` (``build_fused_forward``) and ``_fused_bwd_kernel``
 (``build_fused_backward``), become kernel F and kernel B of
-``csrc/pruning.cu``: the same function (the rescaled postorder sweep to
-per-pattern site log-likelihoods, and its reverse sweep to d pmats and
-d (props x freqs)), but not the TPU layout. The source note in
-``csrc/pruning.cu`` says what bounds them on the card and what the design
-does about it.
+``csrc/pruning.cu`` (B on the S = 4 reverse step of
+``csrc/s4_backward.cuh``, which K6' at S = 4 shares): the same function
+(the rescaled postorder sweep to per-pattern site log-likelihoods, and its
+reverse sweep to d pmats and d (props x freqs)), but not the TPU layout.
+The source note in ``csrc/pruning.cu`` says what bounds them on the card
+and what the design does about it.
 
 - :func:`fused_site_log` / :func:`fused_tree_log_likelihood` are the entry
   points (the JAX signatures without ``B``, ``tile`` and ``interpret``). On
@@ -16,7 +17,8 @@ does about it.
 - The kernels are built at first use by ``nvcc`` from the package's own
   sources into ``_build/`` (keyed on a hash of the sources and flags), and
   loaded with ctypes. Nothing is built when the module is imported.
-- ``FORWARD_LAUNCHES`` / ``BACKWARD_LAUNCHES`` count kernel launches.
+- ``FORWARD_LAUNCHES`` / ``BACKWARD_LAUNCHES`` count the wrappers' calls:
+  one CUDA launch for F, two for B (the walk and the dP pass).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from .pruning import rescaled_site_log
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
-# threads per block: one thread per pattern; a multiple of the warp size
+# threads per block of kernel F: one thread per pattern; a multiple of the
+# warp size
 BLOCK = 128
 
 _SOURCE = cuda_build.PKG / "csrc" / "pruning.cu"
@@ -55,7 +58,7 @@ def build() -> ctypes.CDLL:
         fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"pruning_backward_{dt}")
-        bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
         bwd.restype = i32
     _lib = lib
     return lib
@@ -90,34 +93,46 @@ def pruning_forward(tips, pmats, children, rootw):
     return site_log, partials, scale
 
 
-def pruning_backward(tips, pmats, children, rootw, partials, scale, g):
-    """Launch kernel B: returns (d pmats [N, C, 4, 4], d rootw [C * 4])."""
+def pruning_backward(tips, pmats, children, rootw, schedule, partials,
+                     scale, g):
+    """Launch kernel B (the walk and the dP pass of
+    ``csrc/s4_backward.cuh``, one wrapper call) by ``schedule``, the
+    (order, offsets) of ``cuda_build.preorder_schedule``: returns (d pmats
+    [N, C, 4, 4], d rootw [C * 4])."""
     global BACKWARD_LAUNCHES
     T, I, C, maxc, P = _dims(tips, pmats, children, rootw)
     _check("partials", partials, tips.device, tips.dtype, (I, C, 4, P))
     _check("scale", scale, tips.device, tips.dtype, (I, P))
     _check("g", g, tips.device, tips.dtype, (P,))
+    order, offsets = schedule
+    _check("order", order, tips.device, torch.int32, (I,))
+    n_levels = offsets.numel() - 1
     lib = build()
     N = T + I
-    n_blocks = -(-P // BLOCK)
+    nq = -(-P // cuda_build.S4_DP_CHUNK)
     gbuf = tips.new_empty((I, C, 4, P))
-    dP_part = tips.new_empty((n_blocks, N, C, 16))
-    dP_part[:, N - 1].zero_()  # the root is no node's child
-    drootw_part = tips.new_empty((n_blocks, C * 4))
+    inv = tips.new_empty((P,))
+    dP_part = tips.new_empty((nq, N, C, 16))
+    drootw_part = tips.new_empty((nq, C * 4))
     fn = (lib.pruning_backward_f32 if tips.dtype == torch.float32
           else lib.pruning_backward_f64)
     with torch.cuda.device(tips.device):
         err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
-                 g.data_ptr(), gbuf.data_ptr(), dP_part.data_ptr(),
-                 drootw_part.data_ptr(), T, I, C, maxc, P, BLOCK,
-                 _stream(tips))
+                 order.data_ptr(), offsets.data_ptr(), rootw.data_ptr(),
+                 partials.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                 gbuf.data_ptr(), inv.data_ptr(), dP_part.data_ptr(),
+                 drootw_part.data_ptr(), n_levels, T, I, C, maxc, P,
+                 cuda_build.S4_DP_CHUNK, _stream(tips))
     BACKWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"pruning backward kernel launch failed: "
                            f"cudaError {err}")
-    # deterministic second pass over the per-block partial sums
-    return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
+    # deterministic second pass over the per-chunk partial sums
+    if nq > 1:
+        dP_part, drootw_part = dP_part.sum(0), drootw_part.sum(0)
+    else:
+        dP_part, drootw_part = dP_part[0], drootw_part[0]
+    return dP_part.view(N, C, 4, 4), drootw_part
 
 
 class _FusedSiteLog(torch.autograd.Function):
@@ -125,18 +140,20 @@ class _FusedSiteLog(torch.autograd.Function):
     forward's rescaled partials and scalers are kept for it."""
 
     @staticmethod
-    def forward(ctx, tips, pmats, rootw, children):
+    def forward(ctx, tips, pmats, rootw, children, schedule):
         site_log, partials, scale = pruning_forward(tips, pmats, children,
                                                     rootw)
         ctx.save_for_backward(tips, pmats, rootw, children, partials, scale)
+        ctx.schedule = schedule
         return site_log
 
     @staticmethod
     def backward(ctx, g):
         tips, pmats, rootw, children, partials, scale = ctx.saved_tensors
-        dP, drootw = pruning_backward(tips, pmats, children, rootw, partials,
-                                      scale, g.contiguous())
-        return None, dP, drootw, None
+        dP, drootw = pruning_backward(tips, pmats, children, rootw,
+                                      ctx.schedule, partials, scale,
+                                      g.contiguous())
+        return None, dP, drootw, None, None
 
 
 # the plain PyTorch version of the kernels' function (ops/pruning.py)
@@ -157,7 +174,9 @@ def fused_site_log(tip_partials, pmats, topo: Topology, freqs, props):
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
     return _FusedSiteLog.apply(tip_partials.detach().contiguous(),
                                pmats.contiguous(), rootw.contiguous(),
-                               children)
+                               children,
+                               cuda_build.preorder_schedule(topo,
+                                                            tip_partials))
 
 
 def fused_tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs,

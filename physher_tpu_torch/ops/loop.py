@@ -7,8 +7,9 @@ there, ``_kernel`` (``build_loop_forward``) and ``_backward_kernel``
 the flat postorder over nodes with any number of children, optional
 rescaling, the root ``props . (freqs @ root)``, and a backward that gives
 d pmats, d freqs and d props, for any state count S from 2 to 64: S = 4
-takes the register kernels ``loop_forward_kernel`` /
-``loop_backward_kernel``, every other S the shared-memory ones
+takes the register kernel ``loop_forward_kernel`` and the reverse step of
+``csrc/s4_backward.cuh`` (shared with K2'; two CUDA launches, the walk and
+the dP pass), every other S the shared-memory ones
 ``loop_wide_forward_kernel`` / ``loop_wide_backward_kernel`` (their node
 steps ``csrc/wide_forward.cuh`` / ``csrc/wide_backward.cuh``, shared with
 K7'/K8'; the forward launched as thread-block clusters of its C category
@@ -27,7 +28,7 @@ card and what the design does about it.
   array engine of ``ops/pruning.py``).
 - :func:`loop_forward` / :func:`loop_backward` are the launch wrappers;
   ``LOOP_FORWARD_LAUNCHES`` / ``LOOP_BACKWARD_LAUNCHES`` count their calls
-  (one CUDA launch each, whatever L and S).
+  (one CUDA launch each whatever L, but two for K6' at S = 4).
 - The kernels are built at first use by ``nvcc`` (``ops/cuda_build.py``).
 """
 
@@ -49,9 +50,9 @@ LOOP_BACKWARD_LAUNCHES = 0
 # children per node (polytomies): the backward's per-warp reduction is
 # [maxc, C, 16] scalars, 16 KB in float64 at C = 8
 MAX_CHILDREN = 16
-# patterns per block, one warp: at MCMC sizes (the fluA tree, 238 patterns)
-# the grid is L x 8 blocks, 128 of the H100's 132 SMs at L = 16, where
-# 128-pattern blocks would fill 32 (csrc/loop.cu)
+# patterns per block of K5' at S = 4, one warp: at MCMC sizes (the fluA
+# tree, 238 patterns) the grid is L x 8 blocks, 128 of the H100's 132 SMs at
+# L = 16, where 128-pattern blocks would fill 32 (csrc/loop.cu)
 BLOCK = 32
 # patterns per block of the backward at S != 4 (4 tiles of 32; the grid is
 # (blocks, C, L)): the per-block dP scratch [L, ceil(P / 128), N, C, S, S]
@@ -88,7 +89,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"loop_backward_{dt}")
-        bwd.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
+        bwd.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
         bwd.restype = i32
         wfwd = getattr(lib, f"loop_wide_forward_{dt}")
         wfwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
@@ -157,46 +158,60 @@ def wide_forward_clusters(dtype, S: int, C: int) -> int:
                                         dtype, S, C)
 
 
-def loop_backward(tips, pmats, children, freqs, props, partials, scale, g):
-    """Launch K6': returns (d pmats [L, N, C, S, S], d freqs [L, S],
-    d props [L, C])."""
+def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
+                  scale, g):
+    """Launch K6' (at S = 4 by ``schedule``, the (order, offsets) of
+    ``cuda_build.preorder_schedule``, which S != 4 does not read): returns
+    (d pmats [L, N, C, S, S], d freqs [L, S], d props [L, C])."""
     global LOOP_BACKWARD_LAUNCHES
     L, T, I, C, S, maxc, P = _dims(tips, pmats, children, freqs, props)
     check("partials", partials, tips.device, tips.dtype, (L, I, C, S, P))
     check("scale", scale, tips.device, tips.dtype, (L, I, P))
     check("g", g, tips.device, tips.dtype, (L, P))
+    order, offsets = schedule
+    check("order", order, tips.device, torch.int32, (I,))
     lib = build()
     N = T + I
-    n_blocks = -(-P // (BLOCK if S == 4 else WIDE_BACKWARD_BLOCK))
+    n_blocks = -(-P // (cuda_build.S4_DP_CHUNK if S == 4
+                        else WIDE_BACKWARD_BLOCK))
     gbuf = tips.new_empty((L, I, C, S, P))
     dP_part = tips.new_empty((L, n_blocks, N, C, S * S))
-    dP_part[:, :, N - 1].zero_()  # the root is no node's child
-    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-            freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
-            scale.data_ptr(), g.data_ptr(), gbuf.data_ptr(),
-            dP_part.data_ptr())
+    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr())
+    rest = (partials.data_ptr(), scale.data_ptr(), g.data_ptr(),
+            gbuf.data_ptr())
     with torch.cuda.device(tips.device):
         if S == 4:
+            # the walk and the dP pass (csrc/s4_backward.cuh), which writes
+            # the root's zero rows and d freqs, d props itself
+            inv = tips.new_empty((L, P))
             dfreqs_part = tips.new_empty((L, n_blocks, 4))
             dprops_part = tips.new_empty((L, n_blocks, C))
             err = _entry(lib, "loop_backward", tips)(
-                *ptrs, dfreqs_part.data_ptr(), dprops_part.data_ptr(), T, I,
-                C, maxc, P, L, BLOCK, stream(tips))
+                *ptrs, order.data_ptr(), offsets.data_ptr(),
+                freqs.data_ptr(), props.data_ptr(), *rest, inv.data_ptr(),
+                dP_part.data_ptr(), dfreqs_part.data_ptr(),
+                dprops_part.data_ptr(), offsets.numel() - 1, T, I, C,
+                maxc, P, L, cuda_build.S4_DP_CHUNK, stream(tips))
         else:
+            dP_part[:, :, N - 1].zero_()  # the root is no node's child
             drootw_part = tips.new_empty((L, n_blocks, C, S))
             err = _entry(lib, "loop_wide_backward", tips)(
-                *ptrs, drootw_part.data_ptr(), T, I, C, S, maxc, P, L,
-                stream(tips))
+                *ptrs, freqs.data_ptr(), props.data_ptr(), *rest,
+                dP_part.data_ptr(), drootw_part.data_ptr(), T, I, C, S, maxc,
+                P, L, stream(tips))
     LOOP_BACKWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"loop backward kernel launch failed: "
                            f"cudaError {err}")
-    # deterministic second pass over the per-block partial sums
-    dP = dP_part.sum(1).view(L, N, C, S, S)
+
+    def blocks_summed(part):
+        # deterministic second pass over the per-block partial sums
+        return part.sum(1) if n_blocks > 1 else part[:, 0]
+    dP = blocks_summed(dP_part).view(L, N, C, S, S)
     if S == 4:
-        return dP, dfreqs_part.sum(1), dprops_part.sum(1)
+        return dP, blocks_summed(dfreqs_part), blocks_summed(dprops_part)
     # d rootw -> d freqs, d props through rootw = props (x) freqs
-    drootw = drootw_part.sum(1)
+    drootw = blocks_summed(drootw_part)
     return (dP, (props[:, :, None] * drootw).sum(1),
             (freqs[:, None, :] * drootw).sum(2))
 
@@ -206,11 +221,12 @@ class _LoopSiteLog(torch.autograd.Function):
     K6', which reads the forward's partials and scalers."""
 
     @staticmethod
-    def forward(ctx, tips, pmats, freqs, props, children, rescale):
+    def forward(ctx, tips, pmats, freqs, props, children, schedule, rescale):
         site_log, partials, scale = loop_forward(tips, pmats, children, freqs,
                                                  props, rescale)
         ctx.save_for_backward(tips, pmats, freqs, props, children, partials,
                               scale)
+        ctx.schedule = schedule
         return site_log
 
     @staticmethod
@@ -218,9 +234,9 @@ class _LoopSiteLog(torch.autograd.Function):
         tips, pmats, freqs, props, children, partials, scale = \
             ctx.saved_tensors
         dP, dfreqs, dprops = loop_backward(tips, pmats, children, freqs,
-                                           props, partials, scale,
-                                           g.contiguous())
-        return None, dP, dfreqs, dprops, None, None
+                                           props, ctx.schedule, partials,
+                                           scale, g.contiguous())
+        return None, dP, dfreqs, dprops, None, None, None
 
 
 # the plain PyTorch version of K5'/K6''s function (ops/pruning.py)
@@ -244,7 +260,9 @@ def loop_site_log(topo: Topology, rescale: bool, tip_partials, pmats, freqs,
         pmats, freqs, props = pmats[None], freqs[None], props[None]
     site = _LoopSiteLog.apply(tip_partials.detach().contiguous(),
                               pmats.contiguous(), freqs.contiguous(),
-                              props.contiguous(), children, bool(rescale))
+                              props.contiguous(), children,
+                              cuda_build.preorder_schedule(topo, tip_partials),
+                              bool(rescale))
     return site if batched else site[0]
 
 

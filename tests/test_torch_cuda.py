@@ -2,7 +2,9 @@
 ops/staged.py, K5'/K6' of ops/loop.py at S = 4 and at S from 2 to 64,
 K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card;
 the forward of K5' at S != 4 and K7' (thread-block clusters of the C
-category blocks) also at every cluster size, bit for bit run to run.
+category blocks) also at every cluster size, bit for bit run to run; K6'
+at S = 4 and K2' (their shared reverse step, csrc/s4_backward.cuh) also on
+large trees and bit for bit run to run.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from physher_tpu_torch.ops import cuda_build, fused, loop, staged, wide
+from physher_tpu_torch.ops.pruning import pruning_root_levels
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology)
@@ -321,10 +324,113 @@ def test_loop_wide_backward_is_deterministic(device):
     children = torch.as_tensor(topo.children, dtype=torch.int32,
                                device=device)
     _, partials, scale = loop.loop_forward(tips, pm, children, freqs, props)
-    runs = [loop.loop_backward(tips, pm, children, freqs, props, partials,
-                               scale, g) for _ in range(2)]
+    schedule = cuda_build.preorder_schedule(topo, tips)
+    runs = [loop.loop_backward(tips, pm, children, freqs, props, schedule,
+                               partials, scale, g) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _s4_backward_runs(topo, P, C, L, dtype, device, runs=1):
+    """K6' at S = 4 (L chains) and K2' (chain 0) on the same inputs after
+    their forwards, each ``runs`` times: ([K6' outputs], [K2' outputs]),
+    the plain version's gradients for both, and the launch counts."""
+    tips, pm, freqs, props, g = _chains(topo, P, C, L, dtype, device)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
+    pm0, g0 = pm[0].contiguous(), g[0].contiguous()
+    _, part, sc = loop.loop_forward(tips, pm, children, freqs, props)
+    _, part0, sc0 = fused.pruning_forward(tips, pm0, children, rootw)
+    schedule = cuda_build.preorder_schedule(topo, tips)
+    n6, n2 = loop.LOOP_BACKWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
+    k6 = [loop.loop_backward(tips, pm, children, freqs, props, schedule,
+                             part, sc, g) for _ in range(runs)]
+    k2 = [fused.pruning_backward(tips, pm0, children, rootw, schedule, part0,
+                                 sc0, g0) for _ in range(runs)]
+    torch.cuda.synchronize()
+    launches = (loop.LOOP_BACKWARD_LAUNCHES - n6,
+                fused.BACKWARD_LAUNCHES - n2)
+    leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
+    site = loop.loop_site_log_reference(tips, leaves[0], topo, leaves[1],
+                                        leaves[2])
+    plain6 = torch.autograd.grad(torch.sum(g * site), leaves)
+    leaves0 = [x.clone().requires_grad_(True) for x in (pm0, rootw)]
+    root, scal = pruning_root_levels(tips, leaves0[0], topo, rescale=True)
+    site0 = torch.log(torch.einsum("cs,csp->p", leaves0[1].view(-1, 4),
+                                   root)) + scal
+    plain2 = torch.autograd.grad(torch.sum(g0 * site0), leaves0)
+    return k6, k2, plain6, plain2, launches
+
+
+def _merged_tree(n_tips, max_children, seed):
+    """A random tree: groups of 2 to ``max_children`` lineages, picked at
+    random, merge until one is left."""
+    rng = np.random.default_rng(seed)
+    nodes = [{"name": f"t{i}", "length": 0.1, "children": []}
+             for i in range(n_tips)]
+    while len(nodes) > 1:
+        k = min(len(nodes), int(rng.integers(2, max_children + 1)))
+        picked = sorted(rng.choice(len(nodes), k, replace=False),
+                        reverse=True)
+        merged = {"name": None, "length": 0.1,
+                  "children": [nodes.pop(i) for i in picked]}
+        nodes.append(merged)
+    return Topology.from_nested(nodes[0])[0]
+
+
+@pytest.mark.parametrize("tree,P,C,dtype,from_device", [
+    ("caterpillar-128", 16384, 1, torch.float32, ""),
+    ("caterpillar-128", 16384, 1, torch.float64, ""),
+    ("caterpillar-128", 16384, 2, torch.float32, ""),
+    ("caterpillar-128", 16384, 2, torch.float64, ""),
+    ("balanced-1024", 300, 3, torch.float64, "P"),
+    ("balanced-1024", 300, 3, torch.float32, "P"),
+    ("binary-4200", 300, 3, torch.float32, "P, tables"),
+    ("binary-4200", 300, 3, torch.float64, "P, tables"),
+    ("polytomies-6000", 300, 3, torch.float32, "P, tables")])
+def test_s4_backward_large_trees(device, tree, P, C, dtype, from_device):
+    """K6' at S = 4 (2 chains) and K2' against the plain version, one launch
+    count a wrapper call, on large trees: a 128-taxon caterpillar with
+    16 384 patterns (127 preorder levels of one node, eight dP chunks), and
+    trees whose walk reads from device memory what it keeps in shared
+    memory on smaller ones (``from_device``, csrc/s4_backward.cuh): one
+    chain's P matrices past 96 KB (1536 nodes in float32, 768 in float64;
+    row stride C x 16), the index tables past 48 KB (levels + 1 +
+    I (1 + maxc) ints: about 4100 internal nodes of a binary tree, 2460
+    with up to 4 children)."""
+    topo = {"caterpillar-128": lambda: caterpillar_topology(128),
+            "balanced-1024": lambda: balanced_topology(1024),
+            "binary-4200": lambda: _merged_tree(4200, 2, 5),
+            "polytomies-6000": lambda: _merged_tree(6000, 4, 6)}[tree]()
+    maxc = topo.children.shape[1]
+    tables = (len(topo.preorder_levels) + 1 + topo.I * (1 + maxc)) * 4
+    assert (topo.N * 16 * dtype.itemsize > 96 * 1024,
+            tables > 48 * 1024) == ("P" in from_device,
+                                    "tables" in from_device)
+    k6, k2, plain6, plain2, launches = _s4_backward_runs(topo, P, C, 2,
+                                                         dtype, device)
+    assert launches == (1, 1)
+    grtol = _tolerances(dtype)[2]
+    for got, want in ((k6[0], plain6), (k2[0], plain2)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=grtol,
+                                       atol=grtol * float(b.abs().max()))
+
+
+def test_s4_backward_is_deterministic(device):
+    """K6' at S = 4 and K2' sum in fixed orders with no atomics: two
+    launches on the same inputs give bit-identical d pmats and d freqs,
+    d props or d rootw (one dP chunk at 1000 patterns, three at 5000;
+    binary and polytomy trees)."""
+    for topo, P, C, L in ((balanced_topology(64), 1000, 4, 4),
+                          (caterpillar_topology(32), 5000, 2, 3),
+                          (_polytomy(), 4100, 3, 2)):
+        k6, k2, *_ = _s4_backward_runs(topo, P, C, L, torch.float32, device,
+                                       runs=2)
+        for runs in (k6, k2):
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
 
 
 def test_wide_backward_is_deterministic(device):

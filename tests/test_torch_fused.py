@@ -21,7 +21,7 @@ from physher_tpu.ops.pallas_fused import (
 from physher_tpu.ops.pruning import tree_log_likelihood as j_tree_log_likelihood
 from physher_tpu.trees.topology import Topology as JTopology
 from physher_tpu.utils.synthetic import balanced_topology as j_balanced
-from physher_tpu_torch.ops import fused
+from physher_tpu_torch.ops import cuda_build, fused
 from physher_tpu_torch.ops.pruning import pad_patterns, pruning_root_levels
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
@@ -162,19 +162,24 @@ def test_cuda_engine_on_cpu_raises(data_dir):
 
 # -- the CUDA kernels' schedule, emulated on the CPU --------------------------
 #
-# csrc/pruning.cu cannot run here. These two functions follow its loops
-# (one "thread" per pattern, vectorized over patterns; postorder ranks, child
-# slots with -1 for a missing child, per-node rescaling by the max; the
-# reverse sweep with g_raw = gbuf / m, other_i = g_raw * prod_{j != i}
-# contrib_j, and per-block sums of dP over BLOCK patterns), so the CPU tests
-# hold the kernels' algorithm against the plain version. The card holds the
-# kernels themselves against the plain version (tests/test_torch_cuda.py,
-# chip_smoke.py).
+# csrc/pruning.cu cannot run here. These functions follow its schedules, so
+# the CPU tests hold the kernels' algorithm against the plain version. The
+# forward: one "thread" per pattern, vectorized over patterns; postorder
+# ranks, child slots with -1 for a missing child, per-node rescaling by the
+# max. The backward is the two launches of csrc/s4_backward.cuh (shared
+# with K6' at S = 4) at one chain: the walk carries only the cotangents
+# gbuf, by preorder level, root first (cuda_build.preorder_schedule): the
+# root's seed rootw g / site, then at each node g_raw = gbuf / m and each
+# internal child's P_i^T (g_raw * prod_{j != i} P_j x_j); the dP pass then
+# takes every parent at once and sums other_i (x) x_i, and at the root
+# x_root g / site, over chunks of cuda_build.S4_DP_CHUNK patterns, which
+# the caller sums. The card holds the kernels themselves against the plain
+# version (tests/test_torch_cuda.py, chip_smoke.py).
 
 
 def _apply_p(pm, x):
-    """out[a] = sum_b pm[a, b] * x[b] over patterns."""
-    return sum(pm[:, b:b + 1] * x[b:b + 1] for b in range(4))
+    """out[..., a, p] = sum_b pm[..., a, b] * x[..., b, p]."""
+    return sum(pm[..., b:b + 1] * x[..., b:b + 1, :] for b in range(4))
 
 
 def _child(tips, partials, ch, c, T):
@@ -206,44 +211,65 @@ def _emulate_forward(tips, pmats, children, rootw):
     return torch.log(site) + log_sum, partials, scale
 
 
-def _block_sums(v):
-    """[..., P] -> per-block sums [n_blocks, ...] over BLOCK patterns."""
-    P = v.shape[-1]
-    nb = -(-P // fused.BLOCK)
-    v = torch.nn.functional.pad(v, (0, nb * fused.BLOCK - P))
-    return v.reshape(*v.shape[:-1], nb, fused.BLOCK).sum(-1).movedim(-1, 0)
+def _chunk_sums(v):
+    """[..., P] -> per-chunk sums [n_chunks, ...] over S4_DP_CHUNK
+    patterns."""
+    P, chunk = v.shape[-1], cuda_build.S4_DP_CHUNK
+    nq = -(-P // chunk)
+    v = torch.nn.functional.pad(v, (0, nq * chunk - P))
+    return v.reshape(*v.shape[:-1], nq, chunk).sum(-1).movedim(-1, 0)
 
 
-def _emulate_backward(tips, pmats, children, rootw, partials, scale, g):
+def _emulate_backward(tips, pmats, children, rootw, schedule, partials,
+                      scale, g):
     T, _, P = tips.shape
     N, C = pmats.shape[:2]
-    I, maxc = children.shape
+    I = children.shape[0]
     tiny = torch.finfo(tips.dtype).tiny
-    gbuf = tips.new_empty((I, C, 4, P))
+    w = rootw.view(C, 4, 1)
     root = partials[I - 1]
-    inv = g / torch.clamp((rootw.view(C, 4, 1) * root).sum((0, 1)), min=tiny)
-    gbuf[I - 1] = rootw.view(C, 4, 1) * inv
-    drootw_part = _block_sums((root * inv).reshape(C * 4, P))
-    dP_part = tips.new_full((drootw_part.shape[0], N, C, 16), float("nan"))
-    dP_part[:, N - 1] = 0.0
-    for k in range(I - 1, -1, -1):
-        for c in range(C):
-            g_raw = gbuf[k, c] / scale[k]
-            for i in range(maxc):
-                ch = int(children[k, i])
-                if ch < 0:
-                    continue
-                other = g_raw
-                for j in range(maxc):
-                    cj = int(children[k, j])
-                    if j != i and cj >= 0:
-                        other = other * _apply_p(
-                            pmats[cj, c], _child(tips, partials, cj, c, T))
-                x = _child(tips, partials, ch, c, T)
-                dP_part[:, ch, c] = _block_sums(
-                    (other[:, None] * x[None, :]).reshape(16, P))
+    inv = g / torch.clamp((w * root).sum((0, 1)), min=tiny)
+    order, offsets = schedule
+    n_levels = len(offsets) - 1
+
+    def node(k):
+        """(child ids, x_j [C, 4, P], other_i = g_raw * prod_{j != i}
+        P_j x_j) of node k, missing children left out."""
+        kids = [int(ch) for ch in children[k] if ch >= 0]
+        xs = [tips[ch].expand(C, -1, -1) if ch < T else partials[ch - T]
+              for ch in kids]
+        ys = [_apply_p(pmats[ch], x) for ch, x in zip(kids, xs)]
+        g_raw = gbuf[k] / scale[k]
+        others = []
+        for i in range(len(kids)):
+            other = g_raw
+            for j, y in enumerate(ys):
+                if j != i:
+                    other = other * y
+            others.append(other)
+        return kids, xs, others
+
+    # the walk: the cotangents by preorder level, root first
+    gbuf = tips.new_full((I, C, 4, P), float("nan"))
+    gbuf[I - 1] = w * inv
+    for d in range(n_levels):
+        for k in order[offsets[d]:offsets[d + 1]].tolist():
+            kids, _, others = node(k)
+            for ch, other in zip(kids, others):
                 if ch >= T:
-                    gbuf[ch - T, c] = _apply_p(pmats[ch, c].T, other)
+                    gbuf[ch - T] = _apply_p(pmats[ch].transpose(-1, -2),
+                                            other)
+    assert torch.isfinite(gbuf).all(), "a node's cotangent was never written"
+
+    # the dP pass: every parent at once, summed over the chunks
+    nq = -(-P // cuda_build.S4_DP_CHUNK)
+    dP_part = tips.new_full((nq, N, C, 16), float("nan"))
+    for k in range(I):
+        for ch, x, other in zip(*node(k)):
+            dP_part[:, ch] = _chunk_sums(
+                (other[:, :, None] * x[:, None]).reshape(C, 16, P))
+    dP_part[:, N - 1] = 0.0  # the root is no node's child
+    drootw_part = _chunk_sums((root * inv).reshape(C * 4, P))
     assert torch.isfinite(dP_part).all(), "a dP row was never written"
     return dP_part.sum(0).view(N, C, 4, 4), drootw_part.sum(0)
 
@@ -259,19 +285,16 @@ def _polytomy():
     return Topology.from_nested(nested)[0]
 
 
-@pytest.mark.parametrize("shape,C", [
-    ("balanced", 4), ("caterpillar", 3), ("polytomy", 2)])
-def test_kernel_schedule_matches_plain(shape, C):
+def _schedule_against_plain(topo, C, n_sites=300):
     """float64: the kernels' emulated schedule against the plain version
-    (value, d pmats, d rootw) to rounding; 300 patterns padded to 512 span
-    four blocks."""
-    topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
+    (value, d pmats, d rootw) to rounding."""
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
-                                 _setup(topo, C, n_sites=300, seed=2))
+                                 _setup(topo, C, n_sites=n_sites, seed=2))
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
     children = torch.as_tensor(topo.children)
     site, partials, scale = _emulate_forward(tips, pm, children, rootw.detach())
     dP, drootw = _emulate_backward(tips, pm, children, rootw.detach(),
+                                   cuda_build.preorder_schedule(topo, tips),
                                    partials, scale, w)
 
     pm_ = pm.clone().requires_grad_(True)
@@ -282,3 +305,21 @@ def test_kernel_schedule_matches_plain(shape, C):
     torch.testing.assert_close(dP, ref_dP, rtol=1e-12,
                                atol=1e-12 * float(ref_dP.abs().max()))
     torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape,C", [
+    ("balanced", 4), ("caterpillar", 3), ("polytomy", 2), ("balanced", 1),
+    ("polytomy", 4), ("caterpillar", 1)])
+def test_kernel_schedule_matches_plain(shape, C):
+    """float64: the kernels' emulated schedule against the plain version
+    (value, d pmats, d rootw) to rounding; 300 patterns padded to 512 span
+    four forward blocks and one dP chunk."""
+    _schedule_against_plain(
+        _polytomy() if shape == "polytomy" else _topologies(shape)[0], C)
+
+
+@pytest.mark.parametrize("C", [1, 4])
+def test_kernel_schedule_chunks_match_plain(C):
+    """The same on a caterpillar at 5000 sites (patterns padded to a
+    multiple of 256): three dP chunks and one node a preorder level."""
+    _schedule_against_plain(_topologies("caterpillar")[0], C, n_sites=5000)

@@ -50,7 +50,7 @@ from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import F81, GTR, HKY, JC69, K80
 from physher_tpu_torch.models.treelikelihood import (
     TreeLikelihood, select_engine)
-from physher_tpu_torch.ops import loop
+from physher_tpu_torch.ops import cuda_build, loop
 from physher_tpu_torch.ops.pruning import (
     pad_patterns, pruning_root_levels, tree_log_likelihood)
 from physher_tpu_torch.trees.build import nj
@@ -271,20 +271,26 @@ def test_cpu_runs_plain_version_without_launch():
 
 # -- the kernels' schedule, emulated on the CPU --------------------------------
 #
-# csrc/loop.cu cannot run here. These two functions follow its loops: one
-# "thread" per (pattern, chain), vectorized over both; postorder ranks, child
-# slots with -1 for a missing child (contributing 1), the per-node max over
-# (C, 4) divided out only with rescale (scale 1 without); the root
-# props . (freqs @ root) clamped at tiny; the reverse sweep with g_raw =
-# gbuf / m, other_i = g_raw * prod_{j != i} contrib_j, and per-(chain, block)
-# sums of dP, d freqs and d props over loop.BLOCK patterns. The card holds
-# the kernels themselves against the plain version (tests/test_torch_cuda.py,
-# chip_smoke.py).
+# csrc/loop.cu cannot run here. These functions follow its schedules. The
+# forward: one "thread" per (pattern, chain), vectorized over both;
+# postorder ranks, child slots with -1 for a missing child (contributing 1),
+# the per-node max over (C, 4) divided out only with rescale (scale 1
+# without); the root props . (freqs @ root) clamped at tiny. The backward
+# is the two launches of csrc/s4_backward.cuh (shared with K2'): the walk
+# carries only the cotangents gbuf, by preorder level, root first
+# (cuda_build.preorder_schedule): the root's seed rootw g / site, then at
+# each node g_raw = gbuf / m and each internal child's P_i^T (g_raw *
+# prod_{j != i} P_j x_j); the dP pass then takes every parent at once and
+# sums other_i (x) x_i, and at the root x_root g / site (d rootw, which it
+# turns into d freqs and d props), over chunks of cuda_build.S4_DP_CHUNK
+# patterns, which the caller sums. The card holds
+# the kernels themselves against the plain version
+# (tests/test_torch_cuda.py, chip_smoke.py).
 
 
 def _apply_p(pm, x):
-    """out[l, a, p] = sum_b pm[l, a, b] * x[l, b, p]."""
-    return sum(pm[:, :, b:b + 1] * x[:, b:b + 1] for b in range(4))
+    """out[..., a, p] = sum_b pm[..., a, b] * x[..., b, p]."""
+    return sum(pm[..., b:b + 1] * x[..., b:b + 1, :] for b in range(4))
 
 
 def _child(tips, partials, ch, c, T):
@@ -321,7 +327,7 @@ def _emulate_forward(tips, pmats, children, freqs, props, rescale):
     return torch.log(site) + log_sum, partials, scale
 
 
-def _block_sums(v, block=loop.BLOCK):
+def _block_sums(v, block):
     """[..., P] -> per-block sums [..., n_blocks] over ``block`` patterns."""
     P = v.shape[-1]
     nb = -(-P // block)
@@ -329,65 +335,97 @@ def _block_sums(v, block=loop.BLOCK):
     return v.reshape(*v.shape[:-1], nb, block).sum(-1)
 
 
-def _emulate_backward(tips, pmats, children, freqs, props, partials, scale,
-                      g):
+def _children_of(tips, partials, children, k, T):
+    """(child ids, their partials x_j [L, C, 4, P]) of node k, missing
+    children left out."""
+    L, _, C = partials.shape[:3]
+    kids = [int(ch) for ch in children[k] if ch >= 0]
+    xs = [tips[ch].expand(L, C, -1, -1) if ch < T else partials[:, ch - T]
+          for ch in kids]
+    return kids, xs
+
+
+def _emulate_backward(tips, pmats, children, freqs, props, schedule,
+                      partials, scale, g):
     T, _, P = tips.shape
     L, N, C = pmats.shape[:3]
-    I, maxc = children.shape
+    I = children.shape[0]
     tiny = torch.finfo(tips.dtype).tiny
-    gbuf = tips.new_empty((L, I, C, 4, P))
+    rootw = props[:, :, None, None] * freqs[:, None, :, None]  # [L, C, 4, 1]
     root = partials[:, I - 1]                                # [L, C, 4, P]
-    per_cat = (freqs[:, None, :, None] * root).sum(2)        # [L, C, P]
-    inv = g / torch.clamp((props[:, :, None] * per_cat).sum(1), min=tiny)
-    gbuf[:, I - 1] = (props[:, :, None, None] * freqs[:, None, :, None]
-                      * inv[:, None, None])
-    dfreqs_part = _block_sums(
-        (props[:, :, None, None] * root * inv[:, None, None]).sum(1))
-    dprops_part = _block_sums(per_cat * inv[:, None])
-    nb = dfreqs_part.shape[-1]
-    dP_part = tips.new_full((L, nb, N, C, 16), float("nan"))
-    dP_part[:, :, N - 1] = 0.0
-    for k in range(I - 1, -1, -1):
-        for c in range(C):
-            g_raw = gbuf[:, k, c] / scale[:, k, None]
-            for i in range(maxc):
-                ch = int(children[k, i])
-                if ch < 0:
-                    continue
-                other = g_raw
-                for j in range(maxc):
-                    cj = int(children[k, j])
-                    if j != i and cj >= 0:
-                        other = other * _apply_p(
-                            pmats[:, cj, c], _child(tips, partials, cj, c, T))
-                x = _child(tips, partials, ch, c, T)
-                dP_part[:, :, ch, c] = _block_sums(
-                    (other[:, :, None] * x[:, None]).reshape(L, 16, P)
-                ).movedim(-1, 1)
+    inv = g / torch.clamp((rootw * root).sum((1, 2)), min=tiny)
+    order, offsets = schedule
+    n_levels = len(offsets) - 1
+
+    def others(k, kids, xs):
+        """other_i = g_raw * prod_{j != i} P_j x_j for each child i."""
+        g_raw = gbuf[:, k] / scale[:, k, None, None]
+        ys = [_apply_p(pmats[:, ch], x) for ch, x in zip(kids, xs)]
+        out = []
+        for i in range(len(kids)):
+            other = g_raw
+            for j, y in enumerate(ys):
+                if j != i:
+                    other = other * y
+            out.append(other)
+        return out
+
+    # the walk: the cotangents by preorder level, root first
+    gbuf = tips.new_full((L, I, C, 4, P), float("nan"))
+    gbuf[:, I - 1] = rootw * inv[:, None, None]
+    for d in range(n_levels):
+        for k in order[offsets[d]:offsets[d + 1]].tolist():
+            kids, xs = _children_of(tips, partials, children, k, T)
+            for ch, other in zip(kids, others(k, kids, xs)):
                 if ch >= T:
-                    gbuf[:, ch - T, c] = _apply_p(
-                        pmats[:, ch, c].transpose(-1, -2), other)
+                    gbuf[:, ch - T] = _apply_p(
+                        pmats[:, ch].transpose(-1, -2), other)
+    assert torch.isfinite(gbuf).all(), "a node's cotangent was never written"
+
+    # the dP pass: every parent at once, summed over the chunks
+    chunk = cuda_build.S4_DP_CHUNK
+    nq = -(-P // chunk)
+    dP_part = tips.new_full((L, nq, N, C, 16), float("nan"))
+    for k in range(I):
+        kids, xs = _children_of(tips, partials, children, k, T)
+        for ch, x, other in zip(kids, xs, others(k, kids, xs)):
+            dP_part[:, :, ch] = _block_sums(
+                (other[:, :, :, None] * x[:, :, None]).reshape(L, C, 16, P),
+                chunk).movedim(-1, 1)
+    dP_part[:, :, N - 1] = 0.0  # the root is no node's child
+    # one block a chunk: d rootw over every category, then d freqs and
+    # d props through rootw = props (x) freqs
+    drootw_part = _block_sums(root * inv[:, None, None], chunk).movedim(-1, 1)
+    dfreqs_part = (props[:, None, :, None] * drootw_part).sum(2)
+    dprops_part = (freqs[:, None, None, :] * drootw_part).sum(3)
     assert torch.isfinite(dP_part).all(), "a dP row was never written"
-    return (dP_part.sum(1).view(L, N, C, 4, 4), dfreqs_part.sum(-1),
-            dprops_part.sum(-1))
+    return (dP_part.sum(1).view(L, N, C, 4, 4), dfreqs_part.sum(1),
+            dprops_part.sum(1))
 
 
-@pytest.mark.parametrize("shape,C,L,rescale", [
-    ("balanced", 4, 3, True), ("caterpillar", 3, 2, False),
-    ("polytomy", 2, 4, True), ("polytomy", 1, 1, False)])
-def test_kernel_schedule_matches_plain(shape, C, L, rescale):
+def _schedule_against_plain(topo, C, L, rescale, n_sites=300):
     """float64: the emulated K5'/K6' schedule against the plain version
-    (site logs, d pmats, d freqs, d props) to rounding; about 290 patterns
-    span ten 32-pattern blocks with a ragged last one."""
-    topo = _topologies(shape)[0]
+    (site logs, d pmats, d freqs, d props) to rounding, and the walk's
+    preorder schedule: every internal rank once, each a level below its
+    parent."""
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
-                                 _batch(topo, L, C, seed=2))
+                                 _batch(topo, L, C, n_sites=n_sites, seed=2))
     children = torch.as_tensor(topo.children)
+    schedule = cuda_build.preorder_schedule(topo, tips)
+    order, offsets = (x.tolist() for x in schedule)
+    assert sorted(order) == list(range(topo.I))
+    level = np.empty(topo.I, dtype=int)
+    for d in range(len(offsets) - 1):
+        level[order[offsets[d]:offsets[d + 1]]] = d
+    assert level[topo.I - 1] == 0
+    for k, kids in enumerate(topo.children):
+        for ch in kids[kids >= topo.T]:
+            assert level[ch - topo.T] == level[k] + 1
     g = w.expand(L, -1) * torch.linspace(0.5, 1.5, L, **F64)[:, None]
     site, partials, scale = _emulate_forward(tips, pm, children, freqs,
                                              props, rescale)
     dP, dfreqs, dprops = _emulate_backward(tips, pm, children, freqs, props,
-                                           partials, scale, g)
+                                           schedule, partials, scale, g)
     leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
     ref = loop.loop_site_log_reference(tips, *leaves[:1], topo, *leaves[1:],
                                        rescale=rescale)
@@ -396,6 +434,27 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale):
     for a, b in zip((dP, dfreqs, dprops), grads):
         torch.testing.assert_close(a, b, rtol=1e-12,
                                    atol=1e-12 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape,C,L,rescale", [
+    ("balanced", 4, 3, True), ("caterpillar", 3, 2, False),
+    ("polytomy", 2, 4, True), ("polytomy", 1, 1, False),
+    ("balanced", 1, 1, True), ("polytomy", 4, 3, True),
+    ("star", 2, 3, False)])
+def test_kernel_schedule_matches_plain(shape, C, L, rescale):
+    """float64: the emulated K5'/K6' schedule against the plain version
+    (site logs, d pmats, d freqs, d props) to rounding; about 290 patterns
+    span ten 32-pattern forward blocks with a ragged last one and one dP
+    chunk."""
+    _schedule_against_plain(_topologies(shape)[0], C, L, rescale)
+
+
+@pytest.mark.parametrize("C,L", [(1, 1), (4, 3)])
+def test_kernel_schedule_chunks_match_plain(C, L):
+    """The same on a caterpillar at about 4900 patterns: three dP chunks,
+    the last one ragged, and one node a preorder level."""
+    _schedule_against_plain(_topologies("caterpillar")[0], C, L, True,
+                            n_sites=5000)
 
 
 # The S != 4 kernels (loop_wide_forward_kernel / loop_wide_backward_kernel)

@@ -353,15 +353,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 # (C, mean internal nodes per level) on either side of the gate: the fluA
-# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar at C = 4 (at
-# the gate) and 3, and a balanced 64-taxon tree with C = 1
+# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar at C = 4 and
+# 3 (both below the gate), and a balanced 64-taxon tree with C = 1
 FLUA = 68 / 33
 
 
 @pytest.mark.parametrize("engine,device,S,maxc,C,npl,expected", [
     ("auto", "cuda", 4, 2, 4, FLUA, "cuda-staged"),
     ("auto", "cuda", 4, 2, 1, FLUA, "cuda-fused"),
-    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-staged"),    # a caterpillar
+    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-fused"),    # a caterpillar
     ("auto", "cuda", 4, 2, 3, 1.0, "cuda-fused"),
     ("auto", "cuda", 4, 2, 1, 10.5, "cuda-staged"),
     ("auto", "cuda", 4, 2, 2, STAGED_MIN_LEVEL_WORK / 2, "cuda-staged"),
