@@ -105,16 +105,29 @@ device time (torch.profiler), the wrappers' host time, the design floor
 plus the dP pass at its byte bound), K6' at S = 4 through the S != 4
 design, nvcc's register lines, the cost of a level on caterpillars, then
 HMC on the checkpoint B model and the fluA ADVI step. ``--s4-trace``
-stamps each level of K2''s walk with clock64(); ``--s4-host`` gives only
-the wrappers' host time. ``--s4-backward`` and ``--s4-host`` use only entry
-points that older checkouts have, so a copy run from an older checkout's
+stamps each level of K2''s and K1''s walks with clock64(); ``--s4-host``
+gives only the wrappers' host time. ``--s4-backward`` and ``--s4-host`` use
+only entry points that older checkouts have, so a copy run from an older
+checkout's root times that checkout.
+
+With ``--s4-forward``, only K1' and K5' at S = 4 (their shared forward
+step, ``csrc/s4_forward.cuh``) alone (CUDA events, median of 100) against
+the plain version, float32 and float64: K5' at the checkpoint B model's
+chains (L = 16 and 4), GTR+G4 fluA (L = 8) and the fluA polytomy tree
+(L = 4), K1' at both models and the 128-taxon caterpillar at 16 384
+patterns (C = 1 and 2); each launch's device time (torch.profiler, under
+the parent's kernel names and the new one, and one of 20 calls in a CUDA
+graph), the wrappers' host time, the bound, the design floor (postorder
+levels x one dependent L2 round trip and barrier, measured here, plus the
+bytes at 3.35 TB/s), nvcc's register lines and the cost of a level on
+caterpillars. Like ``--s4-backward`` a copy run from an older checkout's
 root times that checkout.
 
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
                             [--mcmc] [--wide-forward] [--wide-backward]
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
                             [--staged] [--k4-variants] [--s4-backward]
-                            [--s4-trace] [--s4-host]
+                            [--s4-forward] [--s4-trace] [--s4-host]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -227,9 +240,10 @@ def sweep_ms(mod, topo, tips, pmats, freqs, props, cot):
     children = torch.as_tensor(topo.children, dtype=torch.int32,
                                device=tips.device)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
-    extra = (() if mod is fused
-             else (cuda_build.level_schedule(topo, tips),))
-    bwd_extra = s4_schedule(topo, tips) if mod is fused else extra
+    if mod is fused:
+        extra, bwd_extra = fwd_schedule(topo, tips), s4_schedule(topo, tips)
+    else:
+        extra = bwd_extra = (cuda_build.level_schedule(topo, tips),)
 
     def sweep():
         _, partials, scale = forward(tips, pmats, children, rootw, *extra)
@@ -465,6 +479,37 @@ def launch_device_us(run, names, n_runs=20):
     per_run = len(evs) // n_runs
     return [sum(evs[r * per_run + i].time_range.elapsed_us()
                 for r in range(n_runs)) / n_runs for i in range(per_run)]
+
+
+def graph_launch_us(run, n=20):
+    """Device time (us) of one call of ``run()``: ``n`` calls captured in a
+    CUDA graph, the graph replayed (CUDA events, least of five replays) and
+    the time divided by ``n``, so that the wrapper's host time drops out
+    and each launch's gap in the graph (about a microsecond) stays in."""
+    run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            run()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return min(times) * 1e3 / n
 
 
 def k8(dev):
@@ -768,6 +813,15 @@ def s4_schedule(topo, tips) -> tuple:
     return ()
 
 
+def fwd_schedule(topo, tips) -> tuple:
+    """The postorder schedule that this checkout's K1'/K5' wrappers take
+    (after rootw / props), as a tuple to splice into their arguments; empty
+    where the checkout's wrappers take none."""
+    if "schedule" in inspect.signature(fused.pruning_forward).parameters:
+        return (cuda_build.postorder_schedule(topo, tips),)
+    return ()
+
+
 def s4_backward(dev):
     """K6' at S = 4 and K2' alone against plain, their launches' device
     time, their wrappers' host time and the design floor, float32 and
@@ -797,7 +851,8 @@ def s4_backward(dev):
             children = cs.topo_constant(topo, "children",
                                         lambda: topo.children, tips,
                                         torch.int32)
-            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr,
+                                            *fwd_schedule(topo, tips))
             sched = s4_schedule(topo, tips)
 
             def bwd():
@@ -837,7 +892,8 @@ def s4_backward(dev):
                                         lambda: topo.children, tips,
                                         torch.int32)
             rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
-            _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+            _, part, sc = fused.pruning_forward(tips, pm, children, rootw,
+                                                *fwd_schedule(topo, tips))
             sched = s4_schedule(topo, tips)
 
             def bwd():
@@ -866,7 +922,8 @@ def s4_backward(dev):
         children = cs.topo_constant(topo, "children", lambda: topo.children,
                                     tips, torch.int32)
         rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
-        _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+        _, part, sc = fused.pruning_forward(tips, pm, children, rootw,
+                                            *fwd_schedule(topo, tips))
         sched = s4_schedule(topo, tips)
         rows.append((len(topo.preorder_levels), launch_device_us(
             lambda: fused.pruning_backward(tips, pm, children, rootw, *sched,
@@ -884,82 +941,253 @@ def s4_backward(dev):
     profile_advi("fluA-elbo", cs.DATA / "fluA-elbo.json", dev, 50)
 
 
-# where --s4-trace stamps the walk's levels (warp 0 of block 0)
-S4_TRACE_AT = (
-    ("    __pipeline_wait_prior(1);  // every group but level d + 1's has "
-     "landed\n",
-     "    const bool tr_ = blockIdx.x == 0 && blockIdx.y == 0 && "
-     "blockIdx.z == 0 && threadIdx.x == 0 && d < 4096;\n"
-     "    if (tr_) s4_trace[d][0] = clock64();\n"),
-    ("    if (t0 < items) gk = d == 0 ? seed() : valid ? gb[at(cur.k)] : "
-     "scalar_t(0);\n",
-     "    if (tr_) {\n      if (gk == scalar_t(-12345)) gb[0] = 1;\n"
-     "      s4_trace[d][1] = clock64();\n    }\n"),
-    ("    if (t0 < items) pair_cotangents(ch, cur, gk, gb, c, s, p, valid, "
-     "q0);\n",
-     "    if (tr_) s4_trace[d][2] = clock64();\n"))
+def s4_forward_floor_ms(levels, T, I, C, P, L, itemsize, step_us):
+    """The floor of the S = 4 forward walk by postorder level (ms): its
+    levels, one dependent L2 round trip and barrier each (``step_us``), plus
+    at 3.35 TB/s the tips and each chain's P matrices read, its partials,
+    scalers and site logs written and each internal child's partials read
+    back once."""
+    N = T + I
+    nbytes = (4 * T * P + L * (N * C * 16 + 4 * C * P * I + I * P + P
+                               + 4 * C * P * (I - 1))) * itemsize
+    return levels * step_us * 1e-3 + nbytes / cs.PEAK_BYTES_PER_S * 1e3
 
 
-def s4_trace(dev):
-    """Where a level of K2''s walk goes: ``csrc/pruning.cu`` rebuilt with
-    clock64() stamps in the walk's binary loop (warp 0 of block 0, float32,
-    at the fluA JC69 model): each level's cycles to its parent's cotangent
-    (the stage's wait, gbuf[k] through L1), to the end of its step and from
-    there to the next level (the barrier)."""
-    import ctypes
+# the S = 4 forward sweeps' kernels by name: the parent's forward_kernel and
+# loop_forward_kernel, the shared step's s4_forward_kernel
+S4F_NAMES = ("forward_kernel", "s4_forward")
 
+
+def s4_forward(dev):
+    """K1' and K5' at S = 4 alone against plain (CUDA events, median of
+    100), their launch's device time (torch.profiler), their wrappers' host
+    time, the bound and the design floor, float32 and float64: K1' at the
+    checkpoint B model, GTR+G4 fluA and the 128-taxon caterpillar at 16 384
+    patterns (C = 1 and 2), K5' at the checkpoint B model's chains (L = 16
+    and 4), GTR+G4 fluA (L = 8) and the fluA polytomy tree (L = 4); then
+    the cost of one level on caterpillars."""
+    step = level_step_us(dev)
+    new = hasattr(cuda_build, "postorder_schedule")
+    tree = "change" if new else "parent"
+    print(json.dumps({"phase": "s4f_level_step", "tree": tree, **step}),
+          flush=True)
+    print(json.dumps({"phase": "s4f_ptxas", "tree": tree,
+                      "k1": cs.ptxas_by_kernel(fused.build_log, "s4_forward"
+                                               if new else "forward_kernel"),
+                      "k5": cs.ptxas_by_kernel(loop.build_log, "s4_forward"
+                                               if new
+                                               else "loop_forward_kernel")}),
+          flush=True)
+
+    def floor(topo, pm, tips, L):
+        return s4_forward_floor_ms(len(topo.levels), topo.T, topo.I,
+                                   pm.shape[-3], tips.shape[2], L,
+                                   tips.element_size(), step["step_us"])
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        kw = dict(dtype=dtype, device=dev)
+        jc, gtr = cs.load_fluA_time(dtype, dev), cs.load_gtrg4_fluA(dtype, dev)
+        poly = cs.collapsed_topology(jc.topo)
+        chains = [(name, tlk.topo, cs.engine_inputs(tlk, cs.chain_params(
+                      tlk, L, seed)))
+                  for name, tlk, L, seed in (("fluA-jc69-L16", jc, 16, 1),
+                                             ("fluA-jc69-L4", jc, 4, 2),
+                                             ("fluA-gtrg4-L8", gtr, 8, 3))]
+        chains.append(("fluA-polytomy-L4", poly,
+                       cs.random_chains(poly, 238, 4, 4, 15, dtype, dev)))
+        for name, topo, (tips, pm, fr, pr, w) in chains:
+            L = pm.shape[0]
+            g = w.expand(L, -1).contiguous()
+            rec = cs.loop_alone(name, topo, tips, pm, fr, pr, g, timed=True,
+                                phase="s4f_k5_alone")
+            children = cs.topo_constant(topo, "children",
+                                        lambda: topo.children, tips,
+                                        torch.int32)
+            sched = fwd_schedule(topo, tips)
+
+            def fwd():
+                return loop.loop_forward(tips, pm, children, fr, pr, *sched)
+            print(json.dumps({
+                "phase": "s4f_k5", "tree": tree, "shape": name, "dtype": dt,
+                "chains": L, "categories": pm.shape[2],
+                "levels": len(topo.levels), "internal": topo.I,
+                "forward_ms": rec["forward_ms"],
+                "forward_plain_ms": rec["forward_plain_ms"],
+                "forward_bound_ms": rec["forward_bound_ms"],
+                "design_floor_ms": floor(topo, pm, tips, L),
+                "launch_us": launch_device_us(fwd, S4F_NAMES),
+                "graph_us": graph_launch_us(fwd),
+                "host_us": host_us(fwd)}), flush=True)
+        cat = caterpillar_topology(128)
+        singles = [("fluA-jc69", jc.topo, cs.engine_inputs(
+                       jc, jc.param_space().init_params(**kw))),
+                   ("fluA-gtrg4", gtr.topo, cs.engine_inputs(
+                       gtr, gtr.param_space().init_params(**kw)))]
+        singles += [(f"caterpillar-128x16384-C{C}", cat,
+                     cs.random_inputs(cat, 16384, C, 7, dtype, dev))
+                    for C in (1, 2)]
+        for name, topo, inputs in singles:
+            tips, pm, fr, pr, w = inputs
+            children = cs.topo_constant(topo, "children",
+                                        lambda: topo.children, tips,
+                                        torch.int32)
+            rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+            sched = fwd_schedule(topo, tips)
+
+            def fwd():
+                return fused.pruning_forward(tips, pm, children, rootw,
+                                             *sched)
+            alone = cs.kernels_alone(fused, topo, *inputs)
+            print(json.dumps({
+                "phase": "s4f_k1", "tree": tree, "shape": name, "dtype": dt,
+                "patterns": tips.shape[2], "categories": pm.shape[1],
+                "levels": len(topo.levels), "internal": topo.I,
+                "forward_ms": alone["forward_ms"],
+                "forward_plain_ms": alone["forward_plain_ms"],
+                "forward_bound_ms": alone["forward_bound_ms"],
+                "forward_err": alone["forward_err"],
+                "design_floor_ms": floor(topo, pm, tips, 1),
+                "launch_us": launch_device_us(fwd, S4F_NAMES),
+                "graph_us": graph_launch_us(fwd),
+                "host_us": host_us(fwd)}), flush=True)
+        del jc, gtr, chains, singles
+        torch.cuda.empty_cache()
+    # the cost of one level: K1''s launch on caterpillars (one node a
+    # postorder level) at 256 patterns, float32; the slope of its device
+    # time (in a CUDA graph) against the levels
+    rows = []
+    for n in (16, 32, 64, 128):
+        topo = caterpillar_topology(n)
+        tips, pm, fr, pr, w = cs.random_inputs(topo, 256, 1, 7,
+                                               torch.float32, dev)
+        children = cs.topo_constant(topo, "children", lambda: topo.children,
+                                    tips, torch.int32)
+        rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+        sched = fwd_schedule(topo, tips)
+        rows.append((len(topo.levels), graph_launch_us(
+            lambda: fused.pruning_forward(tips, pm, children, rootw,
+                                          *sched))))
+    slope, intercept = np.polyfit([r[0] for r in rows], [r[1] for r in rows],
+                                  1)
+    print(json.dumps({"phase": "s4f_level_cost", "tree": tree,
+                      "levels": [r[0] for r in rows],
+                      "graph_us": [r[1] for r in rows],
+                      "us_per_level": slope, "us_at_0_levels": intercept}),
+          flush=True)
+
+
+# where --s4-trace stamps each S = 4 walk (thread 0 of block 0): (line,
+# stamp, before) in each header, and the names of the three spans a level
+# has between its stamps [0], [1], [2] and the next level's [0]. The
+# backward: to its parent's cotangent (the stage's wait, gbuf[k] through
+# L1), to the end of its step, to the next level (the barrier). The
+# forward: its first round's step (indices and tips ahead, the hand-off,
+# the product, the max, the stores), its further rounds and the barrier,
+# to the next level. The forward's entry and end are stamped in row 4095.
+_TRACE_START = ("    const bool tr_ = blockIdx.x == 0 && blockIdx.y == 0 && "
+                "blockIdx.z == 0 && threadIdx.x == 0 && d < 4095;\n"
+                "    if (tr_) s4_trace[d][0] = clock64();\n")
+S4_TRACE_AT = {
+    "s4_backward.cuh": ((
+        ("    __pipeline_wait_prior(1);  // every group but level d + 1's "
+         "has landed\n", _TRACE_START, True),
+        ("    if (t0 < items) gk = d == 0 ? seed() : valid ? gb[at(cur.k)] : "
+         "scalar_t(0);\n",
+         "    if (tr_) {\n      if (gk == scalar_t(-12345)) gb[0] = 1;\n"
+         "      s4_trace[d][1] = clock64();\n    }\n", False),
+        ("    if (t0 < items) pair_cotangents(ch, cur, gk, gb, c, s, p, valid, "
+         "q0);\n",
+         "    if (tr_) s4_trace[d][2] = clock64();\n", False)),
+        ("to_cotangent", "to_step_end", "to_next_level")),
+    "s4_forward.cuh": ((
+        ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n",
+         "  const long long t_in_ = clock64();\n", False),
+        ("  for (int d = 0; d < n_levels; ++d) {\n", _TRACE_START, False),
+        ("    x_root = x;  // the last level holds the root alone\n",
+         "    if (tr_) {\n      if (x == scalar_t(-12345)) w.part[0] = 1;\n"
+         "      s4_trace[d][1] = clock64();\n    }\n", True),
+        ("    next = next2;\n    __syncthreads();\n",
+         "    if (tr_) s4_trace[d][2] = clock64();\n", False),
+        ("      site_log[(size_t)l * P + q] = log_(site > tiny ? site : tiny) + "
+         "acc;\n    }\n  }\n",
+         "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {\n"
+         "    s4_trace[4095][0] = t_in_;\n"
+         "    s4_trace[4095][1] = clock64();\n  }\n", False)),
+        ("to_step_end", "to_barrier_end", "to_next_level"))}
+
+
+def traced_pruning_lib(header: str):
+    """``csrc/pruning.cu`` built with ``header`` stamped at S4_TRACE_AT,
+    and a reader of the stamps (``s4_trace_read``)."""
     csrc = cuda_build.PKG / "csrc"
-    header = (csrc / "s4_backward.cuh").read_text()
-    for at, _ in S4_TRACE_AT:
-        if at not in header:
-            raise SystemExit("csrc/s4_backward.cuh no longer has the lines "
-                             "this measurement stamps")
-    traced = header.replace("namespace {\n",
-                            "namespace {\n__device__ long long "
-                            "s4_trace[4096][3];\n", 1)
-    for at, stamp in S4_TRACE_AT:
-        traced = traced.replace(at, stamp + at if "__pipeline_wait" in at
-                                else at + stamp)
+    text = (csrc / header).read_text()
+    for at, stamp, before in S4_TRACE_AT[header][0]:
+        if text.count(at) != 1:
+            raise SystemExit(f"csrc/{header} no longer has the lines this "
+                             f"measurement stamps")
+        text = text.replace(at, stamp + at if before else at + stamp)
+    text = text.replace("namespace {\n", "namespace {\n__device__ long long "
+                        "s4_trace[4096][3];\n", 1)
     reader = ('\nextern "C" int s4_trace_read(void* host) {\n'
               "  return cudaMemcpyFromSymbol(host, s4_trace, "
               "sizeof(s4_trace));\n}\n")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for f in csrc.glob("*.cuh"):
+            (d / f.name).write_text(text if f.name == header
+                                    else f.read_text())
+        (d / "pruning.cu").write_text("// traced\n" + (
+            csrc / "pruning.cu").read_text() + reader)
+        lib, _ = cuda_build.build_library(d / "pruning.cu")
+    return lib
+
+
+def s4_trace(dev):
+    """Where a level of K2''s and of K1''s walks goes: ``csrc/pruning.cu``
+    rebuilt with clock64() stamps in each walk's loop (thread 0 of block 0,
+    float32, at the fluA JC69 model): each level's cycles in the spans of
+    S4_TRACE_AT; for the forward also the whole kernel and its parts before
+    and after the levels."""
+    import ctypes
+
     jc = cs.load_fluA_time(torch.float32, dev)
     tips, pm, fr, pr, w = cs.engine_inputs(jc, jc.param_space().init_params(
         dtype=torch.float32, device=dev))
     children = cs.topo_constant(jc.topo, "children", lambda: jc.topo.children,
                                 tips, torch.int32)
     rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
-    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
-    sched = s4_schedule(jc.topo, tips)
-    n = len(jc.topo.preorder_levels)
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        for f in csrc.glob("*.cuh"):
-            (d / f.name).write_text(traced if f.name == "s4_backward.cuh"
-                                    else f.read_text())
-        (d / "pruning.cu").write_text("// traced\n" + (
-            csrc / "pruning.cu").read_text() + reader)
-        lib, _ = cuda_build.build_library(d / "pruning.cu")
-    b = lib.pruning_backward_f32
-    b.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
-    b.restype = i32
-    lib.pruning_forward_f32.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-    fused._lib = lib
-    for _ in range(5):
-        fused.pruning_backward(tips, pm, children, rootw, *sched, part, sc, w)
-    torch.cuda.synchronize()
-    fused._lib = None
-    stamps = np.zeros((4096, 3), dtype=np.int64)
-    if lib.s4_trace_read(ctypes.c_void_p(stamps.ctypes.data)):
-        raise RuntimeError("reading the walk's stamps failed")
-    t = stamps[:n]
-    print(json.dumps({
-        "phase": "s4_trace", "levels": n,
-        "to_cotangent": (t[:, 1] - t[:, 0]).tolist(),
-        "to_step_end": (t[:, 2] - t[:, 1]).tolist(),
-        "to_next_level": (t[1:, 0] - t[:-1, 2]).tolist(),
-        "cycles": int(t[n - 1, 2] - t[0, 0])}), flush=True)
+    postorder = fwd_schedule(jc.topo, tips)
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw, *postorder)
+    preorder = s4_schedule(jc.topo, tips)
+    for header, run, n in (
+            ("s4_backward.cuh", lambda: fused.pruning_backward(
+                tips, pm, children, rootw, *preorder, part, sc, w),
+             len(jc.topo.preorder_levels)),
+            ("s4_forward.cuh", lambda: fused.pruning_forward(
+                tips, pm, children, rootw, *postorder),
+             len(jc.topo.levels))):
+        lib = traced_pruning_lib(header)
+        fused._lib = fused.bind(lib)
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        fused._lib = None
+        stamps = np.zeros((4096, 3), dtype=np.int64)
+        if lib.s4_trace_read(ctypes.c_void_p(stamps.ctypes.data)):
+            raise RuntimeError("reading the walk's stamps failed")
+        t = stamps[:n]
+        spans = S4_TRACE_AT[header][1]
+        rec = {"phase": "s4_trace", "walk": header, "levels": n,
+               spans[0]: (t[:, 1] - t[:, 0]).tolist(),
+               spans[1]: (t[:, 2] - t[:, 1]).tolist(),
+               spans[2]: (t[1:, 0] - t[:-1, 2]).tolist(),
+               "cycles": int(t[n - 1, 2] - t[0, 0])}
+        if header == "s4_forward.cuh":
+            entry, end = stamps[4095, :2]
+            rec.update(kernel_cycles=int(end - entry),
+                       before_levels=int(t[0, 0] - entry),
+                       after_levels=int(end - t[n - 1, 2]))
+        print(json.dumps(rec), flush=True)
 
 
 def s4_host(dev):
@@ -979,7 +1207,8 @@ def s4_host(dev):
             tlk, L, seed))
         children = cs.topo_constant(topo, "children", lambda: topo.children,
                                     tips, torch.int32)
-        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr,
+                                        *fwd_schedule(topo, tips))
         cases.append((name, functools.partial(
             loop.loop_backward, tips, pm, children, fr, pr,
             *s4_schedule(topo, tips), part, sc, w.expand(L, -1).contiguous())))
@@ -988,7 +1217,8 @@ def s4_host(dev):
     children = cs.topo_constant(jc.topo, "children", lambda: jc.topo.children,
                                 tips, torch.int32)
     rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
-    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw,
+                                        *fwd_schedule(jc.topo, tips))
     cases.append(("k2-fluA-jc69", functools.partial(
         fused.pruning_backward, tips, pm, children, rootw,
         *s4_schedule(jc.topo, tips), part, sc, w)))
@@ -1209,8 +1439,10 @@ def loop_cases(dev):
         children = cs.topo_constant(tlk.topo, "children",
                                     lambda: tlk.topo.children, tips,
                                     torch.int32)
-        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
-        cases.append((name, (tips, pm, children, fr, pr),
+        _, part, sc = loop.loop_forward(tips, pm, children, fr, pr,
+                                        *fwd_schedule(tlk.topo, tips))
+        cases.append((name, (tips, pm, children, fr, pr,
+                             *fwd_schedule(tlk.topo, tips)),
                       (tips, pm, children, fr, pr,
                        *s4_schedule(tlk.topo, tips), part, sc,
                        w.expand(L, -1).contiguous())))
@@ -1317,8 +1549,11 @@ def main() -> int:
     ap.add_argument("--s4-backward", action="store_true",
                     help="only K6' at S = 4 and K2' alone, their launches, "
                          "HMC and the ADVI step")
+    ap.add_argument("--s4-forward", action="store_true",
+                    help="only K1' and K5' at S = 4 alone and their launches")
     ap.add_argument("--s4-trace", action="store_true",
-                    help="only K2''s walk with clock64() stamps a level")
+                    help="only K2''s and K1''s walks with clock64() stamps "
+                         "a level")
     ap.add_argument("--s4-host", action="store_true",
                     help="only the host time of K2''s and K6''s wrappers")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
@@ -1338,6 +1573,10 @@ def main() -> int:
         return 0
     if args.s4_backward:
         s4_backward(dev)
+        print(smi, flush=True)
+        return 0
+    if args.s4_forward:
+        s4_forward(dev)
         print(smi, flush=True)
         return 0
     if args.s4_host:

@@ -27,7 +27,12 @@ slices' main paths through them and times kernel against plain:
   checkpoint B model; K6' at S = 4 and K2' (their shared reverse step,
   ``csrc/s4_backward.cuh``) also at a 128-taxon caterpillar with 16 384
   patterns and K2' on a fluA tree with polytomies, both twice on the same
-  inputs (bit for bit), with their launches' device times;
+  inputs (bit for bit), with their launches' device times; K5' at S = 4
+  and K1' (their shared forward step by postorder level,
+  ``csrc/s4_forward.cuh``) twice on the same inputs at the checkpoint B
+  model and its ladder and HMC chains (bit for bit, their rescaled
+  partials peaking at 1), with their launches' device times and
+  registers;
 - codon and protein MCMC over a batch of chains (K5'/K6' at S != 4, the
   same ``csrc/loop.cu``): the kernels against plain on chains of GY94 M0 at
   32 taxa x 4096 codons, WAG+G4 at 64 taxa x 8192 patterns and a WAG tree
@@ -389,8 +394,8 @@ def collapsed_topology(topo, every=7):
 
 
 # each kernel module's launch wrappers (forward, backward); the staged and
-# wide ones take the level schedule after rootw, the fused backward the
-# preorder one
+# wide ones take the level schedule after rootw, the fused ones the
+# postorder (forward) and preorder (backward) schedules on the device
 WRAPPERS = {fused: (fused.pruning_forward, fused.pruning_backward),
             staged: (staged.staged_forward, staged.staged_backward),
             wide: (wide.wide_forward, wide.wide_backward)}
@@ -434,10 +439,11 @@ def kernels_alone(mod, topo, tips, pmats, freqs, props, g):
                              torch.int32)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
     forward, backward = WRAPPERS[mod]
-    schedule = cuda_build.level_schedule(topo, tips)
-    extra = () if mod is fused else (schedule,)
-    bwd_extra = ((cuda_build.preorder_schedule(topo, tips),) if mod is fused
-                 else extra)
+    if mod is fused:
+        extra = (cuda_build.postorder_schedule(topo, tips),)
+        bwd_extra = (cuda_build.preorder_schedule(topo, tips),)
+    else:
+        extra = bwd_extra = (cuda_build.level_schedule(topo, tips),)
 
     def fwd():
         return forward(tips, pmats, children, rootw, *extra)
@@ -512,9 +518,11 @@ def loop_alone(name, topo, tips, pmats, freqs, props, g, rescale=True,
     children = topo_constant(topo, "children", lambda: topo.children, tips,
                              torch.int32)
 
+    postorder = cuda_build.postorder_schedule(topo, tips)
+
     def fwd():
         return loop.loop_forward(tips, pmats, children, freqs, props,
-                                 rescale)
+                                 postorder, rescale)
     site_k, partials, scale = fwd()
 
     schedule = cuda_build.preorder_schedule(topo, tips)
@@ -612,8 +620,9 @@ def k6_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     d props."""
     children = topo_constant(topo, "children", lambda: topo.children, tips,
                              torch.int32)
-    _, partials, scale = loop.loop_forward(tips, pmats, children, freqs,
-                                           props)
+    _, partials, scale = loop.loop_forward(
+        tips, pmats, children, freqs, props,
+        cuda_build.postorder_schedule(topo, tips))
     g = g.contiguous()
     schedule = cuda_build.preorder_schedule(topo, tips)
     return bit_identical(lambda: loop.loop_backward(
@@ -625,7 +634,8 @@ def k2_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
     children = topo_constant(topo, "children", lambda: topo.children, tips,
                              torch.int32)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
-    _, partials, scale = fused.pruning_forward(tips, pmats, children, rootw)
+    _, partials, scale = fused.pruning_forward(
+        tips, pmats, children, rootw, cuda_build.postorder_schedule(topo, tips))
     g = g.contiguous()
     schedule = cuda_build.preorder_schedule(topo, tips)
     return bit_identical(lambda: fused.pruning_backward(
@@ -639,6 +649,23 @@ def s4_launch_us(run_backward) -> list:
     from chip_profile import launch_device_us
 
     return launch_device_us(run_backward, ("s4_walk", "s4_dp"))
+
+
+def s4_forward_checks(run, dims) -> dict:
+    """K1' or K5' at S = 4 (``run()``: one wrapper call) twice on the same
+    inputs: bit-identical site logs, partials and scalers, and rescaled
+    partials that peak at exactly 1 over (C, 4) (``dims``) at every node and
+    pattern (x / max x: the lane group's max met); and its launch's device
+    time (us, one of 20 calls in a CUDA graph: torch.profiler stops seeing
+    kernels after a few sessions in one process)."""
+    # chip_profile imports this module, so it is imported here
+    from chip_profile import graph_launch_us
+
+    runs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    return {"bit_identical": all(torch.equal(a, b) for a, b in zip(*runs)),
+            "partials_peak_1": bool(torch.all(runs[0][1].amax(dims) == 1)),
+            "graph_us": graph_launch_us(run)}
 
 
 def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
@@ -693,8 +720,9 @@ def forward_checks(topo, tips, pmats, freqs, props) -> dict:
     schedule = cuda_build.level_schedule(topo, tips)
     out = {}
     for name, run, dims in (
-            ("k5", lambda: loop.loop_forward(tips, pmats, children, freqs,
-                                             props), (2, 3)),
+            ("k5", lambda: loop.loop_forward(
+                tips, pmats, children, freqs, props,
+                cuda_build.postorder_schedule(topo, tips)), (2, 3)),
             ("k7", lambda: wide.wide_forward(tips, pmats[0].contiguous(),
                                              children, rootw, schedule),
              (1, 2))):
@@ -1182,9 +1210,7 @@ def cli_mmcmc(elbo_b, length=3000, n_temps=16):
                           for k in range(n_temps)])
     rel_plain = np.abs(plain - logged) / np.abs(plain)
     rel_one = np.abs(one - logged) / np.abs(one)
-    # the hot rungs sample the (improper) prior far from the data: there
-    # float32 heights cancel (a branch is a difference of two large
-    # heights) differently in the batched and the one-dict transforms, and
+    # the hot rungs sample the (improper) prior far from the data, where
     # sites underflow, which the kernels clamp at tiny and the plain engine
     # does not (log 0), as in the JAX package: held from T = 0.1 up
     warm = temps >= 0.1
@@ -1788,7 +1814,9 @@ def main() -> int:
     gtrg4_golden(dev, engine="cuda-staged", phase="staged_gtrg4_fluA")
 
     # ---- 14. checkpoint B: the fluA ADVI config through the CLI (K1'/K2'),
-    # and K1'/K2' alone at its model's inputs
+    # and K1'/K2' alone at its model's inputs, their launches' device times
+    # and registers, and both twice on the same inputs (bit for bit; K1''s
+    # rescaled partials peaking at 1)
     runner, launches_fused = cli_checkpoint_b(dev)
     runner_b_elbo = runner.results["sg"].elbo
     tlk = runner.ctx.objects["treelikelihood"]
@@ -1798,16 +1826,24 @@ def main() -> int:
     children = topo_constant(tlk.topo, "children", lambda: tlk.topo.children,
                              tips, torch.int32)
     rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
-    _, part, sc = fused.pruning_forward(tips, pm, children, rootw)
+    postorder = cuda_build.postorder_schedule(tlk.topo, tips)
+    _, part, sc = fused.pruning_forward(tips, pm, children, rootw, postorder)
     schedule = cuda_build.preorder_schedule(tlk.topo, tips)
     k2_launch_us = s4_launch_us(lambda: fused.pruning_backward(
         tips, pm, children, rootw, schedule, part, sc, w))
     k2_same = k2_deterministic(tlk.topo, *b_inputs)
+    k1 = s4_forward_checks(lambda: fused.pruning_forward(
+        tips, pm, children, rootw, postorder), (1, 2))
     emit("fused_times", card=smi, model="fluA-elbo JC69 float32",
          patterns=tlk.sp.pattern_count, kernel_alone=fused_alone,
+         k1_checks=k1, k1_ptxas=ptxas_by_kernel(fused.build_log,
+                                                "s4_forward"),
          k2_launch_us=k2_launch_us, k2_bit_identical=k2_same)
     check(k2_same, "K2' twice on the same inputs, bit for bit, at the "
                    "checkpoint B model")
+    check(k1["bit_identical"] and k1["partials_peak_1"],
+          "K1' twice on the same inputs, bit for bit, its partials peaking "
+          "at 1, at the checkpoint B model")
 
     # ---- 15. the third slice's main path: ML then ADVI of a GTR+G4 config
     # at 128 taxa x about 16 000 patterns through the CLI (K3'/K4')
@@ -1846,9 +1882,12 @@ def main() -> int:
     # chains) and of GTR+G4 fluA (L = 8), a fluA tree with polytomies at
     # L = 1 and 4, and (K6''s reverse step at large P) a 128-taxon
     # caterpillar at 16 384 patterns; float32, and float64 with rescale on
-    # and off; K6' at S = 4 twice on the same inputs
+    # and off; K5' and K6' at S = 4 twice on the same inputs, with their
+    # launches' device times and registers
     loop_times = {"card": smi, "build_seconds": build_loop_s,
-                  "k6_ptxas": ptxas_by_kernel(loop.build_log, "s4_")}
+                  "k5_ptxas": ptxas_by_kernel(loop.build_log, "s4_forward"),
+                  "k6_ptxas": {**ptxas_by_kernel(loop.build_log, "s4_walk"),
+                               **ptxas_by_kernel(loop.build_log, "s4_dp")}}
     poly = collapsed_topology(flu_topo)
     cat128 = caterpillar_topology(128)
     for dtype in (torch.float32, torch.float64):
@@ -1884,7 +1923,9 @@ def main() -> int:
             g = w.expand(pm.shape[0], -1).contiguous()
             children = topo_constant(topo, "children", lambda: topo.children,
                                      tips, torch.int32)
-            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr)
+            postorder = cuda_build.postorder_schedule(topo, tips)
+            _, part, sc = loop.loop_forward(tips, pm, children, fr, pr,
+                                            postorder)
             schedule = cuda_build.preorder_schedule(topo, tips)
             loop_times["k6_launch_us"] = s4_launch_us(
                 lambda: loop.loop_backward(tips, pm, children, fr, pr,
@@ -1893,6 +1934,20 @@ def main() -> int:
                 topo, tips, pm, fr, pr, g)
             check(loop_times["k6_bit_identical"],
                   "K6' at S = 4 twice on the same inputs, bit for bit")
+            # K5' at S = 4 at the ladder's and the HMC chains: its launch's
+            # device time, twice on the same inputs, partials peaking at 1
+            for name, topo, (tips, pm, fr, pr, w) in cases[:2]:
+                postorder = cuda_build.postorder_schedule(topo, tips)
+                children = topo_constant(topo, "children",
+                                         lambda: topo.children, tips,
+                                         torch.int32)
+                rec = s4_forward_checks(
+                    lambda: loop.loop_forward(tips, pm, children, fr, pr,
+                                              postorder), (2, 3))
+                loop_times[f"k5_checks_{name}"] = rec
+                check(rec["bit_identical"] and rec["partials_peak_1"],
+                      f"K5' at S = 4 twice on the same inputs, bit for bit, "
+                      f"its partials peaking at 1, at {name}")
         torch.cuda.synchronize()
     emit("loop_times", **loop_times)
 

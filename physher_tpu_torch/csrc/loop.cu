@@ -34,11 +34,13 @@
 // patterns, L = 16) the whole sweep is a few MB and a few tens of MFLOPs,
 // so neither bound matters: the time is the latency of the chain of
 // dependent node steps.
-// - K5' at S = 4: one thread per (pattern, chain), grid (pattern blocks,
-//   L), walks the internal nodes in postorder rank with the C x 4 partials
-//   in registers, in blocks of 32 patterns (one warp), so that L x blocks
-//   covers the 132 SMs (fluA at L = 16: 8 x 16 = 128 blocks), instead of
-//   the 128-pattern blocks of K1'.
+// - K5' at S = 4, redesigned for this card, is the forward step of
+//   csrc/s4_forward.cuh, which K1' shares (one chain there): a walk by
+//   postorder level, leaves first, in one launch, grid (pattern blocks, L),
+//   threads on (pattern, category, state) so that the rescaling max over
+//   (C, 4) is a few warp shuffles, every load unconditional and a binary
+//   node's tip children copied by cp.async two levels ahead; the header
+//   says how.
 // - K6' at S = 4, redesigned for this card, is the reverse step of
 //   csrc/s4_backward.cuh, which K2' shares (one chain there): a walk that
 //   carries only the cotangents by preorder level (one barrier a level,
@@ -49,11 +51,10 @@
 // K5' writes each node's partials and scale to device memory, and K6'
 // reads them instead of recomputing the forward as the TPU kernel must
 // (it keeps everything in VMEM and writes no partials). On the card they
-// are written anyway as the walk's working set (a thread reads its
-// children's partials back, mostly from L1/L2), so keeping them costs
-// nothing extra in K5' and saves K6' the forward's arithmetic. Their size
-// is L * I * (C * 4 + 1) * P scalars: 16.6 MB at fluA with L = 16, C = 4 in
-// float32.
+// are the walk's hand-off from one level to the next anyway, so keeping
+// them costs nothing extra in K5' and saves K6' the forward's arithmetic.
+// Their size is L * I * (C * 4 + 1) * P scalars: 16.6 MB at fluA with
+// L = 16, C = 4 in float32.
 //
 // K6' sums d pmats and d rootw (at S = 4 d freqs and d props) over the
 // patterns of a block in a fixed order into per-(chain, block) partial sums
@@ -62,9 +63,9 @@
 //
 // Any other state count, S from 2 to 64 (protein S = 20, codon S = 61):
 // loop_wide_forward_kernel (K5') and loop_wide_backward_kernel (K6'), the
-// same function with the layouts above at S in place of 4. The S = 4 kernels
-// keep each pattern's C x 4 partials in one thread's registers; at S = 61 a
-// node's C x S partials do not fit one thread, and each child costs an
+// same function with the layouts above at S in place of 4. The S = 4 walks
+// give each of a pattern's C x 4 partials a lane and trade a child's four
+// states by quad shuffles; at S = 61 each child costs an
 // [S, S] @ [S, patterns] product: 2 S^2 FLOPs per pattern against S
 // partials read, 2 S FLOP per element, about 30 FLOP per byte at S = 61 in
 // float32 (the H100's float32 ridge is ~20). At the slice's shapes the
@@ -111,150 +112,31 @@
 #include <cuda_runtime.h>
 
 #include "s4_backward.cuh"
+#include "s4_forward.cuh"
 #include "tiles.cuh"
 #include "wide_backward.cuh"
 #include "wide_forward.cuh"
 
 namespace {
 
-// The 4 partials of child `ch` in category c at pattern p. `part` is this
-// chain's partials, written earlier in the same launch by the same thread:
-// plain loads, not the read-only path.
-template <typename scalar_t>
-__device__ inline void load_child(const scalar_t* tips, const scalar_t* part,
-                                  int ch, int c, int T, int C, int P, int p,
-                                  scalar_t x[4]) {
-  if (ch < T) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) x[b] = tips[((size_t)ch * 4 + b) * P + p];
-  } else {
-    const size_t base = ((size_t)(ch - T) * C + c) * 4;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) x[b] = part[(base + b) * P + p];
-  }
-}
-
-// out[a] = sum_b P[ch, c, a, b] * x[b], with `pm` this chain's P matrices
-template <typename scalar_t>
-__device__ inline void apply_p(const scalar_t* __restrict__ pm, int ch, int c,
-                               int C, const scalar_t x[4], scalar_t out[4]) {
-  const scalar_t* q = pm + ((size_t)ch * C + c) * 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    scalar_t s = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s += __ldg(q + a * 4 + b) * x[b];
-    out[a] = s;
-  }
-}
-
-template <typename scalar_t, int C>
-__global__ void loop_forward_kernel(const scalar_t* __restrict__ tips,
-                                    const scalar_t* __restrict__ pmats,
-                                    const int* __restrict__ children,
-                                    const scalar_t* __restrict__ freqs,
-                                    const scalar_t* __restrict__ props,
-                                    scalar_t* partials,
-                                    scalar_t* __restrict__ scale,
-                                    scalar_t* __restrict__ site_log, int T,
-                                    int I, int maxc, int P, int rescale) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  if (p >= P) return;
-  const int N = T + I;
-  const scalar_t* pm = pmats + (size_t)l * N * C * 16;
-  scalar_t* part = partials + (size_t)l * I * C * 4 * P;
-  scalar_t* sc = scale + (size_t)l * I * P;
-  const scalar_t tiny = Limits<scalar_t>::tiny();
-  scalar_t res[C][4];
-  scalar_t log_sum = 0;
-  for (int k = 0; k < I; ++k) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) res[c][a] = 1;
-    for (int j = 0; j < maxc; ++j) {
-      const int ch = __ldg(children + k * maxc + j);
-      if (ch < 0) continue;  // a missing child contributes 1
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        scalar_t x[4], contrib[4];
-        load_child(tips, part, ch, c, T, C, P, p, x);
-        apply_p(pm, ch, c, C, x, contrib);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) res[c][a] *= contrib[a];
-      }
-    }
-    scalar_t m = 1;
-    if (rescale) {
-      m = tiny;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int a = 0; a < 4; ++a) m = res[c][a] > m ? res[c][a] : m;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int a = 0; a < 4; ++a) res[c][a] = res[c][a] / m;
-      log_sum += log_(m);
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        part[(((size_t)k * C + c) * 4 + a) * P + p] = res[c][a];
-    sc[(size_t)k * P + p] = m;
-  }
-  // res holds the root (rank I - 1)
-  scalar_t site = 0;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    scalar_t per_cat = 0;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      per_cat += __ldg(freqs + (size_t)l * 4 + a) * res[c][a];
-    site += __ldg(props + (size_t)l * C + c) * per_cat;
-  }
-  site = site > tiny ? site : tiny;
-  site_log[(size_t)l * P + p] = log_(site) + log_sum;
-}
-
 template <typename scalar_t>
 cudaError_t launch_forward(const void* tips, const void* pmats,
-                           const void* children, const void* freqs,
+                           const void* children, const void* order,
+                           const void* offsets, const void* freqs,
                            const void* props, void* partials, void* scale,
-                           void* site_log, int T, int I, int C, int maxc,
-                           int P, int L, int rescale, int threads,
+                           void* site_log, int n_levels, int T, int I, int C,
+                           int maxc, int P, int L, int rescale,
                            cudaStream_t stream) {
-  if (threads % 32 != 0 || L < 1 || L > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((P + threads - 1) / threads, L);
-  const auto* t_ = static_cast<const scalar_t*>(tips);
-  const auto* pm_ = static_cast<const scalar_t*>(pmats);
-  const auto* ch_ = static_cast<const int*>(children);
-  const auto* fr_ = static_cast<const scalar_t*>(freqs);
-  const auto* pr_ = static_cast<const scalar_t*>(props);
-  auto* pa_ = static_cast<scalar_t*>(partials);
-  auto* sc_ = static_cast<scalar_t*>(scale);
-  auto* sl_ = static_cast<scalar_t*>(site_log);
-#define PHYSHER_LOOP_FWD_CASE(CC)                                             \
-  case CC:                                                                    \
-    loop_forward_kernel<scalar_t, CC><<<grid, threads, 0, stream>>>(         \
-        t_, pm_, ch_, fr_, pr_, pa_, sc_, sl_, T, I, maxc, P, rescale);       \
-    break;
-  switch (C) {
-    PHYSHER_LOOP_FWD_CASE(1)
-    PHYSHER_LOOP_FWD_CASE(2)
-    PHYSHER_LOOP_FWD_CASE(3)
-    PHYSHER_LOOP_FWD_CASE(4)
-    PHYSHER_LOOP_FWD_CASE(5)
-    PHYSHER_LOOP_FWD_CASE(6)
-    PHYSHER_LOOP_FWD_CASE(7)
-    PHYSHER_LOOP_FWD_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PHYSHER_LOOP_FWD_CASE
-  return cudaGetLastError();
+  return launch_s4_forward<scalar_t>(
+      static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats),
+      static_cast<const int*>(children), static_cast<const int*>(order),
+      static_cast<const int*>(offsets), n_levels,
+      FreqsProps<scalar_t>{static_cast<const scalar_t*>(freqs),
+                           static_cast<const scalar_t*>(props), nullptr,
+                           nullptr},
+      static_cast<scalar_t*>(partials), static_cast<scalar_t*>(scale),
+      static_cast<scalar_t*>(site_log), T, I, C, maxc, P, L, rescale,
+      stream);
 }
 
 template <typename scalar_t>
@@ -501,27 +383,23 @@ cudaError_t launch_wide_backward(const void* tips, const void* pmats,
 
 extern "C" {
 
-cudaError_t loop_forward_f32(const void* tips, const void* pmats,
-                             const void* children, const void* freqs,
-                             const void* props, void* partials, void* scale,
-                             void* site_log, int T, int I, int C, int maxc,
-                             int P, int L, int rescale, int threads,
-                             void* stream) {
-  return launch_forward<float>(tips, pmats, children, freqs, props, partials,
-                               scale, site_log, T, I, C, maxc, P, L, rescale,
-                               threads, static_cast<cudaStream_t>(stream));
-}
+#define PHYSHER_LOOP_FORWARD_ENTRY(SUFFIX, TYPE)                              \
+  cudaError_t loop_forward_##SUFFIX(                                          \
+      const void* tips, const void* pmats, const void* children,              \
+      const void* order, const void* offsets, const void* freqs,              \
+      const void* props, void* partials, void* scale, void* site_log,         \
+      int n_levels, int T, int I, int C, int maxc, int P, int L, int rescale, \
+      void* stream) {                                                         \
+    return launch_forward<TYPE>(tips, pmats, children, order, offsets, freqs, \
+                                props, partials, scale, site_log, n_levels,   \
+                                T, I, C, maxc, P, L, rescale,                 \
+                                static_cast<cudaStream_t>(stream));           \
+  }
 
-cudaError_t loop_forward_f64(const void* tips, const void* pmats,
-                             const void* children, const void* freqs,
-                             const void* props, void* partials, void* scale,
-                             void* site_log, int T, int I, int C, int maxc,
-                             int P, int L, int rescale, int threads,
-                             void* stream) {
-  return launch_forward<double>(tips, pmats, children, freqs, props, partials,
-                                scale, site_log, T, I, C, maxc, P, L, rescale,
-                                threads, static_cast<cudaStream_t>(stream));
-}
+PHYSHER_LOOP_FORWARD_ENTRY(f32, float)
+PHYSHER_LOOP_FORWARD_ENTRY(f64, double)
+
+#undef PHYSHER_LOOP_FORWARD_ENTRY
 
 #define PHYSHER_LOOP_BACKWARD_ENTRY(SUFFIX, TYPE)                             \
   cudaError_t loop_backward_##SUFFIX(                                         \

@@ -65,13 +65,11 @@
 
 #include <cuda_runtime.h>
 
+#include "s4_common.cuh"
 #include "tiles.cuh"
 
 namespace {
 
-constexpr int S4_THREADS = 256;
-constexpr int S4_WARPS = S4_THREADS / 32;
-constexpr unsigned S4_FULL = 0xffffffffu;
 // patterns a walk block takes: 2^3 to 2^6
 constexpr int S4_MIN_PB_LOG2 = 3, S4_MAX_PB_LOG2 = 6;
 // the scalars a thread copies for one binary step: its children's partials
@@ -80,47 +78,6 @@ constexpr int S4_STAGE = 9;
 // patterns a dP block sums: 8 a thread. The caller sizes the dP scratch by
 // it and passes it to launch_s4_backward, which checks it.
 constexpr int S4_DP_CHUNK = 8 * S4_THREADS;
-
-// rootw[c, s] of K2': one chain's props (x) freqs, flattened [C * 4]. Its
-// cotangent leaves as d rootw, a row a chunk: drootw_part [nq, C * 4].
-template <typename scalar_t> struct RootWeights {
-  const scalar_t* rootw;
-  scalar_t* drootw_part;
-  __device__ scalar_t operator()(int, int c, int s, int) const {
-    return __ldg(rootw + c * 4 + s);
-  }
-  // chunk q's d rootw from d[c * 4 + s] (shared memory), by thread
-  __device__ void put(const scalar_t* d, int, int q, int C) const {
-    if ((int)threadIdx.x < 4 * C)
-      drootw_part[(size_t)q * C * 4 + threadIdx.x] = d[threadIdx.x];
-  }
-};
-
-// rootw[l, c, s] of K6': props [L, C] and freqs [L, 4]. Its cotangent
-// leaves as d freqs [L, nq, 4] and d props [L, nq, C] a chunk, through
-// rootw = props (x) freqs.
-template <typename scalar_t> struct FreqsProps {
-  const scalar_t* freqs;
-  const scalar_t* props;
-  scalar_t* dfreqs_part;
-  scalar_t* dprops_part;
-  __device__ scalar_t operator()(int l, int c, int s, int C) const {
-    return __ldg(props + (size_t)l * C + c) * __ldg(freqs + (size_t)l * 4 + s);
-  }
-  __device__ void put(const scalar_t* d, int l, int q, int C) const {
-    const int t = threadIdx.x, nq = gridDim.x / C;
-    scalar_t v = 0;
-    if (t < 4) {
-      for (int c = 0; c < C; ++c)
-        v += __ldg(props + (size_t)l * C + c) * d[c * 4 + t];
-      dfreqs_part[((size_t)l * nq + q) * 4 + t] = v;
-    } else if (t < 4 + C) {
-      for (int s = 0; s < 4; ++s)
-        v += __ldg(freqs + (size_t)l * 4 + s) * d[(t - 4) * 4 + s];
-      dprops_part[((size_t)l * nq + q) * C + t - 4] = v;
-    }
-  }
-};
 
 // One chain's inputs; partials are read-only in both launches
 template <typename scalar_t> struct S4Chain {
@@ -169,22 +126,6 @@ __device__ inline void store_cotangent(const S4Chain<scalar_t>& ch,
   if (valid)
     gb[(((size_t)(child - ch.T) * ch.C + c) * 4 + s) * ch.P + p] = v;
 }
-
-// Where the walk finds, at every level, the level's bounds, its nodes and
-// their children: in shared memory when they fit (kids then holds each
-// node's children in the walk's order), else in device memory (kids null).
-struct WalkTables {
-  const int* offsets;  // [levels + 1]
-  const int* order;    // [I], the internal ranks by level
-  const int* kids;     // [I, maxc] in `order`'s order, or null
-  const int* __restrict__ children;
-  int maxc;
-  // child i of the node at position j of `order`
-  __device__ int kid(int j, int i) const {
-    return kids ? kids[j * maxc + i]
-                : __ldg(children + (size_t)order[j] * maxc + i);
-  }
-};
 
 // The cotangents of node k's internal children at (c, s, p), from graw =
 // gbuf[k] / m_k at this lane's state, for any number of children: each
@@ -377,21 +318,8 @@ __global__ void __launch_bounds__(S4_THREADS)
                              partials + (size_t)l * I * C * 4 * P, T, C, P};
   const scalar_t* sc = scale + (size_t)l * I * P;
   scalar_t* gb = gbuf + (size_t)l * I * C * 4 * P;
-  WalkTables tb{offsets, order, nullptr, children, maxc};
-  if (tables) {
-    int* t_off = tab;
-    int* t_ord = tab + n_levels + 1;
-    int* t_kids = t_ord + I;
-    for (int t = threadIdx.x; t <= n_levels; t += S4_THREADS)
-      t_off[t] = __ldg(offsets + t);
-    for (int t = threadIdx.x; t < I; t += S4_THREADS)
-      t_ord[t] = __ldg(order + t);
-    for (int t = threadIdx.x; t < I * maxc; t += S4_THREADS)
-      t_kids[t] = __ldg(children + (size_t)__ldg(order + t / maxc) * maxc +
-                        t % maxc);
-    __syncthreads();
-    tb = WalkTables{t_off, t_ord, t_kids, children, maxc};
-  }
+  const WalkTables tb = walk_tables(offsets, order, children, n_levels, I,
+                                    maxc, tables, tab);
   // this chain's P matrices of category c in shared memory, rows of 16
   // (stage_p), else in device memory; then the threads' stages
   scalar_t* Ps = reinterpret_cast<scalar_t*>(
@@ -717,9 +645,8 @@ cudaError_t launch_s4_backward(
                                dev);
     if (e != cudaSuccess) return e;
   }
-  const size_t table_bytes =
-      ((size_t)n_levels + 1 + (size_t)I * (1 + maxc)) * sizeof(int);
-  const bool tables = table_bytes <= 48 * 1024;
+  const size_t table_bytes = s4_table_bytes(n_levels, I, maxc);
+  const bool tables = table_bytes <= S4_TABLE_SMEM;
   const size_t p_bytes = (size_t)(T + I) * 16 * sizeof(scalar_t);
   const bool stage_p = p_bytes <= 96 * 1024;
   const size_t smem = (tables ? (table_bytes + 15) / 16 * 16 : 0) +

@@ -11,8 +11,10 @@ their first launch.
 (``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py``, ``ops/loop.py``)
 share,
 :func:`level_schedule` is the tree-level schedule that the staged and wide
-pairs launch by, and :func:`preorder_schedule` the root-first one that the
-S = 4 reverse sweep (``csrc/s4_backward.cuh``, K2' and K6') walks.
+pairs launch by, and :func:`postorder_schedule` and :func:`preorder_schedule`
+the leaves-first and root-first ones, on the device, that the S = 4 forward
+and reverse sweeps (``csrc/s4_forward.cuh``: K1' and K5';
+``csrc/s4_backward.cuh``: K2' and K6') walk in one launch.
 """
 
 from __future__ import annotations
@@ -120,19 +122,47 @@ def level_schedule(topo: Topology, like: torch.Tensor):
     return nodes, offsets
 
 
+def _device_schedule(topo: Topology, name: str, levels, like):
+    """(order, offsets) of ``levels`` as int32 tensors on ``like``'s device,
+    cached on the topology under ``name``."""
+    order = topo_constant(topo, f"{name}_nodes",
+                          lambda: np.concatenate(levels), like, torch.int32)
+    offsets = topo_constant(
+        topo, f"{name}_offsets",
+        lambda: np.cumsum([0] + [len(lv) for lv in levels]), like,
+        torch.int32)
+    return order, offsets
+
+
 def preorder_schedule(topo: Topology, like: torch.Tensor):
     """(order, offsets): the internal ranks by preorder level, root first
     (``topo.preorder_levels``), and the levels' bounds in ``order``, both
     int32 tensors on ``like``'s device, where the S = 4 reverse sweep reads
     them."""
-    levels = topo.preorder_levels
-    order = topo_constant(topo, "preorder_nodes",
-                          lambda: np.concatenate(levels), like, torch.int32)
-    offsets = topo_constant(
-        topo, "preorder_offsets",
-        lambda: np.cumsum([0] + [len(lv) for lv in levels]), like,
-        torch.int32)
-    return order, offsets
+    return _device_schedule(topo, "preorder", topo.preorder_levels, like)
+
+
+def postorder_schedule(topo: Topology, like: torch.Tensor):
+    """(order, offsets): the internal ranks by postorder level, leaves
+    first (``topo.levels``; the last level holds the root alone), and the
+    levels' bounds in ``order``, both int32 tensors on ``like``'s device,
+    where the S = 4 forward sweep (``csrc/s4_forward.cuh``, K1' and K5')
+    reads them."""
+    return _device_schedule(topo, "postorder", topo.levels, like)
+
+
+def check_schedule(schedule, device, I: int) -> int:
+    """Raise ValueError unless ``schedule`` is an (order, offsets) pair of
+    contiguous int32 tensors on ``device``, order [I] and offsets [levels +
+    1] with 1 to I levels; returns the number of levels. (Their values stay
+    on the device and are not read here.)"""
+    order, offsets = schedule
+    check("order", order, device, torch.int32, (I,))
+    if not 2 <= offsets.numel() <= I + 1:
+        raise ValueError(f"{offsets.numel()} level offsets; a schedule of "
+                         f"{I} nodes has 2 to {I + 1}")
+    check("offsets", offsets, device, torch.int32, (offsets.numel(),))
+    return offsets.numel() - 1
 
 
 def offsets_arg(schedule):

@@ -3,17 +3,22 @@
 Port of ``physher_tpu/ops/pallas_fused.py``. The two TPU kernels there,
 ``_fused_fwd_kernel`` (``build_fused_forward``) and ``_fused_bwd_kernel``
 (``build_fused_backward``), become kernel F and kernel B of
-``csrc/pruning.cu`` (B on the S = 4 reverse step of
-``csrc/s4_backward.cuh``, which K6' at S = 4 shares): the same function
-(the rescaled postorder sweep to per-pattern site log-likelihoods, and its
-reverse sweep to d pmats and d (props x freqs)), but not the TPU layout.
-The source note in ``csrc/pruning.cu`` says what bounds them on the card
-and what the design does about it.
+``csrc/pruning.cu``: the same function (the rescaled postorder sweep to
+per-pattern site log-likelihoods, and its reverse sweep to d pmats and
+d (props x freqs)), but not the TPU layout. F is the S = 4 forward step of
+``csrc/s4_forward.cuh`` (a walk by postorder level, which K5' at S = 4
+shares), B the S = 4 reverse step of ``csrc/s4_backward.cuh`` (a walk by
+preorder level and a dP pass, which K6' at S = 4 shares), each at one
+chain. The source notes in ``csrc/pruning.cu`` and the headers say what
+bounds them on the card and what the design does about it.
 
 - :func:`fused_site_log` / :func:`fused_tree_log_likelihood` are the entry
   points (the JAX signatures without ``B``, ``tile`` and ``interpret``). On
   a CUDA tensor they launch the kernels or raise; on a CPU tensor they run
   :func:`fused_site_log_reference`, the plain PyTorch version.
+- :func:`pruning_forward` / :func:`pruning_backward` are the launch
+  wrappers; they take the walks' schedules
+  (``cuda_build.postorder_schedule`` / ``preorder_schedule``).
 - The kernels are built at first use by ``nvcc`` from the package's own
   sources into ``_build/`` (keyed on a hash of the sources and flags), and
   loaded with ctypes. Nothing is built when the module is imported.
@@ -36,10 +41,6 @@ from .pruning import rescaled_site_log
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
-# threads per block of kernel F: one thread per pattern; a multiple of the
-# warp size
-BLOCK = 128
-
 _SOURCE = cuda_build.PKG / "csrc" / "pruning.cu"
 
 _lib = None
@@ -52,15 +53,20 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib, build_log = cuda_build.build_library(_SOURCE)
+    _lib = bind(lib)
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"pruning_forward_{dt}")
-        fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"pruning_backward_{dt}")
         bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
         bwd.restype = i32
-    _lib = lib
     return lib
 
 
@@ -71,11 +77,14 @@ def _dims(tips, pmats, children, rootw):
     return T, I, C, maxc, P
 
 
-def pruning_forward(tips, pmats, children, rootw):
-    """Launch kernel F: returns (site_log [P], partials [I, C, 4, P],
-    scale [I, P])."""
+def pruning_forward(tips, pmats, children, rootw, schedule):
+    """Launch kernel F by ``schedule``, the (order, offsets) of
+    ``cuda_build.postorder_schedule``: returns (site_log [P], partials
+    [I, C, 4, P], scale [I, P])."""
     global FORWARD_LAUNCHES
     T, I, C, maxc, P = _dims(tips, pmats, children, rootw)
+    n_levels = cuda_build.check_schedule(schedule, tips.device, I)
+    order, offsets = schedule
     lib = build()
     partials = tips.new_empty((I, C, 4, P))
     scale = tips.new_empty((I, P))
@@ -84,8 +93,9 @@ def pruning_forward(tips, pmats, children, rootw):
           else lib.pruning_forward_f64)
     with torch.cuda.device(tips.device):
         err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
-                 site_log.data_ptr(), T, I, C, maxc, P, BLOCK, _stream(tips))
+                 order.data_ptr(), offsets.data_ptr(), rootw.data_ptr(),
+                 partials.data_ptr(), scale.data_ptr(), site_log.data_ptr(),
+                 n_levels, T, I, C, maxc, P, _stream(tips))
     FORWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"pruning forward kernel launch failed: "
@@ -104,9 +114,8 @@ def pruning_backward(tips, pmats, children, rootw, schedule, partials,
     _check("partials", partials, tips.device, tips.dtype, (I, C, 4, P))
     _check("scale", scale, tips.device, tips.dtype, (I, P))
     _check("g", g, tips.device, tips.dtype, (P,))
+    n_levels = cuda_build.check_schedule(schedule, tips.device, I)
     order, offsets = schedule
-    _check("order", order, tips.device, torch.int32, (I,))
-    n_levels = offsets.numel() - 1
     lib = build()
     N = T + I
     nq = -(-P // cuda_build.S4_DP_CHUNK)
@@ -136,15 +145,16 @@ def pruning_backward(tips, pmats, children, rootw, schedule, partials,
 
 
 class _FusedSiteLog(torch.autograd.Function):
-    """site_log = F(tips, pmats, rootw); the backward is kernel B. The
-    forward's rescaled partials and scalers are kept for it."""
+    """site_log = F(tips, pmats, rootw) by the postorder schedule; the
+    backward is kernel B by the preorder one. The forward's rescaled
+    partials and scalers are kept for it."""
 
     @staticmethod
-    def forward(ctx, tips, pmats, rootw, children, schedule):
+    def forward(ctx, tips, pmats, rootw, children, postorder, preorder):
         site_log, partials, scale = pruning_forward(tips, pmats, children,
-                                                    rootw)
+                                                    rootw, postorder)
         ctx.save_for_backward(tips, pmats, rootw, children, partials, scale)
-        ctx.schedule = schedule
+        ctx.schedule = preorder
         return site_log
 
     @staticmethod
@@ -153,7 +163,7 @@ class _FusedSiteLog(torch.autograd.Function):
         dP, drootw = pruning_backward(tips, pmats, children, rootw,
                                       ctx.schedule, partials, scale,
                                       g.contiguous())
-        return None, dP, drootw, None, None
+        return None, dP, drootw, None, None, None
 
 
 # the plain PyTorch version of the kernels' function (ops/pruning.py)
@@ -172,11 +182,11 @@ def fused_site_log(tip_partials, pmats, topo: Topology, freqs, props):
     # rootw = props (x) freqs in torch: autograd maps d rootw to d props
     # and d freqs
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
-    return _FusedSiteLog.apply(tip_partials.detach().contiguous(),
-                               pmats.contiguous(), rootw.contiguous(),
-                               children,
-                               cuda_build.preorder_schedule(topo,
-                                                            tip_partials))
+    return _FusedSiteLog.apply(
+        tip_partials.detach().contiguous(), pmats.contiguous(),
+        rootw.contiguous(), children,
+        cuda_build.postorder_schedule(topo, tip_partials),
+        cuda_build.preorder_schedule(topo, tip_partials))
 
 
 def fused_tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs,

@@ -6,20 +6,21 @@ there, ``_kernel`` (``build_loop_forward``) and ``_backward_kernel``
 (``build_loop_backward``), become kernels K5' and K6' of ``csrc/loop.cu``:
 the flat postorder over nodes with any number of children, optional
 rescaling, the root ``props . (freqs @ root)``, and a backward that gives
-d pmats, d freqs and d props, for any state count S from 2 to 64: S = 4
-takes the register kernel ``loop_forward_kernel`` and the reverse step of
-``csrc/s4_backward.cuh`` (shared with K2'; two CUDA launches, the walk and
-the dP pass), every other S the shared-memory ones
+d pmats, d freqs and d props, for any state count S from 2 to 64. S = 4
+takes the forward step of ``csrc/s4_forward.cuh`` (a walk by postorder
+level in one launch, shared with K1') and the reverse step of
+``csrc/s4_backward.cuh`` (shared with K2'; two CUDA launches, the walk by
+preorder level and the dP pass); every other S the shared-memory kernels
 ``loop_wide_forward_kernel`` / ``loop_wide_backward_kernel`` (their node
 steps ``csrc/wide_forward.cuh`` / ``csrc/wide_backward.cuh``, shared with
 K7'/K8'; the forward launched as thread-block clusters of its C category
-blocks). What the JAX
-package got from ``jax.custom_batching.sequential_vmap`` is a leading batch
-axis L here (one chain per grid row): ``pmats [L, N, C, S, S]``, ``freqs
-[L, S]``, ``props [L, C]`` -> ``site_log [L, P]``, the tips ``[T, S, P]``
-shared by every chain. Unbatched inputs (``pmats [N, C, S, S]``) give
-``[P]``. The source note in ``csrc/loop.cu`` says what bounds them on the
-card and what the design does about it.
+blocks). What the JAX package got from
+``jax.custom_batching.sequential_vmap`` is a leading batch axis L here (one
+chain per grid row): ``pmats [L, N, C, S, S]``, ``freqs [L, S]``, ``props
+[L, C]`` -> ``site_log [L, P]``, the tips ``[T, S, P]`` shared by every
+chain. Unbatched inputs (``pmats [N, C, S, S]``) give ``[P]``. The source
+notes in ``csrc/loop.cu`` and the headers say what bounds them on the card
+and what the design does about it.
 
 - :func:`loop_site_log` / :func:`loop_tree_log_likelihood` are the entry
   points (the JAX signatures without ``block`` and ``interpret``). On a
@@ -27,8 +28,11 @@ card and what the design does about it.
   :func:`loop_site_log_reference`, the plain PyTorch version (the level-
   array engine of ``ops/pruning.py``).
 - :func:`loop_forward` / :func:`loop_backward` are the launch wrappers;
-  ``LOOP_FORWARD_LAUNCHES`` / ``LOOP_BACKWARD_LAUNCHES`` count their calls
-  (one CUDA launch each whatever L, but two for K6' at S = 4).
+  at S = 4 they walk by the schedules they are given
+  (``cuda_build.postorder_schedule`` / ``preorder_schedule``), which S != 4
+  does not read. ``LOOP_FORWARD_LAUNCHES`` / ``LOOP_BACKWARD_LAUNCHES``
+  count their calls (one CUDA launch each whatever L, but two for K6' at
+  S = 4).
 - The kernels are built at first use by ``nvcc`` (``ops/cuda_build.py``).
 """
 
@@ -50,10 +54,6 @@ LOOP_BACKWARD_LAUNCHES = 0
 # children per node (polytomies): the backward's per-warp reduction is
 # [maxc, C, 16] scalars, 16 KB in float64 at C = 8
 MAX_CHILDREN = 16
-# patterns per block of K5' at S = 4, one warp: at MCMC sizes (the fluA
-# tree, 238 patterns) the grid is L x 8 blocks, 128 of the H100's 132 SMs at
-# L = 16, where 128-pattern blocks would fill 32 (csrc/loop.cu)
-BLOCK = 32
 # patterns per block of the backward at S != 4 (4 tiles of 32; the grid is
 # (blocks, C, L)): the per-block dP scratch [L, ceil(P / 128), N, C, S, S]
 # is 240 MB in float32 at GY94 32 x 4096, L = 8, 208 MB at WAG+G4 64 x
@@ -86,7 +86,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"loop_forward_{dt}")
-        fwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        fwd.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"loop_backward_{dt}")
         bwd.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
@@ -123,27 +123,31 @@ def _entry(lib, name: str, tips):
                                 else "_f64"))
 
 
-def loop_forward(tips, pmats, children, freqs, props, rescale: bool = True):
-    """Launch K5': returns (site_log [L, P], partials [L, I, C, S, P],
-    scale [L, I, P])."""
+def loop_forward(tips, pmats, children, freqs, props, schedule,
+                 rescale: bool = True):
+    """Launch K5' (at S = 4 by ``schedule``, the (order, offsets) of
+    ``cuda_build.postorder_schedule``, which S != 4 does not read): returns
+    (site_log [L, P], partials [L, I, C, S, P], scale [L, I, P])."""
     global LOOP_FORWARD_LAUNCHES
     L, T, I, C, S, maxc, P = _dims(tips, pmats, children, freqs, props)
+    n_levels = cuda_build.check_schedule(schedule, tips.device, I)
     lib = build()
     partials = tips.new_empty((L, I, C, S, P))
     scale = tips.new_empty((L, I, P))
     site_log = tips.new_empty((L, P))
-    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-            freqs.data_ptr(), props.data_ptr(), partials.data_ptr(),
-            scale.data_ptr(), site_log.data_ptr())
+    ptrs = (tips.data_ptr(), pmats.data_ptr(), children.data_ptr())
+    outs = (partials.data_ptr(), scale.data_ptr(), site_log.data_ptr())
     with torch.cuda.device(tips.device):
         if S == 4:
+            order, offsets = schedule
             err = _entry(lib, "loop_forward", tips)(
-                *ptrs, T, I, C, maxc, P, L, int(bool(rescale)), BLOCK,
-                stream(tips))
+                *ptrs, order.data_ptr(), offsets.data_ptr(),
+                freqs.data_ptr(), props.data_ptr(), *outs, n_levels, T, I,
+                C, maxc, P, L, int(bool(rescale)), stream(tips))
         else:
             err = _entry(lib, "loop_wide_forward", tips)(
-                *ptrs, T, I, C, S, maxc, P, L, int(bool(rescale)),
-                stream(tips))
+                *ptrs, freqs.data_ptr(), props.data_ptr(), *outs, T, I, C, S,
+                maxc, P, L, int(bool(rescale)), stream(tips))
     LOOP_FORWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"loop forward kernel launch failed: "
@@ -168,8 +172,8 @@ def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
     check("partials", partials, tips.device, tips.dtype, (L, I, C, S, P))
     check("scale", scale, tips.device, tips.dtype, (L, I, P))
     check("g", g, tips.device, tips.dtype, (L, P))
+    n_levels = cuda_build.check_schedule(schedule, tips.device, I)
     order, offsets = schedule
-    check("order", order, tips.device, torch.int32, (I,))
     lib = build()
     N = T + I
     n_blocks = -(-P // (cuda_build.S4_DP_CHUNK if S == 4
@@ -190,7 +194,7 @@ def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
                 *ptrs, order.data_ptr(), offsets.data_ptr(),
                 freqs.data_ptr(), props.data_ptr(), *rest, inv.data_ptr(),
                 dP_part.data_ptr(), dfreqs_part.data_ptr(),
-                dprops_part.data_ptr(), offsets.numel() - 1, T, I, C,
+                dprops_part.data_ptr(), n_levels, T, I, C,
                 maxc, P, L, cuda_build.S4_DP_CHUNK, stream(tips))
         else:
             dP_part[:, :, N - 1].zero_()  # the root is no node's child
@@ -217,16 +221,18 @@ def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
 
 
 class _LoopSiteLog(torch.autograd.Function):
-    """site_log [L, P] = K5'(tips, pmats, freqs, props); the backward is
-    K6', which reads the forward's partials and scalers."""
+    """site_log [L, P] = K5'(tips, pmats, freqs, props) by the postorder
+    schedule; the backward is K6' by the preorder one, which reads the
+    forward's partials and scalers."""
 
     @staticmethod
-    def forward(ctx, tips, pmats, freqs, props, children, schedule, rescale):
+    def forward(ctx, tips, pmats, freqs, props, children, postorder,
+                preorder, rescale):
         site_log, partials, scale = loop_forward(tips, pmats, children, freqs,
-                                                 props, rescale)
+                                                 props, postorder, rescale)
         ctx.save_for_backward(tips, pmats, freqs, props, children, partials,
                               scale)
-        ctx.schedule = schedule
+        ctx.schedule = preorder
         return site_log
 
     @staticmethod
@@ -236,7 +242,7 @@ class _LoopSiteLog(torch.autograd.Function):
         dP, dfreqs, dprops = loop_backward(tips, pmats, children, freqs,
                                            props, ctx.schedule, partials,
                                            scale, g.contiguous())
-        return None, dP, dfreqs, dprops, None, None, None
+        return None, dP, dfreqs, dprops, None, None, None, None
 
 
 # the plain PyTorch version of K5'/K6''s function (ops/pruning.py)
@@ -261,6 +267,8 @@ def loop_site_log(topo: Topology, rescale: bool, tip_partials, pmats, freqs,
     site = _LoopSiteLog.apply(tip_partials.detach().contiguous(),
                               pmats.contiguous(), freqs.contiguous(),
                               props.contiguous(), children,
+                              cuda_build.postorder_schedule(topo,
+                                                            tip_partials),
                               cuda_build.preorder_schedule(topo, tip_partials),
                               bool(rescale))
     return site if batched else site[0]

@@ -96,6 +96,11 @@ def heights_from_ratios(params: torch.Tensor, topo: Topology,
     one masked [I,I] matvec instead of tree-depth many level updates. All W
     entries are products of ratios in (0,1], so it is as stable as the
     sequential sweep (reference semantics: src/phyc/treetransform.c:224-266).
+    The closed form runs in float64 for float32 parameters: there logR's
+    sums of log ratios, large near the prior, would lose their last digits
+    in W's exponents, differently in a batch of chains (a batched product)
+    and one chain at a time, and a branch, a difference of two heights,
+    with them.
     """
     I, T = topo.I, topo.T
     lead = params.shape[:-1]
@@ -105,17 +110,19 @@ def heights_from_ratios(params: torch.Tensor, topo: Topology,
         return torch.cat([tips, H[..., None]], -1)
     lowers_t = _as(lowers, params)
     if I <= _MATRIX_MAX_I:
+        wide = (params.to(torch.float64) if params.dtype == torch.float32
+                else params)
         A = topo_constant(topo, "ratio_mask",
-                          lambda: _ratio_ancestor_mask(topo), params)
-        lows = lowers_t[T: T + I - 1]
+                          lambda: _ratio_ancestor_mask(topo), wide)
+        lows = _as(lowers, wide)[T: T + I - 1]
         # exact-zero ratios would make logR[-inf]-logR[-inf] = nan in W
-        r = torch.clamp(params[..., : I - 1],
+        r = torch.clamp(wide[..., : I - 1],
                         min=torch.finfo(params.dtype).tiny)
         logR = torch.matmul(torch.log(r), A.T)
         W = torch.exp(logR[..., :, None] - logR[..., None, :]) * A
         h_int = (torch.matmul(W, (lows * (1.0 - r))[..., None])[..., 0]
-                 + torch.exp(logR) * H[..., None])
-        return torch.cat([tips, h_int, H[..., None]], -1)
+                 + torch.exp(logR) * wide[..., I - 1, None])
+        return torch.cat([tips, h_int.to(params.dtype), H[..., None]], -1)
     h = [None] * topo.N
     for t in range(T):
         h[t] = tips[..., t]

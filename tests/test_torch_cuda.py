@@ -3,8 +3,10 @@ ops/staged.py, K5'/K6' of ops/loop.py at S = 4 and at S from 2 to 64,
 K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card;
 the forward of K5' at S != 4 and K7' (thread-block clusters of the C
 category blocks) also at every cluster size, bit for bit run to run; K6'
-at S = 4 and K2' (their shared reverse step, csrc/s4_backward.cuh) also on
-large trees and bit for bit run to run.
+at S = 4 and K2' (their shared reverse step, csrc/s4_backward.cuh) and K5'
+at S = 4 and K1' (their shared forward step, csrc/s4_forward.cuh) also on
+large trees and bit for bit run to run, the forward also at C from 1 to 8
+and refusing a malformed schedule.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one (and nvcc), run them with ``python -m pytest -m cuda
@@ -92,13 +94,15 @@ def test_wrapper_rejects_bad_input(device):
     tips, pm, freqs, props, _ = _inputs(topo, 64, 4, torch.float32, device)
     children = torch.as_tensor(topo.children, device=device)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    schedule = cuda_build.postorder_schedule(topo, tips)
     with pytest.raises(ValueError, match="dtype"):
-        fused.pruning_forward(tips, pm.double(), children, rootw)
+        fused.pruning_forward(tips, pm.double(), children, rootw, schedule)
     with pytest.raises(ValueError, match="contiguous"):
-        fused.pruning_forward(tips, pm.transpose(2, 3), children, rootw)
+        fused.pruning_forward(tips, pm.transpose(2, 3), children, rootw,
+                              schedule)
     with pytest.raises(ValueError, match="rate categories"):
         fused.pruning_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
-                              children, rootw.repeat(3))
+                              children, rootw.repeat(3), schedule)
 
 
 def _tolerances(dtype):
@@ -323,7 +327,9 @@ def test_loop_wide_backward_is_deterministic(device):
                                         device, S=20)
     children = torch.as_tensor(topo.children, dtype=torch.int32,
                                device=device)
-    _, partials, scale = loop.loop_forward(tips, pm, children, freqs, props)
+    _, partials, scale = loop.loop_forward(
+        tips, pm, children, freqs, props,
+        cuda_build.postorder_schedule(topo, tips))
     schedule = cuda_build.preorder_schedule(topo, tips)
     runs = [loop.loop_backward(tips, pm, children, freqs, props, schedule,
                                partials, scale, g) for _ in range(2)]
@@ -340,8 +346,11 @@ def _s4_backward_runs(topo, P, C, L, dtype, device, runs=1):
                                device=device)
     rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
     pm0, g0 = pm[0].contiguous(), g[0].contiguous()
-    _, part, sc = loop.loop_forward(tips, pm, children, freqs, props)
-    _, part0, sc0 = fused.pruning_forward(tips, pm0, children, rootw)
+    postorder = cuda_build.postorder_schedule(topo, tips)
+    _, part, sc = loop.loop_forward(tips, pm, children, freqs, props,
+                                    postorder)
+    _, part0, sc0 = fused.pruning_forward(tips, pm0, children, rootw,
+                                          postorder)
     schedule = cuda_build.preorder_schedule(topo, tips)
     n6, n2 = loop.LOOP_BACKWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
     k6 = [loop.loop_backward(tips, pm, children, freqs, props, schedule,
@@ -433,6 +442,142 @@ def test_s4_backward_is_deterministic(device):
                 assert torch.equal(a, b)
 
 
+# K1' and K5' at S = 4 share one forward step (csrc/s4_forward.cuh): a walk
+# by postorder level, a pattern's C x 4 values on 4 C' lanes (C' = C rounded
+# up to 1, 2, 4 or 8, the padded lanes idle): (shape, P, C, L, rescale)
+S4_FORWARD_CASES = [
+    ("balanced", 300, 1, 1, True), ("balanced", 300, 2, 3, False),
+    ("balanced", 257, 3, 16, True), ("caterpillar", 1, 4, 3, True),
+    ("caterpillar", 100, 5, 1, False), ("polytomy", 257, 6, 3, True),
+    ("star", 300, 7, 16, False), ("star", 129, 8, 1, True)]
+
+
+def _s4_forward_runs(topo, tips, pm, freqs, props, rescale, runs=1):
+    """K5' at S = 4 (L chains) and K1' (chain 0, always rescaled) by the
+    postorder schedule, each ``runs`` times, and the launch counts."""
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=tips.device)
+    schedule = cuda_build.postorder_schedule(topo, tips)
+    rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
+    pm0 = pm[0].contiguous()
+    n5, n1 = loop.LOOP_FORWARD_LAUNCHES, fused.FORWARD_LAUNCHES
+    k5 = [loop.loop_forward(tips, pm, children, freqs, props, schedule,
+                            rescale) for _ in range(runs)]
+    k1 = [fused.pruning_forward(tips, pm0, children, rootw, schedule)
+          for _ in range(runs)]
+    torch.cuda.synchronize()
+    return k5, k1, (loop.LOOP_FORWARD_LAUNCHES - n5,
+                    fused.FORWARD_LAUNCHES - n1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,P,C,L,rescale", S4_FORWARD_CASES)
+def test_s4_forward_matches_plain(device, dtype, shape, P, C, L, rescale):
+    """K5' at S = 4 and K1' against the plain version: C from 1 to 8 (padded
+    lane groups at 3, 5, 6, 7), P not a multiple of a block (and P = 1),
+    L = 1, 3 and 16, binary trees and polytomies of up to 16 children,
+    rescale on and off; one launch a wrapper call; the rescaled partials
+    peak at exactly 1 over (C, 4) at every node and pattern (the lane
+    group's max), unrescaled scalers are 1, and K1''s partials and scalers
+    are K5''s of chain 0, bit for bit."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy, "star": _star}[shape]()
+    tips, pm, freqs, props, _ = _chains(topo, P, C, L, dtype, device)
+    (k5,), (k1,), launches = _s4_forward_runs(topo, tips, pm, freqs, props,
+                                              rescale)
+    assert launches == (1, 1)
+    rtol, atol, _ = _tolerances(dtype)
+    ref = loop.loop_site_log_reference(tips, pm, topo, freqs, props,
+                                       rescale=rescale)
+    torch.testing.assert_close(k5[0], ref, rtol=rtol, atol=atol)
+    _check_rescaled(k5[1], k5[2], rescale, (2, 3))
+    ref0 = loop.loop_site_log_reference(tips, pm[0], topo, freqs[0],
+                                        props[0])
+    torch.testing.assert_close(k1[0], ref0, rtol=rtol, atol=atol)
+    _check_rescaled(k1[1], k1[2], True, (1, 2))
+    if rescale:
+        assert torch.equal(k1[1], k5[1][0]) and torch.equal(k1[2], k5[2][0])
+
+
+@pytest.mark.parametrize("tree,P,C,dtype,from_device", [
+    ("caterpillar-128", 16384, 1, torch.float32, ""),
+    ("caterpillar-128", 16384, 2, torch.float64, ""),
+    ("balanced-1024", 300, 3, torch.float64, "P"),
+    ("binary-4200", 300, 1, torch.float32, "P, tables"),
+    ("polytomies-6000", 300, 3, torch.float32, "P, tables")])
+def test_s4_forward_large_trees(device, tree, P, C, dtype, from_device):
+    """K5' at S = 4 (2 chains) and K1' against the plain version on large
+    trees: a 128-taxon caterpillar with 16 384 patterns (127 postorder
+    levels of one node), and trees whose walk reads from device memory what
+    it keeps in shared memory on smaller ones (``from_device``,
+    csrc/s4_forward.cuh): one chain's P matrices past 96 KB (N x C x 16
+    scalars), the index tables past 48 KB (levels + 1 + I (1 + maxc)
+    ints)."""
+    topo = {"caterpillar-128": lambda: caterpillar_topology(128),
+            "balanced-1024": lambda: balanced_topology(1024),
+            "binary-4200": lambda: _merged_tree(4200, 2, 5),
+            "polytomies-6000": lambda: _merged_tree(6000, 4, 6)}[tree]()
+    maxc = topo.children.shape[1]
+    tables = (len(topo.levels) + 1 + topo.I * (1 + maxc)) * 4
+    assert (topo.N * C * 16 * dtype.itemsize > 96 * 1024,
+            tables > 48 * 1024) == ("P" in from_device,
+                                    "tables" in from_device)
+    tips, pm, freqs, props, _ = _chains(topo, P, C, 2, dtype, device)
+    (k5,), (k1,), launches = _s4_forward_runs(topo, tips, pm, freqs, props,
+                                              True)
+    assert launches == (1, 1)
+    rtol, atol, _ = _tolerances(dtype)
+    ref = loop.loop_site_log_reference(tips, pm, topo, freqs, props)
+    torch.testing.assert_close(k5[0], ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(k1[0], ref[0], rtol=rtol, atol=atol)
+    _check_rescaled(k5[1], k5[2], True, (2, 3))
+    assert torch.equal(k1[1], k5[1][0]) and torch.equal(k1[2], k5[2][0])
+
+
+def test_s4_forward_is_deterministic(device):
+    """K5' at S = 4 and K1' sum in fixed orders with no atomics: two
+    launches on the same inputs give bit-identical site logs, partials and
+    scalers (binary trees and a polytomy, C = 2 to 4)."""
+    for topo, P, C, L in ((balanced_topology(64), 1000, 4, 4),
+                          (caterpillar_topology(32), 5000, 2, 3),
+                          (_polytomy(), 4100, 3, 2)):
+        tips, pm, freqs, props, _ = _chains(topo, P, C, L, torch.float32,
+                                            device)
+        k5, k1, _ = _s4_forward_runs(topo, tips, pm, freqs, props, True,
+                                     runs=2)
+        for runs in (k5, k1):
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
+
+
+def test_s4_forward_rejects_bad_schedule(device):
+    """K1' and K5' refuse a schedule of another tree, on another device, in
+    another dtype or with more level offsets than nodes, and launch
+    nothing."""
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, _ = _chains(topo, 64, 2, 2, torch.float32,
+                                        device)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
+    order, offsets = cuda_build.postorder_schedule(topo, tips)
+    bad = [(cuda_build.postorder_schedule(balanced_topology(9), tips),
+            "order has shape"),
+           ((order.cpu(), offsets), "order is on cpu"),
+           ((order, offsets.long()), "offsets has dtype"),
+           ((order, torch.zeros(topo.I + 2, dtype=torch.int32,
+                                device=device)), "level offsets")]
+    n5, n1 = loop.LOOP_FORWARD_LAUNCHES, fused.FORWARD_LAUNCHES
+    for schedule, match in bad:
+        with pytest.raises(ValueError, match=match):
+            loop.loop_forward(tips, pm, children, freqs, props, schedule)
+        with pytest.raises(ValueError, match=match):
+            fused.pruning_forward(tips, pm[0].contiguous(), children, rootw,
+                                  schedule)
+    assert (loop.LOOP_FORWARD_LAUNCHES, fused.FORWARD_LAUNCHES) == (n5, n1)
+
+
 def test_wide_backward_is_deterministic(device):
     """K8' sums without atomics: two launches on the same inputs give
     bit-identical d pmats and d rootw."""
@@ -490,9 +635,10 @@ def test_forward_clusters_match_plain(device, dtype, shape, S, C, P):
     children = torch.as_tensor(topo.children, dtype=torch.int32,
                                device=device)
     rtol, atol, grtol = _tolerances(dtype)
+    postorder = cuda_build.postorder_schedule(topo, tips)
     for rescale in (True, False):
         site, part, scale = loop.loop_forward(tips, pm, children, freqs,
-                                              props, rescale)
+                                              props, postorder, rescale)
         ref = loop.loop_site_log_reference(tips, pm, topo, freqs, props,
                                            rescale=rescale)
         torch.testing.assert_close(site, ref, rtol=rtol, atol=atol)
@@ -553,8 +699,9 @@ def test_forward_is_deterministic(device):
     for S, C in ((20, 4), (61, 1), (33, 7)):
         tips, pm, freqs, props, _ = _chains(topo, 1000, C, 2, torch.float32,
                                             device, S=S)
-        runs = [loop.loop_forward(tips, pm, children, freqs, props)
-                for _ in range(2)]
+        postorder = cuda_build.postorder_schedule(topo, tips)
+        runs = [loop.loop_forward(tips, pm, children, freqs, props,
+                                  postorder) for _ in range(2)]
         rootw = (props[0][:, None] * freqs[0][None, :]).reshape(-1)
         schedule = cuda_build.level_schedule(topo, tips)
         runs += [wide.wide_forward(tips, pm[0], children, rootw, schedule)
@@ -580,14 +727,15 @@ def test_loop_wide_wrapper_rejects_bad_input(device):
     tips, pm, freqs, props, _ = _chains(topo, 64, 2, 2, torch.float32,
                                         device, S=20)
     children = torch.as_tensor(topo.children, device=device)
+    schedule = cuda_build.postorder_schedule(topo, tips)
     n0 = loop.LOOP_FORWARD_LAUNCHES
     with pytest.raises(ValueError, match="freqs"):
         loop.loop_forward(tips, pm, children, freqs[:, :4].contiguous(),
-                          props)
+                          props, schedule)
     tips65, pm65, freqs65, props65, _ = _chains(
         topo, 64, 1, 2, torch.float32, device, S=65)
     with pytest.raises(ValueError, match="2 to 64"):
-        loop.loop_forward(tips65, pm65, children, freqs65, props65)
+        loop.loop_forward(tips65, pm65, children, freqs65, props65, schedule)
     assert loop.LOOP_FORWARD_LAUNCHES == n0
 
 
@@ -596,13 +744,14 @@ def test_loop_wrapper_rejects_bad_input(device):
     tips, pm, freqs, props, _ = _chains(topo, 64, 4, 2, torch.float32,
                                         device)
     children = torch.as_tensor(topo.children, device=device)
+    schedule = cuda_build.postorder_schedule(topo, tips)
     n0 = loop.LOOP_FORWARD_LAUNCHES
     with pytest.raises(ValueError, match="dtype"):
-        loop.loop_forward(tips, pm.double(), children, freqs, props)
+        loop.loop_forward(tips, pm.double(), children, freqs, props, schedule)
     with pytest.raises(ValueError, match="freqs"):
-        loop.loop_forward(tips, pm, children, freqs[:1], props)
+        loop.loop_forward(tips, pm, children, freqs[:1], props, schedule)
     with pytest.raises(ValueError, match=r"\[L, N, C, S, S\]"):
-        loop.loop_forward(tips, pm[0], children, freqs, props)
+        loop.loop_forward(tips, pm[0], children, freqs, props, schedule)
     assert loop.LOOP_FORWARD_LAUNCHES == n0
 
 

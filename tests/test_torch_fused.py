@@ -143,7 +143,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     children = torch.as_tensor(topo.children)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused.pruning_forward(tips, pm, children, rootw)
+        fused.pruning_forward(tips, pm, children, rootw,
+                              cuda_build.postorder_schedule(topo, tips))
     assert fused.FORWARD_LAUNCHES == 0
 
 
@@ -164,9 +165,15 @@ def test_cuda_engine_on_cpu_raises(data_dir):
 #
 # csrc/pruning.cu cannot run here. These functions follow its schedules, so
 # the CPU tests hold the kernels' algorithm against the plain version. The
-# forward: one "thread" per pattern, vectorized over patterns; postorder
-# ranks, child slots with -1 for a missing child, per-node rescaling by the
-# max. The backward is the two launches of csrc/s4_backward.cuh (shared
+# forward is the walk of csrc/s4_forward.cuh (shared with K5' at S = 4) at
+# one chain, vectorized over patterns: by postorder level, leaves first
+# (cuda_build.postorder_schedule), a pattern's values on 4 C' lanes (C' = C
+# rounded up to 1, 2, 4 or 8; padded lanes load category C - 1 and hold 0),
+# each child loaded (node 0 for a missing child, then counted as 1) and
+# multiplied in slot order, rescaled by the max over the lane group clamped
+# at tiny; the root's rootw . x by a butterfly over the lane group, and
+# sum_k log m_k over R lanes a pattern (lane r every R-th rank in rank
+# order), then a butterfly over them. The backward is the two launches of csrc/s4_backward.cuh (shared
 # with K6' at S = 4) at one chain: the walk carries only the cotangents
 # gbuf, by preorder level, root first (cuda_build.preorder_schedule): the
 # root's seed rootw g / site, then at each node g_raw = gbuf / m and each
@@ -186,29 +193,47 @@ def _child(tips, partials, ch, c, T):
     return tips[ch] if ch < T else partials[ch - T, c]
 
 
-def _emulate_forward(tips, pmats, children, rootw):
+def _butterfly(v):
+    """What lane 0 holds after an xor butterfly sum over the first axis
+    (offsets 1, 2, 4, ...): adjacent pairs summed, then pairs of pairs."""
+    while v.shape[0] > 1:
+        v = v[0::2] + v[1::2]
+    return v[0]
+
+
+def _emulate_forward(tips, pmats, children, rootw, schedule, lanes=32):
+    """The forward walk at one chain; ``lanes`` is R of the log sum."""
     T, _, P = tips.shape
     C = pmats.shape[1]
     I, maxc = children.shape
+    Cp = 1 << (C - 1).bit_length()
+    cc = [min(c, C - 1) for c in range(Cp)]  # where a padded lane loads
     tiny = torch.finfo(tips.dtype).tiny
-    partials = tips.new_empty((I, C, 4, P))
-    scale = tips.new_empty((I, P))
-    log_sum = tips.new_zeros(P)
+    order, offsets = (x.tolist() for x in schedule)
+    partials = tips.new_full((I, C, 4, P), float("nan"))
+    scale = tips.new_full((I, P), float("nan"))
+    for d in range(len(offsets) - 1):
+        for k in order[offsets[d]:offsets[d + 1]]:
+            res = tips.new_ones((Cp, 4, P))
+            for j in range(maxc):
+                ch = int(children[k, j])
+                a = max(ch, 0)
+                x = tips[a].expand(Cp, -1, -1) if a < T else partials[a - T,
+                                                                      cc]
+                assert not torch.isnan(x).any(), "a child after its parent"
+                y = _apply_p(pmats[a, cc], x)
+                res = res * (y if ch >= 0 else 1.0)
+            res[C:] = 0.0
+            m = torch.clamp(res.amax((0, 1)), min=tiny)
+            partials[k], scale[k] = (res / m)[:C], m
+    v = rootw.view(C, 4, 1)[cc] * partials[I - 1, cc]
+    v[C:] = 0.0
+    site = _butterfly(v.reshape(4 * Cp, P))
+    acc = tips.new_zeros((lanes, P))
     for k in range(I):
-        res = tips.new_ones((C, 4, P))
-        for j in range(maxc):
-            ch = int(children[k, j])
-            if ch < 0:
-                continue
-            for c in range(C):
-                res[c] = res[c] * _apply_p(pmats[ch, c],
-                                           _child(tips, partials, ch, c, T))
-        m = torch.clamp(res.amax((0, 1)), min=tiny)
-        partials[k], scale[k] = res / m, m
-        log_sum = log_sum + torch.log(m)
-    site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum((0, 1)),
-                       min=tiny)
-    return torch.log(site) + log_sum, partials, scale
+        acc[k % lanes] = acc[k % lanes] + torch.log(scale[k])
+    return (torch.log(torch.clamp(site, min=tiny)) + _butterfly(acc),
+            partials, scale)
 
 
 def _chunk_sums(v):
@@ -285,14 +310,30 @@ def _polytomy():
     return Topology.from_nested(nested)[0]
 
 
-def _schedule_against_plain(topo, C, n_sites=300):
+def _five_children():
+    """A root with a 5-way polytomy (three tips and two cherries) beside a
+    tip."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+
+    def cherry(i):
+        return {"name": None, "length": 0.1, "children": [tip(i), tip(i + 1)]}
+    return Topology.from_nested({"name": None, "children": [
+        {"name": None, "length": 0.2, "children": [
+            tip(0), cherry(1), tip(3), cherry(4), tip(6)]},
+        tip(7)]})[0]
+
+
+def _schedule_against_plain(topo, C, n_sites=300, lanes=32):
     """float64: the kernels' emulated schedule against the plain version
     (value, d pmats, d rootw) to rounding."""
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _setup(topo, C, n_sites=n_sites, seed=2))
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
     children = torch.as_tensor(topo.children)
-    site, partials, scale = _emulate_forward(tips, pm, children, rootw.detach())
+    site, partials, scale = _emulate_forward(
+        tips, pm, children, rootw.detach(),
+        cuda_build.postorder_schedule(topo, tips), lanes)
     dP, drootw = _emulate_backward(tips, pm, children, rootw.detach(),
                                    cuda_build.preorder_schedule(topo, tips),
                                    partials, scale, w)
@@ -307,15 +348,18 @@ def _schedule_against_plain(topo, C, n_sites=300):
     torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("shape,C", [
-    ("balanced", 4), ("caterpillar", 3), ("polytomy", 2), ("balanced", 1),
-    ("polytomy", 4), ("caterpillar", 1)])
-def test_kernel_schedule_matches_plain(shape, C):
+@pytest.mark.parametrize("shape,C,lanes", [
+    ("balanced", 4, 32), ("caterpillar", 3, 8), ("polytomy", 2, 32),
+    ("balanced", 1, 4), ("polytomy", 4, 16), ("caterpillar", 1, 32),
+    ("balanced", 5, 32), ("polytomy5", 3, 8), ("polytomy5", 6, 32)])
+def test_kernel_schedule_matches_plain(shape, C, lanes):
     """float64: the kernels' emulated schedule against the plain version
-    (value, d pmats, d rootw) to rounding; 300 patterns padded to 512 span
-    four forward blocks and one dP chunk."""
-    _schedule_against_plain(
-        _polytomy() if shape == "polytomy" else _topologies(shape)[0], C)
+    (value, d pmats, d rootw) to rounding: padded lane groups (C = 3, 5,
+    6), polytomies of 4 and 5 children, the log sum over 4 to 32 lanes; 300
+    patterns padded to 512, one dP chunk."""
+    topo = {"polytomy": _polytomy, "polytomy5": _five_children}.get(
+        shape, lambda: _topologies(shape)[0])()
+    _schedule_against_plain(topo, C, lanes=lanes)
 
 
 @pytest.mark.parametrize("C", [1, 4])

@@ -91,8 +91,24 @@ def _star(cls):
         {"name": None, "length": 0.1, "children": [tip(15), tip(16)]}]})[0]
 
 
+def _five_children(cls):
+    """A root with a 5-way polytomy (three tips and two cherries) beside a
+    tip."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+
+    def cherry(i):
+        return {"name": None, "length": 0.1, "children": [tip(i), tip(i + 1)]}
+    return cls.from_nested({"name": None, "children": [
+        {"name": None, "length": 0.2, "children": [
+            tip(0), cherry(1), tip(3), cherry(4), tip(6)]},
+        tip(7)]})[0]
+
+
 def _topologies(shape):
     """(port topology, JAX topology) with the same node ids."""
+    if shape == "polytomy5":
+        return _five_children(Topology), _five_children(JTopology)
     if shape == "star":
         return _star(Topology), _star(JTopology)
     if shape == "balanced":
@@ -264,7 +280,8 @@ def test_cpu_runs_plain_version_without_launch():
     torch.testing.assert_close(ll1, ll[1], rtol=1e-14, atol=0)
     children = torch.as_tensor(topo.children)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        loop.loop_forward(tips, pm.detach(), children, freqs, props)
+        loop.loop_forward(tips, pm.detach(), children, freqs, props,
+                          cuda_build.postorder_schedule(topo, tips))
     assert loop.LOOP_FORWARD_LAUNCHES == loop.LOOP_BACKWARD_LAUNCHES == 0
     assert loop._lib is None
 
@@ -272,10 +289,16 @@ def test_cpu_runs_plain_version_without_launch():
 # -- the kernels' schedule, emulated on the CPU --------------------------------
 #
 # csrc/loop.cu cannot run here. These functions follow its schedules. The
-# forward: one "thread" per (pattern, chain), vectorized over both;
-# postorder ranks, child slots with -1 for a missing child (contributing 1),
-# the per-node max over (C, 4) divided out only with rescale (scale 1
-# without); the root props . (freqs @ root) clamped at tiny. The backward
+# forward is the walk of csrc/s4_forward.cuh (shared with K1'), vectorized
+# over chains and patterns: by postorder level, leaves first
+# (cuda_build.postorder_schedule), a pattern's values on 4 C' lanes (C' = C
+# rounded up to 1, 2, 4 or 8; padded lanes load category C - 1 and hold 0),
+# each child loaded (node 0 for a missing child, then counted as 1) and
+# multiplied in slot order, the max over the lane group clamped at tiny
+# divided out only with rescale (scale 1 without); the root's sum of
+# props_c freqs_s x by a butterfly over the lane group, and sum_k log m_k
+# over R lanes a pattern (lane r every R-th rank in rank order), then a
+# butterfly over them. The backward
 # is the two launches of csrc/s4_backward.cuh (shared with K2'): the walk
 # carries only the cotangents gbuf, by preorder level, root first
 # (cuda_build.preorder_schedule): the root's seed rootw g / site, then at
@@ -299,32 +322,53 @@ def _child(tips, partials, ch, c, T):
             else partials[:, ch - T, c])
 
 
-def _emulate_forward(tips, pmats, children, freqs, props, rescale):
+def _butterfly(v, dim):
+    """What lane 0 holds after an xor butterfly sum over ``dim`` (offsets
+    1, 2, 4, ...): adjacent pairs summed, then pairs of pairs."""
+    while v.shape[dim] > 1:
+        v = v.unflatten(dim, (-1, 2))
+        v = v.select(dim + 1, 0) + v.select(dim + 1, 1)
+    return v.squeeze(dim)
+
+
+def _emulate_forward(tips, pmats, children, freqs, props, rescale, schedule,
+                     lanes=32):
+    """The forward walk on L chains; ``lanes`` is R of the log sum."""
     T, _, P = tips.shape
     L, _, C = pmats.shape[:3]
     I, maxc = children.shape
+    Cp = 1 << (C - 1).bit_length()
+    cc = [min(c, C - 1) for c in range(Cp)]  # where a padded lane loads
     tiny = torch.finfo(tips.dtype).tiny
-    partials = tips.new_empty((L, I, C, 4, P))
-    scale = tips.new_ones((L, I, P))
-    log_sum = tips.new_zeros((L, P))
-    for k in range(I):
-        res = tips.new_ones((L, C, 4, P))
-        for j in range(maxc):
-            ch = int(children[k, j])
-            if ch < 0:
-                continue
-            for c in range(C):
-                res[:, c] = res[:, c] * _apply_p(
-                    pmats[:, ch, c], _child(tips, partials, ch, c, T))
-        if rescale:
-            m = torch.clamp(res.amax((1, 2)), min=tiny)
-            res = res / m[:, None, None]
+    order, offsets = (x.tolist() for x in schedule)
+    partials = tips.new_full((L, I, C, 4, P), float("nan"))
+    scale = tips.new_full((L, I, P), float("nan"))
+    for d in range(len(offsets) - 1):
+        for k in order[offsets[d]:offsets[d + 1]]:
+            res = tips.new_ones((L, Cp, 4, P))
+            for j in range(maxc):
+                ch = int(children[k, j])
+                a = max(ch, 0)
+                x = (tips[a].expand(L, Cp, -1, -1) if a < T
+                     else partials[:, a - T, cc])
+                assert not torch.isnan(x).any(), "a child after its parent"
+                y = _apply_p(pmats[:, a, cc], x)
+                res = res * (y if ch >= 0 else 1.0)
+            res[:, C:] = 0.0
+            m = (torch.clamp(res.amax((1, 2)), min=tiny) if rescale
+                 else tips.new_ones((L, P)))
+            partials[:, k] = (res / m[:, None, None])[:, :C]
             scale[:, k] = m
-            log_sum = log_sum + torch.log(m)
-        partials[:, k] = res
-    per_cat = (freqs[:, None, :, None] * partials[:, I - 1]).sum(2)
-    site = torch.clamp((props[:, :, None] * per_cat).sum(1), min=tiny)
-    return torch.log(site) + log_sum, partials, scale
+    rootw = props[:, cc, None, None] * freqs[:, None, :, None]
+    v = rootw * partials[:, I - 1, cc]
+    v[:, C:] = 0.0
+    site = _butterfly(v.reshape(L, 4 * Cp, P), 1)
+    logs = torch.log(scale) if rescale else torch.zeros_like(scale)
+    acc = tips.new_zeros((L, lanes, P))
+    for k in range(I):
+        acc[:, k % lanes] = acc[:, k % lanes] + logs[:, k]
+    return (torch.log(torch.clamp(site, min=tiny)) + _butterfly(acc, 1),
+            partials, scale)
 
 
 def _block_sums(v, block):
@@ -403,27 +447,41 @@ def _emulate_backward(tips, pmats, children, freqs, props, schedule,
             dprops_part.sum(1))
 
 
-def _schedule_against_plain(topo, C, L, rescale, n_sites=300):
-    """float64: the emulated K5'/K6' schedule against the plain version
-    (site logs, d pmats, d freqs, d props) to rounding, and the walk's
-    preorder schedule: every internal rank once, each a level below its
-    parent."""
-    tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
-                                 _batch(topo, L, C, n_sites=n_sites, seed=2))
-    children = torch.as_tensor(topo.children)
-    schedule = cuda_build.preorder_schedule(topo, tips)
+def _levels_of(topo, schedule):
+    """Each internal rank's level in ``schedule`` (every rank once)."""
     order, offsets = (x.tolist() for x in schedule)
     assert sorted(order) == list(range(topo.I))
     level = np.empty(topo.I, dtype=int)
     for d in range(len(offsets) - 1):
         level[order[offsets[d]:offsets[d + 1]]] = d
+    return level, len(offsets) - 1
+
+
+def _schedule_against_plain(topo, C, L, rescale, n_sites=300, lanes=32):
+    """float64: the emulated K5'/K6' schedule against the plain version
+    (site logs, d pmats, d freqs, d props) to rounding, and the walks'
+    schedules: every internal rank once; by preorder level each a level
+    below its parent; by postorder level each above its children, the root
+    alone at the last level."""
+    tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
+                                 _batch(topo, L, C, n_sites=n_sites, seed=2))
+    children = torch.as_tensor(topo.children)
+    schedule = cuda_build.preorder_schedule(topo, tips)
+    level, _ = _levels_of(topo, schedule)
     assert level[topo.I - 1] == 0
     for k, kids in enumerate(topo.children):
         for ch in kids[kids >= topo.T]:
             assert level[ch - topo.T] == level[k] + 1
+    postorder = cuda_build.postorder_schedule(topo, tips)
+    level, n_levels = _levels_of(topo, postorder)
+    assert list(np.nonzero(level == n_levels - 1)[0]) == [topo.I - 1]
+    for k, kids in enumerate(topo.children):
+        for ch in kids[kids >= topo.T]:
+            assert level[ch - topo.T] < level[k]
     g = w.expand(L, -1) * torch.linspace(0.5, 1.5, L, **F64)[:, None]
     site, partials, scale = _emulate_forward(tips, pm, children, freqs,
-                                             props, rescale)
+                                             props, rescale, postorder,
+                                             lanes)
     dP, dfreqs, dprops = _emulate_backward(tips, pm, children, freqs, props,
                                            schedule, partials, scale, g)
     leaves = [x.clone().requires_grad_(True) for x in (pm, freqs, props)]
@@ -436,17 +494,20 @@ def _schedule_against_plain(topo, C, L, rescale, n_sites=300):
                                    atol=1e-12 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("shape,C,L,rescale", [
-    ("balanced", 4, 3, True), ("caterpillar", 3, 2, False),
-    ("polytomy", 2, 4, True), ("polytomy", 1, 1, False),
-    ("balanced", 1, 1, True), ("polytomy", 4, 3, True),
-    ("star", 2, 3, False)])
-def test_kernel_schedule_matches_plain(shape, C, L, rescale):
+@pytest.mark.parametrize("shape,C,L,rescale,lanes", [
+    ("balanced", 4, 3, True, 32), ("caterpillar", 3, 2, False, 32),
+    ("polytomy", 2, 4, True, 8), ("polytomy", 1, 1, False, 32),
+    ("balanced", 1, 1, True, 4), ("polytomy", 4, 3, True, 16),
+    ("star", 2, 3, False, 32), ("balanced", 3, 3, True, 32),
+    ("caterpillar", 5, 1, True, 8), ("balanced", 5, 3, False, 32),
+    ("polytomy5", 3, 3, True, 4), ("polytomy5", 5, 2, False, 32)])
+def test_kernel_schedule_matches_plain(shape, C, L, rescale, lanes):
     """float64: the emulated K5'/K6' schedule against the plain version
-    (site logs, d pmats, d freqs, d props) to rounding; about 290 patterns
-    span ten 32-pattern forward blocks with a ragged last one and one dP
-    chunk."""
-    _schedule_against_plain(_topologies(shape)[0], C, L, rescale)
+    (site logs, d pmats, d freqs, d props) to rounding: padded lane groups
+    (C = 3, 5), rescale off, L up to 4, polytomies of 4, 5 and 16 children,
+    the log sum over 4 to 32 lanes; about 290 patterns and one dP chunk."""
+    _schedule_against_plain(_topologies(shape)[0], C, L, rescale,
+                            lanes=lanes)
 
 
 @pytest.mark.parametrize("C,L", [(1, 1), (4, 3)])
