@@ -42,7 +42,15 @@ slices' main paths through them and times kernel against plain:
   K5' and K6' at S != 4 also on one small case per instantiation and
   cluster size; K6', K5' and K7' twice on the same inputs (bit for bit; the
   forward's rescaled partials peaking at exactly 1), with their registers,
-  spills and the most clusters of K5' and K7' resident at once.
+  spills and the most clusters of K5' and K7' resident at once;
+- the ML estimator through the CLI: meta (Adam, L-BFGS, Brent) on
+  tests/data/jc69-time.json in float32 and float64 (K1'/K2'), meta with six
+  starts on GTR+G4 fluA (the starts as one batch through K5'/K6', then the
+  pair that ``select_engine`` picks), both against the JAX package's
+  optima; the hessian and laplace actions in float64 (K5'/K6' at L = 2n +
+  1) against the port's on the CPU, at the jc69-time optimum and on HKY
+  tiny.fa, with the float32 Hessian's error; and an optimizer's CSV
+  checkpoint restored through the CLI's ``-c``.
 
     python3 chip_smoke.py
 
@@ -54,6 +62,7 @@ is the card's name and power limit from nvidia-smi, and the last line is
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -1011,8 +1020,6 @@ def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
 
 def run_cli(argv):
     """The port's CLI in-process: (runner, printed lines)."""
-    import io
-
     out = io.StringIO()
     runner = cli.run([str(a) for a in argv], out=out)
     torch.cuda.synchronize()
@@ -1572,6 +1579,249 @@ def engine_names(dev):
     check(ok, "the pallas-* engine names on the card")
 
 
+# The JAX package's ML optima on the CPU in float64, for the ML phases:
+# `python -m physher_tpu.cli tests/data/jc69-time.json` prints "Maximum log
+# likelihood: -4341.059554" (meta + serial: the ratios and root height,
+# the clock rate fixed), and the same CLI on gtrg4_meta_config's file
+# "-4089.521845" (an unrestricted meta with six starts; about 60 s)
+JAX_JC69_TIME_ML = -4341.059554
+JAX_GTRG4_META_ML = -4089.521845
+# the card's Hessian and Laplace estimate in float64 against the port's on
+# the CPU (the same differences, other summation orders), and the float32
+# Hessian's relative Frobenius error against float64
+HESSIAN_RTOL, LAPLACE_RTOL, HESSIAN_F32_FROB = 1e-6, 1e-6, 5e-2
+
+
+def all_launches() -> dict:
+    return {"fused_forward": fused.FORWARD_LAUNCHES,
+            "fused_backward": fused.BACKWARD_LAUNCHES,
+            "staged_forward": staged.STAGED_FORWARD_LAUNCHES,
+            "staged_backward": staged.STAGED_BACKWARD_LAUNCHES,
+            "loop_forward": loop.LOOP_FORWARD_LAUNCHES,
+            "loop_backward": loop.LOOP_BACKWARD_LAUNCHES,
+            "wide_forward": wide.WIDE_FORWARD_LAUNCHES,
+            "wide_backward": wide.WIDE_BACKWARD_LAUNCHES}
+
+
+def zero_all_launches():
+    zero_launches()
+    wide.WIDE_FORWARD_LAUNCHES = wide.WIDE_BACKWARD_LAUNCHES = 0
+
+
+def maximum_line(lines) -> float:
+    line = next(ln for ln in lines if ln.startswith("Maximum log likelihood"))
+    return float(line.split()[3])
+
+
+def ml_meta_time(dev):
+    """The reference's time-tree ML config (tests/data/jc69-time.json: meta
+    with a serial sub-optimizer, so Adam, L-BFGS and Brent over the ratios
+    and root height) through the CLI on the card, float32 and float64
+    (K1'/K2'): the maximum past -4400 (the start is -4786.87), float64
+    within 0.05 of the JAX package's. Returns the float64 run's Runner and
+    launches."""
+    rec, ok, runner64 = {"card": nvidia_smi()}, True, None
+    for label, extra in (("f32", []), ("f64", ["--f64"])):
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([DATA / "jc69-time.json", *extra])
+        wall = time.perf_counter() - t0
+        res = runner.results["metaopt"]
+        tlk = runner.ctx.objects["treelikelihood"]
+        launches = all_launches()
+        logp = maximum_line(lines)
+        rec[label] = dict(logp=logp, iterations=res.iterations,
+                          wall_seconds=wall, meta_seconds=res.seconds,
+                          engine=tlk.engine_name(), scope=sorted(res.params),
+                          launches=launches)
+        ok = bool(ok and logp > -4400 and tlk.engine_name() == "cuda-fused"
+                  and sorted(res.params) == ["tree.ratios",
+                                             "tree.root_height"]
+                  and launches["fused_forward"] >= res.iterations
+                  and launches["fused_backward"] >= res.iterations)
+        runner64 = runner
+    err = rec["f64"]["logp"] - JAX_JC69_TIME_ML
+    ok = ok and abs(err) <= 0.05
+    emit("ml_meta_time", ok=ok, jax_cpu_f64=JAX_JC69_TIME_ML, f64_err=err,
+         tolerance=0.05, **rec)
+    check(ok, "jc69-time.json's meta optimizer through the CLI on the card")
+    return runner64, rec["f64"]["launches"]
+
+
+def gtrg4_meta_config(workdir: Path, starts: int = 6) -> Path:
+    """tests/data/goldens/gtrg4_fluA.json's model (GTR+G4 on the fluA
+    tree) under an unrestricted meta optimizer with ``starts`` starts."""
+    cfg = json.loads((DATA / "goldens" / "gtrg4_fluA.json").read_text())
+    cfg["model"]["sitepattern"]["alignment"]["file"] = str(DATA / "fluA.fa")
+    cfg["physher"] = [{"id": "ml", "type": "optimizer", "algorithm": "meta",
+                       "precision": 0.001, "max": 10000,
+                       "model": "&treelikelihood", "starts": starts}]
+    path = workdir / "gtrg4-meta.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def ml_meta_gtrg4():
+    """GTR+G4 fluA under meta with six starts through the CLI on the card:
+    the starts' warmup as one batch (K5'/K6' at L = 6, one launch pair a
+    step), then the one-dict kernels that select_engine picks; float64
+    reaches the JAX package's maximum less 0.1, float32 is printed.
+    Returns the float64 run's launches."""
+    rec, ok = {"card": nvidia_smi()}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = gtrg4_meta_config(Path(tmp))
+        for label, extra in (("f64", ["--f64"]), ("f32", [])):
+            zero_all_launches()
+            t0 = time.perf_counter()
+            runner, lines = run_cli([path, *extra])
+            wall = time.perf_counter() - t0
+            res = runner.results["ml"]
+            tlk = runner.ctx.objects["treelikelihood"]
+            launches = all_launches()
+            rec[label] = dict(logp=maximum_line(lines),
+                              iterations=res.iterations, wall_seconds=wall,
+                              meta_seconds=res.seconds,
+                              engine=tlk.engine_name(),
+                              batch_engine=tlk.engine_name(6),
+                              launches=launches)
+            pair = tlk.engine_name().removeprefix("cuda-")
+            # the warmup: 300 steps and the final values at L = 6; nothing
+            # else is batched
+            ok = bool(ok and launches["loop_forward"] == 301
+                      and launches["loop_backward"] == 300
+                      and tlk.engine_name(6) == "cuda-loop"
+                      and pair in ("fused", "staged")
+                      and launches[f"{pair}_forward"] >= res.iterations
+                      and launches[f"{pair}_backward"] >= res.iterations
+                      and np.isfinite(rec[label]["logp"]))
+    err = rec["f64"]["logp"] - JAX_GTRG4_META_ML
+    ok = ok and err >= -0.1
+    emit("ml_meta_gtrg4", ok=ok, jax_cpu_f64=JAX_GTRG4_META_ML,
+         f64_err=err, tolerance=-0.1, **rec)
+    check(ok, "GTR+G4 fluA meta with six starts through the CLI on the card")
+    return rec["f64"]["launches"]
+
+
+def hky2_config(workdir: Path, physher: list, name: str) -> Path:
+    """tests/data/goldens/hky2.json's model (HKY on tiny.fa) with the action
+    list ``physher``."""
+    cfg = json.loads((DATA / "goldens" / "hky2.json").read_text())
+    cfg["model"]["sitepattern"]["alignment"]["file"] = str(DATA / "tiny.fa")
+    cfg["physher"] = physher
+    path = workdir / name
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def hessian_laplace(dev, time_runner):
+    """The hessian and laplace actions in float64 at the jc69-time optimum
+    (the float64 ml_meta_time run's) and on hky2 (kappa and the
+    frequencies carry the d2/dQ2 terms): the card's (K5'/K6' at L = 2n + 1,
+    one launch pair a call) against the port's on the CPU, and the float32
+    Hessian against float64. Returns the float64 Hessian's launches at the
+    jc69-time optimum."""
+    from physher_tpu_torch.config.actions import Runner
+    from physher_tpu_torch.config.builder import build_config, load_json
+
+    rec, ok = {"card": nvidia_smi()}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        hky = hky2_config(Path(tmp), [], "hky2.json")
+        tlk = time_runner.ctx.objects["treelikelihood"]
+        point = {k: v.detach().cpu() for k, v in
+                 time_runner.params_for(tlk.param_space()).items()}
+        for name, path, at in (("jc69_time_optimum", DATA / "jc69-time.json",
+                                point), ("hky2", hky, None)):
+            out = {}
+            for where, dtype, device in (("card", torch.float64, dev),
+                                         ("cpu", torch.float64, "cpu"),
+                                         ("card_f32", torch.float32, dev)):
+                ctx, _ = build_config(load_json(str(path)),
+                                      base_dir=str(DATA), dtype=dtype,
+                                      device=device)
+                runner = Runner(ctx, out=io.StringIO())
+                model = ctx.objects["treelikelihood"]
+                if at is not None:
+                    runner.pool = {k: v.to(dtype=dtype, device=device)
+                                   for k, v in at.items()}
+                node = {"model": "&treelikelihood", "id": "x"}
+                zero_all_launches()
+                t0 = time.perf_counter()
+                H = runner.action_hessian(node)
+                hessian_s = time.perf_counter() - t0
+                hess_launches = all_launches()
+                lap = (runner.action_laplace(node) if where != "card_f32"
+                       else None)
+                out[where] = dict(H=H, laplace=lap, seconds=hessian_s,
+                                  launches=hess_launches,
+                                  n=model.param_space().unconstrained_size,
+                                  engine=model.engine_name(
+                                      2 * model.param_space()
+                                      .unconstrained_size + 1))
+            card, cpu, f32 = out["card"], out["cpu"], out["card_f32"]
+            h_err = float(np.abs(card["H"] - cpu["H"]).max()
+                          / np.abs(cpu["H"]).max())
+            lap_err = abs(card["laplace"] / cpu["laplace"] - 1.0)
+            frob = float(np.linalg.norm(f32["H"] - card["H"])
+                         / np.linalg.norm(card["H"]))
+            calls = card["launches"]
+            rec[name] = dict(
+                n=card["n"], rows=2 * card["n"] + 1, engine=card["engine"],
+                hessian_rel_err_vs_cpu=h_err, laplace_card=card["laplace"],
+                laplace_cpu=cpu["laplace"], laplace_rel_err=lap_err,
+                f32_frobenius_rel_err=frob, hessian_seconds=card["seconds"],
+                hessian_seconds_f32=f32["seconds"],
+                hessian_seconds_cpu=cpu["seconds"], launches=calls,
+                launches_f32=f32["launches"], max_abs_h=float(
+                    np.abs(cpu["H"]).max()))
+            ok = bool(ok and h_err <= HESSIAN_RTOL and lap_err <= LAPLACE_RTOL
+                      and frob <= HESSIAN_F32_FROB
+                      and card["engine"] == "cuda-loop"
+                      and calls["loop_forward"] == 1
+                      and calls["loop_backward"] == 1
+                      and f32["launches"]["loop_forward"] == 1)
+    emit("hessian_laplace", ok=ok, hessian_rtol=HESSIAN_RTOL,
+         laplace_rtol=LAPLACE_RTOL, f32_frobenius_bound=HESSIAN_F32_FROB,
+         **rec)
+    check(ok, "the hessian and laplace actions on the card against the CPU")
+    return rec["jc69_time_optimum"]["launches"]
+
+
+def ml_checkpoint():
+    """An sg optimizer with a "checkpoint" writes the CSV on the card
+    (float32); the CLI's -c seeds the next run's pool with the same
+    values, which its logger reads."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ml.csv"
+        fit = hky2_config(tmp, [
+            {"id": "ml", "type": "optimizer", "algorithm": "sg",
+             "model": "&treelikelihood", "precision": 1e-3,
+             "checkpoint": str(ckpt)}], "fit.json")
+        log = hky2_config(tmp, [{"id": "log", "type": "logger",
+                                 "models": ["&treelikelihood"]}], "log.json")
+        zero_all_launches()
+        runner, _ = run_cli([fit])
+        launches = all_launches()
+        res = runner.results["ml"]
+        rows = ckpt.read_text().splitlines()
+        restored, lines = run_cli([log, "-c", ckpt])
+        tlk = runner.ctx.objects["treelikelihood"]
+        with torch.no_grad():
+            at = float(tlk.log_likelihood(runner.params_for(
+                tlk.param_space())))
+    same = all(torch.equal(restored.pool[k], v.detach())
+               for k, v in res.params.items())
+    logged = float(lines[0].split()[1])
+    ok = bool(same and len(rows) == sum(v.numel() for v in
+                                        res.params.values())
+              and abs(logged - at) <= 1e-6
+              and launches["fused_forward"] >= res.iterations)
+    emit("checkpoint", ok=ok, rows=len(rows), restored_equal=same,
+         logged=logged, logp_at_checkpoint=at, iterations=res.iterations,
+         dtype=str(restored.ctx.dtype), launches=launches)
+    check(ok, "an optimizer's checkpoint restored through the CLI's -c")
+
+
 def kernel_row(name, src, replaces, launches, alone, kind):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -2033,38 +2283,59 @@ def main() -> int:
     # ---- 24. the config engine names pallas-fused and pallas-loop, card
     engine_names(dev)
 
+    # ---- 25-28. the ML estimator: meta on jc69-time.json (Adam, L-BFGS,
+    # Brent through K1'/K2'), meta with six starts on GTR+G4 fluA (the
+    # warmup through K5'/K6' at L = 6), the hessian and laplace actions
+    # (K5'/K6' at L = 2n + 1) and an optimizer's CSV checkpoint with -c
+    t0 = time.perf_counter()
+    time_runner, ml_time = ml_meta_time(dev)
+    ml_gtr = ml_meta_gtrg4()
+    ml_hessian = hessian_laplace(dev, time_runner)
+    ml_checkpoint()
+    emit("ml_phases", seconds=time.perf_counter() - t0)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
     staged_src = "physher_tpu_torch/csrc/staged.cu"
     loop_src = "physher_tpu_torch/csrc/loop.cu"
     print(json.dumps({"kernels": [
-        kernel_row("pruning_forward", fused_src,
-                   "physher_tpu/ops/pallas_fused.py:245",
-                   launches_fused["forward"], fused_alone, "forward"),
-        kernel_row("pruning_backward", fused_src,
-                   "physher_tpu/ops/pallas_fused.py:390",
-                   launches_fused["backward"], fused_alone, "backward"),
+        dict(kernel_row("pruning_forward", fused_src,
+                        "physher_tpu/ops/pallas_fused.py:245",
+                        launches_fused["forward"], fused_alone, "forward"),
+             ml_meta_time_f64_launches=ml_time["fused_forward"]),
+        dict(kernel_row("pruning_backward", fused_src,
+                        "physher_tpu/ops/pallas_fused.py:390",
+                        launches_fused["backward"], fused_alone,
+                        "backward"),
+             ml_meta_time_f64_launches=ml_time["fused_backward"]),
         kernel_row("wide_forward", wide_src,
                    "physher_tpu/ops/pallas_wide.py:217",
                    wide_launches["forward"], wide_alone, "forward"),
         kernel_row("wide_backward", wide_src,
                    "physher_tpu/ops/pallas_wide.py:396",
                    wide_launches["backward"], wide_alone, "backward"),
-        kernel_row("staged_forward", staged_src,
-                   "physher_tpu/ops/pallas_staged.py:234",
-                   staged_launches["forward"], staged_alone, "forward"),
-        kernel_row("staged_backward", staged_src,
-                   "physher_tpu/ops/pallas_staged.py:375",
-                   staged_launches["backward"], staged_alone, "backward"),
-        kernel_row("loop_forward", loop_src,
-                   "physher_tpu/ops/pallas_pruning_loop.py:119",
-                   ladder_launches["forward"], loop_times["fluA-jc69-L16"],
-                   "forward"),
-        kernel_row("loop_backward", loop_src,
-                   "physher_tpu/ops/pallas_pruning_loop.py:314",
-                   hmc_launches["backward"], loop_times["fluA-jc69-L4"],
-                   "backward"),
+        dict(kernel_row("staged_forward", staged_src,
+                        "physher_tpu/ops/pallas_staged.py:234",
+                        staged_launches["forward"], staged_alone, "forward"),
+             ml_meta_gtrg4_f64_launches=ml_gtr["staged_forward"]),
+        dict(kernel_row("staged_backward", staged_src,
+                        "physher_tpu/ops/pallas_staged.py:375",
+                        staged_launches["backward"], staged_alone,
+                        "backward"),
+             ml_meta_gtrg4_f64_launches=ml_gtr["staged_backward"]),
+        dict(kernel_row("loop_forward", loop_src,
+                        "physher_tpu/ops/pallas_pruning_loop.py:119",
+                        ladder_launches["forward"],
+                        loop_times["fluA-jc69-L16"], "forward"),
+             ml_warmup_launches=ml_gtr["loop_forward"],
+             hessian_launches=ml_hessian["loop_forward"]),
+        dict(kernel_row("loop_backward", loop_src,
+                        "physher_tpu/ops/pallas_pruning_loop.py:314",
+                        hmc_launches["backward"], loop_times["fluA-jc69-L4"],
+                        "backward"),
+             ml_warmup_launches=ml_gtr["loop_backward"],
+             hessian_launches=ml_hessian["loop_backward"]),
         dict(kernel_row("loop_forward_wide", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",
                         codon_launches["forward"],

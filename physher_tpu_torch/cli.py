@@ -6,11 +6,14 @@ src/physher.c:62-326): parse the config, build the model graph, run the
 
     python -m physher_tpu_torch.cli config.json [--seed N] [--dry] [--f64]
                                                 [--device {cuda,cpu}]
+                                                [-c checkpoint.csv]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits
 non-zero with a message when there is none: it never falls back to the CPU.
 Models are float32 on the card and float64 on the CPU; ``--f64`` asks for
-float64 on the card too (the reference's goldens need it).
+float64 on the card too (the reference's goldens need it). ``-c`` seeds
+the parameter pool of every model from a checkpoint CSV (the ``name,value``
+lines that an optimizer's ``"checkpoint"`` writes) before the actions run.
 """
 
 from __future__ import annotations
@@ -41,8 +44,7 @@ def run(argv=None, out=None):
     ap.add_argument("--dry", action="store_true",
                     help="print the resolved config and exit")
     ap.add_argument("-c", "--checkpoint", default=None,
-                    help="restore parameter values from a checkpoint CSV "
-                         "(not ported yet)")
+                    help="restore parameter values from a checkpoint CSV")
     ap.add_argument("--f64", action="store_true",
                     help="float64 on the card (the CPU always runs float64)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -57,10 +59,6 @@ def run(argv=None, out=None):
         json.dump(_prune(cfg), out, indent=2)
         print(file=out)
         return None
-    if args.checkpoint:
-        raise NotImplementedError(
-            "checkpoint restore (-c) needs ML's CSV checkpoint, which is not "
-            "ported to physher_tpu_torch yet (ROADMAP Queue 1 item 8)")
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise NoDeviceError("physher_tpu_torch: no CUDA device; pass "
@@ -79,6 +77,15 @@ def run(argv=None, out=None):
     from .config.actions import Runner
 
     runner = Runner(ctx, seed=seed, out=out)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        from .inference.ml import load_checkpoint
+
+        # seed the pool from the checkpoint over every model's parameters
+        pool = {}
+        for obj in ctx.objects.values():
+            if hasattr(obj, "param_space"):
+                pool.update(obj.param_space().init_params(**ctx.kw))
+        runner.pool = load_checkpoint(args.checkpoint, pool)
     runner.run(actions)
     print(f"Total runtime: {time.time() - t0:.3f}s", file=out)
     return runner

@@ -1,15 +1,17 @@
 """Action execution: the ``physher`` run list of a config.
 
-Port of the ``optimizer``, ``logger``, ``mcmc``, ``mmcmc`` and
-``marginallikelihood`` actions of ``physher_tpu/config/actions.py``
-(reference: src/physher.c:207-305). Actions share one parameter pool, so
-sequential actions see each other's results (the reference's shared
-Parameter objects in its hashtable). The random draws come from one
-``torch.Generator`` on the context's device, seeded once. The chains of an
-``mcmc`` node (``"chains"``) and the temperatures of an ``mmcmc`` node run
-as one batch through the model (``inference/mcmc.py``). Every other action
-type, and every optimizer algorithm but ``sg`` / ``adam``, raises
-``NotImplementedError`` naming its ROADMAP item.
+Port of the ``optimizer``, ``logger``, ``mcmc``, ``mmcmc``,
+``marginallikelihood``, ``laplace`` and ``hessian`` actions of
+``physher_tpu/config/actions.py`` (reference: src/physher.c:207-305).
+Actions share one parameter pool, so sequential actions see each other's
+results (the reference's shared Parameter objects in its hashtable). The
+random draws come from one ``torch.Generator`` on the context's device,
+seeded once. The chains of an ``mcmc`` node (``"chains"``), the
+temperatures of an ``mmcmc`` node, the starts of a meta optimizer and the
+difference points of the Hessian run as one batch through the model
+(``inference/mcmc.py``, ``inference/ml.py``). Every other action type, and
+the ``topology`` optimizer, raise ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,16 +31,14 @@ from .variational import VariationalHandle
 
 # the JAX package's actions that are not ported yet -> ROADMAP Queue 1 item
 _UNPORTED_ACTIONS = {
-    "laplace": 13, "bridgesampling": 13, "is": 13, "nest": 13, "cpo": 13,
-    "mc": 13, "predictive": 13, "hessian": 8, "asr": 14, "ppsite": 14,
-    "cat": 14, "simultron": 14, "sbn": 17, "dumper": 17,
+    "bridgesampling": 13, "is": 13, "nest": 13, "cpo": 13, "mc": 13,
+    "predictive": 13, "asr": 14, "ppsite": 14, "cat": 14, "simultron": 14,
+    "sbn": 17, "dumper": 17,
 }
 # chains evaluated at once when a logger recomputes values over samples
 _LOG_BATCH = 256
 # optimizer algorithms -> ROADMAP Queue 1 item, for the unported ones
-_UNPORTED_ALGORITHMS = {"meta": 8, "lbfgs": 8, "bfgs": 8, "cg": 8,
-                        "brent": 8, "serial": 8, "serialbrent": 8,
-                        "topology": 16}
+_UNPORTED_ALGORITHMS = {"topology": 16}
 
 
 class Runner:
@@ -93,9 +93,7 @@ class Runner:
                 raise NotImplementedError(
                     f"optimizer algorithm {alg!r} is not ported to "
                     f"physher_tpu_torch yet (ROADMAP Queue 1 item "
-                    f"{_UNPORTED_ALGORITHMS[alg]}); use 'sg' or 'adam'")
-        if algorithm not in ("sg", "adam"):
-            raise ValueError(f"unknown optimizer algorithm {algorithm!r}")
+                    f"{_UNPORTED_ALGORITHMS[alg]})")
 
         if isinstance(model, VariationalHandle):
             # SG/Adam on the ELBO (reference: optimizer.c OPT_SG/OPT_SG_ADAM
@@ -111,16 +109,12 @@ class Runner:
                   file=self.out)
             return res
 
-        if node.get("checkpoint"):
-            raise NotImplementedError(
-                "the ML optimizer's CSV checkpoint is not ported to "
-                "physher_tpu_torch yet (ROADMAP Queue 1 item 8)")
         log_prob = self.model_logprob(model)
         space = model.param_space()
         params = self.params_for(space)
         # As the JAX package does (a deviation from the reference's
-        # optimizer, ported as it is): Adam with its defaults, whatever
-        # "max" and "eta" say.
+        # optimizer, ported as it is): each method with its defaults,
+        # whatever "max" and "eta" say.
         restrict = node.get("parameters")
         if not restrict and node.get("list"):
             restrict = self._schedule_scope(node)
@@ -134,12 +128,23 @@ class Runner:
             def fn(p):
                 return log_prob({**fixed, **p})
 
+            method = {"sg": "adam", "adam": "adam"}.get(algorithm, "meta")
             res = ml.optimize(fn, sub_space,
                               {k: params[k] for k in sub_space.names},
-                              method="adam", tol=tol)
+                              method=method, tol=tol)
             params.update(res.params)
         else:
-            res = ml.optimize(log_prob, space, params, method="adam", tol=tol)
+            method = {"sg": "adam", "adam": "adam", "lbfgs": "lbfgs",
+                      "bfgs": "lbfgs", "cg": "lbfgs"}.get(algorithm, "meta")
+            kw = {}
+            if node.get("checkpoint"):
+                kw["checkpoint"] = node["checkpoint"]
+            if method == "meta":
+                # meta on the full space gets the batched multistart warmup
+                # (robust to bad scalar inits like gamma shape 0.1)
+                kw["n_starts"] = int(node.get("starts", 6))
+            res = ml.optimize(log_prob, space, params, method=method,
+                              tol=tol, **kw)
             params = dict(res.params)
         self.update_pool(params)
         self.results[node.get("id", "optimizer")] = res
@@ -148,17 +153,83 @@ class Runner:
         return res
 
     def _schedule_scope(self, node):
-        """The union of the parameters that the schedule's sub-optimizers
-        name, or None (the full space) if one of them names none: the JAX
-        package's ``_schedule_scope`` for the sub-optimizers the port runs
-        (``sg`` / ``adam``; the Brent ones raise above). The reference's
-        meta-optimizer runs only its schedule (optimizer.c:154-210)."""
+        """Union of the parameter names that the meta schedule's
+        sub-optimizers target, or None for the full space (a sub-optimizer
+        without a recognizable restricted target).
+
+        The reference's meta-optimizer runs only its schedule's
+        sub-optimizers (optimizer.c:154-210); a config whose schedule covers
+        a subset of the parameters (jc69-time.json: one "serial"
+        sub-optimizer over the tree likelihood's branch parameters,
+        optimizer.c:100-152) leaves the rest (the clock rate) fixed.
+        Optimizing everything jointly is both wrong and, with the ratio
+        transform's Jacobian and no prior, unbounded (rate -> 0, root height
+        -> inf). A Brent sub-optimizer's branch parameters are the
+        distances of an unrooted tree, and the height reparameterization of
+        a time tree: its ratios and root height, or its shifts.
+        """
         names: list = []
         for s in node.get("list", []):
-            if not s.get("parameters"):
-                return None
-            names += self.ctx.resolve_target(s["parameters"])
+            alg = str(s.get("algorithm", "")).lower()
+            if s.get("parameters"):
+                names += self.ctx.resolve_target(s["parameters"])
+                continue
+            if alg in ("serial", "brent", "serialbrent"):
+                tgt = self.ctx.resolve(s.get("treelikelihood")
+                                       or s.get("model") or node.get("model"))
+                tlk = getattr(tgt, "tlk", tgt)
+                if isinstance(tlk, TreeLikelihood):
+                    if tlk.time_data is None:
+                        names.append(tlk.key("distances"))
+                    elif tlk.height_transform == "shift":
+                        names.append(tlk.key("shifts"))
+                    else:
+                        names += [tlk.key("ratios"), tlk.key("root_height")]
+                    continue
+            return None
         return names or None
+
+    def action_hessian(self, node):
+        """The Hessian of the model's logP in the unconstrained space at the
+        pool's values (reference: src/phyc/hessian.c, a finite difference
+        too): ``ml.hessian``, the difference points as one batch."""
+        model = self.ctx.resolve(node.get("model"))
+        space = model.param_space()
+        H, _, _ = ml.hessian(self.model_logprob(model), space,
+                             self.params_for(space),
+                             max_chains=ml.hessian_chunk(model))
+        H = H.numpy()
+        self.results[node.get("id", "hessian")] = H
+        print("Hessian (unconstrained space):", file=self.out)
+        print(np.array2string(H, precision=6), file=self.out)
+        return H
+
+    def action_laplace(self, node):
+        """Laplace marginal likelihood. "distribution" selects the envelope
+        family (reference: src/phyc/laplace.c:965-1050 dispatch —
+        gamma/lognormal/beta/betaprime per-parameter fits or the
+        multivariate-normal default)."""
+        model = self.ctx.resolve(node.get("model"))
+        space = model.param_space()
+        params = self.params_for(space)
+        dist = node.get("distribution")
+        if isinstance(dist, dict):
+            dist = dist.get("distribution")
+        dist = str(dist or "multivariatenormal").lower()
+        chunk = ml.hessian_chunk(model)
+        if dist in ("multivariatenormal", "normal", "mvn"):
+            val = marginal.laplace_marginal(self.model_logprob(model), space,
+                                            params, max_chains=chunk)
+        else:
+            names = None
+            if node.get("x") is not None:
+                names = set(self.ctx.resolve_target(node["x"]))
+            val = marginal.laplace_marginal_fitted(
+                self.model_logprob(model), space, params, family=dist,
+                names=names, max_chains=chunk)
+        print(f"Laplace log marginal likelihood: {val:.6f}", file=self.out)
+        self.results[node.get("id", "laplace")] = val
+        return val
 
     def action_logger(self, node):
         """One-shot logger (reference: src/phyc/logger.c): a tree as newick,

@@ -70,9 +70,10 @@ class QuantileSiteModel(SiteModel):
         super().__init__(prefix, dtype=dtype, device=device, **kw)
         if distribution != "gamma" or quadrature != "median" or invariant:
             raise NotImplementedError(
-                f"{distribution}/{quadrature}"
-                f"{' +I' if invariant else ''} site model: only the median "
-                "Gamma quadrature is ported")
+                f"the {distribution}/{quadrature}"
+                f"{' +I' if invariant else ''} site model is not ported to "
+                "physher_tpu_torch yet (ROADMAP Queue 1 item 9); only the "
+                "median Gamma quadrature is")
         self.gamma_cats = cat_count
         self.cat_count = cat_count
         self.distribution = distribution

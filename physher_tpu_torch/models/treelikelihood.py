@@ -280,6 +280,15 @@ class TreeLikelihood(nn.Module):
         return (select_engine(*args) if batch is None
                 else select_engine(*args, batch))
 
+    def chain_bytes(self) -> int:
+        """Device bytes that one chain of a batch adds in K5'/K6' beyond
+        its inputs: the partials and their cotangents ``[I, C, S, P]`` and
+        the dP scratch ``[ceil(P / 128), N, C, S, S]``."""
+        S, P = self.tip_partials.shape[1:]
+        C, topo = self.site_model.cat_count, self.topo
+        return self.tip_partials.element_size() * (
+            2 * topo.I * C * S * P + -(-P // 128) * topo.N * C * S * S)
+
     def _run_engine(self, params):
         bl = self.branch_lengths(params)                  # [(L,) N]
         batch = bl.shape[0] if bl.dim() == 2 else None

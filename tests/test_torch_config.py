@@ -448,17 +448,13 @@ def test_cli_without_cuda_exits_nonzero(data_dir, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("what", ["laplace", "meta", "hessian", "lbfgs",
-                                  "mesh", "relaxed"])
+@pytest.mark.parametrize("what", ["bridgesampling", "mesh", "relaxed"])
 def test_unported_raises(data_dir, tmp_path, what):
     def edit(c):
         tlk = c["model"]["distributions"][0]
-        if what in ("laplace", "hessian"):
+        if what == "bridgesampling":
             c["physher"] = [{"id": "x", "type": what,
                              "model": "&posterior"}]
-        elif what in ("meta", "lbfgs"):
-            c["physher"] = [{"id": "ml", "type": "optimizer",
-                             "algorithm": what, "model": "&posterior"}]
         elif what == "mesh":
             c["init"] = {"devices": 2}
         else:
