@@ -50,7 +50,18 @@ slices' main paths through them and times kernel against plain:
   optima; the hessian and laplace actions in float64 (K5'/K6' at L = 2n +
   1) against the port's on the CPU, at the jc69-time optimum and on HKY
   tiny.fa, with the float32 Hessian's error; and an optimizer's CSV
-  checkpoint restored through the CLI's ``-c``.
+  checkpoint restored through the CLI's ``-c``;
+- the other substitution, site and clock models: K1'/K2', K3'/K4' and
+  K5'/K6' at S = 4 against plain at C = 3 and 5 (Gamma4+I), each also with
+  category 0's P the identity (an invariable category), and the device
+  times of K3'/K4' and K5'/K6' at C = 5 beside C = 4 (and K5'/K6' at 8),
+  in a CUDA graph over interleaved rounds;
+  then through the CLI: GTR+Gamma4+I meta on the fluA time tree against
+  the JAX package's optimum (K3'/K4'), ADVI and 8-chain mcmc of the
+  fluA-elbo model with Gamma4+I and a lognormal relaxed clock (K3'/K4',
+  K5'), UNREST (P(t) by expm) against the JAX package's logP and gradient
+  and its meta fit, the jc69w4 (Weibull) golden, and the 128-taxon
+  Gamma4+I config against plain with 20 ADVI steps.
 
     python3 chip_smoke.py
 
@@ -164,17 +175,22 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def random_inputs(topo, P, C, seed, dtype, device, datatype="nucleotide"):
+def random_inputs(topo, P, C, seed, dtype, device, datatype="nucleotide",
+                  identity=False):
     """Tips [T,S,P] of random states, row-stochastic pmats [N,C,S,S],
-    freqs, props, pattern weights (numpy seed)."""
+    freqs, props, pattern weights (numpy seed). With ``identity``, category
+    0's P is the identity on every branch, as an invariable category's."""
 
     sp = random_sitepattern(topo.T, P, seed=seed, datatype=datatype)
     S = sp.datatype.state_count
     rng = np.random.default_rng(seed)
     Q = rng.random((topo.N, C, S, S)) + 0.1
+    pm = Q / Q.sum(-1, keepdims=True)
+    if identity:
+        pm[:, 0] = np.eye(S)
     freqs = (np.asarray([0.3, 0.2, 0.25, 0.25]) if S == 4
              else rng.dirichlet(np.full(S, 5.0)))
-    arrays = (sp.tip_partials(), Q / Q.sum(-1, keepdims=True), freqs,
+    arrays = (sp.tip_partials(), pm, freqs,
               np.arange(1, C + 1) / (C * (C + 1) / 2),
               rng.uniform(0.5, 2.0, P))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -264,9 +280,11 @@ def load_gtrg4_fluA(dtype, device):
         tipstates=True, **kw)
 
 
-def golden_lines():
+def golden_lines(case="gtrg4_fluA"):
+    """(logP, node ids, the reference's central-difference branch gradients)
+    of tests/data/goldens/<case>.txt."""
     logp, node_ids, fd = None, [], []
-    with open(DATA / "goldens" / "gtrg4_fluA.txt") as fh:
+    with open(DATA / "goldens" / f"{case}.txt") as fh:
         for line in fh:
             if line.startswith("logP "):
                 logp = float(line.split()[1])
@@ -368,14 +386,18 @@ def chain_params(tlk, L, seed, scale=0.05):
             u0 + torch.as_tensor(noise, **kw)))
 
 
-def random_chains(topo, P, C, L, seed, dtype, device, S=4):
+def random_chains(topo, P, C, L, seed, dtype, device, S=4, identity=False):
     """Random one-hot tips [T,S,P] and L chains' row-stochastic pmats
     [L,N,C,S,S], freqs [L,S], props [L,C], and a cotangent [L,P] (numpy
-    seed)."""
+    seed). With ``identity``, category 0's P is the identity on every
+    branch of every chain."""
     rng = np.random.default_rng(seed)
     tips = np.eye(S)[rng.integers(0, S, (topo.T, P))].transpose(0, 2, 1)
     Q = rng.random((L, topo.N, C, S, S)) + 0.1
-    arrays = (tips, Q / Q.sum(-1, keepdims=True),
+    pm = Q / Q.sum(-1, keepdims=True)
+    if identity:
+        pm[:, :, 0] = np.eye(S)
+    arrays = (tips, pm,
               rng.dirichlet(np.full(S, 5.0), L),
               rng.dirichlet(np.full(C, 5.0), L), rng.uniform(0.5, 2.0, (L, P)))
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -927,12 +949,14 @@ LARGE_TRUTH = dict(rates=[1.0, 3.0, 0.8, 1.2, 3.5, 1.0],
 
 
 def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
-                 seed: int = 13):
+                 seed: int = 13, invariant: bool = False,
+                 advi_steps: int = 200):
     """Simulate a GTR+G4 alignment down a random dated tree on ``dev`` and
     write it as FASTA with a config that mirrors tests/data/fluA-elbo.json:
-    GTR+G4, a strict clock on a time tree, a constant coalescent, oneonx
-    and ctmcscale priors, mean-field blocks; action: 200 steps of ADVI.
-    Returns (config path, pattern count)."""
+    GTR+G4 (with ``invariant``, Gamma4+I), a strict clock on a time tree, a
+    constant coalescent, oneonx and ctmcscale priors, mean-field blocks;
+    action: ``advi_steps`` steps of ADVI. Returns (config path, pattern
+    count)."""
     from physher_tpu_torch.io.seqio import write_fasta
 
     newick, dates = random_dated_tree(n_tips, seed)
@@ -1010,9 +1034,14 @@ def large_config(workdir: Path, n_tips: int, n_sites: int, dev,
                                                         0)}}]},
         "physher": [
             {"id": "vb", "type": "optimizer", "algorithm": "sg",
-             "model": "&varnormal", "eta": 0.1, "tol": 1e-5, "max": 200},
+             "model": "&varnormal", "eta": 0.1, "tol": 1e-5,
+             "max": advi_steps},
         ],
     }
+    if invariant:
+        cfg["model"]["distributions"][0]["sitemodel"]["distribution"][
+            "proportions"] = {"id": "pinv", "type": "Simplex",
+                              "values": [0.1, 0.9]}
     path = workdir / "large.json"
     path.write_text(json.dumps(cfg, indent=1))
     return path, n_patterns
@@ -1822,6 +1851,591 @@ def ml_checkpoint():
     check(ok, "an optimizer's checkpoint restored through the CLI's -c")
 
 
+# -- the fourteenth slice: the other substitution, site and clock models --
+
+# GTR as tests/data/goldens/gtrg4_fluA.json gives it (GT at 1)
+GTR_NODE = {"id": "sm", "type": "substitutionmodel", "model": "gtr",
+            "datatype": "nucleotide",
+            "frequencies": {"id": "freqs", "type": "Simplex",
+                            "values": [0.34, 0.18, 0.21, 0.27]},
+            "rates": {k: {"id": k, "type": "parameter", "value": v,
+                          "lower": 0}
+                      for k, v in zip(["ac", "ag", "at", "cg", "ct"],
+                                      [1.7, 5.2, 0.9, 0.6, 6.1])}}
+# Gamma4+I: four median Gamma categories beside the invariable one (C = 5)
+G4I_NODE = {"distribution": "gamma", "categories": 4,
+            "parameters": {"id": "alpha", "type": "parameter",
+                           "value": 0.5, "lower": 0},
+            "proportions": {"id": "pinv", "type": "Simplex",
+                            "values": [0.1, 0.9]}}
+META_ACTION = {"id": "ml", "type": "optimizer", "algorithm": "meta",
+               "precision": 0.001, "max": 10000, "model": "&treelikelihood"}
+
+
+def flua_time_config(workdir: Path, name: str, subst: dict,
+                     distribution: dict | None = None,
+                     physher: list | None = None) -> Path:
+    """tests/data/jc69-time.json's fluA time tree and strict clock with the
+    substitution model ``subst`` and the site model's ``distribution``,
+    under an unrestricted meta optimizer (or ``physher``). The height
+    transform's Jacobian is left out: with the clock rate free it grows
+    without bound as the root height does, at a likelihood that stays
+    put."""
+    cfg = json.loads((DATA / "jc69-time.json").read_text())
+    m = cfg["model"]
+    m["reparameterized"] = False
+    m["sitepattern"]["alignment"]["file"] = str(DATA / "fluA.fa")
+    m["sitemodel"]["substitutionmodel"] = subst
+    if distribution is not None:
+        m["sitemodel"]["distribution"] = distribution
+    cfg["physher"] = [META_ACTION] if physher is None else physher
+    path = workdir / name
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+# kernel-against-plain shapes at the categories of Gamma4+I (C = 5) and a
+# three-class model (C = 3): (name, topology, patterns, categories, module)
+FAMILY_SHAPES = [
+    ("fluA-238-C5", lambda: load_fluA_time(torch.float64, "cpu").topo, 238,
+     5, fused),
+    ("caterpillar-128x4096-C3", lambda: caterpillar_topology(128), 4096, 3,
+     fused),
+    ("balanced-128x16384-C5", lambda: balanced_topology(128), 16384, 5,
+     staged),
+    ("balanced-48x1537-C3", lambda: balanced_topology(48), 1537, 3, staged),
+]
+
+
+# K5'/K6' at S = 4 on the fluA tree: (chains, categories); C = 3 is padded
+# onto the lanes of C' = 4, C = 5 onto those of C' = 8
+FAMILY_LOOP = [(8, 5), (4, 3)]
+
+
+def family_kernels(dev):
+    """K1'/K2' and K3'/K4' at FAMILY_SHAPES and K5'/K6' at S = 4 on the
+    fluA tree at FAMILY_LOOP against plain, float32 and float64, each also
+    with category 0's P the identity on every branch (the invariable
+    category's)."""
+    shapes = [(name, make(), P, C, mod) for name, make, P, C, mod in
+              FAMILY_SHAPES]
+    flu = shapes[0][1]
+    for dtype in (torch.float32, torch.float64):
+        for identity in (False, True):
+            tag = "-identity" if identity else ""
+            for name, topo, P, C, mod in shapes:
+                compare(name + tag, topo,
+                        random_inputs(topo, P, C, 17, dtype, dev,
+                                      identity=identity),
+                        dtype, mod=mod, phase="family_kernel_vs_plain")
+            for L, C in FAMILY_LOOP:
+                loop_alone(f"fluA-238-C{C}-L{L}{tag}", flu,
+                           *random_chains(flu, 238, C, L, 19, dtype, dev,
+                                          identity=identity),
+                           phase="family_loop_vs_plain")
+            torch.cuda.synchronize()
+
+
+def staged_calls(topo, tips, pmats, freqs, props, g):
+    """K3' and K4' as two closures on one model's inputs (K4' on the
+    partials of one K3' call), for timing."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+    schedule = cuda_build.level_schedule(topo, tips)
+    _, partials, scale = staged.staged_forward(tips, pmats, children, rootw,
+                                               schedule)
+    return {"forward": lambda: staged.staged_forward(
+                tips, pmats, children, rootw, schedule),
+            "backward": lambda: staged.staged_backward(
+                tips, pmats, children, rootw, schedule, partials, scale, g)}
+
+
+def loop_calls(topo, tips, pmats, freqs, props, g):
+    """K5' and K6' as two closures on one batch of chains, as
+    :func:`staged_calls`."""
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    post = cuda_build.postorder_schedule(topo, tips)
+    pre = cuda_build.preorder_schedule(topo, tips)
+    _, partials, scale = loop.loop_forward(tips, pmats, children, freqs,
+                                           props, post)
+    return {"forward": lambda: loop.loop_forward(
+                tips, pmats, children, freqs, props, post),
+            "backward": lambda: loop.loop_backward(
+                tips, pmats, children, freqs, props, pre, partials, scale,
+                g)}
+
+
+def family_times(smi, rounds=7):
+    """Device times of K3'/K4' at balanced 128 x 16384 and of K5'/K6' at
+    S = 4 on 8 chains of the fluA tree at C = 4 and 5 (and 8: the S = 4
+    walks put C = 5 on the lanes of C' = 8), float32. Each time is one
+    wrapper call's device time in a CUDA graph (chip_profile's
+    graph_launch_us: the host's time, which the S = 4 walks' wrappers
+    exceed, drops out); the C values are timed in ``rounds`` interleaved
+    rounds, their order reversed every other round, and each round gives
+    a C = 5 over C = 4 ratio. K5'/K6' at C = 4 and 8 are first held
+    against plain (:func:`loop_alone`)."""
+    # chip_profile imports this module, so it is imported here
+    from chip_profile import graph_launch_us
+
+    rec = {"card": smi, "rounds": rounds, "timer": "graph_launch_us"}
+    topo = balanced_topology(128)
+    flu = load_fluA_time(torch.float64, "cpu").topo
+    dev = torch.device("cuda", 0)
+    calls = {}
+    for C in (4, 5):
+        calls[f"staged-balanced-128x16384-C{C}"] = (C, staged_calls(
+            topo, *random_inputs(topo, 16384, C, 7, torch.float32, dev)))
+    for C in (4, 5, 8):
+        chains = random_chains(flu, 238, C, 8, 23, torch.float32, dev)
+        if C != 5:
+            loop_alone(f"fluA-238-C{C}-L8", flu, *chains,
+                       phase="family_loop_vs_plain")
+        calls[f"loop-fluA-238-C{C}-L8"] = (C, loop_calls(flu, *chains))
+    times = {name: {"forward": [], "backward": []} for name in calls}
+    names = list(calls)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            for kind, run in calls[name][1].items():
+                times[name][kind].append(graph_launch_us(run) / 1e3)
+    for name, by_kind in times.items():
+        rec[name] = {f"{kind}_ms": statistics.median(ms)
+                     for kind, ms in by_kind.items()}
+        rec[name]["rounds_ms"] = by_kind
+    for shape in ("staged-balanced-128x16384", "loop-fluA-238"):
+        suffix = "-L8" if shape.startswith("loop") else ""
+        for kind in ("forward", "backward"):
+            ratios = [b / a for a, b in zip(
+                times[f"{shape}-C4{suffix}"][kind],
+                times[f"{shape}-C5{suffix}"][kind])]
+            rec[f"{shape}{suffix}-{kind}-C5_over_C4"] = {
+                "median": statistics.median(ratios),
+                "min": min(ratios), "max": max(ratios)}
+    emit("family_times", **rec)
+    return rec
+
+
+# The JAX package's optimum on the CPU in float64, for the fourteenth
+# slice's path (a): `python -m physher_tpu.cli gtrg4i-time.json --f64` on
+# the file that flua_time_config(workdir, "gtrg4i-time.json", GTR_NODE,
+# G4I_NODE) writes (GTR+Gamma4+I on the fluA time tree, strict clock,
+# unrestricted meta) prints "Maximum log likelihood: -4144.687316 (503
+# iterations)" (about 65 s); the port on the CPU -4144.686883 (511). The
+# same CLI on unrest-time.json (UNREST_NODE) prints "-inf": its gradient in
+# the rates is NaN at the start (see JAX_UNREST_START), so no optimum of
+# the JAX package is held there.
+JAX_GTRG4I_TIME_ML = -4144.687316
+
+
+UNREST_NODE = {"id": "sm", "type": "substitutionmodel", "model": "unrest",
+               "datatype": "nucleotide"}
+# UNREST's rates at the second point of the start comparison: at the
+# config's start (all rates 1, Q is JC69's) the JAX package's gradient in
+# the rates is NaN (its lstsq's derivative at repeated singular values), so
+# "start" holds the rest of its gradient and "moved" all of it at these
+# rates, the rest of the parameters at their start. Made with the JAX
+# package (float64, CPU): build_config of flua_time_config(workdir,
+# "unrest-time.json", UNREST_NODE)'s file, engine "xla", then
+# jax.jit(jax.value_and_grad(tlk.log_likelihood)) at
+# tlk.param_space().init_params() and with "sm.rates" set to these.
+UNREST_MOVED_RATES = 0.5 + np.arange(12) / 8.0
+JAX_UNREST_START = (
+    {'moved': {'grad': {'bm.rate': 322132.0902305796,
+                        'sm.rates': [-11.39544235473413, 69.51320212383862,
+                                     -9.559696272039428, 12.911037644428317,
+                                     -16.991074239389995, 28.983451084193945,
+                                     49.70735917781424, -32.09170847255798,
+                                     -10.80444508140454, -19.866248790135806,
+                                     8.865084936808444, -22.67914702455647],
+                        'tree.ratios': [-0.6311177969889731, 6.404151137456436,
+                                        8.827990524411097, 5.132271071773341,
+                                        -5.2847063312751335, 2.718152697588011,
+                                        1.9875118785841908, 3.9045792088356284,
+                                        5.451923472587736, 9.461629128341661,
+                                        15.128366625892086, 34.757610913388284,
+                                        72.14074319357682, 95.35970054473215,
+                                        14.852660319980913, 14.91855423175683,
+                                        -1.362657155517958, 10.8706152351495,
+                                        19.53816011900858, 21.166728652918138,
+                                        38.97017334419405, 3.582085571077318,
+                                        11.093044161658987, 12.1575752293598,
+                                        70.3389637540082, -3.94837552818883,
+                                        86.8849910607432, 3.5030652705467844,
+                                        18.27433051813125, 6.0066112302443955,
+                                        19.630967202238253, 23.01225330774605,
+                                        22.459168666442757, 1.7695643800710261,
+                                        9.266155897154643, 53.149260796661,
+                                        41.59688310306893, 10.692954462084309,
+                                        4.1399384809463875, 3.300052516976889,
+                                        -4.668364155061688, 27.038240872020964,
+                                        53.89779565371934, 150.18618542092855,
+                                        23.50317862464312, 14.158564704847223,
+                                        1.3241888862370708, 16.73659790341985,
+                                        26.05030303853376, 3.448358604698746,
+                                        4.060261182719826, 10.147148320648567,
+                                        15.400878660659895, 69.7839565057381,
+                                        4.165264227118758, 5.823403813043434,
+                                        37.71654382661896, 3.4322585443818143,
+                                        65.47863995020116, 7.583681906773629,
+                                        5.7629922602418, 3.9285764309793123,
+                                        5.399841425119437, 39.74137662839564,
+                                        30.074491803636022, 3.193054001682466,
+                                        6.8490734803192055],
+                        'tree.root_height': 17.220164190912662},
+               'logp': -4783.756357468143},
+     'start': {'grad': {'bm.rate': 328017.67328134074,
+                        'tree.ratios': [-0.593653664221372, 6.441289658869023,
+                                        8.92145177998426, 5.17392443903548,
+                                        -5.118948603352916, 2.73140189672864,
+                                        2.0078824725492397, 3.956031262798641,
+                                        5.542287760476407, 9.566238093866211,
+                                        15.276905670004258, 35.18003581182308,
+                                        73.0043687778072, 96.69564894572781,
+                                        14.991147746063277, 15.285818508376543,
+                                        -1.3363345353514546, 10.9410898481444,
+                                        19.643146962059106, 21.46013340961518,
+                                        39.139452337512466, 3.6372759221191977,
+                                        11.269174317983506, 12.443235860074665,
+                                        71.12758013218425, -3.8069961277877074,
+                                        88.12588290657769, 3.599600183030489,
+                                        18.47948570610025, 6.036534490721635,
+                                        19.84110328156244, 23.24734623488598,
+                                        22.733164231934566, 1.8172474126370375,
+                                        9.368306385819672, 54.08739297310047,
+                                        42.35386071758681, 10.67977767411859,
+                                        4.140801615931922, 3.3305556707251966,
+                                        -4.622247216605132, 27.320694183101118,
+                                        54.314129320904975, 152.27137882559458,
+                                        23.54087488762284, 14.306570584262353,
+                                        1.22256815610141, 16.980030076371335,
+                                        26.380172461496038, 3.4861149347894544,
+                                        4.098873332099792, 10.26781221671924,
+                                        15.592298788222056, 70.94321518451105,
+                                        4.240029132899423, 6.016353791291138,
+                                        38.34349768432318, 3.488515635005263,
+                                        66.51533636215461, 7.694985489228406,
+                                        5.883423757662067, 3.9810161028136086,
+                                        5.470071627031155, 40.519127249010204,
+                                        30.451660702188576, 2.8408309399005915,
+                                        6.80252182038415],
+                        'tree.root_height': 17.49248495783966},
+               'logp': -4777.6163497139805}})
+
+
+def family_meta_gtrg4i():
+    """(a) GTR+Gamma4+I (C = 5) on the fluA time tree with a strict clock
+    under an unrestricted meta optimizer through the CLI in float64: the
+    maximum within 0.05 of the JAX package's, through K3'/K4' (the staged
+    gate takes C = 5 at fluA), their launches counted."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = flua_time_config(Path(tmp), "gtrg4i-time.json", GTR_NODE,
+                                G4I_NODE)
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path, "--f64"])
+        wall = time.perf_counter() - t0
+    launches = all_launches()
+    res = runner.results["ml"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    logp = maximum_line(lines)
+    err = logp - JAX_GTRG4I_TIME_ML
+    ok = bool(abs(err) <= 0.05 and tlk.engine_name() == "cuda-staged"
+              and tlk.site_model.cat_count == 5
+              and launches["staged_forward"] >= res.iterations
+              and launches["staged_backward"] >= res.iterations)
+    emit("family_meta_gtrg4i", ok=ok, logp=logp,
+         jax_cpu_f64=JAX_GTRG4I_TIME_ML, err=err, tolerance=0.05,
+         iterations=res.iterations, wall_seconds=wall,
+         meta_seconds=res.seconds, engine=tlk.engine_name(),
+         launches=launches, estimates={k: v.tolist() for k, v in (
+             (k, runner.params_for(tlk.param_space())[k].cpu().numpy())
+             for k in ("sitemodel.shape", "sitemodel.proportions",
+                       "bm.rate"))})
+    check(ok, "GTR+G4+I fluA meta through the CLI on the card")
+    return launches
+
+
+def family_flua_config(workdir: Path, physher: list,
+                       varmodel: bool) -> Path:
+    """tests/data/fluA-elbo.json's model with Gamma4+I and a lognormal
+    relaxed clock of 8 bins (DistributionRelaxedClock) in place of the
+    strict clock, exponential priors on the Gamma shape and the log sigma
+    and a normal one on the log mean (in place of the clock rate's
+    ctmcscale), the variational blocks of the new parameters (with
+    ``varmodel``), and the action list ``physher``."""
+    cfg = json.loads((DATA / "fluA-elbo.json").read_text())
+    tlk, prior = cfg["model"]["distributions"]
+    tlk["sitemodel"]["distribution"] = G4I_NODE
+    tlk["branchmodel"] = {
+        "id": "bm", "type": "branchmodel", "model": "relaxed",
+        "distribution": "lognormal", "categories": 8, "tree": "&tree",
+        "parameters": {
+            "logmean": {"id": "lm", "type": "parameter", "value": -6.9},
+            "logsigma": {"id": "ls", "type": "parameter", "value": 0.3,
+                         "lower": 0}}}
+    prior["distributions"] = [
+        d for d in prior["distributions"] if d["id"] != "priorrate"] + [
+        {"id": "prioralpha", "type": "distribution",
+         "distribution": "exponential", "x": "&alpha",
+         "parameters": {"lambda": 1.0}},
+        {"id": "priorlm", "type": "distribution", "distribution": "normal",
+         "x": "&lm", "parameters": {"mu": -7.0, "sigma": 2.0}},
+        {"id": "priorls", "type": "distribution",
+         "distribution": "exponential", "x": "&ls",
+         "parameters": {"lambda": 3.0}}]
+    if varmodel:
+        blocks = cfg["varmodel"]["distributions"]
+        blocks[:] = blocks[:2] + [
+            {"id": f"block.{x}", "type": "block", "distribution": "normal",
+             "x": f"&{x}", "initialize": True,
+             "parameters": {"sigma": {"id": f"sigma.{x}",
+                                      "type": "parameter", "value": 0.05,
+                                      "lower": 0}}}
+            for x in ("lm", "ls", "alpha")]
+    else:
+        cfg.pop("varmodel")
+    cfg["physher"] = physher
+    for name in ("fluA.fa", "fluA-rooted.nxs"):
+        link = workdir / name
+        if not link.exists():
+            link.symlink_to(DATA / name)
+    path = workdir / "fluA-g4i-relaxed.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def family_advi_mcmc(dev, advi_steps=200, length=500, n_chains=8):
+    """(b) The fluA-elbo model with Gamma4+I and a lognormal relaxed clock
+    through the CLI in float32: 200 ADVI steps (K3'/K4'), the ELBO finite
+    and rising (the same 100 draws at the start and the end), then mcmc
+    with 8 chains for 500 steps through K5' at C = 5, finite throughout."""
+    rec, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = family_flua_config(Path(tmp), [
+            {"id": "vb", "type": "optimizer", "algorithm": "sg",
+             "model": "&varnormal", "eta": 0.1, "tol": 1e-5,
+             "max": advi_steps}], varmodel=True)
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        vb_res = runner.results["vb"]
+        tlk = runner.ctx.objects["treelikelihood"]
+        fam = runner.ctx.objects["varnormal"].family
+        eps = fam.draw(fam.init, torch.Generator(device=dev).manual_seed(7),
+                       100)
+        with torch.no_grad():
+            elbo_first = float(fam.elbo(fam.init, eps=eps))
+            elbo_last = float(fam.elbo(vb_res.vparams, eps=eps))
+        ok = bool(np.isfinite([elbo_first, elbo_last]).all()
+                  and elbo_last > elbo_first
+                  and vb_res.iterations == advi_steps
+                  and tlk.site_model.cat_count == 5
+                  and tlk.engine_name() == "cuda-staged"
+                  and launches["staged_forward"] >= advi_steps
+                  and launches["staged_backward"] >= advi_steps)
+        rec["advi"] = dict(lines=lines, steps=vb_res.iterations,
+                           elbo_first=elbo_first, elbo_last=elbo_last,
+                           wall_seconds=wall,
+                           step_ms=(vb_res.seconds - vb_res.check_seconds)
+                           * 1e3 / vb_res.iterations,
+                           engine=tlk.engine_name(), launches=launches)
+        path = family_flua_config(Path(tmp), [
+            {"id": "mc", "type": "mcmc", "model": "&posterior",
+             "length": length, "chains": n_chains,
+             "log": [{"id": "lg", "type": "logger", "every": 50,
+                      "file": "mc.log", "models": ["&posterior"],
+                      "x": ["&alpha", "&lm", "&ls"]}]}], varmodel=False)
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    res = runner.results["mc"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    post = runner.ctx.objects["posterior"]
+    with torch.no_grad():
+        last = np.asarray([float(post.log_prob(res.params_at(-1, chain=k)))
+                           for k in range(n_chains)])
+    ok = bool(ok and launches["loop_forward"] >= length
+              and tlk.engine_name(n_chains) == "cuda-loop"
+              and np.isfinite(res.log_posterior).all()
+              and np.isfinite(last).all())
+    rec["mcmc"] = dict(lines=lines, chains=n_chains, iterations=length,
+                       last_log_posterior=list(last),
+                       acceptance=list(res.acceptance), wall_seconds=wall,
+                       step_ms=wall * 1e3 / length, launches=launches,
+                       engine=tlk.engine_name(n_chains))
+    emit("family_advi_mcmc", ok=ok, **rec)
+    check(ok, "ADVI and mcmc of the Gamma4+I lognormal-clock fluA model")
+    return rec["advi"]["launches"], launches
+
+
+def family_unrest(dev):
+    """(c) UNREST on the fluA time tree (strict clock) in float64 on the
+    card, its P(t) by expm_pade: logP and the gradient at the config's
+    start and at UNREST_MOVED_RATES against the JAX package's at 1e-8
+    (K1'/K2'), then the unrestricted meta optimizer through the CLI."""
+    from physher_tpu_torch.config.builder import build_config
+
+    rec, ok = {}, True
+    kw = dict(dtype=torch.float64, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = flua_time_config(Path(tmp), "unrest-time.json", UNREST_NODE)
+        ctx, _ = build_config(json.loads(path.read_text()),
+                              base_dir=str(DATA), **kw)
+        tlk = ctx.objects["treelikelihood"]
+        start = tlk.param_space().init_params(**kw)
+        moved = dict(start, **{"sm.rates": torch.as_tensor(
+            UNREST_MOVED_RATES, **kw)})
+        fused.FORWARD_LAUNCHES = fused.BACKWARD_LAUNCHES = 0
+        for label, params in (("start", start), ("moved", moved)):
+            ref = JAX_UNREST_START[label]
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in params.items()}
+            logp = tlk.log_likelihood(leaves)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                logp, list(leaves.values()))))
+            errs = {k: float(np.max(np.abs(grads[k].cpu().numpy()
+                                           - np.asarray(g))
+                                    / (1e-8 * np.abs(np.asarray(g)) + 1e-8)))
+                    for k, g in ref["grad"].items()}
+            lerr = float(logp.detach()) - ref["logp"]
+            rec[label] = dict(logp=float(logp.detach()), logp_err=lerr,
+                              grad_err_over_tol=errs,
+                              rates_grad=grads["sm.rates"].tolist())
+            ok = ok and abs(lerr) <= 1e-8 and max(errs.values()) <= 1.0 \
+                and bool(torch.isfinite(grads["sm.rates"]).all())
+        start_launches = {"forward": fused.FORWARD_LAUNCHES,
+                          "backward": fused.BACKWARD_LAUNCHES}
+        ok = ok and tlk.engine_name() == "cuda-fused" \
+            and min(start_launches.values()) >= 2
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path, "--f64"])
+        wall = time.perf_counter() - t0
+    launches = all_launches()
+    res = runner.results["ml"]
+    logp = maximum_line(lines)
+    ok = bool(ok and np.isfinite(logp)
+              and logp > JAX_UNREST_START["start"]["logp"]
+              and launches["fused_forward"] >= res.iterations)
+    emit("family_unrest", ok=ok, tolerance=dict(logp_atol=1e-8,
+                                                grad_rtol=1e-8,
+                                                grad_atol=1e-8),
+         start_launches=start_launches, meta_logp=logp,
+         meta_iterations=res.iterations, meta_wall_seconds=wall,
+         meta_launches=launches, **rec)
+    check(ok, "UNREST on the card against the JAX package, and its meta fit")
+
+
+def family_jc69w4(dev):
+    """(d) The jc69w4 golden (JC69 + four median Weibull categories on
+    tiny.fa) in float64 on the card, at tests/test_oracle_goldens.py's
+    tolerances: logP, and the branch gradients against the reference's
+    central differences."""
+    from physher_tpu_torch.config.builder import build_config
+
+    kw = dict(dtype=torch.float64, device=dev)
+    cfg = json.loads((DATA / "goldens" / "jc69w4.json").read_text())
+    cfg["model"]["sitepattern"]["alignment"]["file"] = str(DATA / "tiny.fa")
+    ctx, _ = build_config(cfg, base_dir=str(DATA), **kw)
+    tlk = ctx.objects["treelikelihood"]
+    params = {k: v.requires_grad_(True) for k, v in
+              tlk.param_space().init_params(**kw).items()}
+    logp = tlk.log_likelihood(params)
+    (g,) = torch.autograd.grad(logp, [params["tree.distances"]])
+    g = g.cpu().numpy()
+    logp_ref, node_ids, fd_ref = golden_lines("jc69w4")
+    nonroot = [i for i in node_ids if i != tlk.topo.root]
+    margins = [abs(g[i] - fd) - (5e-2 + 5e-4 * abs(fd))
+               for i, fd in zip(nonroot, fd_ref)]
+    err = float(logp.detach()) - logp_ref
+    ok = bool(abs(err) <= 2e-8 + 5e-9 * abs(logp_ref)
+              and len(nonroot) == len(fd_ref) and max(margins) <= 0)
+    emit("family_jc69w4", ok=ok, logp=float(logp.detach()),
+         logp_ref=logp_ref, logp_err=err, engine=tlk.engine_name(),
+         worst_fd_margin=float(max(margins)),
+         tolerance=dict(logp_rtol=5e-9, logp_atol=2e-8, fd_rtol=5e-4,
+                        fd_atol=5e-2))
+    check(ok, "the jc69w4 golden on the card")
+
+
+def family_staged_large(dev, n_tips=128, n_sites=20480, advi_steps=20):
+    """(e) cli_staged_large's config with Gamma4+I (C = 5, 128 taxa x
+    about 16 000 patterns): the posterior's value and gradient through
+    K3'/K4' against the plain engine on the card (float32, TOL), then 20
+    ADVI steps through the CLI: the ELBO it prints finite, the variational
+    parameters finite and moved from the start, and the ELBO on the same
+    100 draws finite at the start and the end. (Its periodic checks come
+    every 100 steps, so the 20 steps keep no history.)"""
+    with tempfile.TemporaryDirectory() as tmp:
+        path, n_patterns = large_config(Path(tmp), n_tips, n_sites, dev,
+                                        invariant=True,
+                                        advi_steps=advi_steps)
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    tlk = runner.ctx.objects["treelikelihood"]
+    post = runner.ctx.objects["posterior"]
+    vb_res = runner.results["vb"]
+    fam = runner.ctx.objects["varnormal"].family
+    eps = fam.draw(fam.init, torch.Generator(device=dev).manual_seed(7), 100)
+    with torch.no_grad():
+        elbo_first = float(fam.elbo(fam.init, eps=eps))
+        elbo_last = float(fam.elbo(vb_res.vparams, eps=eps))
+    vparams_finite = all(bool(torch.isfinite(v).all())
+                         for v in vb_res.vparams.values())
+    moved = any(not torch.equal(vb_res.vparams[k], v)
+                for k, v in fam.init.items())
+    params = runner.params_for(post.param_space())
+    out = {}
+    for engine in ("auto", "torch"):
+        tlk.engine = engine
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        val = post.log_prob(leaves)
+        out[engine] = (float(val.detach()), dict(zip(leaves, (
+            gg.detach() for gg in torch.autograd.grad(
+                val, list(leaves.values()))))))
+    tlk.engine = "auto"
+    tol = TOL[torch.float32]
+    rel = abs(out["auto"][0] - out["torch"][0]) / abs(out["torch"][0])
+    grad_rel = {k: max_err(out["auto"][1][k], out["torch"][1][k])[1]
+                for k in out["auto"][1]}
+    ok = bool(n_patterns >= 8192 and tlk.site_model.cat_count == 5
+              and tlk.engine_name() == "cuda-staged"
+              and rel <= tol["logl"] and max(grad_rel.values()) <= tol["grad"]
+              and vb_res.iterations == advi_steps
+              and np.isfinite([vb_res.elbo, elbo_first, elbo_last]).all()
+              and vparams_finite and moved
+              and launches["staged_forward"] >= advi_steps
+              and launches["staged_backward"] >= advi_steps)
+    emit("family_staged_large", ok=ok, patterns=n_patterns,
+         logp_kernels=out["auto"][0], logp_plain=out["torch"][0],
+         logp_rel_err=rel, grad_rel_err=grad_rel, tolerance=tol,
+         advi_steps=vb_res.iterations, elbo=vb_res.elbo,
+         elbo_first=elbo_first, elbo_last=elbo_last,
+         vparams_finite=vparams_finite, vparams_moved=moved,
+         wall_seconds=wall, engine=tlk.engine_name(), launches=launches)
+    check(ok, "the Gamma4+I large config through K3'/K4' against plain")
+
+
+def c5_times(rec, shape, kind, suffix=""):
+    """A kernel's device time at C = 4 and 5 (and 8 where measured) on one
+    shape, and the ratio of C = 5 to C = 4 (median and range over the
+    rounds), from :func:`family_times`."""
+    out = {f"C{C}_device_ms": rec[f"{shape}-C{C}{suffix}"][f"{kind}_ms"]
+           for C in (4, 5, 8) if f"{shape}-C{C}{suffix}" in rec}
+    out["C5_over_C4"] = rec[f"{shape}{suffix}-{kind}-C5_over_C4"]
+    return out
+
+
 def kernel_row(name, src, replaces, launches, alone, kind):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -2294,6 +2908,35 @@ def main() -> int:
     ml_checkpoint()
     emit("ml_phases", seconds=time.perf_counter() - t0)
 
+    # ---- 29-30. the fourteenth slice's shapes: K1'/K2', K3'/K4' and
+    # K5'/K6' at S = 4 against plain at C = 3 and 5, with and without an
+    # identity category, then their times at C = 5 beside C = 4
+    walls = {}
+    t0 = time.perf_counter()
+    family_kernels(dev)
+    walls["family_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c5 = family_times(smi)
+    walls["family_times"] = time.perf_counter() - t0
+
+    # ---- 31-35. the fourteenth slice's paths through the CLI: (a)
+    # GTR+G4+I meta (K3'/K4'), (b) ADVI and 8-chain mcmc of the fluA-elbo
+    # model with G4+I and a lognormal relaxed clock (K3'/K4', K5'), (c)
+    # UNREST against the JAX package and its meta fit (K1'/K2'), (d) the
+    # jc69w4 golden, (e) the large G4+I config against plain and ADVI
+    results = {}
+    for name, run in (("a_meta_gtrg4i", family_meta_gtrg4i),
+                      ("b_advi_mcmc", lambda: family_advi_mcmc(dev)),
+                      ("c_unrest", lambda: family_unrest(dev)),
+                      ("d_jc69w4", lambda: family_jc69w4(dev)),
+                      ("e_staged_large", lambda: family_staged_large(dev))):
+        t0 = time.perf_counter()
+        results[name] = run()
+        walls[name] = time.perf_counter() - t0
+    g4i_meta = results["a_meta_gtrg4i"]
+    g4i_advi, g4i_mcmc = results["b_advi_mcmc"]
+    emit("family_phases", card=smi, seconds=walls)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
@@ -2318,24 +2961,33 @@ def main() -> int:
         dict(kernel_row("staged_forward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:234",
                         staged_launches["forward"], staged_alone, "forward"),
-             ml_meta_gtrg4_f64_launches=ml_gtr["staged_forward"]),
+             ml_meta_gtrg4_f64_launches=ml_gtr["staged_forward"],
+             meta_gtrg4i_f64_launches=g4i_meta["staged_forward"],
+             advi_g4i_relaxed_launches=g4i_advi["staged_forward"],
+             **c5_times(c5, "staged-balanced-128x16384", "forward")),
         dict(kernel_row("staged_backward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:375",
                         staged_launches["backward"], staged_alone,
                         "backward"),
-             ml_meta_gtrg4_f64_launches=ml_gtr["staged_backward"]),
+             ml_meta_gtrg4_f64_launches=ml_gtr["staged_backward"],
+             meta_gtrg4i_f64_launches=g4i_meta["staged_backward"],
+             advi_g4i_relaxed_launches=g4i_advi["staged_backward"],
+             **c5_times(c5, "staged-balanced-128x16384", "backward")),
         dict(kernel_row("loop_forward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",
                         ladder_launches["forward"],
                         loop_times["fluA-jc69-L16"], "forward"),
              ml_warmup_launches=ml_gtr["loop_forward"],
-             hessian_launches=ml_hessian["loop_forward"]),
+             hessian_launches=ml_hessian["loop_forward"],
+             mcmc_g4i_relaxed_launches=g4i_mcmc["loop_forward"],
+             **c5_times(c5, "loop-fluA-238", "forward", "-L8")),
         dict(kernel_row("loop_backward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:314",
                         hmc_launches["backward"], loop_times["fluA-jc69-L4"],
                         "backward"),
              ml_warmup_launches=ml_gtr["loop_backward"],
-             hessian_launches=ml_hessian["loop_backward"]),
+             hessian_launches=ml_hessian["loop_backward"],
+             **c5_times(c5, "loop-fluA-238", "backward", "-L8")),
         dict(kernel_row("loop_forward_wide", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",
                         codon_launches["forward"],

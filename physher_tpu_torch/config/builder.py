@@ -39,11 +39,14 @@ from ..data.distance import distance_matrix
 from ..data.sitepattern import SitePattern
 from ..io.seqio import read_alignment
 from ..io.treeio import read_newick
-from ..models.clock import StrictClock
+from ..models.clock import (
+    DiscreteClock, DistributionRelaxedClock, RelaxedClock, StrictClock)
 from ..models.parameters import ParamSpec
-from ..models.sitemodel import ConstantSiteModel, QuantileSiteModel
+from ..models.sitemodel import (
+    ConstantSiteModel, DiscreteSiteModel, QuantileSiteModel)
 from ..models.substitution import (
-    GTR, HKY, JC69, K80, F81, SubstitutionModel,
+    GTR, HKY, JC69, K80, F81, NONSTAT, UNREST, GeneralReversible,
+    SubstitutionModel,
 )
 from ..models.treelikelihood import TreeLikelihood
 from ..trees.build import nj, upgma
@@ -326,9 +329,16 @@ def build_substitution_model(node, ctx: Context) -> SubstitutionModel:
         gc = int(dtn.get("genetic_code", 0) if isinstance(dtn, dict) else 0)
         cls = MG94 if model == "mg94" else GY94
         sm = cls(prefix=prefix, genetic_code=gc, freqs_init=freqs_init, **kw)
-    elif model in ("unrest", "nonstat") or (
-            set(model) <= set("012345") and len(model) == 5):
-        raise not_ported(f"substitution model {model!r}", 9)
+    elif model == "unrest":
+        sm = UNREST(prefix, **kw)
+    elif model == "nonstat":
+        sm = NONSTAT(prefix, **kw)
+    elif set(model) <= set("012345") and len(model) == 5:
+        # 5-digit rate-class code over AC,AG,AT,CG,CT, and GT its own class
+        # (reference: src/phyc/substmodel.c:1431-1533, nucsubst.c)
+        mapping = [int(c) for c in model] + [int(max(model)) + 1]
+        sm = GeneralReversible(4, np.asarray(mapping), prefix,
+                               freqs_init=freqs_init, **kw)
     else:
         raise ValueError(f"unknown substitution model {model!r}")
 
@@ -387,13 +397,21 @@ def build_sitemodel(node, ctx: Context):
             if "alpha" in rn or "shape" in rn:
                 shape_init = _param_value(rn.get("alpha", rn.get("shape")),
                                           ctx, shape_init)
-        if props is not None or invariant:
-            raise not_ported("the +I site model", 9)
+        pinv_init = 0.1
+        if props is not None:
+            # the pinv simplex keeps its JSON id as its name, as in the
+            # JAX package
+            pspec = build_simplex_spec(props, ctx)
+            pinv_init = float(np.asarray(pspec.init)[0])
+            invariant = True
         if dist_name == "discrete":
-            raise not_ported("the discrete site model", 9)
-        sm = QuantileSiteModel(cats, dist_name, invariant, quad, prefix,
-                               shape_init=shape_init, mu=mu, mu_init=mu_init,
-                               **ctx.kw)
+            sm = DiscreteSiteModel(cats, prefix, mu=mu, mu_init=mu_init,
+                                   **ctx.kw)
+        else:
+            sm = QuantileSiteModel(cats, dist_name, invariant, quad, prefix,
+                                   shape_init=shape_init,
+                                   pinv_init=pinv_init, mu=mu,
+                                   mu_init=mu_init, **ctx.kw)
 
         def reg_shape(pnode):
             if isinstance(pnode, dict):
@@ -481,18 +499,54 @@ def build_tree(node, ctx: Context) -> TreeHandle:
 # -- branch (clock) models --------------------------------------------------
 
 
+# the relaxed clock's JSON parameter keys -> its parameter names
+_RELAXED_PARAMS = (("logmean", "logmean"), ("mean", "logmean"),
+                   ("logsigma", "logsigma"), ("sigma", "logsigma"),
+                   ("lambda", "lambda"), ("rate", "lambda"),
+                   ("center", "center"))
+
+
 def build_branchmodel(node, ctx: Context, N: int):
     node = ctx.resolve(node)
     model = str(node.get("model", "strict")).lower()
     mid = node.get("id", "bm")
-    if model != "strict":
-        raise not_ported(f"the {model!r} branch model", 9)
-    rate_node = node.get("rate")
-    rate_init = (_param_value(rate_node, ctx, 1e-3) if rate_node is not None
-                 else 1e-3)
-    bm = StrictClock(N, f"{mid}.", rate_init=float(rate_init), **ctx.kw)
-    if isinstance(rate_node, dict) and rate_node.get("id"):
-        ctx.param_names[rate_node["id"]] = bm.key("rate")
+    prefix = f"{mid}."
+    if model == "strict":
+        rate_node = node.get("rate")
+        rate_init = (_param_value(rate_node, ctx, 1e-3)
+                     if rate_node is not None else 1e-3)
+        bm = StrictClock(N, prefix, rate_init=float(rate_init), **ctx.kw)
+        if isinstance(rate_node, dict) and rate_node.get("id"):
+            ctx.param_names[rate_node["id"]] = bm.key("rate")
+    elif model in ("discrete", "local"):
+        cmap = np.zeros(N, dtype=np.int32)
+        if "map" in node:
+            cmap = np.asarray(node["map"], dtype=np.int32)
+        bm = DiscreteClock(N, cmap, prefix, **ctx.kw)
+    elif model == "relaxed":
+        # "distribution" selects the reference's discretized relaxed-clock
+        # families (branchmodel.h:33); without one, free per-branch rates
+        dist = node.get("distribution")
+        if dist:
+            pnode = node.get("parameters", {})
+            kw = {}
+            if isinstance(pnode, dict):
+                for jk, name in _RELAXED_PARAMS:
+                    if jk in pnode:
+                        kw[f"{name}_init"] = float(
+                            _param_value(pnode[jk], ctx))
+                        sub = pnode[jk]
+                        if isinstance(sub, dict) and sub.get("id"):
+                            ctx.param_names[sub["id"]] = f"{prefix}{name}"
+            if "categories" in node:
+                kw["n_cats"] = int(node["categories"])
+            if "map" in node:
+                kw["assignment"] = np.asarray(node["map"], dtype=np.int32)
+            bm = DistributionRelaxedClock(N, dist, prefix, **kw, **ctx.kw)
+        else:
+            bm = RelaxedClock(N, prefix, **ctx.kw)
+    else:
+        raise ValueError(f"unknown branch model {model!r}")
     ctx.register(mid, bm)
     return bm
 

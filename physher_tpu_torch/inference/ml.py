@@ -166,7 +166,8 @@ def optimize_lbfgs(log_prob, space: ParamSpace, params: dict, *,
     (replacement for the reference's BFGS/CG, src/phyc/bfgs.c, frpmrn.c).
     Stops when the loss moves by less than ``tol``, turns non-finite, or
     after ``max_iter`` iterations; ``checkpoint`` names a CSV that gets the
-    final parameters."""
+    final parameters. A trial point of the line search where the loss is
+    not finite counts as a loss above the start's."""
     uparams = _leaves(space, params)
     leaves = list(uparams.values())
     # one iteration a step; the line search gets its 25 evaluations past
@@ -178,12 +179,24 @@ def optimize_lbfgs(log_prob, space: ParamSpace, params: dict, *,
                             history_size=history_size,
                             line_search_fn="strong_wolfe")
     loss = _make_loss(log_prob, space)
+    first = []
 
     def closure():
         opt.zero_grad(set_to_none=True)
         val = loss(uparams)
-        val.backward()
-        return val
+        if not first:
+            first.append(abs(float(val.detach())))
+        if bool(torch.isfinite(val)):
+            val.backward()
+            return val
+        # a trial point where the model is not finite (the search's
+        # extrapolation far out): a finite loss above the run's first and
+        # no gradient, so that the strong-Wolfe search brackets the point
+        # and backs off from it, as optax's zoom search does in the JAX
+        # package; torch's search would step on past a NaN
+        for leaf in leaves:
+            leaf.grad = torch.zeros_like(leaf)
+        return val.new_tensor(10.0 * first[0] + 1e6).detach()
 
     prev = np.inf
     it = 0

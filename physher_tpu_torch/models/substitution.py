@@ -1,14 +1,19 @@
 """Substitution models: Q construction and transition probabilities P(t).
 
 Port of ``physher_tpu/models/substitution.py`` (reference:
-src/phyc/substmodel.c, jc69.c, K80.c, f81.c, hky.c, gtr.c):
+src/phyc/substmodel.c, jc69.c, K80.c, f81.c, hky.c, gtr.c, gensubst.c,
+nucsubst.c, unrest.c, nonstat.c):
 
 - JC69, K80, F81 and HKY use their closed-form P(t),
-- GTR symmetrizes Q with sqrt(pi) and uses a self-adjoint ``eigh``.
+- GTR and the general reversible model (the 5-digit rate-class codes)
+  symmetrize Q with sqrt(pi) and use a self-adjoint ``eigh``.
   ``torch.linalg.eigh``'s own gradient is NaN/inf at repeated eigenvalues,
   which JC-like GTR states have (a triple eigenvalue), so
   :func:`p_t_reversible` is an ``autograd.Function`` whose backward is the
-  transpose of the Daleckii-Krein divided-difference JVP of the JAX package.
+  transpose of the Daleckii-Krein divided-difference JVP of the JAX package,
+- the non-reversible UNREST and NONSTAT take P(t) = expm(Q t) by the JAX
+  package's scaling-and-squaring Pade(7), :func:`expm_pade`, differentiated
+  by autograd.
 
 ``p_t`` is vectorized over leading batch dims of ``t`` (node x category
 branch lengths) and returns the ``[..., S, S]`` stack the pruning engines
@@ -58,10 +63,10 @@ class SubstitutionModel:
 
     def p_t(self, params, t: torch.Tensor) -> torch.Tensor:
         """Transition probabilities for branch lengths t [...]: [..., S, S]."""
-        if not self.reversible:
-            raise NotImplementedError(
-                "non-reversible models (expm) are not ported yet")
-        return p_t_reversible(self.q(params), self.frequencies(params), t)
+        Q = self.q(params)
+        if self.reversible:
+            return p_t_reversible(Q, self.frequencies(params), t)
+        return expm_pade(_bcast(Q, t, 2) * t[..., None, None])
 
 
 def normalize_q(Q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
@@ -85,7 +90,14 @@ def reversible_eig(Q: torch.Tensor, pi: torch.Tensor):
     sq = torch.sqrt(pi)
     S = Q * (sq[..., :, None] / sq[..., None, :])
     S = 0.5 * (S + S.transpose(-1, -2))
+    # a generator with a non-finite entry (a line search's trial point far
+    # out) gives NaN, as jnp.linalg.eigh does, where torch's eigh raises
+    bad = ~torch.isfinite(S).all(-1).all(-1)
+    S = torch.where(bad[..., None, None], torch.eye(
+        S.shape[-1], dtype=S.dtype, device=S.device), S)
     lam, W = torch.linalg.eigh(S)
+    lam = torch.where(bad[..., None], torch.full_like(lam, float("nan")),
+                      lam)
     # a generator's spectrum is <= 0; clamp the numerical-noise positive tail
     # (in float32 a +1e-6 eigenvalue times a long branch explodes exp())
     lam = torch.clamp(lam, max=0.0)
@@ -162,6 +174,33 @@ def p_t_reversible(Q: torch.Tensor, pi: torch.Tensor,
     branch lengths ``t [*B, ...]``. Differentiable w.r.t. Q and t even at
     degenerate eigenvalues."""
     return _PtReversible.apply(Q, pi, t)
+
+
+def expm_pade(A: torch.Tensor, max_squarings: int = 10) -> torch.Tensor:
+    """Batched scaling-and-squaring Pade(7) matrix exponential of ``A
+    [..., S, S]``, as the JAX package computes it: each matrix is scaled by
+    ``2**-k`` with ``k = clip(ceil(log2(||A||_inf / 0.5)), 0,
+    max_squarings)``, and ``max_squarings`` squaring slots run with only
+    the first ``k`` of them applied (a ``where`` mask per matrix)."""
+    S = A.shape[-1]
+    norm = A.abs().sum(-1).amax(-1)                       # [...]: inf-norm
+    k = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / 0.5))
+    k = torch.clamp(k, 0.0, float(max_squarings)).detach()
+    A = A * (2.0 ** -k)[..., None, None]
+    b = (17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0, 56.0,
+         1.0)
+    eye = torch.eye(S, dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    A4 = A2 @ A2
+    A6 = A4 @ A2
+    U = A @ (b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye)
+    V = b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye
+    # solve_ex: a singular or non-finite system gives non-finite values, as
+    # jnp.linalg.solve does, where solve raises
+    P = torch.linalg.solve_ex(V - U, V + U)[0]
+    for i in range(max_squarings):
+        P = torch.where((k > i)[..., None, None], P @ P, P)
+    return P
 
 
 def _bcast(x: torch.Tensor, t: torch.Tensor, event_ndim: int = 0):
@@ -383,3 +422,116 @@ class GTR(SubstitutionModel):
         R = _nuc_rate_matrix(params[self.key("rates")])
         Q = _set_diagonal_neg_rowsum(R * pi[..., None, :])
         return normalize_q(Q, pi)
+
+
+class GeneralReversible(SubstitutionModel):
+    """Reversible model over an arbitrary datatype with rate-class mapping
+    (reference: src/phyc/gensubst.c, nucsubst.c 5-digit codes like
+    "01234")."""
+
+    name = "gensubst"
+
+    def __init__(self, state_count, mapping, prefix="", freqs_init=None,
+                 rates_init=None, fixed_freqs=False, normalize=True, *,
+                 dtype, device):
+        super().__init__(prefix, dtype=dtype, device=device)
+        self.state_count = state_count
+        mapping = np.asarray(mapping, dtype=np.int64)
+        npairs = state_count * (state_count - 1) // 2
+        if mapping.shape == (state_count, state_count):
+            mapping = mapping[np.triu_indices(state_count, 1)]
+        if mapping.shape != (npairs,):
+            raise ValueError("mapping must give a rate class per state pair")
+        self.mapping = mapping
+        self.n_classes = int(mapping.max()) + 1
+        self.freqs_init = (np.full(state_count, 1.0 / state_count)
+                           if freqs_init is None else np.asarray(freqs_init))
+        self.rates_init = (np.ones(self.n_classes) if rates_init is None
+                           else np.asarray(rates_init))
+        self.fixed_freqs = fixed_freqs
+        self.normalize = normalize
+
+    def param_specs(self):
+        mkf = ParamSpec.fixed if self.fixed_freqs else ParamSpec.simplex
+        return [
+            ParamSpec.vector(self.key("rates"), self.rates_init, lower=0.0),
+            mkf(self.key("frequencies"), self.freqs_init),
+        ]
+
+    def frequencies(self, params):
+        return params[self.key("frequencies")]
+
+    def q(self, params):
+        pi = self.frequencies(params)
+        rates = params[self.key("rates")][..., self.mapping]  # [(L,) pairs]
+        S = self.state_count
+        iu = np.triu_indices(S, 1)
+        R = rates.new_zeros(rates.shape[:-1] + (S, S))
+        R[..., iu[0], iu[1]] = rates
+        R = R + R.transpose(-1, -2)
+        Q = _set_diagonal_neg_rowsum(R * pi[..., None, :])
+        return normalize_q(Q, pi) if self.normalize else Q
+
+
+# the off-diagonal entries of a 4 x 4 generator in row-major order: UNREST's
+# 12 rates
+_OFF_DIAGONAL = np.nonzero(~np.eye(4, dtype=bool))
+
+
+class UNREST(SubstitutionModel):
+    """Non-reversible 12-parameter nucleotide model (reference:
+    src/phyc/unrest.c). P(t) via expm; frequencies are the stationary
+    distribution of Q (left null vector)."""
+
+    name = "unrest"
+    state_count = 4
+    reversible = False
+
+    def __init__(self, prefix="", rates_init=None, *, dtype, device):
+        super().__init__(prefix, dtype=dtype, device=device)
+        self.rates_init = (np.ones(12) if rates_init is None
+                           else np.asarray(rates_init))
+
+    def param_specs(self):
+        return [ParamSpec.vector(self.key("rates"), self.rates_init,
+                                 lower=0.0)]
+
+    def _q_unnorm(self, params):
+        r = params[self.key("rates")]
+        Q = r.new_zeros(r.shape[:-1] + (4, 4))
+        Q[..., _OFF_DIAGONAL[0], _OFF_DIAGONAL[1]] = r
+        return _set_diagonal_neg_rowsum(Q)
+
+    def stationary(self, params):
+        """pi with pi Q = 0 and sum pi = 1. The JAX package takes the
+        least-squares solution of that consistent augmented system; its
+        exact solution is the same, here a square solve of the system with
+        the last of the S equations pi Q = 0 (the sum of the others, since
+        Q's rows sum to 0) replaced by sum pi = 1 (non-finite where that
+        system is singular, where lstsq would give a least-squares pi)."""
+        Q = self._q_unnorm(params)
+        M = torch.cat([Q[..., :, :-1], torch.ones_like(Q[..., :, :1])], -1)
+        e = torch.zeros_like(Q[..., 0, :])
+        e[..., -1] = 1.0
+        return torch.linalg.solve_ex(M.transpose(-1, -2), e)[0]
+
+    def frequencies(self, params):
+        return self.stationary(params)
+
+    def q(self, params):
+        return normalize_q(self._q_unnorm(params), self.stationary(params))
+
+
+class NONSTAT(UNREST):
+    """Non-reversible + free root frequencies (reference:
+    src/phyc/nonstat.c)."""
+
+    name = "nonstat"
+
+    def param_specs(self):
+        return super().param_specs() + [
+            ParamSpec.simplex(self.key("frequencies"), np.full(4, 0.25))
+        ]
+
+    def frequencies(self, params):
+        return params[self.key("frequencies")]

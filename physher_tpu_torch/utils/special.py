@@ -1,18 +1,24 @@
-"""Gamma quantiles for the median-Gamma site model (PyTorch, differentiable).
+"""Special functions of the site and clock models (PyTorch, differentiable).
 
-Port of the parts of ``physher_tpu/utils/special.py`` that the discretized
-Gamma site model needs (reference: src/phyc/gamma.c qgamma). PyTorch has no
-``gammaincinv``, and ``torch.special.gammainc`` has no gradient in its first
-argument, so:
+Port of ``physher_tpu/utils/special.py`` (reference: src/phyc/gamma.c
+qgamma, src/phyc/gausslaguerre.c). PyTorch has no ``gammaincinv``,
+``betainc`` or ``betaincinv``, and ``torch.special.gammainc`` has no
+gradient in its first argument, so:
 
 - :func:`gammaincinv` is an ``autograd.Function``: a Wilson-Hilferty start
   plus 60 damped Newton steps on P(a, x) = p in the forward, and the
   implicit derivative in the backward, with dP/da from a 4-point central
   difference (the reference also falls back to finite differences,
   src/phyc/sitemodel.h:72);
+- :func:`gammainc` is ``torch.special.gammainc`` with a derivative in ``a``
+  (the same 4-point central difference);
+- :func:`betainc` is the regularized incomplete beta by its continued
+  fraction (modified Lentz) at a fixed number of terms, and
+  :func:`betaincinv` inverts it by the JAX package's 80 guarded Newton
+  steps, with the JAX package's custom JVP as its backward;
 - :func:`qgamma_fixed_p` interpolates host-tabulated log-quantiles at fixed
-  probabilities (the float32 path; the table is built once with
-  ``scipy.special.gammaincinv``).
+  probabilities (the float32 path of the median Gamma quadrature; the table
+  is built once with ``scipy.special.gammaincinv``).
 """
 
 from __future__ import annotations
@@ -40,6 +46,15 @@ def _gammaincinv_newton(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _dgammainc_da(a, x, step=1e-5):
+    """dP(a, x)/da by a 4-point central difference at ``step`` times
+    max(a, 1) (needs a > 2 of those)."""
+    eps = step * torch.clamp(a, min=1.0)
+    P = torch.special.gammainc
+    return (8.0 * (P(a + eps, x) - P(a - eps, x))
+            - (P(a + 2 * eps, x) - P(a - 2 * eps, x))) / (12.0 * eps)
+
+
 class _GammaIncInv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, p):
@@ -53,10 +68,7 @@ class _GammaIncInv(torch.autograd.Function):
         a, p, x = ctx.saved_tensors
         a_b = a.expand_as(x)
         dPdx = torch.exp(_log_pdf(a_b, x))
-        eps = 1e-5 * torch.clamp(a_b, min=1.0)
-        P = torch.special.gammainc
-        dPda = (8.0 * (P(a_b + eps, x) - P(a_b - eps, x))
-                - (P(a_b + 2 * eps, x) - P(a_b - 2 * eps, x))) / (12.0 * eps)
+        dPda = _dgammainc_da(a_b, x)
         ga = gp = None
         if ctx.needs_input_grad[0]:
             ga = (-gx * dPda / dPdx).sum_to_size(a.shape)
@@ -136,3 +148,163 @@ def qgamma_fixed_p(p_tuple: tuple, alpha: torch.Tensor) -> torch.Tensor:
     a3 = 0.5 * (y3 - y0) + 1.5 * (y1 - y2)
     logv = a0 + f * (a1 + f * (a2 + f * a3))
     return torch.exp(logv) / alpha[..., None]
+
+
+class _GammaInc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, x):
+        ctx.save_for_backward(a, x)
+        return torch.special.gammainc(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        a_b, x_b = torch.broadcast_tensors(a, x)
+        ga = gx = None
+        if ctx.needs_input_grad[0]:
+            ga = (g * _dgammainc_da(a_b, x_b, 1e-3)).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gx = (g * torch.exp(_log_pdf(a_b, x_b))).sum_to_size(x.shape)
+        return ga, gx
+
+
+def gammainc(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Regularized lower incomplete gamma P(a, x), differentiable in ``a``
+    (needs a > 2e-3) and ``x``."""
+    return _GammaInc.apply(a, x)
+
+
+def qweibull1(p, shape):
+    """Weibull quantile with scale lambda=1 (reference:
+    src/phyc/sitemodel.c icdf_weibull_1)."""
+    return (-torch.log1p(-p)) ** (1.0 / shape)
+
+
+def qlognormal(p, mu, sigma):
+    return torch.exp(mu + sigma * torch.special.ndtri(p))
+
+
+def qnorm(p, mu, sigma):
+    return mu + sigma * torch.special.ndtri(p)
+
+
+# -- the regularized incomplete beta and its inverse -------------------------
+
+# terms of the continued fraction: past the symmetry switch below it
+# converges in O(sqrt(max(a, b))) terms; 32 already agree with
+# jax.scipy.special.betainc to 2e-13 for shapes up to 50
+_BETACF_TERMS = 48
+
+
+def _betacf(a, b, x):
+    """The continued fraction of I_x(a, b) (modified Lentz, a fixed number of
+    terms; reference: Numerical Recipes betacf)."""
+    fpmin = torch.finfo(x.dtype).tiny / torch.finfo(x.dtype).eps
+
+    def fix(v):
+        return torch.where(v.abs() < fpmin, torch.full_like(v, fpmin), v)
+
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    c = torch.ones_like(x)
+    d = 1.0 / fix(1.0 - qab * x / qap)
+    h = d
+    for m in range(1, _BETACF_TERMS + 1):
+        m2 = 2.0 * m
+        for aa in (m * (b - m) * x / ((qam + m2) * (a + m2)),
+                   -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))):
+            d = 1.0 / fix(1.0 + aa * d)
+            c = fix(1.0 + aa / c)
+            h = h * d * c
+    return h
+
+
+def _log_beta(a, b):
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+def betainc(a, b, x):
+    """Regularized incomplete beta I_x(a, b), batched, in the dtype of its
+    inputs (no gradient; :func:`betaincinv` differentiates it by central
+    differences, as the JAX package does)."""
+    a, b, x = torch.broadcast_tensors(a, b, x)
+    swap = x > (a + 1.0) / (a + b + 2.0)
+    a2, b2 = torch.where(swap, b, a), torch.where(swap, a, b)
+    xs = torch.clamp(torch.where(swap, 1.0 - x, x), 0.0, 1.0)
+    inner = (xs > 0) & (xs < 1)
+    xi = torch.where(inner, xs, torch.full_like(xs, 0.5))
+    front = torch.exp(a2 * torch.log(xi) + b2 * torch.log1p(-xi)
+                      - _log_beta(a2, b2)) / a2
+    val = torch.where(inner, front * _betacf(a2, b2, xi),
+                      torch.where(xs <= 0, torch.zeros_like(xs),
+                                  torch.ones_like(xs)))
+    return torch.where(swap, 1.0 - val, val)
+
+
+def _beta_log_pdf(a, b, x):
+    return (a - 1) * torch.log(x) + (b - 1) * torch.log1p(-x) - _log_beta(a, b)
+
+
+def _betaincinv_newton(a, b, p):
+    """x with I_x(a, b) = p: the JAX package's 80 Newton steps from the
+    mean, a step that leaves (0, 1) replaced by half the way to the bound
+    it crosses, clipped to [1e-15, 1 - 1e-15]."""
+    x = torch.clamp(a / (a + b), 1e-8, 1 - 1e-8)
+    for _ in range(80):
+        f = betainc(a, b, x) - p
+        xn = x - f / torch.exp(_beta_log_pdf(a, b, x))
+        xn = torch.where((xn <= 0) | (xn >= 1),
+                         x - torch.sign(f) * x * (1 - x) * 0.5, xn)
+        x = torch.clamp(xn, 1e-15, 1 - 1e-15)
+    return x
+
+
+class _BetaIncInv(torch.autograd.Function):
+    """The JAX package's custom JVP, transposed: dx = (dp - dI/da da -
+    dI/db db) / (dI/dx), with dI/da and dI/db by central differences of
+    :func:`betainc` at a step of 1e-6."""
+
+    @staticmethod
+    def forward(ctx, a, b, p):
+        a_b, b_b, p_b = torch.broadcast_tensors(a, b, p)
+        x = _betaincinv_newton(a_b, b_b, p_b)
+        ctx.save_for_backward(a, b, p, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        a, b, p, x = ctx.saved_tensors
+        a_b, b_b = a.expand_as(x), b.expand_as(x)
+        g = gx / torch.exp(_beta_log_pdf(a_b, b_b, x))
+        eps = 1e-6
+        ga = gb = gp = None
+        if ctx.needs_input_grad[0]:
+            dIda = (betainc(a_b + eps, b_b, x)
+                    - betainc(a_b - eps, b_b, x)) / (2 * eps)
+            ga = (-g * dIda).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            dIdb = (betainc(a_b, b_b + eps, x)
+                    - betainc(a_b, b_b - eps, x)) / (2 * eps)
+            gb = (-g * dIdb).sum_to_size(b.shape)
+        if ctx.needs_input_grad[2]:
+            gp = g.sum_to_size(p.shape)
+        return ga, gb, gp
+
+
+def betaincinv(a: torch.Tensor, b: torch.Tensor,
+               p: torch.Tensor) -> torch.Tensor:
+    """x such that I_x(a, b) = p (regularized incomplete beta inverse),
+    differentiable in ``a``, ``b`` and ``p``."""
+    return _BetaIncInv.apply(a, b, p)
+
+
+def gauss_laguerre(n: int):
+    """Nodes/weights of n-point Gauss-Laguerre quadrature (host-side numpy),
+    generalized weight x^alpha handled by caller (reference:
+    src/phyc/gausslaguerre.c gaulag)."""
+    return np.polynomial.laguerre.laggauss(n)
+
+
+def log1mexp(x):
+    """log(1 - exp(-x)) for x > 0, numerically stable."""
+    return torch.where(x < np.log(2.0), torch.log(-torch.expm1(-x)),
+                       torch.log1p(-torch.exp(-x)))

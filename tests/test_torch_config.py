@@ -448,17 +448,17 @@ def test_cli_without_cuda_exits_nonzero(data_dir, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("what", ["bridgesampling", "mesh", "relaxed"])
+@pytest.mark.parametrize("what", ["bridgesampling", "mesh", "skyline"])
 def test_unported_raises(data_dir, tmp_path, what):
     def edit(c):
-        tlk = c["model"]["distributions"][0]
         if what == "bridgesampling":
             c["physher"] = [{"id": "x", "type": what,
                              "model": "&posterior"}]
         elif what == "mesh":
             c["init"] = {"devices": 2}
         else:
-            tlk["branchmodel"]["model"] = "relaxed"
+            prior = c["model"]["distributions"][1]
+            prior["distributions"][0]["model"] = "skyline"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run([_config(data_dir, tmp_path, edit), "--device", "cpu"],
                 out=io.StringIO())

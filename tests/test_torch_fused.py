@@ -324,11 +324,14 @@ def _five_children():
         tip(7)]})[0]
 
 
-def _schedule_against_plain(topo, C, n_sites=300, lanes=32):
+def _schedule_against_plain(topo, C, n_sites=300, lanes=32, identity=False):
     """float64: the kernels' emulated schedule against the plain version
-    (value, d pmats, d rootw) to rounding."""
+    (value, d pmats, d rootw) to rounding; with ``identity``, category 0's
+    P is the identity on every branch (an invariable-sites category)."""
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _setup(topo, C, n_sites=n_sites, seed=2))
+    if identity:
+        pm[:, 0] = torch.eye(4, dtype=pm.dtype)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
     children = torch.as_tensor(topo.children)
     site, partials, scale = _emulate_forward(
@@ -360,6 +363,18 @@ def test_kernel_schedule_matches_plain(shape, C, lanes):
     topo = {"polytomy": _polytomy, "polytomy5": _five_children}.get(
         shape, lambda: _topologies(shape)[0])()
     _schedule_against_plain(topo, C, lanes=lanes)
+
+
+@pytest.mark.parametrize("shape,C", [
+    ("balanced", 5), ("caterpillar", 3), ("polytomy5", 5), ("balanced", 3)])
+def test_kernel_schedule_identity_category(shape, C):
+    """The same at C = 5 (Gamma4+I) and C = 3 (a three-class discrete
+    model, or +I beside two rates) with category 0's P the identity on
+    every branch, as the invariable category has: its partials are exactly
+    0 at every internal node of a variable pattern."""
+    topo = {"polytomy5": _five_children}.get(
+        shape, lambda: _topologies(shape)[0])()
+    _schedule_against_plain(topo, C, identity=True)
 
 
 @pytest.mark.parametrize("C", [1, 4])

@@ -457,14 +457,18 @@ def _levels_of(topo, schedule):
     return level, len(offsets) - 1
 
 
-def _schedule_against_plain(topo, C, L, rescale, n_sites=300, lanes=32):
+def _schedule_against_plain(topo, C, L, rescale, n_sites=300, lanes=32,
+                            identity=False):
     """float64: the emulated K5'/K6' schedule against the plain version
     (site logs, d pmats, d freqs, d props) to rounding, and the walks'
     schedules: every internal rank once; by preorder level each a level
     below its parent; by postorder level each above its children, the root
-    alone at the last level."""
+    alone at the last level. With ``identity``, category 0's P is the
+    identity on every branch of every chain (an invariable category)."""
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _batch(topo, L, C, n_sites=n_sites, seed=2))
+    if identity:
+        pm[:, :, 0] = torch.eye(4, dtype=pm.dtype)
     children = torch.as_tensor(topo.children)
     schedule = cuda_build.preorder_schedule(topo, tips)
     level, _ = _levels_of(topo, schedule)
@@ -508,6 +512,17 @@ def test_kernel_schedule_matches_plain(shape, C, L, rescale, lanes):
     the log sum over 4 to 32 lanes; about 290 patterns and one dP chunk."""
     _schedule_against_plain(_topologies(shape)[0], C, L, rescale,
                             lanes=lanes)
+
+
+@pytest.mark.parametrize("shape,C,L,rescale", [
+    ("balanced", 5, 3, True), ("caterpillar", 3, 2, True),
+    ("polytomy5", 5, 2, False), ("balanced", 3, 4, False)])
+def test_kernel_schedule_identity_category(shape, C, L, rescale):
+    """The same at C = 5 (Gamma4+I) and C = 3 with category 0's P the
+    identity on every branch (an invariable category): its partials are
+    exactly 0 at every internal node of a variable pattern."""
+    _schedule_against_plain(_topologies(shape)[0], C, L, rescale,
+                            identity=True)
 
 
 @pytest.mark.parametrize("C,L", [(1, 1), (4, 3)])

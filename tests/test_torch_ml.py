@@ -122,6 +122,26 @@ def test_conjugate_optimum(method, atol):
                                atol=atol)
 
 
+def test_lbfgs_backs_off_from_non_finite_points():
+    """A line search that extrapolates into a region where the model is NaN
+    (as a time tree's trial root height at exp(700) makes it): L-BFGS backs
+    off from those points and reaches the optimum, as the JAX package's zoom
+    search does; torch's own search would step on past a NaN."""
+    space = ParamSpace([ParamSpec.scalar("x", 0.0)])
+    seen = []
+
+    def log_prob(p):
+        x = p["x"]
+        seen.append(float(x.detach()))
+        val = -torch.sqrt(1.0 + (x - 30.0) ** 2)
+        return torch.where(x < 40.0, val, torch.full_like(val, np.nan))
+
+    res = ml.optimize_lbfgs(log_prob, space, space.init_params(**KW))
+    assert max(seen) >= 40.0
+    np.testing.assert_allclose(float(res.params["x"]), 30.0, atol=1e-4)
+    assert np.isfinite(res.logp)
+
+
 BRENT_CASES = [
     (lambda x: (x - 1.3) ** 2 + 0.5, -4.0, 6.0),
     (lambda x: math.cos(x) + 0.1 * x, 2.0, 5.0),

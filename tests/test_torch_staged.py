@@ -273,9 +273,25 @@ def test_kernel_schedule_matches_plain(shape, C, P):
     version (site logs, d pmats, d rootw) to rounding, on a card of one SM
     and of 132: ragged P over several blocks, P under one block (C = 8),
     C = 1 and 8, a caterpillar (one node a level) and a polytomy."""
+    _schedule_against_plain(shape, C, P)
+
+
+@pytest.mark.parametrize("shape,C,P", [
+    ("balanced", 5, 300), ("caterpillar", 3, 257), ("polytomy", 5, 129),
+    ("balanced", 3, 1000)])
+def test_kernel_schedule_identity_category(shape, C, P):
+    """The same at C = 5 (Gamma4+I) and C = 3 with category 0's P the
+    identity on every branch (an invariable category): its partials are
+    exactly 0 at every internal node of a variable pattern."""
+    _schedule_against_plain(shape, C, P, identity=True)
+
+
+def _schedule_against_plain(shape, C, P, identity=False):
     topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _setup(topo, P, C, seed=2))
+    if identity:
+        pm[:, 0] = torch.eye(4, dtype=pm.dtype)
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).requires_grad_(True)
     # the plain sweep, differentiated with respect to rootw itself
     pm_ = pm.clone().requires_grad_(True)
