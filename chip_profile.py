@@ -123,11 +123,33 @@ bytes at 3.35 TB/s), nvcc's register lines and the cost of a level on
 caterpillars. Like ``--s4-backward`` a copy run from an older checkout's
 root times that checkout.
 
+With ``--calibrated-settings``, only the estimators of
+``tests/data/fluA-calibrated.json`` in float64 against their chain
+settings, over four seeds, in the config's order: the config's
+ladder of 5 000 iterations (500 burnt) with stepping stone
+and path sampling from its first 1 000, 2 500 and 5 000; one batch of 64 MH
+chains of 5 000 iterations (1 000 burnt), both from the config's values,
+with bridge sampling over the first 16, 32 or 64 chains and their first
+625, 1 250, 2 500 or 5 000 iterations; then the L-BFGS fit and ADVI of at
+most 1 000 and 2 500 steps from its optimum, each followed by the config's
+IS; each run's host time. The spread over the seeds at each setting bounds
+how short the config's settings can be.
+
+With ``--ladder-spread``, only that config's own ladder (its
+temperatures, length and burn-in, from its values) over twelve seeds:
+stepping stone and path sampling, their spread over the seeds, and each
+run's host time. With ``--ladder-plain``, seeds 1 to 4 of that ladder
+through K5' and then through the plain engine (the config's ``"engine":
+"xla"``): the same generator and seeds give the same chains, so the two
+estimates of a seed differ only where K5' and the plain engine disagree.
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
                             [--mcmc] [--wide-forward] [--wide-backward]
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
                             [--staged] [--k4-variants] [--s4-backward]
                             [--s4-forward] [--s4-trace] [--s4-host]
+                            [--calibrated-settings] [--ladder-spread]
+                            [--ladder-plain]
 
 Needs one NVIDIA GPU and nvcc; exits non-zero without them. Prints one JSON
 line per config and per kernel shape, then the card's name and power limit from nvidia-smi.
@@ -1519,6 +1541,130 @@ def k5_loads(dev):
     time_builds(libs, cases, loop.loop_forward, "p_loads", 50)
 
 
+def calibrated_settings(dev, seeds=(1, 2, 3, 4), n_chains=64, length=5000,
+                        burnin=1000, prefixes=(625, 1250, 2500, 5000),
+                        chain_counts=(16, 32, 64), ladder=5000,
+                        ladder_burnin=500, ladder_prefixes=(1000, 2500, 5000),
+                        vb_max=(1000, 2500)):
+    """The calibrated config's estimators against their chain settings,
+    over seeds (``--calibrated-settings``)."""
+    import io
+
+    from physher_tpu_torch.config.actions import Runner
+    from physher_tpu_torch.inference import marginal, mcmc
+
+    cfg = load_json(str(cs.DATA / "fluA-calibrated.json"))
+    acts = {a["id"]: a for a in cfg["physher"]}
+    rows = []
+    for seed in seeds:
+        ctx, _ = build_config(cfg, base_dir=str(cs.DATA),
+                              dtype=torch.float64, device=dev)
+        runner = Runner(ctx, seed=seed, out=io.StringIO())
+        post = ctx.objects["posterior"]
+        space = post.param_space()
+        rec = {"seed": seed, "seconds": {}}
+        t0 = time.perf_counter()
+        runner.run([dict(acts["mmcmc"], length=ladder, burnin=ladder_burnin)])
+        torch.cuda.synchronize()
+        rec["seconds"]["ladder"] = time.perf_counter() - t0
+        temps, lls, _ = runner.results["mmcmc"]
+        lls = np.asarray(lls)
+        rec["ladder"] = {str(n): {
+            "stepping_stone": marginal.log_stepping_stone(
+                lls[:, : n // 10], temps)[0],
+            "path_sampling": marginal.log_path_sampling(
+                lls[:, : n // 10], temps)[0]} for n in ladder_prefixes}
+        t0 = time.perf_counter()
+        res = mcmc.MCMC(space, post.log_prob).run(
+            runner.generator, runner.params_for(space), n_iter=length,
+            every=10, burnin=burnin, n_chains=n_chains)
+        torch.cuda.synchronize()
+        rec["seconds"]["chains"] = time.perf_counter() - t0
+
+        def log_unnorm(z):
+            return marginal.batched_values(post.log_prob, space, z,
+                                           jacobian=True)
+
+        rec["bridge"] = {}
+        for c in chain_counts:
+            for n in prefixes:
+                z = torch.as_tensor(
+                    res.samples_u[: n // 10, :c].reshape(
+                        -1, res.samples_u.shape[-1]),
+                    dtype=torch.float64, device=dev)
+                rec["bridge"][f"{c}x{n}"] = marginal.bridge_sampling_marginal(
+                    z, log_unnorm, space,
+                    torch.Generator(device=dev).manual_seed(seed))
+        rec["log_posterior_mean_a_500"] = [
+            float(res.log_posterior[k: k + 50].mean())
+            for k in range(0, len(res.log_posterior), 50)]
+        runner.run([acts["map"]])
+        rec["is"] = {}
+        for m in vb_max:
+            t0 = time.perf_counter()
+            runner.run([dict(acts["vb"], max=m), acts["is"]])
+            torch.cuda.synchronize()
+            rec["seconds"][f"vb{m}_is"] = time.perf_counter() - t0
+            rec["is"][str(m)] = {"is": runner.results["is"],
+                                 "elbo": runner.results["vb"].elbo,
+                                 "iterations": runner.results["vb"].iterations}
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+
+    def spread(vals):
+        return {"mean": float(np.mean(vals)),
+                "spread": float(np.max(vals) - np.min(vals)), "values": vals}
+
+    summary = {"mode": "calibrated_settings", "seeds": list(seeds),
+               "ladder": {n: {k: spread([r["ladder"][n][k] for r in rows])
+                              for k in ("stepping_stone", "path_sampling")}
+                          for n in rows[0]["ladder"]},
+               "bridge": {k: spread([r["bridge"][k] for r in rows])
+                          for k in rows[0]["bridge"]},
+               "is": {k: spread([r["is"][k]["is"] for r in rows])
+                      for k in rows[0]["is"]},
+               "seconds": {k: float(np.mean([r["seconds"][k] for r in rows]))
+                           for k in rows[0]["seconds"]}}
+    print(json.dumps(summary), flush=True)
+
+
+def ladder_spread(dev, seeds=tuple(range(1, 13)), engine="auto"):
+    """The calibrated config's ladder over seeds, its tree likelihood
+    through ``engine`` (``--ladder-spread``, ``--ladder-plain``)."""
+    import io
+
+    from physher_tpu_torch.config.actions import Runner
+    from physher_tpu_torch.inference import marginal
+
+    cfg = load_json(str(cs.DATA / "fluA-calibrated.json"))
+    cfg["model"]["distributions"][0]["engine"] = engine
+    node = next(a for a in cfg["physher"] if a["id"] == "mmcmc")
+    est = {"stepping_stone": [], "path_sampling": []}
+    for seed in seeds:
+        ctx, _ = build_config(cfg, base_dir=str(cs.DATA),
+                              dtype=torch.float64, device=dev)
+        runner = Runner(ctx, seed=seed, out=io.StringIO())
+        t0 = time.perf_counter()
+        runner.run([node])
+        torch.cuda.synchronize()
+        temps, lls, _ = runner.results["mmcmc"]
+        rec = {"seed": seed, "engine": engine,
+               "seconds": time.perf_counter() - t0}
+        for k, fn in (("stepping_stone", marginal.log_stepping_stone),
+                      ("path_sampling", marginal.log_path_sampling)):
+            rec[k] = fn(lls, temps)[0]
+            est[k].append(rec[k])
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({
+        "mode": "ladder_spread", "engine": engine, "seeds": list(seeds),
+        "ladder": {k: node[k] for k in ("temperatures", "length", "burnin")},
+        "estimates": {k: {"mean": float(np.mean(v)),
+                          "spread": float(np.ptp(v)),
+                          "sd": float(np.std(v, ddof=1)) if len(v) > 1
+                          else None}
+                      for k, v in est.items()}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -1556,6 +1702,15 @@ def main() -> int:
                          "a level")
     ap.add_argument("--s4-host", action="store_true",
                     help="only the host time of K2''s and K6''s wrappers")
+    ap.add_argument("--calibrated-settings", action="store_true",
+                    help="only the calibrated config's estimators against "
+                         "their chain settings, over four seeds")
+    ap.add_argument("--ladder-spread", action="store_true",
+                    help="only the calibrated config's ladder over twelve "
+                         "seeds")
+    ap.add_argument("--ladder-plain", action="store_true",
+                    help="only four seeds of that ladder through K5' and "
+                         "through the plain engine")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
                     help="with --gate, also write the sweep's lines here")
     args = ap.parse_args()
@@ -1563,6 +1718,19 @@ def main() -> int:
     smi = cs.nvidia_smi()
     with ThreadPoolExecutor(4) as pool:
         list(pool.map(lambda m: m.build(), (fused, staged, loop, wide)))
+    if args.calibrated_settings:
+        calibrated_settings(dev)
+        print(smi, flush=True)
+        return 0
+    if args.ladder_spread:
+        ladder_spread(dev)
+        print(smi, flush=True)
+        return 0
+    if args.ladder_plain:
+        for engine in ("auto", "xla"):
+            ladder_spread(dev, seeds=(1, 2, 3, 4), engine=engine)
+        print(smi, flush=True)
+        return 0
     if args.k4_variants:
         k4_variants(dev)
         print(smi, flush=True)

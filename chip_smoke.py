@@ -61,7 +61,19 @@ slices' main paths through them and times kernel against plain:
   fluA-elbo model with Gamma4+I and a lognormal relaxed clock (K3'/K4',
   K5'), UNREST (P(t) by expm) against the JAX package's logP and gradient
   and its meta fit, the jc69w4 (Weibull) golden, and the 128-taxon
-  Gamma4+I config against plain with 20 ADVI steps.
+  Gamma4+I config against plain with 20 ADVI steps;
+- Bayesian model comparison: the skyline, skygrid and piecewise-linear
+  coalescents on the fluA time tree against the port on the CPU (float64)
+  and an 8-chain skygrid mcmc through the CLI (K5'); one ELBO check of 100
+  draws as one batch (K5', ``ml.hessian_chunk`` chunks) against the
+  parent's loop of one-chain targets at the checkpoint B model and the
+  128-taxon config, with both times, and 20 ADVI steps at gradsamples 4
+  (K5'/K6'); on tests/data/fluA-calibrated.json in float64 at its own
+  settings, stepping stone, bridge sampling and IS within the JAX
+  package's windows at the same settings
+  (fluA-calibrated.reference.json), mc, cpo and a short nest, and bridge
+  sampling on the card against the CPU on the same draws; MixedMCMC over
+  an SSVS local clock with bits [4, N] (K5' at L = 4).
 
     python3 chip_smoke.py
 
@@ -2426,6 +2438,349 @@ def family_staged_large(dev, n_tips=128, n_sites=20480, advi_steps=20):
     check(ok, "the Gamma4+I large config through K3'/K4' against plain")
 
 
+# -- the fifteenth slice: coalescents over chain batches, the batched ELBO
+# checks, and the Bayesian model-comparison estimators
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> list:
+    """Host wall times of ``fn()`` in ms, each ended by a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+# the population-size models of phase (a) on the fluA time tree (68
+# coalescences; the root is about 21 years above the latest tip)
+COAL_GRID, COAL_CUTOFF = 8, 18.0
+
+
+def coal_config(workdir: Path, model: str, physher: list) -> Path:
+    """tests/data/fluA-elbo.json's model with its constant coalescent
+    replaced by ``model`` (skyline with 3 groups, skygrid or
+    piecewise-linear on 8 grid points to 18 years; sizes from a seed), the
+    oneonx prior on those sizes, and the action list ``physher``."""
+    cfg = json.loads((DATA / "fluA-elbo.json").read_text())
+    prior = cfg["model"]["distributions"][1]
+    n = 3 if model == "skyline" else COAL_GRID
+    values = np.random.default_rng(3).uniform(4.0, 12.0, n)
+    node = {"id": "coalescent", "type": "coalescent", "model": model,
+            "tree": "&tree",
+            "parameters": {"thetas": {
+                "id": "thetas", "type": "parameter", "lower": 0,
+                "values": [float(v) for v in values]}}}
+    if model == "skyline":
+        node["groups"] = [30, 20, 18]
+    else:
+        node.update(grid=COAL_GRID, cutoff=COAL_CUTOFF)
+    prior["distributions"][0] = node
+    prior["distributions"][1]["x"] = "&thetas"
+    cfg.pop("varmodel")
+    cfg["physher"] = physher
+    for name in ("fluA.fa", "fluA-rooted.nxs"):
+        link = workdir / name
+        if not link.exists():
+            link.symlink_to(DATA / name)
+    path = workdir / f"fluA-{model}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def coalescent_card(dev, length=1000, n_chains=8):
+    """(a) The fluA time tree with skyline, skygrid and piecewise-linear
+    priors in float64: the joint logP and its gradient on the card (K1'/K2')
+    against the port on the CPU in this process; then an 8-chain mcmc of the
+    skygrid config through the CLI (float32, K5' at L = 8)."""
+    from physher_tpu_torch.config.builder import build_config, load_json
+
+    rec, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in ("skyline", "skygrid", "piecewise-linear"):
+            path = coal_config(Path(tmp), model, [])
+            out = {}
+            for device in (dev, "cpu"):
+                ctx, _ = build_config(load_json(str(path)), base_dir=tmp,
+                                      dtype=torch.float64, device=device)
+                post = ctx.objects["posterior"]
+                leaves = {k: v.requires_grad_(True) for k, v in
+                          post.param_space().init_params(
+                              dtype=torch.float64, device=device).items()}
+                val = post.log_prob(leaves)
+                grads = torch.autograd.grad(val, list(leaves.values()))
+                out[str(device)] = (float(val.detach()), {
+                    k: g.cpu() for k, g in zip(leaves, grads)},
+                    ctx.objects["treelikelihood"].engine_name())
+            card, cpu = out[str(dev)], out["cpu"]
+            rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+            g_rel = max(max_err(card[1][k], cpu[1][k])[1] for k in cpu[1])
+            rec[model] = dict(logp_card=card[0], logp_cpu=cpu[0],
+                              logp_rel_err=rel, grad_rel_err=g_rel,
+                              engine=card[2])
+            ok = ok and rel <= 1e-10 and g_rel <= 1e-9 \
+                and card[2] == "cuda-fused"
+        actions = [{"id": "mc", "type": "mcmc", "model": "&posterior",
+                    "length": length, "chains": n_chains,
+                    "log": [{"id": "lg", "type": "logger", "every": 100,
+                             "file": "mc.log", "models": ["&posterior"],
+                             "x": ["&thetas", "&rate"]}]}]
+        path = coal_config(Path(tmp), "skygrid", actions)
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    res = runner.results["mc"]
+    tlk = runner.ctx.objects["treelikelihood"]
+    acc = np.asarray(res.acceptance, np.float64)
+    mcmc_ok = bool(np.isfinite(res.samples_u).all()
+                   and np.isfinite(res.log_posterior).all()
+                   and res.samples_u.shape[:2] == (length // 100, n_chains)
+                   and 0.0 < np.nanmean(acc) < 1.0
+                   and tlk.engine_name(n_chains) == "cuda-loop"
+                   and launches["loop_forward"] >= length)
+    ok = bool(ok and mcmc_ok)
+    emit("coalescent_card", ok=ok, models=rec, tolerance={"logp": 1e-10,
+         "grad": 1e-9}, mcmc_lines=lines, mcmc_chains=n_chains,
+         mcmc_iterations=length, mcmc_acceptance=list(acc),
+         mcmc_log_posterior_last=list(res.log_posterior[-1]),
+         mcmc_wall_seconds=wall, mcmc_step_ms=wall * 1e3 / length,
+         launches=launches)
+    check(ok, "skyline, skygrid and piecewise-linear on the card against "
+              "the CPU, and an 8-chain skygrid mcmc through K5'")
+    return launches
+
+
+def elbo_checks(dev, smi, sized_runners, reps=(7, 3)):
+    """(b) One ELBO convergence check (100 fixed draws) of each fitted
+    family, as one batch of chains (K5' in ``hessian_chunk`` chunks) and as
+    the parent's loop of one-chain targets (K1' or K3'), on the same draws:
+    the K5' calls a check and both wall times, at the checkpoint B model
+    and the 128 x 16 291 config; then 20 ADVI steps of fluA-elbo.json at
+    gradsamples 4 through the CLI (one K5'/K6' pair a step)."""
+    rec = {"card": smi}
+    ok = True
+    for (label, runner, key), n_reps in zip(sized_runners, reps):
+        fam = runner.ctx.objects["varnormal"].family
+        vparams = runner.results[key].vparams
+        eps = fam.draw(vparams, torch.Generator(device=dev).manual_seed(5),
+                       100)
+
+        def batched():
+            with torch.no_grad():
+                return float(fam.elbo(vparams, eps=eps))
+
+        def loop_check():
+            with torch.no_grad():
+                z = fam.sample_unconstrained(vparams, eps)
+                return float(sum(fam._target(zi) for zi in z) / len(z)
+                             + fam.entropy(vparams))
+
+        zero_all_launches()
+        e_batch = batched()
+        launches = all_launches()
+        e_loop = loop_check()
+        t_batch = wall_ms(batched, n_reps)
+        t_loop = wall_ms(loop_check, n_reps)
+        n_chunks = -(-100 // fam.max_chains)
+        rel = abs(e_batch - e_loop) / abs(e_loop)
+        rec[label] = dict(
+            elbo_batched=e_batch, elbo_loop=e_loop, rel_err=rel,
+            chunk_rows=fam.max_chains, chunks=n_chunks,
+            k5_calls_a_check=launches["loop_forward"], launches=launches,
+            batched_ms=statistics.median(t_batch), batched_ms_all=t_batch,
+            loop_ms=statistics.median(t_loop), loop_ms_all=t_loop,
+            loop_over_batched=statistics.median(t_loop)
+            / statistics.median(t_batch))
+        ok = ok and launches["loop_forward"] == n_chunks and rel <= 1e-5 \
+            and launches["fused_forward"] == launches["staged_forward"] == 0
+    cfg = json.loads((DATA / "fluA-elbo.json").read_text())
+    cfg["varmodel"]["gradsamples"] = 4
+    cfg["physher"][0]["max"] = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fluA.fa", "fluA-rooted.nxs"):
+            (Path(tmp) / name).symlink_to(DATA / name)
+        path = Path(tmp) / "fluA-elbo-g4.json"
+        path.write_text(json.dumps(cfg))
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    res = runner.results["sg"]
+    steps_ok = bool(res.iterations == 20 and np.isfinite(res.elbo)
+                    and launches["loop_backward"] == 20
+                    and launches["loop_forward"] == 21
+                    and launches["fused_forward"] == 0
+                    and launches["fused_backward"] == 0)
+    rec["advi_gradsamples4"] = dict(lines=lines, iterations=res.iterations,
+                                    elbo=res.elbo, wall_seconds=wall,
+                                    launches=launches)
+    ok = bool(ok and steps_ok)
+    emit("elbo_checks", ok=ok, **rec)
+    check(ok, "the ELBO checks as one batch through K5' and ADVI steps at "
+              "gradsamples 4 through K5'/K6'")
+    return rec
+
+
+def calibrated_actions():
+    """The card's action list on tests/data/fluA-calibrated.json: the
+    config's own actions at its own settings, those of the JAX package's
+    reference (mmcmc and marginallikelihood, and bridgesampling over the
+    node's chains, from the config's values; the L-BFGS fit, the ADVI fit
+    from its optimum, and is), then an 8-chain mcmc with cpo, mc, and a
+    short nest (20 points, 200 iterations)."""
+    cfg = json.loads((DATA / "fluA-calibrated.json").read_text())
+    return cfg, cfg["physher"] + [
+        {"id": "mcmc", "type": "mcmc", "model": "&posterior",
+         "length": 1000, "chains": 8,
+         "log": [{"every": 10, "models": ["&posterior"]}]},
+        {"id": "cpo", "type": "cpo", "mcmc": "&mcmc"},
+        {"id": "mc", "type": "mc", "model": "&posterior", "length": 1000,
+         "chains": 8},
+        {"id": "nest", "type": "nest", "model": "&posterior", "points": 20,
+         "max": 200}]
+
+
+def estimators_card(dev, smi):
+    """(c) The calibrated config in float64 on the card through the CLI's
+    Runner, action by action: stepping stone, bridge sampling and IS within
+    the windows of tests/data/fluA-calibrated.reference.json (the JAX
+    package's values over three seeds at the config's settings, which the
+    reference records), mc, cpo and a short nest finite; then bridge
+    sampling on the card against the port on the CPU on the same posterior
+    samples and proposal draws (1e-8 relative)."""
+    from physher_tpu_torch.config.actions import Runner
+    from physher_tpu_torch.config.builder import build_config
+    from physher_tpu_torch.inference import marginal
+
+    ref = json.loads((DATA / "fluA-calibrated.reference.json").read_text())
+    win = ref["estimates"]
+    cfg, actions = calibrated_actions()
+    # the reference was made at the settings the card runs
+    nodes = {a["id"]: a for a in cfg["physher"]}
+    same_settings = all(nodes.get(i, {}).get(k) == v
+                        for i, kv in ref["settings"].items()
+                        for k, v in kv.items())
+    ctx, _ = build_config(cfg, base_dir=str(DATA), dtype=torch.float64,
+                          device=dev)
+    out = io.StringIO()
+    runner = Runner(ctx, seed=0, out=out)
+    seconds, launches = {}, {}
+    for node in actions:
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner.run([node])
+        torch.cuda.synchronize()
+        seconds[node["id"]] = time.perf_counter() - t0
+        launches[node["id"]] = all_launches()
+    res = runner.results
+    got = {"stepping_stone": res["marginal"]["stepping"],
+           "path_sampling": res["marginal"]["path"],
+           "bridge": res["bridge"], "is": res["is"]}
+    inside = {k: abs(got[k] - win[k]["mean"]) <= win[k]["tolerance"]
+              for k in ("stepping_stone", "bridge", "is")}
+    finite = bool(np.isfinite([res["mc"], res["nest"], res["cpo"][1],
+                               res["vb"].elbo]).all())
+    # bridge sampling on the same samples and proposal draws, card and CPU
+    post = ctx.objects["posterior"]
+    space = post.param_space()
+    mres = res["mcmc"]
+    z = torch.as_tensor(mres.samples_u.reshape(-1, mres.samples_u.shape[-1]),
+                        dtype=torch.float64, device=dev)
+    eps = torch.randn(z.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), dtype=torch.float64, device=dev)
+    cpu_ctx, _ = build_config(cfg, base_dir=str(DATA), dtype=torch.float64,
+                              device="cpu")
+    cpu_post = cpu_ctx.objects["posterior"]
+    vals = {}
+    for label, p, zz, ee in (("card", post, z, eps),
+                             ("cpu", cpu_post, z.cpu(), eps.cpu())):
+        vals[label] = marginal.bridge_sampling_marginal(
+            zz, lambda x, p=p: marginal.batched_values(
+                p.log_prob, space, x, jacobian=True), space, eps=ee)
+    bridge_rel = abs(vals["card"] - vals["cpu"]) / abs(vals["cpu"])
+    loop_calls = {k: v["loop_forward"] for k, v in launches.items()}
+    ok = bool(same_settings and all(inside.values()) and finite
+              and bridge_rel <= 1e-8
+              and loop_calls["bridge"] >= 1 and loop_calls["is"] >= 1
+              and loop_calls["mc"] >= 1 and loop_calls["cpo"] >= 1)
+    emit("estimators_card", ok=ok, card=smi, same_settings=same_settings,
+         settings=ref["settings"], lines=out.getvalue().splitlines(),
+         estimates=got,
+         windows={k: win[k] for k in ("stepping_stone", "bridge", "is")},
+         inside=inside, mc=res["mc"], nest=res["nest"], lpml=res["cpo"][1],
+         elbo=res["vb"].elbo, vb_iterations=res["vb"].iterations,
+         bridge_card_vs_cpu={**vals, "rel_err": bridge_rel,
+                             "samples": int(z.shape[0])},
+         seconds=seconds, launches=launches)
+    check(ok, "the estimators on the calibrated config within the JAX "
+              "package's windows, and bridge sampling card against CPU")
+    return {"seconds": seconds, "launches": launches, "estimates": got}
+
+
+def mixed_mcmc_ssvs(dev, n_chains=4, n_iter=400, every=10):
+    """(d) MixedMCMC over an SSVSLocalClock on the fluA JC69 time tree
+    (float32): bits [4, N], lognormal priors on the rates and a Bernoulli
+    prior of 0.05 on each bit; every step one K5' launch at L = 4. The step
+    sizes stay fixed, so that the acceptance covers the whole run."""
+    from physher_tpu_torch.inference.mcmc import MixedMCMC
+    from physher_tpu_torch.models.clock import SSVSLocalClock
+    from physher_tpu_torch.models.distributions import lognormal_logpdf
+    from physher_tpu_torch.models.parameters import ParamBatch
+
+    with open(DATA / "jc69-time.json") as fh:
+        tree_cfg = json.load(fh)["model"]["tree"]
+    topo, dist = read_newick(tree_cfg["newick"])
+    td = TimeTreeData.from_dated_tree(topo, dist, tree_cfg["dates"])
+    sp = SitePattern.from_alignment(read_alignment(str(DATA / "fluA.fa")))
+    kw = dict(dtype=torch.float32, device=dev)
+    clock = SSVSLocalClock(topo, rate_init=3e-3, **kw)
+    tlk = TreeLikelihood(sp, topo, JC69(**kw), clock=clock, time_data=td,
+                         tipstates=True, **kw)
+    space = tlk.param_space()
+    ind = clock.key("indicators")
+
+    def log_prob(params, bits):
+        p = ParamBatch({**params, ind: bits}, params.batch_shape)
+        rates = torch.cat([params[clock.key("rate")][..., None],
+                           params[clock.key("local_rates")]], -1)
+        n_on = bits.sum(-1).to(rates.dtype)
+        return (tlk.log_likelihood(p)
+                + lognormal_logpdf(rates, -5.8, 1.0).sum(-1)
+                + n_on * np.log(0.05) + (bits.shape[-1] - n_on)
+                * np.log(0.95))
+
+    zero_all_launches()
+    t0 = time.perf_counter()
+    out = MixedMCMC(space, log_prob, n_bits=topo.N, p_flip=0.3).run(
+        torch.Generator(device=dev).manual_seed(3),
+        space.init_params(**kw), np.zeros(topo.N), n_iter=n_iter,
+        every=every, n_chains=n_chains, adapt=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    freq = float(out["bits"].mean())
+    ok = bool(np.isfinite(out["log_posterior"]).all()
+              and out["bits"].shape == (n_iter // every, n_chains, topo.N)
+              and 0.0 < freq < 1.0
+              and tlk.engine_name(n_chains) == "cuda-loop"
+              and launches["loop_forward"] >= n_iter)
+    emit("mixed_mcmc_ssvs", ok=ok, chains=n_chains, iterations=n_iter,
+         bits=topo.N, bit_frequency=freq,
+         bits_on_last=out["bits"][-1].sum(-1).tolist(),
+         acceptance=[float(a) for a in out["acceptance"]],
+         log_posterior_last=[float(v) for v in out["log_posterior"][-1]],
+         wall_seconds=wall, step_ms=wall * 1e3 / n_iter, launches=launches)
+    check(ok, "MixedMCMC over the SSVS local clock through K5' at L = 4")
+    return launches
+
+
 def c5_times(rec, shape, kind, suffix=""):
     """A kernel's device time at C = 4 and 5 (and 8 where measured) on one
     shape, and the ratio of C = 5 to C = 4 (median and range over the
@@ -2682,6 +3037,7 @@ def main() -> int:
     # and registers, and both twice on the same inputs (bit for bit; K1''s
     # rescaled partials peaking at 1)
     runner, launches_fused = cli_checkpoint_b(dev)
+    runner_b = runner
     runner_b_elbo = runner.results["sg"].elbo
     tlk = runner.ctx.objects["treelikelihood"]
     b_inputs = engine_inputs(tlk, runner.params_for(tlk.param_space()))
@@ -2712,6 +3068,7 @@ def main() -> int:
     # ---- 15. the third slice's main path: ML then ADVI of a GTR+G4 config
     # at 128 taxa x about 16 000 patterns through the CLI (K3'/K4')
     runner, staged_launches = cli_staged_large(dev)
+    runner_large = runner
 
     # ---- 16. times of K3'/K4', K1'/K2' and plain at that model's inputs,
     # each K3'/K4' launch's device time, and both twice on the same inputs
@@ -2937,6 +3294,29 @@ def main() -> int:
     g4i_advi, g4i_mcmc = results["b_advi_mcmc"]
     emit("family_phases", card=smi, seconds=walls)
 
+    # ---- 36-39. the fifteenth slice: (a) skyline, skygrid and
+    # piecewise-linear on the card against the CPU and an 8-chain skygrid
+    # mcmc (K5'), (b) the ELBO checks as one batch (K5') against the
+    # parent's loop, and ADVI at gradsamples 4 (K5'/K6'), (c) the
+    # estimators on the calibrated config against the JAX package's
+    # windows, (d) MixedMCMC over the SSVS local clock (K5' at L = 4)
+    walls = {}
+    t0 = time.perf_counter()
+    coal_launches = coalescent_card(dev)
+    walls["a_coalescent"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks = elbo_checks(dev, smi, (("fluA", runner_b, "sg"),
+                                    ("128x16291", runner_large, "vb")))
+    walls["b_elbo_checks"] = time.perf_counter() - t0
+    del runner_large
+    t0 = time.perf_counter()
+    est = estimators_card(dev, smi)
+    walls["c_estimators"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed_launches = mixed_mcmc_ssvs(dev)
+    walls["d_mixed_mcmc"] = time.perf_counter() - t0
+    emit("comparison_phases", card=smi, seconds=walls)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
@@ -2946,7 +3326,8 @@ def main() -> int:
         dict(kernel_row("pruning_forward", fused_src,
                         "physher_tpu/ops/pallas_fused.py:245",
                         launches_fused["forward"], fused_alone, "forward"),
-             ml_meta_time_f64_launches=ml_time["fused_forward"]),
+             ml_meta_time_f64_launches=ml_time["fused_forward"],
+             nest_f64_launches=est["launches"]["nest"]["fused_forward"]),
         dict(kernel_row("pruning_backward", fused_src,
                         "physher_tpu/ops/pallas_fused.py:390",
                         launches_fused["backward"], fused_alone,
@@ -2980,6 +3361,15 @@ def main() -> int:
              ml_warmup_launches=ml_gtr["loop_forward"],
              hessian_launches=ml_hessian["loop_forward"],
              mcmc_g4i_relaxed_launches=g4i_mcmc["loop_forward"],
+             elbo_check_launches_fluA=checks["fluA"]["k5_calls_a_check"],
+             elbo_check_launches_128x16291=checks["128x16291"][
+                 "k5_calls_a_check"],
+             advi_gradsamples4_launches=checks["advi_gradsamples4"][
+                 "launches"]["loop_forward"],
+             skygrid_mcmc_launches=coal_launches["loop_forward"],
+             estimator_f64_launches={
+                 k: v["loop_forward"] for k, v in est["launches"].items()},
+             mixed_mcmc_launches=mixed_launches["loop_forward"],
              **c5_times(c5, "loop-fluA-238", "forward", "-L8")),
         dict(kernel_row("loop_backward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:314",
@@ -2987,6 +3377,8 @@ def main() -> int:
                         "backward"),
              ml_warmup_launches=ml_gtr["loop_backward"],
              hessian_launches=ml_hessian["loop_backward"],
+             advi_gradsamples4_launches=checks["advi_gradsamples4"][
+                 "launches"]["loop_backward"],
              **c5_times(c5, "loop-fluA-238", "backward", "-L8")),
         dict(kernel_row("loop_forward_wide", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",

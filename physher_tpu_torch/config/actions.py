@@ -1,17 +1,21 @@
 """Action execution: the ``physher`` run list of a config.
 
 Port of the ``optimizer``, ``logger``, ``mcmc``, ``mmcmc``,
-``marginallikelihood``, ``laplace`` and ``hessian`` actions of
+``marginallikelihood``, ``laplace``, ``hessian``, ``bridgesampling``,
+``is``, ``nest``, ``cpo``, ``mc`` and ``predictive`` actions of
 ``physher_tpu/config/actions.py`` (reference: src/physher.c:207-305).
 Actions share one parameter pool, so sequential actions see each other's
 results (the reference's shared Parameter objects in its hashtable). The
 random draws come from one ``torch.Generator`` on the context's device,
-seeded once. The chains of an ``mcmc`` node (``"chains"``), the
-temperatures of an ``mmcmc`` node, the starts of a meta optimizer and the
-difference points of the Hessian run as one batch through the model
-(``inference/mcmc.py``, ``inference/ml.py``). Every other action type, and
-the ``topology`` optimizer, raise ``NotImplementedError`` naming its
-ROADMAP item.
+seeded once. The chains of an ``mcmc``, ``bridgesampling`` or ``mc`` node
+(``"chains"``), the temperatures of an ``mmcmc`` node, the starts of a meta
+optimizer, the difference points of the Hessian and the points at which an
+estimator evaluates the model (proposal draws, posterior or prior samples,
+live points) run as batches of chains through the model
+(``inference/mcmc.py``, ``inference/ml.py``, ``inference/marginal.py``),
+where the JAX package ``vmap``s them. Every other action type, and the
+``topology`` optimizer, raise ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import sys
 import numpy as np
 import torch
 
-from ..inference import marginal, mcmc as mcmc_mod, ml, vb as vb_mod
+from ..inference import marginal, mcmc as mcmc_mod, ml, modelselection
+from ..inference import vb as vb_mod
 from ..models.distributions import CompoundModel
 from ..models.parameters import ParamSpace
 from ..models.treelikelihood import TreeLikelihood
@@ -31,9 +36,8 @@ from .variational import VariationalHandle
 
 # the JAX package's actions that are not ported yet -> ROADMAP Queue 1 item
 _UNPORTED_ACTIONS = {
-    "bridgesampling": 13, "is": 13, "nest": 13, "cpo": 13, "mc": 13,
-    "predictive": 13, "asr": 14, "ppsite": 14, "cat": 14, "simultron": 14,
-    "sbn": 17, "dumper": 17,
+    "asr": 14, "ppsite": 14, "cat": 14, "simultron": 14, "sbn": 17,
+    "dumper": 17,
 }
 # chains evaluated at once when a logger recomputes values over samples
 _LOG_BATCH = 256
@@ -330,17 +334,13 @@ class Runner:
         return res
 
     @staticmethod
-    def _batched(fn, space, z: np.ndarray, like: torch.Tensor) -> np.ndarray:
+    def _batched(fn, space, z: np.ndarray, like: torch.Tensor,
+                 max_chains: int = _LOG_BATCH) -> np.ndarray:
         """``fn`` over a batch of parameter dicts made from the unconstrained
-        samples ``z`` [n, dim], ``_LOG_BATCH`` chains at a time."""
-        out = []
-        with torch.no_grad():
-            for i in range(0, len(z), _LOG_BATCH):
-                zi = torch.as_tensor(z[i: i + _LOG_BATCH], dtype=like.dtype,
-                                     device=like.device)
-                p = space.constrain(space.unflatten_unconstrained(zi))
-                out.append(fn(p).cpu().numpy())
-        return np.concatenate(out)
+        samples ``z`` [n, dim], ``max_chains`` chains at a time."""
+        zt = torch.as_tensor(z, dtype=like.dtype, device=like.device)
+        return marginal.batched_values(fn, space, zt,
+                                       max_chains).cpu().numpy()
 
     def _write_mcmc_logs(self, node, res, space, base_every):
         """The mcmc node's loggers, from chain 0 as the reference logs one
@@ -523,3 +523,156 @@ class Runner:
             print(f"{m}: {v:.6f}", file=self.out)
         self.results[node.get("id", "marginal")] = out
         return out
+
+    # -- Bayesian model comparison (reference: physher.c:207-305) ----------
+
+    def _chain_samples(self, node, log_prob, space, params, length: int,
+                       burnin: int):
+        """A ``mcmc.MCMC`` run of ``log_prob`` for an estimator, ``length``
+        iterations unless the node gives them, its chains (``"chains"``)
+        one batch as in :meth:`action_mcmc`: every chain's unconstrained
+        samples ``[S * L, dim]`` on the context's device."""
+        res = mcmc_mod.MCMC(space, log_prob).run(
+            self.generator, params, n_iter=int(node.get("length", length)),
+            every=10, burnin=burnin, n_chains=int(node.get("chains", 0)) or 1)
+        z = res.samples_u.reshape(-1, res.samples_u.shape[-1])
+        return torch.as_tensor(z, **self.ctx.kw)
+
+    def action_bridgesampling(self, node):
+        """Bridge sampling from an MCMC run of the posterior (reference:
+        src/phyc/bridge.c): the samples and the normal proposal's draws each
+        as batches of chains."""
+        model = self.ctx.resolve(node.get("model"))
+        space = model.param_space()
+        log_prob = self.model_logprob(model)
+        chunk = ml.hessian_chunk(model)
+        su = self._chain_samples(node, log_prob, space,
+                                 self.params_for(space), 20000,
+                                 int(node.get("burnin", 2000)))
+
+        def log_unnorm(z):
+            return marginal.batched_values(log_prob, space, z, chunk,
+                                           jacobian=True)
+
+        val = marginal.bridge_sampling_marginal(su, log_unnorm, space,
+                                                self.generator)
+        print(f"Bridge-sampling log marginal likelihood: {val:.6f}",
+              file=self.out)
+        self.results[node.get("id", "bridge")] = val
+        return val
+
+    def action_is(self, node):
+        """Importance-sampling marginal with a variational proposal
+        (reference: src/phyc/is.c, action 'is'/'vbis')."""
+        var = self.ctx.resolve(node.get("variational", node.get("model")))
+        val = marginal.importance_sampling_marginal(
+            self.generator, var.family, var.vparams,
+            self.model_logprob(var.posterior),
+            n_samples=int(node.get("samples", 1000)),
+            max_chains=ml.hessian_chunk(var.posterior))
+        print(f"IS log marginal likelihood: {val:.6f}", file=self.out)
+        self.results[node.get("id", "is")] = val
+        return val
+
+    def action_nest(self, node):
+        """Nested sampling over the likelihood (reference: src/phyc/nest.c),
+        its live points started around the pool's values, as in the JAX
+        package."""
+        model = self.ctx.resolve(node.get("model"))
+        like, _ = self._split_like_prior(model)
+        space = model.param_space()
+        with torch.no_grad():
+            u0 = space.flatten_unconstrained(space.unconstrain(
+                self.params_for(space)))
+
+        def sample_prior(generator, n):
+            # a diffuse overdispersed start around the current point
+            return u0 + 2.0 * torch.randn((n, u0.shape[0]),
+                                          generator=generator, **self.ctx.kw)
+
+        val = marginal.nested_sampling(
+            self.generator, space, like, sample_prior,
+            n_live=int(node.get("points", 100)),
+            max_iter=int(node.get("max", 5000)),
+            max_chains=ml.hessian_chunk(model))
+        print(f"Nested-sampling log evidence (approx): {val:.6f}",
+              file=self.out)
+        self.results[node.get("id", "nest")] = val
+        return val
+
+    def action_cpo(self, node):
+        """CPO / LPML from per-site log-likelihood samples (reference:
+        src/phyc/cpo.c): a sitewise log file (``"filename"``), or chain 0 of
+        a prior ``mcmc`` action's samples, their site log-likelihoods as
+        batches of chains."""
+        if node.get("filename"):
+            # the reference's file: a '#'-prefixed weight line, a header,
+            # then state\tsite... rows (cpo.c:16-75)
+            weights, site_lls = _read_sitewise_log(
+                self._path(node["filename"]), int(node.get("burnin", 0)))
+        else:
+            res = self.results.get(str(node.get("mcmc", "mcmc")).lstrip("&"))
+            if res is None:
+                raise ValueError("cpo needs a prior mcmc action")
+            tlk = self.ctx.resolve(node.get("treelikelihood",
+                                            "&treelikelihood"))
+            site_lls = self._batched(
+                tlk.site_log_likelihoods, res.space, res.samples_u[:, 0],
+                torch.empty(0, **self.ctx.kw), ml.hessian_chunk(tlk))
+            weights = tlk.sp.weights
+        log_cpo, lpml = modelselection.cpo(site_lls, weights)
+        print(f"LPML: {lpml:.6f}", file=self.out)
+        self.results[node.get("id", "cpo")] = (log_cpo, lpml)
+        return log_cpo, lpml
+
+    def action_mc(self, node):
+        """Plain Monte Carlo marginal: the mean likelihood over prior draws
+        from an MCMC run of the prior (reference: src/phyc/mc.c), the
+        likelihoods as batches of chains."""
+        model = self.ctx.resolve(node.get("model"))
+        like, prior = self._split_like_prior(model)
+        space = model.param_space()
+        z = self._chain_samples(node, prior, space, self.params_for(space),
+                                10000, burnin=1000)
+        lls = marginal.batched_values(like, space, z, ml.hessian_chunk(model))
+        val = marginal.log_arithmetic_mean(lls.cpu().numpy())
+        print(f"MC log marginal likelihood: {val:.6f}", file=self.out)
+        self.results[node.get("id", "mc")] = val
+        return val
+
+    def action_predictive(self, node):
+        """Posterior-predictive simulation check (reference:
+        src/phyc/predictive.c): the pattern count of alignments simulated at
+        the pool's values against the data's."""
+        from ..data.sitepattern import SitePattern
+        from ..likelihood.analysis import simulate_alignment
+
+        tlk = self.ctx.resolve(node.get("model", node.get(
+            "treelikelihood", "&treelikelihood")))
+        params = self.params_for(tlk.param_space())
+        with torch.no_grad():
+            bl = tlk.branch_lengths(params)
+        sims = []
+        for _ in range(int(node.get("samples", 100))):
+            seqs = simulate_alignment(self.generator, tlk.topo, tlk.subst,
+                                      tlk.site_model, params, bl,
+                                      tlk.sp.site_count)
+            sims.append(SitePattern.from_alignment(
+                seqs, tlk.sp.datatype).pattern_count)
+        p = modelselection.posterior_predictive_pvalue(tlk.sp.pattern_count,
+                                                       sims)
+        print(f"posterior predictive p-value (pattern diversity): {p:.3f}",
+              file=self.out)
+        self.results[node.get("id", "predictive")] = p
+        return p
+
+
+def _read_sitewise_log(path: str, burnin: int = 0):
+    """Parse the reference's sitewise log format: a first '#'-prefixed line
+    of tab-separated site weights, a header, then state\tvalue rows
+    (reference: cpo.c:26-52, predictive.c:25-55)."""
+    with open(path) as fh:
+        lines = [ln.rstrip("\n") for ln in fh if ln.strip()]
+    weights = np.asarray([float(x) for x in lines[0][1:].split("\t")])
+    rows = [[float(x) for x in ln.split("\t")[1:]] for ln in lines[2:]]
+    return weights, np.asarray(rows[burnin:])

@@ -13,14 +13,15 @@ import numpy as np
 import torch
 
 from ..models.coalescent import (
-    ConstantCoalescent, ExponentialCoalescent, SkyrideCoalescent,
+    ConstantCoalescent, ExponentialCoalescent, PiecewiseLinearCoalescent,
+    SkygridCoalescent, SkylineCoalescent, SkyrideCoalescent,
 )
 from ..models.distributions import (
     CompoundModel, PriorModel, ctmc_scale_logpdf,
 )
 from .builder import (
     BUILDERS, Context, _param_value, build_parameter_spec, build_simplex_spec,
-    build_treelikelihood, not_ported,
+    build_treelikelihood,
 )
 
 
@@ -202,9 +203,26 @@ def build_coalescent(node, ctx: Context):
         coal = SkyrideCoalescent(topo, prefix, thetas_init=init,
                                  log_space=log_space, delta=delta)
         reg(thetas, coal.key("thetas"))
-    elif model in ("skygrid", "grid", "piecewise-linear", "piecewiselinear",
-                   "skyglide", "skyline"):
-        raise not_ported(f"the {model!r} coalescent", 10)
+    elif model in ("skygrid", "grid"):
+        thetas = pnode.get("thetas") if isinstance(pnode, dict) else pnode
+        init = np.asarray(_param_value(thetas, ctx))
+        coal = SkygridCoalescent(topo, int(node.get("grid", len(init))),
+                                 float(node["cutoff"]), prefix,
+                                 thetas_init=init, log_space=log_space)
+        reg(thetas, coal.key("thetas"))
+    elif model in ("piecewise-linear", "piecewiselinear", "skyglide"):
+        thetas = pnode.get("thetas") if isinstance(pnode, dict) else pnode
+        init = np.asarray(_param_value(thetas, ctx))
+        coal = PiecewiseLinearCoalescent(
+            topo, int(node.get("grid", len(init))), float(node["cutoff"]),
+            prefix, thetas_init=init, log_space=log_space)
+        reg(thetas, coal.key("thetas"))
+    elif model == "skyline":
+        thetas = pnode.get("thetas") if isinstance(pnode, dict) else pnode
+        init = np.asarray(_param_value(thetas, ctx))
+        coal = SkylineCoalescent(topo, node.get("groups"), prefix,
+                                 thetas_init=init, log_space=log_space)
+        reg(thetas, coal.key("thetas"))
     else:
         raise ValueError(f"unknown coalescent model {model!r}")
 

@@ -5,7 +5,8 @@ new_Variational_from_json: per-block "distributions" with normal or
 multivariatenormal families over transformed parameters). Normal blocks map
 to one mean-field normal on the unconstrained space with per-block initial
 locations and scales; a multivariatenormal block or a full-rank family maps
-to FullRankNormalVB.
+to FullRankNormalVB. As in the JAX package, no config builds the gamma or
+Weibull family.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..inference.ml import hessian_chunk
 from ..inference.vb import MeanFieldNormalVB, FullRankNormalVB
 from .builder import Context, _param_value
 
@@ -47,7 +49,8 @@ def build_variational(node, ctx: Context):
         for b in blocks) or str(node.get("family", "")).lower() in (
             "fullrank", "multivariatenormal")
     cls = FullRankNormalVB if fullrank else MeanFieldNormalVB
-    fam = cls(log_prob, space, params)
+    # an ELBO's draws run as batches of chains within the Hessian's budget
+    fam = cls(log_prob, space, params, max_chains=hessian_chunk(posterior))
 
     # per-block initial mu and sigma on the unconstrained space
     slices = space.unconstrained_slices()

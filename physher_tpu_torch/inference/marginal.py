@@ -1,16 +1,18 @@
-"""Marginal-likelihood estimation from tempered chains.
+"""Marginal-likelihood estimation.
 
-Port of the harmonic-mean, stepping-stone and path-sampling estimators, the
-tempered ladder and ``marginal_likelihood`` of
-``physher_tpu/inference/marginal.py`` (reference: src/phyc/marginal.c:30-140,
-src/phyc/mmcmc.c tempered-chain driver). The estimators are host-side
-numpy over the recorded samples. The ladder runs as ONE batched MCMC, the
-temperatures on the chain axis (the reference runs them one after the
-other, mmcmc.c:48-88). The Laplace estimates (reference:
-src/phyc/laplace.c) take their second derivatives from ``ml.hessian``'s
-batched central differences of the exact gradient. Importance sampling,
-bridge sampling and nested sampling are not ported yet (ROADMAP Queue 1
-item 13).
+Port of ``physher_tpu/inference/marginal.py`` (reference:
+src/phyc/marginal.c:30-140 harmonic means, stepping stone and path
+sampling, src/phyc/mmcmc.c tempered chains, src/phyc/is.c importance
+sampling, src/phyc/bridge.c bridge sampling, src/phyc/laplace.c Laplace,
+src/phyc/nest.c nested sampling). The estimators are host-side numpy over
+the recorded values. The ladder runs as ONE batched MCMC, the temperatures
+on the chain axis (the reference runs them one after the other,
+mmcmc.c:48-88). Where the JAX package ``vmap``s a target over many points
+(importance sampling's proposal draws, bridge sampling's posterior and
+proposal draws, nested sampling's live points), the port hands the model
+the points as batches of chains of at most ``max_chains`` rows: on the card
+one K5' launch a batch. The Laplace estimates take their second derivatives
+from ``ml.hessian``'s batched central differences of the exact gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..models.distributions import (
 from ..models.parameters import ParamBatch, ParamSpace
 from ..ops.loop import MAX_CHAINS
 from .mcmc import MCMC
-from .ml import batched_value_and_grad, hessian
+from .ml import batched_rows, hessian
 
 
 def _logsumexp(v: np.ndarray) -> float:
@@ -191,7 +193,7 @@ def laplace_marginal_fitted(log_prob, space: ParamSpace, map_params,
     the reference's per-Parameter ``d2logP``: the five-point central
     difference of the exact gradient at ``m_i (1 +- h)`` and ``m_i (1 +-
     2h)``, ``h = eps^(1/4)``, every point a row of one batch with the MAP
-    itself (``ml.batched_value_and_grad``). Its truncation (h^4) and
+    itself (``ml.batched_rows``). Its truncation (h^4) and
     rounding (eps / h) keep the exact families' normalizers to 1e-10 in
     float64, where the three-point difference's eps^(2/3) does not.
     """
@@ -216,7 +218,7 @@ def laplace_marginal_fitted(log_prob, space: ParamSpace, map_params,
             i += n
         return log_prob(ParamBatch(p, (L,)))
 
-    values, G = batched_value_and_grad(f, rows, max_chains)
+    values, G = batched_rows(f, rows, max_chains, grad=True)
     # the differences and the steps as the rows hold them after rounding
     g1, g2, g3, g4 = (G[i * k: (i + 1) * k].diagonal() for i in range(4))
     x1, x2, x3, x4 = (rows[i * k: (i + 1) * k].diagonal().to(
@@ -271,3 +273,147 @@ def laplace_marginal_fitted(log_prob, space: ParamSpace, map_params,
     else:
         raise ValueError(f"unknown laplace family {family!r}")
     return float(logp0 - torch.sum(corr))
+
+
+def batched_values(fn, space: ParamSpace, z: torch.Tensor,
+                   max_chains: int = MAX_CHAINS, *,
+                   jacobian: bool = False) -> torch.Tensor:
+    """``fn`` of the constrained parameters at the unconstrained rows z
+    ``[n, dim]`` -> ``[n, ...]`` (plus the transform's log-Jacobian with
+    ``jacobian``), forward only: each chunk of at most ``max_chains`` rows
+    one batch of chains through the model (``ml.batched_rows``)."""
+
+    def values(zi):
+        up = space.unflatten_unconstrained(zi)
+        v = fn(space.constrain(up))
+        return v + space.log_jacobian(up) if jacobian else v
+
+    with torch.no_grad():
+        return batched_rows(values, z, max_chains)
+
+
+def importance_sampling_marginal(generator: torch.Generator, vb, vparams,
+                                 log_prob, n_samples: int = 1000, *,
+                                 eps=None,
+                                 max_chains: int = MAX_CHAINS) -> float:
+    """IS estimate of the marginal likelihood with a variational proposal
+    (reference: src/phyc/is.c): ``n_samples`` draws of ``vb`` at
+    ``vparams`` from ``generator``, or the given standard draws ``eps``
+    ``[n, dim]``, their log-densities as batches (:func:`batched_values`)."""
+    if eps is None:
+        eps = vb.draw(vparams, generator, n_samples)
+    with torch.no_grad():
+        z = vb.sample_unconstrained(vparams, eps)
+        logq = vb.log_q(vparams, z) - vb.space.log_jacobian(
+            vb.space.unflatten_unconstrained(z))
+    logp = batched_values(log_prob, vb.space, z, max_chains)
+    w = (logp - logq).to(torch.float64).cpu()
+    return float(torch.logsumexp(w, 0) - math.log(w.shape[0]))
+
+
+def bridge_sampling_marginal(samples_u, log_unnorm, space: ParamSpace,
+                             generator: torch.Generator = None,
+                             n_proposal=None, max_iter=1000, tol=1e-10, *,
+                             eps=None) -> float:
+    """Iterative bridge sampling with a matched normal proposal
+    (reference: src/phyc/bridge.c; Meng & Wong 1996).
+
+    ``samples_u`` ``[S, dim]`` are posterior draws in the unconstrained
+    space; ``log_unnorm(z)`` gives the unnormalized log-posterior (with the
+    Jacobian) at the rows of z ``[n, dim]`` -> ``[n]``, as batches of chains.
+    The proposal's ``n_proposal`` (default S) standard normal draws come
+    from ``generator``, or are given as ``eps``. The fixed-point iteration
+    runs on the host in float64, as in the JAX package."""
+    su = torch.as_tensor(samples_u)
+    S, d = su.shape
+    if eps is None:
+        eps = torch.randn((n_proposal or S, d), generator=generator,
+                          dtype=su.dtype, device=su.device)
+    eps = torch.as_tensor(eps, dtype=su.dtype, device=su.device)
+    n_prop = eps.shape[0]
+    with torch.no_grad():
+        mu = torch.mean(su, 0)
+        cov = torch.cov(su.T) + 1e-10 * torch.eye(d, dtype=su.dtype,
+                                                   device=su.device)
+        L = torch.linalg.cholesky(cov)
+        log_det = torch.sum(torch.log(torch.diagonal(L)))
+
+        def logg(z):
+            y = torch.linalg.solve_triangular(L, (z - mu).T, upper=False).T
+            return (-0.5 * (d * math.log(2 * math.pi) + torch.sum(y * y, -1))
+                    - log_det)
+
+        prop = mu + eps @ L.T
+        l1 = (log_unnorm(su) - logg(su)).to(torch.float64).cpu()
+        l2 = (log_unnorm(prop) - logg(prop)).to(torch.float64).cpu()
+    s1 = S / (S + n_prop)
+    s2 = n_prop / (S + n_prop)
+    ls1, ls2 = math.log(s1), math.log(s2)
+    logr = 0.0
+    for _ in range(max_iter):
+        r = torch.tensor(ls2 + logr, dtype=torch.float64)
+        num = (torch.logsumexp(l2 - torch.logaddexp(ls1 + l2, r), 0)
+               - math.log(n_prop))
+        den = (torch.logsumexp(-torch.logaddexp(ls1 + l1, r), 0)
+               - math.log(S))
+        new = float(num - den)
+        if abs(new - logr) < tol:
+            logr = new
+            break
+        logr = new
+    return logr
+
+
+def nested_sampling(generator: torch.Generator, space: ParamSpace,
+                    log_like, sample_prior, *, n_live=100, max_iter=10000,
+                    tol=1e-4, mcmc_steps=20, step=0.2,
+                    max_chains: int = MAX_CHAINS) -> float:
+    """Nested sampling with random-walk replacement within the likelihood
+    shell (reference: src/phyc/nest.c:116 nest_run).
+
+    ``sample_prior(generator, n)`` gives ``[n, dim]`` unconstrained starts;
+    their likelihoods are one batch of chains (:func:`batched_values`). Each
+    replacement's ``mcmc_steps`` random-walk proposals stay serial, one
+    one-chain likelihood a step, as in the JAX package's ``lax.scan``."""
+    live_u = sample_prior(generator, n_live)
+    ll = batched_values(log_like, space, live_u, max_chains)
+    kw = dict(dtype=live_u.dtype, device=live_u.device)
+
+    def replace(u, threshold):
+        cur = torch.full((), -math.inf, **kw)
+        with torch.no_grad():
+            for _ in range(mcmc_steps):
+                prop = u + step * torch.randn(u.shape, generator=generator,
+                                              **kw)
+                llp = log_like(space.constrain(
+                    space.unflatten_unconstrained(prop)))
+                ok = llp > threshold
+                u = torch.where(ok, prop, u)
+                cur = torch.where(ok, llp, cur)
+        return u, cur
+
+    logZ = -np.inf
+    logw = math.log(1.0 - math.exp(-1.0 / n_live))
+    for _ in range(max_iter):
+        worst = int(torch.argmin(ll))
+        l_worst = float(ll[worst])
+        logZ = np.logaddexp(logZ, logw + l_worst)
+        logw -= 1.0 / n_live
+        # replace the worst with a draw above the threshold, seeded from a
+        # random live point
+        seed_idx = int(torch.randint(n_live, (1,), generator=generator,
+                                     device=live_u.device))
+        u_new, ll_new = replace(live_u[seed_idx], l_worst)
+        if float(ll_new) <= l_worst:
+            continue
+        live_u[worst] = u_new
+        ll[worst] = ll_new
+        # termination: the remaining prior mass contributes < tol
+        if logw + float(torch.max(ll)) < logZ + math.log(tol):
+            break
+    # the final live points' contribution
+    ll_host = ll.to(torch.float64).cpu()
+    logZ = np.logaddexp(
+        logZ, float(torch.logsumexp(ll_host, 0)) - math.log(n_live)
+        + logw + math.log(n_live) - 1.0)
+    return float(logZ)

@@ -25,8 +25,9 @@ Randomness comes from one ``torch.Generator`` on the chains' device:
 ``torch.multinomial`` for the block, ``randn`` for the walk and ``rand`` for
 the accept test, which give other numbers than the JAX keys. Accept and
 reject stay on the device (``torch.where``); the samples come to the host
-once per ``every`` iterations, as in the JAX package. The MixedMCMC
-(bitflip) sampler is not ported yet (ROADMAP Queue 1 item 13).
+once per ``every`` iterations, as in the JAX package. ``MixedMCMC`` adds a
+bit vector per chain (bits ``[L, n_bits]``) with the reference's bitflip
+move.
 """
 
 from __future__ import annotations
@@ -345,3 +346,123 @@ class MCMC:
                      np.nan),
             sigmas.cpu().numpy(), space, interrupted, u0.dtype, u0.device)
         return res
+
+
+class MixedMCMC:
+    """MH over a continuous ParamSpace PLUS a binary indicator vector, a
+    batch of chains at a time.
+
+    Port of the JAX package's ``MixedMCMC`` (reference: src/phyc/operator.c
+    bitflip entry, used for SSVS clock-model averaging by branch-model
+    indicators, branchmodel.h:64-67): each iteration a chain proposes, with
+    probability ``p_flip``, a flip of one uniformly chosen bit (symmetric,
+    log q ratio 0), else a Gaussian random walk on one uniformly chosen
+    parameter block; step sizes adapt toward 0.24 acceptance.
+
+    ``log_prob(params, bits)`` is the unnormalized target over a batch of
+    constrained parameter dicts (tensors ``[L, ...]``) and the chains' bits
+    ``[L, n_bits]`` (int64), and returns ``[L]``; with an
+    ``SSVSLocalClock`` the bits go to ``rates_from_indicators``.
+    """
+
+    def __init__(self, space: ParamSpace, log_prob: Callable, n_bits: int,
+                 *, p_flip: float = 0.3):
+        self.space = space
+        self.log_prob = log_prob
+        self.n_bits = int(n_bits)
+        self.p_flip = float(p_flip)
+        self.blocks = [s.name for s in space.free_specs()]
+        dim = space.unconstrained_size
+        masks, idx = [], 0
+        for s in space.free_specs():
+            m = np.zeros(dim)
+            m[idx: idx + s.unconstrained_size] = 1.0
+            masks.append(m)
+            idx += s.unconstrained_size
+        self.masks = np.stack(masks) if masks else np.zeros((1, dim))
+        self._dim = dim
+
+    def _target(self, u, bits):
+        uparams = self.space.unflatten_unconstrained(u)
+        params = self.space.constrain(uparams)
+        return _per_chain(self.log_prob(params, bits)
+                          + self.space.log_jacobian(uparams), u)
+
+    def run(self, generator: torch.Generator, params: dict, bits0, *,
+            n_iter: int = 10000, every: int = 10, init_step: float = 0.1,
+            adapt: bool = True, adapt_interval: int = 200, burnin: int = 0,
+            n_chains: int = 1) -> dict:
+        """``bits0`` ``[n_bits]`` (every chain) or ``[n_chains, n_bits]``.
+        Returns JAX's keys with a chain axis: ``samples_u`` ``[S, L, dim]``,
+        ``bits`` ``[S, L, n_bits]``, ``log_posterior`` ``[S, L]``, the
+        blocks' and the bitflip's ``acceptance`` and the ``space``."""
+        space = self.space
+        with torch.no_grad():
+            u0 = space.flatten_unconstrained(space.unconstrain(params))
+        kw = dict(dtype=u0.dtype, device=u0.device)
+        L, dim = n_chains, self._dim
+        nb = max(self.n_bits, 1)
+        bits = torch.as_tensor(np.asarray(bits0), dtype=torch.int64,
+                               device=u0.device).expand(L, nb).clone()
+        u = u0.expand(L, dim).clone()
+        n_blocks = len(self.masks)
+        masks = torch.as_tensor(self.masks, **kw)
+        sigmas = torch.full((n_blocks,), init_step, **kw)
+        p_flip = self.p_flip if self.n_bits else 0.0
+        rows = torch.arange(L, device=u0.device)
+        ones = torch.ones((L, 1), **kw)
+
+        def step(u, bits, logp, acc, tries):
+            do_flip = torch.rand(L, generator=generator, **kw) < p_flip
+            b = torch.randint(n_blocks, (L,), generator=generator,
+                              device=u0.device)
+            noise = torch.randn(u.shape, generator=generator, **kw)
+            u_cont = u + sigmas[b][:, None] * masks[b] * noise
+            j = torch.randint(nb, (L,), generator=generator,
+                              device=u0.device)
+            bits_flip = bits.clone()
+            bits_flip[rows, j] = 1 - bits[rows, j]
+            u_new = torch.where(do_flip[:, None], u, u_cont)
+            bits_new = torch.where(do_flip[:, None], bits_flip, bits)
+            logp_new = self._target(u_new, bits_new)
+            accept = ((torch.log(torch.rand(L, generator=generator, **kw))
+                       < logp_new - logp) & torch.isfinite(logp_new))
+            slot = torch.where(do_flip, n_blocks, b)[:, None]
+            acc.scatter_add_(1, slot, accept[:, None].to(u.dtype))
+            tries.scatter_add_(1, slot, ones)
+            return (torch.where(accept[:, None], u_new, u),
+                    torch.where(accept[:, None], bits_new, bits),
+                    torch.where(accept, logp_new, logp))
+
+        n_samples = n_iter // every
+        burn_chunks = burnin // every
+        us = np.empty((n_samples, L, dim))
+        bit_samples = np.empty((n_samples, L, nb), dtype=np.int32)
+        lps = np.empty((n_samples, L))
+        adapt_chunks = max(1, adapt_interval // every)
+        si = 0
+        with torch.no_grad():
+            logp = self._target(u, bits)
+            acc = torch.zeros((L, n_blocks + 1), **kw)
+            tries = torch.zeros((L, n_blocks + 1), **kw)
+            for ci in range(n_samples + burn_chunks):
+                for _ in range(every):
+                    u, bits, logp = step(u, bits, logp, acc, tries)
+                if ci >= burn_chunks:
+                    us[si] = u.cpu().numpy()
+                    bit_samples[si] = bits.cpu().numpy()
+                    lps[si] = logp.cpu().numpy()
+                    si += 1
+                if adapt and (ci + 1) % adapt_chunks == 0:
+                    a = acc.sum(0)[:-1].cpu().numpy()
+                    t = tries.sum(0)[:-1].cpu().numpy()
+                    rate = np.where(t > 0, a / np.maximum(t, 1), 0.24)
+                    sigmas = sigmas * torch.as_tensor(
+                        np.exp(np.clip(rate - 0.24, -0.5, 0.5)), **kw)
+                    acc.zero_()
+                    tries.zero_()
+            a = acc.sum(0).cpu().numpy()
+            t = tries.sum(0).cpu().numpy()
+        return {"samples_u": us, "bits": bit_samples, "log_posterior": lps,
+                "acceptance": np.where(t > 0, a / np.maximum(t, 1), np.nan),
+                "space": space}

@@ -435,25 +435,34 @@ def hessian(log_prob, space: ParamSpace, params: dict, *,
         f = log_prob(space.constrain(up))
         return f + space.log_jacobian(up) if jacobian else f
 
-    values, G = batched_value_and_grad(
-        fn, torch.cat([plus, minus, u[None]]), max_chains)
+    values, G = batched_rows(fn, torch.cat([plus, minus, u[None]]),
+                             max_chains, grad=True)
     H = (G[:n] - G[n: 2 * n]) / steps[:, None]
     return 0.5 * (H + H.T), float(values[-1]), G[-1]
 
 
-def batched_value_and_grad(fn, rows: torch.Tensor,
-                           max_chains: int = MAX_CHAINS):
-    """``fn`` [L] of the rows ``[L, n]`` and the gradient of each row's
-    value by its row, float64 on the CPU: one batched call of ``fn`` and
-    one backward per chunk of at most ``max_chains`` rows."""
+def batched_rows(fn, rows: torch.Tensor, max_chains: int = MAX_CHAINS, *,
+                 grad: bool = False):
+    """``fn`` of the rows ``[L, n]`` -> ``[L, ...]``, one batched call of
+    ``fn`` a chunk of at most ``max_chains`` rows. Without ``grad``: the
+    values, where autograd records them with their graph. With ``grad``:
+    the values and the gradient of each row's value by its row, float64 on
+    the CPU, one backward a chunk."""
     values, grads = [], []
     chunk = max(1, int(max_chains))
     for i in range(0, rows.shape[0], chunk):
-        leaf = rows[i: i + chunk].detach().requires_grad_(True)
-        f = fn(leaf)
-        (g,) = torch.autograd.grad(f.sum(), [leaf])
-        values.append(f.detach())
-        grads.append(g.detach())
+        r = rows[i: i + chunk]
+        if grad:
+            r = r.detach().requires_grad_(True)
+            f = fn(r)
+            (g,) = torch.autograd.grad(f.sum(), [r])
+            values.append(f.detach())
+            grads.append(g.detach())
+        else:
+            f = torch.as_tensor(fn(r), dtype=r.dtype, device=r.device)
+            values.append(torch.broadcast_to(f, r.shape[:1] + f.shape[1:]))
+    if not grad:
+        return torch.cat(values)
     return (torch.cat(values).to(torch.float64).cpu(),
             torch.cat(grads).to(torch.float64).cpu())
 

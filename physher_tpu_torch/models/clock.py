@@ -280,6 +280,11 @@ class SSVSLocalClock(BranchModel):
         return torch.where(has, local, params[self.key("rate")][..., None])
 
     def rates(self, params):
-        # without bits this degenerates to a strict clock
+        """The effective rates for the bits that ``params`` carries under
+        ``key("indicators")`` (a MixedMCMC target puts them there); without
+        bits a strict clock."""
+        bits = params.get(self.key("indicators"))
+        if bits is not None:
+            return self.rates_from_indicators(params, bits)
         r = params[self.key("rate")]
         return r[..., None].expand(r.shape + (self.N,))

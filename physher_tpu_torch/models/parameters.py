@@ -120,7 +120,9 @@ def params_from_numpy(params: dict, *, dtype: torch.dtype,
                       device) -> dict:
     """Arrays (e.g. the JAX package's parameters after ``np.asarray``) ->
     the port's ``dict[str, Tensor]`` on ``device`` in ``dtype``, for every
-    key: tree, substitution, site, clock and coalescent parameters alike."""
+    key: tree, substitution, site, clock and coalescent parameters alike
+    (the skyline, skygrid and piecewise-linear sizes ``thetas`` and the
+    delta skyride's increments too)."""
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in params.items()}
 
@@ -129,7 +131,9 @@ def vparams_from_numpy(vparams: dict, *, dtype: torch.dtype,
                        device) -> dict:
     """A variational family's parameters (``loc`` / ``log_scale`` of the
     mean-field normal, ``loc`` / ``log_diag`` / ``off`` of the full-rank
-    one) from arrays to tensors on ``device`` in ``dtype``."""
+    one, ``log_alpha`` / ``log_beta`` of the gamma family, ``log_shape`` /
+    ``log_scale`` of the Weibull one) from arrays to tensors on ``device``
+    in ``dtype``."""
     return params_from_numpy(vparams, dtype=dtype, device=device)
 
 

@@ -448,17 +448,16 @@ def test_cli_without_cuda_exits_nonzero(data_dir, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("what", ["bridgesampling", "mesh", "skyline"])
+@pytest.mark.parametrize("what", ["asr", "mesh", "topology"])
 def test_unported_raises(data_dir, tmp_path, what):
     def edit(c):
-        if what == "bridgesampling":
+        if what == "asr":
             c["physher"] = [{"id": "x", "type": what,
-                             "model": "&posterior"}]
+                             "model": "&treelikelihood"}]
         elif what == "mesh":
             c["init"] = {"devices": 2}
         else:
-            prior = c["model"]["distributions"][1]
-            prior["distributions"][0]["model"] = "skyline"
+            c["physher"][0]["algorithm"] = "topology"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run([_config(data_dir, tmp_path, edit), "--device", "cpu"],
                 out=io.StringIO())
