@@ -73,7 +73,17 @@ slices' main paths through them and times kernel against plain:
   package's windows at the same settings
   (fluA-calibrated.reference.json), mc, cpo and a short nest, and bridge
   sampling on the card against the CPU on the same draws; MixedMCMC over
-  an SSVS local clock with bits [4, N] (K5' at L = 4).
+  an SSVS local clock with bits [4, N] (K5' at L = 4);
+- tree search and ancestral analyses on the fluA NJ tree in float64:
+  meta, then asr, ppsite, cat and simultron through the CLI on JC69 and
+  GTR+G4 (K1'/K2', K3'/K4'), against the port on the CPU at the same
+  parameters, with float32's posterior error, and the parsimony model card
+  against CPU; the topology optimizer with NNI and SPR (the neighbourhood
+  scored by the dynamic engine, each candidate re-optimized through
+  K1'/K2'), its cut held against the CPU's run; and the nni tree MCMC with
+  one chain (K1' a proposal) and 8 chains, with and without incremental
+  updates (the dynamic engine), each chain's carried log posterior against
+  a from-scratch evaluation of its final state.
 
     python3 chip_smoke.py
 
@@ -2781,6 +2791,413 @@ def mixed_mcmc_ssvs(dev, n_chains=4, n_iter=400, every=10):
     return launches
 
 
+# -- the sixteenth slice: tree search and ancestral analyses ---------------
+
+def flua_nj_config(workdir: Path, physher: list, gtr_g4: bool = False,
+                   name: str | None = None) -> Path:
+    """tests/data/fluA.fa (69 taxa, 238 patterns) on its NJ tree with free
+    branch lengths (unrooted), JC69 or GTR+G4 (rates and frequencies free,
+    alpha 0.5), and the action list ``physher``."""
+    sm = {"id": "sm", "type": "substitutionmodel", "model": "jc69",
+          "datatype": "nucleotide"}
+    site = {"id": "sitemodel", "type": "sitemodel", "substitutionmodel": sm}
+    if gtr_g4:
+        sm.update(model="gtr",
+                  rates={"id": "rates", "type": "simplex",
+                         "values": [1.0] * 6},
+                  frequencies={"id": "freqs", "type": "simplex",
+                               "values": [0.25] * 4})
+        site["distribution"] = {
+            "distribution": "gamma", "categories": 4,
+            "parameters": {"alpha": {"id": "alpha", "type": "parameter",
+                                     "value": 0.5, "lower": 0}}}
+    cfg = {"model": {
+        "id": "treelikelihood", "type": "treelikelihood",
+        "sitepattern": {"id": "patterns", "type": "sitepattern",
+                        "datatype": "nucleotide",
+                        "alignment": {"id": "seqs", "type": "alignment",
+                                      "file": str(DATA / "fluA.fa")}},
+        "sitemodel": site,
+        "tree": {"id": "tree", "type": "tree", "parameters": "tree.distances",
+                 "init": {"algorithm": "nj", "sitepattern": "&patterns"}}},
+        "physher": physher}
+    path = workdir / (name or ("fluA-nj-gtrg4.json" if gtr_g4
+                               else "fluA-nj-jc69.json"))
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def aten_ops(fn) -> int:
+    """The aten operations of ``fn()`` with a result on the card, views
+    excepted: each is one kernel launch or more. Counted on the host by a
+    dispatch mode, so it needs no profiler."""
+    from torch.utils._pytree import tree_leaves
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves(out)):
+                Count.n += 1
+            return out
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def profiled_kernels(fn) -> int:
+    """Kernel launches that torch.profiler sees on the card in ``fn()`` (0
+    where it sees no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r.count for r in prof.key_averages()
+               if getattr(r, "device_type", None) == DeviceType.CUDA)
+
+
+ANALYSIS_SITES = 10000
+
+
+def analyses_card(dev, smi):
+    """(40) meta, then asr, ppsite, cat and simultron through the CLI on
+    JC69 and GTR+G4 fluA (NJ tree) in float64 on the card (the meta fit
+    through K1'/K2' and K3'/K4'); the analyses against the port on the CPU
+    at the same parameters (node posteriors and ppsite within 1e-10, MAP
+    states, sequences and categories identical), float32's largest
+    posterior error beside float64's, the simulated alignment's shape,
+    alphabet and base frequencies (within 0.02 of the model's over
+    ANALYSIS_SITES sites), and the parsimony model's score on the NJ tree,
+    card against CPU exactly."""
+    from physher_tpu_torch.config.builder import build_config, load_json
+    from physher_tpu_torch.likelihood import analysis
+
+    rec, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, gtr in (("jc69", False), ("gtrg4", True)):
+            acts = [dict(META_ACTION),
+                    {"id": "asr", "type": "asr", "model": "&treelikelihood",
+                     "file": "asr.fa"},
+                    {"id": "ppsite", "type": "ppsite",
+                     "model": "&treelikelihood", "file": "ppsite.txt"},
+                    {"id": "cat", "type": "cat", "model": "&treelikelihood"},
+                    {"id": "sim", "type": "simultron",
+                     "model": "&treelikelihood", "length": ANALYSIS_SITES,
+                     "output": "sim.fa"}]
+            path = flua_nj_config(Path(tmp), acts, gtr)
+            zero_all_launches()
+            t0 = time.perf_counter()
+            runner, lines = run_cli([path, "--f64"])
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+            tlk = runner.ctx.objects["treelikelihood"]
+            params = runner.params_for(tlk.param_space())
+            cfg = load_json(str(path))
+            cpu = build_config(cfg, base_dir=tmp, dtype=torch.float64,
+                               device="cpu")[0].objects["treelikelihood"]
+            p_cpu = {k: v.cpu() for k, v in params.items()}
+            t0 = time.perf_counter()
+            post, maps = analysis.ancestral_states(tlk, params)
+            torch.cuda.synchronize()
+            asr_ms = (time.perf_counter() - t0) * 1e3
+            post_cpu, maps_cpu = analysis.ancestral_states(cpu, p_cpu)
+            pp_cpu = analysis.site_rate_posteriors(cpu, p_cpu)
+            f32 = build_config(cfg, base_dir=tmp, dtype=torch.float32,
+                               device=dev)[0].objects["treelikelihood"]
+            post32 = analysis.ancestral_states(
+                f32, {k: v.float() for k, v in params.items()})[0]
+            res = runner.results
+            sim = res["sim"]
+            text = "".join(sim.values())
+            counts = np.array([text.count(c) for c in "ACGT"], np.float64)
+            with torch.no_grad():
+                freqs = tlk.subst.frequencies(params).cpu().numpy()
+            sim_err = float(np.abs(counts / counts.sum() - freqs).max())
+            r = dict(
+                meta_logp=maximum_line(lines), engine=tlk.engine_name(),
+                seconds=wall, asr_ms=asr_ms, launches=launches,
+                posterior_max_abs_err_f64=float(np.abs(post - post_cpu).max()),
+                posterior_max_abs_err_f32=float(np.abs(post32
+                                                       - post_cpu).max()),
+                map_identical=bool((maps == maps_cpu).all()),
+                asr_identical=res["asr"] == analysis.ancestral_sequences(
+                    cpu, p_cpu),
+                ppsite_max_abs_err=float(np.abs(res["ppsite"]
+                                                - pp_cpu).max()),
+                cat_identical=bool((res["cat"] == analysis.cat_assignment(
+                    cpu, p_cpu)).all()),
+                sim_taxa=len(sim), sim_sites=sorted({len(v)
+                                                     for v in sim.values()}),
+                sim_alphabet="".join(sorted(set(text))),
+                sim_freqs=list(counts / counts.sum()),
+                model_freqs=[float(f) for f in freqs],
+                sim_freq_max_err=sim_err)
+            rec[name] = r
+            ok = ok and bool(
+                r["posterior_max_abs_err_f64"] <= 1e-10
+                and r["map_identical"] and r["asr_identical"]
+                and r["ppsite_max_abs_err"] <= 1e-10 and r["cat_identical"]
+                and r["sim_taxa"] == 69
+                and r["sim_sites"] == [ANALYSIS_SITES]
+                and set(r["sim_alphabet"]) <= set("ACGT")
+                and sim_err <= 0.02 and np.isfinite(r["meta_logp"]))
+        pars = {"id": "pars", "type": "parsimony",
+                "sitepattern": {"id": "p", "type": "sitepattern",
+                                "datatype": "nucleotide",
+                                "alignment": {"id": "a", "type": "alignment",
+                                              "file": str(DATA / "fluA.fa")}},
+                "tree": {"id": "t", "type": "tree",
+                         "init": {"algorithm": "nj", "sitepattern": "&p"}}}
+        scores = [build_config({"pars": pars, "physher": []}, base_dir=tmp,
+                               dtype=torch.float64, device=d)[0].objects[
+                                   "pars"].score() for d in (dev, "cpu")]
+    ok = ok and scores[0] == scores[1]
+    emit("analyses_card", ok=ok, card=smi, models=rec,
+         parsimony_card=scores[0], parsimony_cpu=scores[1],
+         tolerance={"posterior": 1e-10, "ppsite": 1e-10, "sim_freq": 0.02})
+    check(ok, "asr, ppsite, cat, simultron and parsimony on the card "
+              "against the CPU (fluA, float64)")
+    return rec
+
+
+# rounds of the card's searches (each NNI round re-optimizes up to 16
+# candidates by 200 Adam steps), and of the CPU's cut that the card is
+# held against
+NNI_ROUNDS, SPR_ROUNDS, CPU_ROUNDS = 8, 1, 1
+
+
+def topology_node(move: str, rounds: int) -> dict:
+    return {"id": "topo", "type": "optimizer", "algorithm": "topology",
+            "move": move, "model": "&treelikelihood", "rounds": rounds}
+
+
+def topology_card(dev, smi, nj_ml_logp):
+    """(41) The topology optimizer through the CLI from the fluA NJ tree
+    (JC69, float64): NNI for NNI_ROUNDS rounds and SPR for SPR_ROUNDS on
+    the card, and NNI for CPU_ROUNDS on the CPU (and on the card, unless
+    its NNI run ended within as many rounds: a search capped at R rounds is
+    one that ends by itself within R). The history never decreases, the
+    searches end no lower than the NJ tree's own ML logP (phase 40's
+    meta), and the card's cut ends where the CPU's does (RF 0, logP within
+    1e-6). Candidate scoring runs the dynamic engine, the
+    re-optimizations K1'/K2': the launches of one scoring call are
+    counted, and the kernels' calls per round. Returns the records and the
+    card runs' launches."""
+    from physher_tpu_torch.inference.topology_search import (
+        TopologySearch, nni_neighbors, to_nested)
+    from physher_tpu_torch.trees.stats import robinson_foulds
+    from physher_tpu_torch.trees.topology import Topology
+
+    rec, ok = {}, True
+    card_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def search_run(name, move, rounds, device=dev):
+            nonlocal ok
+            path = flua_nj_config(Path(tmp), [topology_node(move, rounds)],
+                                  name=f"{name}.json")
+            zero_all_launches()
+            t0 = time.perf_counter()
+            runner, lines = run_cli([path, "--f64"] + (
+                [] if device == dev else ["--device", "cpu"]))
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+            if device == dev:
+                for k, v in launches.items():
+                    card_launches[k] = card_launches.get(k, 0) + v
+            res = runner.results["topo"]
+            hist = [float(h) for h in res.history]
+            rec[name] = dict(
+                rounds=res.rounds, moves=res.moves_accepted, logp=res.logp,
+                history=hist, seconds=wall, launches=launches,
+                kernel_calls_per_round={k: v / max(res.rounds, 1)
+                                        for k, v in launches.items() if v},
+                engine=runner.ctx.objects["treelikelihood"].engine_name(),
+                line=lines[-1])
+            ok = ok and bool(all(b >= a for a, b in zip(hist, hist[1:]))
+                             and np.isfinite(res.logp)
+                             and res.logp >= nj_ml_logp
+                             - 1e-6 * abs(nj_ml_logp))
+            return runner, res
+
+        runner, res = search_run("nni", "nni", NNI_ROUNDS)
+        search_run("spr", "spr", SPR_ROUNDS)
+        card = res if res.rounds <= CPU_ROUNDS else search_run(
+            "nni_cut", "nni", CPU_ROUNDS)[1]
+        cpu = search_run("nni_cut_cpu", "nni", CPU_ROUNDS, "cpu")[1]
+        rf = robinson_foulds(card.topology, cpu.topology)
+        dlogp = abs(card.logp - cpu.logp)
+        ok = ok and rf == 0 and dlogp <= 1e-6
+        # one scoring call: the final NNI tree's neighbourhood, one batch
+        tlk = runner.ctx.objects["treelikelihood"]
+        search = TopologySearch(None)
+        search._base = (tlk, runner.params_for(tlk.param_space()))
+        cands = [Topology.from_nested(c)
+                 for c in nni_neighbors(to_nested(res.topology,
+                                                  res.distances))]
+        search._score_candidates(cands)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search._score_candidates(cands)
+        torch.cuda.synchronize()
+        score_ms = (time.perf_counter() - t0) * 1e3
+        ops = aten_ops(lambda: search._score_candidates(cands))
+        kernels = profiled_kernels(lambda: search._score_candidates(cands))
+    rec["scoring_call"] = dict(candidates=len(cands), ms=score_ms,
+                               aten_ops=ops, profiled_kernels=kernels,
+                               internal_nodes=tlk.topo.I)
+    emit("topology_card", ok=ok, card=smi, runs=rec, nj_ml_logp=nj_ml_logp,
+         card_vs_cpu={"rf": rf, "logp_abs_err": dlogp},
+         rounds_cap={"nni": NNI_ROUNDS, "spr": SPR_ROUNDS,
+                     "cpu_cut": CPU_ROUNDS})
+    check(ok, "the topology search on fluA: a history that never falls, no "
+              "lower than the NJ tree's ML, card against CPU")
+    return rec, card_launches
+
+
+def children_topology(taxa, children, bl):
+    """A ``Topology`` and its distances [N] for a sampler's children array
+    (any id order) and branch lengths, numbered anew by
+    ``Topology.from_nested`` with the lengths carried exactly."""
+    from physher_tpu_torch.trees.topology import Topology
+
+    T, I = len(taxa), len(children)
+    root = T + I - 1
+
+    def build(nid):
+        kids = [] if nid < T else [build(int(c)) for c in children[nid - T]]
+        return {"name": taxa[nid] if nid < T else None,
+                "length": None if nid == root else float(bl[nid]),
+                "children": kids}
+
+    topo, dist = Topology.from_nested(build(root))
+    return topo, np.nan_to_num(dist, nan=0.0)
+
+
+TREE_MCMC_LENGTH = {"one_chain": 1000, "chains8": 1000,
+                    "chains8_incremental": 1000}
+
+
+def tree_mcmc_card(dev, smi):
+    """(42) The nni operator through the CLI on JC69 fluA (NJ tree, float64)
+    one-chain (TreeMCMC: K1' a proposal) and with 8 chains, with and
+    without incremental updates (the dynamic engine): finite logPs, every
+    move family's acceptance strictly inside (0, 1), the tree log parsing
+    back to 69 taxa, and each chain's carried log posterior equal to a
+    from-scratch evaluation of its final state within 1e-9 (the
+    one-chain sampler's through the dynamic engine, the batched samplers'
+    through the fixed topology's kernels); ms and launches per
+    iteration."""
+    from physher_tpu_torch.inference.treemcmc import BatchedTreeMCMC
+    from physher_tpu_torch.ops import dynamic_pruning as dyn
+
+    modes = {"one_chain": {}, "chains8": {"chains": 8},
+             "chains8_incremental": {"chains": 8, "incremental": True}}
+    rec, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in modes.items():
+            length = TREE_MCMC_LENGTH[name]
+            node = {"id": "mcmc", "type": "mcmc", "model": "&treelikelihood",
+                    "length": length, **extra,
+                    "operators": [
+                        {"id": "o1", "type": "operator", "algorithm": "nni",
+                         "x": "&tree", "weight": 1},
+                        {"id": "o2", "type": "operator",
+                         "algorithm": "scaler", "x": "%tree.distances",
+                         "weight": 4}],
+                    "log": [{"id": "l1", "type": "logger", "every": 100,
+                             "file": f"{name}.log"},
+                            {"id": "l2", "type": "logger", "every": 100,
+                             "file": f"{name}.trees", "models": "&tree"}]}
+            path = flua_nj_config(Path(tmp), [node], name=f"{name}.json")
+            zero_all_launches()
+            t0 = time.perf_counter()
+            runner, lines = run_cli([path, "--f64"])
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+            tlk = runner.ctx.objects["treelikelihood"]
+            res = runner.results["mcmc"]
+            trees = (Path(tmp) / f"{name}.trees").read_text().split()
+            taxa_ok = all(read_newick(t)[0].T == 69 for t in trees)
+            rate = 10.0
+            with torch.no_grad():
+                if name == "one_chain":
+                    acc = {k: v for k, v in res.acceptance.items()
+                           if not np.isnan(v)}
+                    carried = res.log_posterior[-1:]
+                    topo, bl = res.final_topology, res.final_distances
+                    blt = torch.as_tensor(bl, dtype=tlk.dtype,
+                                          device=tlk.tip_partials.device)
+                    ll = dyn.tree_loglik_dynamic(
+                        tlk.tips_for(topo),
+                        tlk.subst.p_t({}, torch.clamp(blt, min=0.0)[:, None]),
+                        torch.as_tensor(topo.children[:, :2],
+                                        device=blt.device).long(),
+                        tlk.subst.frequencies({}),
+                        blt.new_ones(1), tlk.weights,
+                        rescale=tlk.rescale)[0]
+                    scratch = [float(ll) + (topo.N - 1) * np.log(rate)
+                               - rate * float(blt[:-1].sum())]
+                    logps = res.log_posterior
+                else:
+                    # a model without free parameters proposes no walk
+                    acc = {k: v for k, v in res["acceptance"].items()
+                           if k != "params" or BatchedTreeMCMC(tlk).dim}
+                    carried = res["logp"][-1]
+                    scratch = []
+                    for b in range(8):
+                        topo, bl = children_topology(
+                            tlk.topo.taxa, res["children"][-1, b],
+                            res["bl"][-1, b])
+                        blt = torch.as_tensor(bl, dtype=tlk.dtype,
+                                              device=tlk.tip_partials.device)
+                        ll = tlk.topology_log_likelihood(
+                            {}, topo, tlk.tips_for(topo), blt)
+                        scratch.append(float(ll) + (topo.N - 1)
+                                       * np.log(rate)
+                                       - rate * float(blt[:-1].sum()))
+                    logps = res["logp"]
+            rel = float(np.max(np.abs(np.asarray(carried) - scratch)
+                               / np.abs(scratch)))
+            r = dict(iterations=length, seconds=wall,
+                     ms_per_iteration=wall * 1e3 / length,
+                     acceptance=acc, carried_last=list(map(float, carried)),
+                     from_scratch=scratch, rel_err=rel, trees=len(trees),
+                     launches=launches,
+                     k1_per_iteration=launches["fused_forward"] / length,
+                     line=lines[-1])
+            if name != "one_chain":
+                sampler = BatchedTreeMCMC(tlk)
+                inc = bool(extra.get("incremental"))
+
+                def few(n=10):
+                    return sampler.run(
+                        torch.Generator(device=dev).manual_seed(5),
+                        n_iter=n, every=n, n_chains=8, incremental=inc)
+
+                few()
+                r["aten_ops_per_iteration"] = aten_ops(few) / 10
+                r["profiled_kernels_per_iteration"] = \
+                    profiled_kernels(few) / 10
+            rec[name] = r
+            ok = ok and bool(np.isfinite(logps).all()
+                             and all(0.0 < a < 1.0 for a in acc.values())
+                             and taxa_ok and len(trees) == length // 100
+                             and rel <= 1e-9)
+    emit("tree_mcmc_card", ok=ok, card=smi, modes=rec, tolerance=1e-9)
+    check(ok, "the nni tree MCMC on fluA: one chain and 8, with and without "
+              "incremental updates")
+    return rec
+
+
 def c5_times(rec, shape, kind, suffix=""):
     """A kernel's device time at C = 4 and 5 (and 8 where measured) on one
     shape, and the ratio of C = 5 to C = 4 (median and range over the
@@ -3317,6 +3734,25 @@ def main() -> int:
     walls["d_mixed_mcmc"] = time.perf_counter() - t0
     emit("comparison_phases", card=smi, seconds=walls)
 
+    # ---- 40-42. the sixteenth slice: (40) asr, ppsite, cat, simultron and
+    # parsimony after a meta fit (K1'/K2' at JC69, K3'/K4' at GTR+G4), (41)
+    # the topology search (candidates scored by the dynamic engine,
+    # re-optimized through K1'/K2'), (42) the nni tree MCMC, one chain (K1'
+    # a proposal) and 8 chains (the dynamic engine), with and without
+    # incremental updates
+    walls = {}
+    t0 = time.perf_counter()
+    analyses = analyses_card(dev, smi)
+    walls["40_analyses"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, search_launches = topology_card(dev, smi,
+                                       analyses["jc69"]["meta_logp"])
+    walls["41_topology_search"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_mc = tree_mcmc_card(dev, smi)
+    walls["42_tree_mcmc"] = time.perf_counter() - t0
+    emit("topology_phases", card=smi, seconds=walls)
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
@@ -3327,12 +3763,20 @@ def main() -> int:
                         "physher_tpu/ops/pallas_fused.py:245",
                         launches_fused["forward"], fused_alone, "forward"),
              ml_meta_time_f64_launches=ml_time["fused_forward"],
-             nest_f64_launches=est["launches"]["nest"]["fused_forward"]),
+             nest_f64_launches=est["launches"]["nest"]["fused_forward"],
+             analyses_meta_jc69_f64_launches=analyses["jc69"]["launches"][
+                 "fused_forward"],
+             topology_search_launches=search_launches["fused_forward"],
+             tree_mcmc_launches=tree_mc["one_chain"]["launches"][
+                 "fused_forward"]),
         dict(kernel_row("pruning_backward", fused_src,
                         "physher_tpu/ops/pallas_fused.py:390",
                         launches_fused["backward"], fused_alone,
                         "backward"),
-             ml_meta_time_f64_launches=ml_time["fused_backward"]),
+             ml_meta_time_f64_launches=ml_time["fused_backward"],
+             analyses_meta_jc69_f64_launches=analyses["jc69"]["launches"][
+                 "fused_backward"],
+             topology_search_launches=search_launches["fused_backward"]),
         kernel_row("wide_forward", wide_src,
                    "physher_tpu/ops/pallas_wide.py:217",
                    wide_launches["forward"], wide_alone, "forward"),
@@ -3345,6 +3789,8 @@ def main() -> int:
              ml_meta_gtrg4_f64_launches=ml_gtr["staged_forward"],
              meta_gtrg4i_f64_launches=g4i_meta["staged_forward"],
              advi_g4i_relaxed_launches=g4i_advi["staged_forward"],
+             analyses_meta_gtrg4_f64_launches=analyses["gtrg4"][
+                 "launches"]["staged_forward"],
              **c5_times(c5, "staged-balanced-128x16384", "forward")),
         dict(kernel_row("staged_backward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:375",
@@ -3353,6 +3799,8 @@ def main() -> int:
              ml_meta_gtrg4_f64_launches=ml_gtr["staged_backward"],
              meta_gtrg4i_f64_launches=g4i_meta["staged_backward"],
              advi_g4i_relaxed_launches=g4i_advi["staged_backward"],
+             analyses_meta_gtrg4_f64_launches=analyses["gtrg4"][
+                 "launches"]["staged_backward"],
              **c5_times(c5, "staged-balanced-128x16384", "backward")),
         dict(kernel_row("loop_forward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",

@@ -1,9 +1,11 @@
 """Action execution: the ``physher`` run list of a config.
 
-Port of the ``optimizer``, ``logger``, ``mcmc``, ``mmcmc``,
-``marginallikelihood``, ``laplace``, ``hessian``, ``bridgesampling``,
-``is``, ``nest``, ``cpo``, ``mc`` and ``predictive`` actions of
-``physher_tpu/config/actions.py`` (reference: src/physher.c:207-305).
+Port of the ``optimizer`` (with the ``topology`` search), ``logger``,
+``mcmc`` (with the ``nni`` tree MCMC), ``mmcmc``, ``marginallikelihood``,
+``laplace``, ``hessian``, ``bridgesampling``, ``is``, ``nest``, ``cpo``,
+``mc``, ``predictive``, ``asr``, ``ppsite``, ``cat`` and ``simultron``
+actions of ``physher_tpu/config/actions.py`` (reference:
+src/physher.c:207-305).
 Actions share one parameter pool, so sequential actions see each other's
 results (the reference's shared Parameter objects in its hashtable). The
 random draws come from one ``torch.Generator`` on the context's device,
@@ -13,9 +15,8 @@ optimizer, the difference points of the Hessian and the points at which an
 estimator evaluates the model (proposal draws, posterior or prior samples,
 live points) run as batches of chains through the model
 (``inference/mcmc.py``, ``inference/ml.py``, ``inference/marginal.py``),
-where the JAX package ``vmap``s them. Every other action type, and the
-``topology`` optimizer, raise ``NotImplementedError`` naming its ROADMAP
-item.
+where the JAX package ``vmap``s them. ``sbn`` and ``dumper`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,14 +36,9 @@ from .builder import Context
 from .variational import VariationalHandle
 
 # the JAX package's actions that are not ported yet -> ROADMAP Queue 1 item
-_UNPORTED_ACTIONS = {
-    "asr": 14, "ppsite": 14, "cat": 14, "simultron": 14, "sbn": 17,
-    "dumper": 17,
-}
+_UNPORTED_ACTIONS = {"sbn": 17, "dumper": 17}
 # chains evaluated at once when a logger recomputes values over samples
 _LOG_BATCH = 256
-# optimizer algorithms -> ROADMAP Queue 1 item, for the unported ones
-_UNPORTED_ALGORITHMS = {"topology": 16}
 
 
 class Runner:
@@ -90,14 +86,17 @@ class Runner:
         algorithm = str(node.get("algorithm", "meta")).lower()
         max_iter = int(node.get("max", 1000))
         tol = float(node.get("precision", node.get("tol", 1e-3)))
-        sub_algs = {str(s.get("algorithm", "")).lower()
-                    for s in node.get("list", [])}
-        for alg in sub_algs | {algorithm}:
-            if alg in _UNPORTED_ALGORITHMS:
-                raise NotImplementedError(
-                    f"optimizer algorithm {alg!r} is not ported to "
-                    f"physher_tpu_torch yet (ROADMAP Queue 1 item "
-                    f"{_UNPORTED_ALGORITHMS[alg]})")
+        # a meta schedule with a topology sub-optimizer runs the tree search
+        # (which interleaves branch-length optimization itself; reference:
+        # optimizer.c meta with OPT_TOPOLOGY + topologyopt.c)
+        sub_algs = [str(s.get("algorithm", "")).lower()
+                    for s in node.get("list", [])]
+        if algorithm == "topology" or "topology" in sub_algs:
+            move = "nni"
+            for s in node.get("list", []) + [node]:
+                if str(s.get("algorithm", "")).lower() == "topology":
+                    move = str(s.get("move", "nni")).lower()
+            return self._run_topology_search(node, model, move, tol)
 
         if isinstance(model, VariationalHandle):
             # SG/Adam on the ELBO (reference: optimizer.c OPT_SG/OPT_SG_ADAM
@@ -192,6 +191,41 @@ class Runner:
                     continue
             return None
         return names or None
+
+    def _run_topology_search(self, node, tlk, move, tol):
+        """NNI or SPR search from the model's tree (``"rounds"`` caps the
+        rounds, 50 by default); the final tree's likelihood then replaces
+        the registered one, and its distances go to the pool."""
+        from ..inference.topology_search import TopologySearch
+
+        def factory(topo, dist):
+            return TreeLikelihood(
+                tlk.sp, topo, tlk.subst, tlk.site_model,
+                distances_init=np.nan_to_num(
+                    np.asarray(dist)[: topo.N - 1], nan=0.05),
+                tipstates=False, prefix=tlk.prefix, engine=tlk.engine,
+                batch_engine=tlk.batch_engine, **self.ctx.kw)
+
+        search = TopologySearch(factory, algorithm=move, tol=max(tol, 1e-3),
+                                max_rounds=int(node.get("rounds", 50)))
+        dist0 = np.concatenate([np.asarray(tlk.distances_init), [np.nan]])
+        res = search.run(tlk.topo, dist0)
+        # replace the registered likelihood with the final tree's
+        final = factory(res.topology, res.distances)
+        for key, obj in list(self.ctx.objects.items()):
+            if obj is tlk:
+                self.ctx.objects[key] = final
+            if hasattr(obj, "is_time_tree") and obj.topo is tlk.topo:
+                obj.topo = res.topology
+                obj.distances = res.distances
+        self.update_pool({tlk.key("distances"): torch.as_tensor(
+            np.nan_to_num(res.distances[: res.topology.N - 1], nan=0.0),
+            **self.ctx.kw)})
+        self.results[node.get("id", "topology")] = res
+        print(f"Topology search ({move}): logP {res.logp:.6f}, "
+              f"{res.moves_accepted} moves accepted in {res.rounds} rounds",
+              file=self.out)
+        return res
 
     def action_hessian(self, node):
         """The Hessian of the model's logP in the unconstrained space at the
@@ -291,12 +325,12 @@ class Runner:
         # logging granularity = smallest logger "every"
         logs = node.get("log", [])
         every = min([int(lg.get("every", 1000)) for lg in logs] or [1000])
+        # topology operators route to the tree MCMC (reference:
+        # operator.c:584 "nni" operator inside the MCMC loop)
         algs = {str(op.get("algorithm", "")).lower()
                 for op in node.get("operators", [])}
         if "nni" in algs and isinstance(model, TreeLikelihood):
-            raise NotImplementedError(
-                "the tree MCMC ('nni' operators) is not ported to "
-                "physher_tpu_torch yet (ROADMAP Queue 1 item 16)")
+            return self._run_tree_mcmc(node, model, length, every)
         # "vb" operator: independence proposals from a fitted variational
         # distribution (reference: src/phyc/opvb.c, operator.c:419)
         vb_prop, vb_w = None, 1.0
@@ -330,6 +364,92 @@ class Runner:
         acc = ", ".join(f"{b}:{a:.2f}" for b, a in
                         zip(sampler.blocks, res.acceptance))
         print(f"MCMC finished: {length} iterations; acceptance {acc}",
+              file=self.out)
+        return res
+
+    def _run_tree_mcmc(self, node, tlk, length, every):
+        """MCMC with NNI topology moves (reference: operator.c nni operator;
+        the chain samples topology, branch lengths and model parameters).
+        ``"chains": B > 1`` routes to the batched sampler on the device
+        (``BatchedTreeMCMC``; ``"incremental": true`` also carries the
+        partials as state on parameter-free models)."""
+        n_chains = int(node.get("chains", 0))
+        if n_chains > 1:
+            return self._run_tree_mcmc_batched(node, tlk, length, every,
+                                               n_chains)
+        from ..inference.treemcmc import TreeMCMC
+
+        sampler = TreeMCMC(tlk)
+        res = sampler.run(self.generator, self.params_for(sampler.space),
+                          n_iter=length, every=every)
+        self.results[node.get("id", "mcmc")] = res
+        states = (np.arange(len(res.trees)) + 1) * every
+        for log_node in node.get("log", []):
+            fname = log_node.get("file")
+            if not fname:
+                continue
+            with open(self._path(fname), "w") as fh:
+                if _is_tree_log(log_node):
+                    for t in res.trees:
+                        fh.write((t if t.endswith(";") else t + ";") + "\n")
+                else:
+                    fh.write("state\tposterior\n")
+                    for s, lp in zip(states, res.log_posterior):
+                        fh.write(f"{int(s)}\t{lp:.10g}\n")
+        self.update_pool(res.params_at(-1) if len(res.trees) else {})
+        acc = ", ".join(f"{k}:{v:.2f}" for k, v in res.acceptance.items())
+        print(f"MCMC finished: {length} iterations; acceptance {acc}",
+              file=self.out)
+        return res
+
+    def _run_tree_mcmc_batched(self, node, tlk, length, every, n_chains):
+        """The batched tree MCMC from a config. Chain 0's draws feed the
+        tree and posterior logs (the reference logs one chain,
+        src/phyc/logmcmc.c); every chain's samples stay in ``results[id]``.
+
+        Four deviations of the JAX package's route from the reference,
+        ported as they are (ROADMAP Queue 3): the operators' weights are
+        not read (the sampler's own move mix runs); the tree log is bare
+        newick, where physher writes a NEXUS trees block; every logger
+        writes at the mcmc node's smallest ``every``, not its own; and
+        ``"incremental": true`` is dropped without a word when the model
+        has free parameters."""
+        from ..inference.treemcmc import BatchedTreeMCMC, children_to_newick
+
+        sampler = BatchedTreeMCMC(tlk)
+        # deviation: incremental silently off for a model with parameters
+        incremental = bool(node.get("incremental", False)) and not sampler.dim
+        params = self.params_for(sampler.space) if sampler.dim else None
+        res = sampler.run(self.generator, params, n_iter=length, every=every,
+                          n_chains=n_chains, incremental=incremental)
+        self.results[node.get("id", "mcmc")] = res
+        S = res["logp"].shape[0]
+        states = (np.arange(S) + 1) * every
+        taxa = tlk.topo.taxa
+        for log_node in node.get("log", []):
+            fname = log_node.get("file")
+            if not fname:
+                continue
+            # deviation: each logger at the smallest "every", bare newick
+            with open(self._path(fname), "w") as fh:
+                if _is_tree_log(log_node):
+                    for s in range(S):
+                        fh.write(children_to_newick(
+                            taxa, res["children"][s, 0], res["bl"][s, 0])
+                            + "\n")
+                else:
+                    fh.write("state\tposterior\n")
+                    for s in range(S):
+                        fh.write(f"{int(states[s])}\t"
+                                 f"{float(res['logp'][s, 0]):.10g}\n")
+        if sampler.dim:
+            space = res["space"]
+            u_last = torch.as_tensor(res["u"][-1, 0], **self.ctx.kw)
+            self.update_pool(space.constrain(
+                space.unflatten_unconstrained(u_last)))
+        acc = ", ".join(f"{k}:{v:.2f}" for k, v in res["acceptance"].items())
+        print(f"MCMC finished: {length} iterations x {n_chains} chains "
+              f"(device-side topology moves); acceptance {acc}",
               file=self.out)
         return res
 
@@ -640,6 +760,74 @@ class Runner:
         self.results[node.get("id", "mc")] = val
         return val
 
+    # -- likelihood analyses (reference: physher.c:289-305 actions) --------
+
+    def _tlk_and_params(self, node):
+        tlk = self.ctx.resolve(node.get("model", node.get(
+            "treelikelihood", "&treelikelihood")))
+        return tlk, self.params_for(tlk.param_space())
+
+    def action_asr(self, node):
+        """Marginal ancestral reconstruction: the MAP sequence of every
+        internal node, to a FASTA ``"file"`` (reference: src/phyc/asr.c)."""
+        from ..io.seqio import write_fasta
+        from ..likelihood.analysis import ancestral_sequences
+
+        seqs = ancestral_sequences(*self._tlk_and_params(node))
+        self.results[node.get("id", "asr")] = seqs
+        if node.get("file"):
+            write_fasta(seqs, self._path(node["file"]))
+        else:
+            for k in list(seqs)[:3]:
+                print(f">{k}\n{seqs[k][:60]}...", file=self.out)
+        return seqs
+
+    def action_ppsite(self, node):
+        """Per-pattern rate-category posteriors [C, P] (reference:
+        src/phyc/ppsites.c), to a tab-separated ``"file"``, a pattern a
+        line."""
+        from ..likelihood.analysis import site_rate_posteriors
+
+        post = site_rate_posteriors(*self._tlk_and_params(node))
+        self.results[node.get("id", "ppsite")] = post
+        if node.get("file"):
+            np.savetxt(self._path(node["file"]), post.T, fmt="%.6g",
+                       delimiter="\t")
+        return post
+
+    def action_cat(self, node):
+        """Each site's MAP rate category (reference: src/phyc/cat.c)."""
+        from ..likelihood.analysis import cat_assignment
+
+        cats = cat_assignment(*self._tlk_and_params(node))
+        self.results[node.get("id", "cat")] = cats
+        if node.get("file"):
+            np.savetxt(self._path(node["file"]), cats, fmt="%d")
+        return cats
+
+    def action_simultron(self, node):
+        """Sequence simulation at the pool's values (reference:
+        physher.c:289-292, physim.c), ``"length"`` sites (the data's by
+        default), to ``"output"`` as FASTA or ``"format": "nexus"``."""
+        from ..io.seqio import write_fasta, write_nexus_alignment
+        from ..likelihood.analysis import simulate_alignment
+
+        tlk, params = self._tlk_and_params(node)
+        n_sites = int(node.get("length", node.get("sites",
+                                                  tlk.sp.site_count)))
+        with torch.no_grad():
+            bl = tlk.branch_lengths(params)
+        seqs = simulate_alignment(self.generator, tlk.topo, tlk.subst,
+                                  tlk.site_model, params, bl, n_sites)
+        fname = node.get("output", node.get("file"))
+        if fname:
+            if str(node.get("format", "fasta")).lower() == "nexus":
+                write_nexus_alignment(seqs, self._path(fname))
+            else:
+                write_fasta(seqs, self._path(fname))
+        self.results[node.get("id", "simultron")] = seqs
+        return seqs
+
     def action_predictive(self, node):
         """Posterior-predictive simulation check (reference:
         src/phyc/predictive.c): the pattern count of alignments simulated at
@@ -665,6 +853,16 @@ class Runner:
               file=self.out)
         self.results[node.get("id", "predictive")] = p
         return p
+
+
+def _is_tree_log(log_node) -> bool:
+    """A tree MCMC logger that writes trees (by its file's extension or a
+    tree among its models), not the posterior."""
+    models = log_node.get("models", [])
+    if isinstance(models, str):
+        models = [models]
+    return (str(log_node["file"]).endswith((".trees", ".nex", ".nxs"))
+            or any("tree" in str(m).lower() for m in models))
 
 
 def _read_sitewise_log(path: str, burnin: int = 0):

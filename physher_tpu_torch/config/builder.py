@@ -625,7 +625,17 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
 
 
 def build_parsimony(node, ctx: Context):
-    raise not_ported("the parsimony model", 14)
+    """Parsimony model (reference: src/physher.c:190 MODEL_PARSIMONY)."""
+    from ..likelihood.parsimony import Parsimony
+
+    node = ctx.resolve(node)
+    if not isinstance(node, dict):
+        return node
+    sp = build_sitepattern(node["sitepattern"], ctx)
+    handle = build_tree(node["tree"], ctx)
+    pars = Parsimony(sp, handle.topo, **ctx.kw)
+    ctx.register(node.get("id"), pars)
+    return pars
 
 
 BUILDERS = {

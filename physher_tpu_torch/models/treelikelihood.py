@@ -265,13 +265,14 @@ class TreeLikelihood(nn.Module):
         dist = params[self.key("distances")]
         return torch.cat([dist, dist.new_zeros(dist.shape[:-1] + (1,))], -1)
 
-    def engine_name(self, batch: int | None = None) -> str:
+    def engine_name(self, batch: int | None = None,
+                    topo: Topology | None = None) -> str:
         """The engine this model runs for one parameter dict (``batch``
-        None) or a batch of that many: ``"cuda-fused"``, ``"cuda-staged"``,
-        ``"cuda-wide"``, ``"cuda-loop"`` or ``"torch"`` (see
-        :func:`select_engine`); ``batch_engine`` is the choice for two or
-        more chains, if given."""
-        topo = self.topo
+        None) or a batch of that many, on its topology or on ``topo``:
+        ``"cuda-fused"``, ``"cuda-staged"``, ``"cuda-wide"``,
+        ``"cuda-loop"`` or ``"torch"`` (see :func:`select_engine`);
+        ``batch_engine`` is the choice for two or more chains, if given."""
+        topo = topo or self.topo
         chains = batch is not None and batch >= 2
         engine = (self.batch_engine or self.engine) if chains else self.engine
         args = (engine, self.tip_partials.device.type,
@@ -311,6 +312,33 @@ class TreeLikelihood(nn.Module):
         return _ENGINE_FUNCTIONS[name](
             self.tip_partials, pmats, self.topo, freqs, props, self.weights,
             rescale=self.rescale)
+
+    def tips_for(self, topo: Topology) -> torch.Tensor:
+        """The tip partials in the tip order of ``topo``, a topology over
+        the same taxa (``Topology.from_nested`` numbers them anew): the
+        rows permuted on the device."""
+        row = {t: i for i, t in enumerate(self.topo.taxa)}
+        return self.tip_partials[torch.as_tensor(
+            [row[t] for t in topo.taxa], device=self.tip_partials.device)]
+
+    def topology_log_likelihood(self, params, topo: Topology,
+                                tips: torch.Tensor,
+                                bl: torch.Tensor) -> torch.Tensor:
+        """The log-likelihood of this model's data, substitution and site
+        models on another topology ``topo`` over the same taxa, with the
+        branch lengths ``bl [N]`` (root entry unused) and ``tips`` in
+        ``topo``'s tip order (:meth:`tips_for`), through the engine that
+        :func:`select_engine` picks for ``topo``: on the card the CUDA
+        kernels of a fixed topology, whose schedules are cached on the
+        ``Topology`` object. Tree search and the tree MCMC score their
+        candidates so; no model is rebuilt."""
+        rates, props = self.site_model.rates_props(params)
+        pmats = self.subst.p_t(params, bl[:, None] * rates[None, :]).to(
+            self.dtype)
+        freqs = self.subst.frequencies(params).to(self.dtype)
+        return _ENGINE_FUNCTIONS[self.engine_name(topo=topo)](
+            tips, pmats, topo, freqs, props.to(self.dtype), self.weights,
+            rescale=self.rescale)[0]
 
     def log_likelihood_only(self, params) -> torch.Tensor:
         logL, _ = self._run_engine(params)

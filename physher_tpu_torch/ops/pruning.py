@@ -13,6 +13,10 @@ kernels of ``ops/fused.py``, ``ops/staged.py``, ``ops/wide.py`` and
   held constant for the gradient (``detach``): ``log(x/m) + log m = log x``
   whatever ``m`` is, so this changes no derivative.
 
+:func:`pruning_partials` keeps every node's partials in one buffer
+``[N, C, S, P]``, for the upper partials and the ancestral analyses
+(``ops/upper.py``, ``likelihood/analysis.py``).
+
 :func:`tree_log_likelihood` runs the level-array form
 (:func:`pruning_root_levels`): the partials of each level live in their own
 array, gathered slot-wise from earlier levels, and a leading chain axis L
@@ -31,6 +35,49 @@ import numpy as np
 import torch
 
 from ..trees.topology import Topology
+
+
+def pruning_partials(tip_partials: torch.Tensor, pmats: torch.Tensor,
+                     topo: Topology, *, rescale: bool = False):
+    """The postorder sweep level by level, keeping every node's partials
+    (the input of the upper partials and the ancestral analyses).
+
+    tip_partials [T, S, P]; pmats [N, C, S, S], the branch above each node
+    (root entry unused). Returns partials [N, C, S, P] and log-scalers
+    [N, P] (zeros unless ``rescale``)."""
+    T, S, P = tip_partials.shape
+    N, C = pmats.shape[0], pmats.shape[1]
+    dev = tip_partials.device
+    buf = tip_partials.new_zeros((N, C, S, P))
+    buf[:T] = tip_partials[:, None]
+    scal = tip_partials.new_zeros((N, P))
+    maxc = topo.children.shape[1]
+    for ranks in topo.levels:
+        nodes = torch.as_tensor(topo.T + ranks, dtype=torch.long, device=dev)
+        res = sc = None
+        for j in range(maxc):
+            ch = topo.children[ranks, j]
+            mask = ch >= 0
+            ch_safe = torch.as_tensor(np.where(mask, ch, 0), dtype=torch.long,
+                                      device=dev)
+            contrib = torch.einsum("ncij,ncjp->ncip", pmats[ch_safe],
+                                   buf[ch_safe])
+            if not mask.all():
+                m = torch.as_tensor(mask, dtype=buf.dtype,
+                                    device=dev)[:, None, None, None]
+                contrib = contrib * m + (1.0 - m)
+            res = contrib if res is None else res * contrib
+            if rescale:
+                s = torch.where(torch.as_tensor(mask, device=dev)[:, None],
+                                scal[ch_safe], 0.0)
+                sc = s if sc is None else sc + s
+        if rescale:
+            m = torch.clamp(torch.amax(res, dim=(1, 2)),
+                            min=torch.finfo(res.dtype).tiny)
+            res = res / m[:, None, None, :]
+            scal[nodes] = sc + torch.log(m)
+        buf[nodes] = res
+    return buf, scal
 
 
 def root_log_likelihood(root_partials: torch.Tensor, freqs: torch.Tensor,

@@ -257,3 +257,40 @@ def test_cli_actions_print_finite_values(data_dir, tmp_path):
                                rtol=1e-10)
     np.testing.assert_allclose(res["cpofile"][0], jres["cpofile"][0],
                                rtol=1e-10)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("action,length", [("mc", 10000),
+                                           ("bridgesampling", 20000)])
+def test_chain_length_defaults_match_jax(monkeypatch, action, length):
+    """A node without "length" runs the JAX package's default iterations
+    (``action_mc`` 10 000, ``action_bridgesampling`` 20 000): a stub MCMC
+    records what the action asks for and stops it before any chain runs."""
+    from physher_tpu_torch.config import actions
+    from physher_tpu_torch.config.builder import Context
+
+    asked = {}
+
+    class StubMCMC:
+        def __init__(self, space, log_prob):
+            pass
+
+        def run(self, generator, params, *, n_iter, **kw):
+            asked["n_iter"] = n_iter
+            raise _Stop
+
+    class Model:
+        def param_space(self):
+            return SPACE
+
+        def log_prob(self, params):
+            return log_post(params)
+
+    monkeypatch.setattr(actions.mcmc_mod, "MCMC", StubMCMC)
+    runner = actions.Runner(Context(**F64), out=io.StringIO())
+    with pytest.raises(_Stop):
+        getattr(runner, f"action_{action}")({"model": Model()})
+    assert asked["n_iter"] == length
