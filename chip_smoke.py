@@ -83,7 +83,18 @@ slices' main paths through them and times kernel against plain:
   K1'/K2'), its cut held against the CPU's run; and the nni tree MCMC with
   one chain (K1' a proposal) and 8 chains, with and without incremental
   updates (the dynamic engine), each chain's carried log posterior against
-  a from-scratch evaluation of its final state.
+  a from-scratch evaluation of its final state;
+- the Interface API, the tools and pattern sharding: checkpoint A and its
+  rate gradient through ``api.TreeLikelihoodInterface`` on the card in
+  float64 (one K1' launch a LogLikelihood, K1' and K2' a Gradient),
+  Gradient against TreeLikelihood's autograd, GTR+G4 fluA card against
+  CPU (K3'/K4'), and the host time a call; the legacy CLI's fluA run
+  against the same run on the CPU (started beside the build), the dumper
+  after it, a one-chain nni tree MCMC and the sbn action on its log; every
+  kernel pair on pattern shards (the card listed 2 and 4 times, or every
+  card when there are two or more) against unsharded in float64 and
+  float32, an 8-chain mcmc with --mesh 2x2 through the CLI against the
+  unsharded run, and the value-and-gradient time at 1, 2 and 4 shards.
 
     python3 chip_smoke.py
 
@@ -95,6 +106,7 @@ is the card's name and power limit from nvidia-smi, and the last line is
 
 from __future__ import annotations
 
+import atexit
 import io
 import json
 import os
@@ -268,7 +280,7 @@ def compare(name, topo, inputs, dtype, mod=fused, phase="kernel_vs_plain"):
     return rec
 
 
-def load_fluA_time(dtype, device):
+def load_fluA_time(dtype, device, pattern_pad_multiple=1):
 
     with open(DATA / "jc69-time.json") as fh:
         tree_cfg = json.load(fh)["model"]["tree"]
@@ -278,7 +290,8 @@ def load_fluA_time(dtype, device):
     kw = dict(dtype=dtype, device=device)
     return TreeLikelihood(sp, topo, JC69(**kw),
                           clock=StrictClock(topo.N, rate_init=1e-3, **kw),
-                          time_data=td, tipstates=True, **kw)
+                          time_data=td, tipstates=True,
+                          pattern_pad_multiple=pattern_pad_multiple, **kw)
 
 
 def load_gtrg4_fluA(dtype, device):
@@ -317,7 +330,7 @@ def golden_lines(case="gtrg4_fluA"):
     return logp, node_ids, fd
 
 
-def codon_small(model, dtype, device):
+def codon_small(model, dtype, device, pattern_pad_multiple=1):
     """GY94 or MG94 on codon_small at the golden's parameters; returns
     (model, params, golden logP)."""
     seqs = read_alignment(str(DATA / "codon_small.fa"))
@@ -331,7 +344,8 @@ def codon_small(model, dtype, device):
                 if ln.startswith(model + " "))
     kw = dict(dtype=dtype, device=device)
     tlk = TreeLikelihood(sp, topo, maker(fixed_freqs=True, **kw),
-                         distances_init=dist, **kw)
+                         distances_init=dist,
+                         pattern_pad_multiple=pattern_pad_multiple, **kw)
     params = tlk.param_space().init_params(**kw)
     params.update({k: torch.tensor(v, **kw) for k, v in values.items()})
     return tlk, params, logp
@@ -359,7 +373,7 @@ def wag_g4_large(dtype, device):
                           GammaSiteModel(4, prefix="sitemodel.", **kw), **kw)
 
 
-def gy94_m0_fit_model(dtype, device, seed=11):
+def gy94_m0_fit_model(dtype, device, seed=11, pattern_pad_multiple=1):
     """GY94 M0 data simulated on the card (kappa 2, omega 0.2, fixed
     frequencies, branch lengths 0.3) on a balanced 32-taxon tree, 4096
     codons, and the model that fits it."""
@@ -375,7 +389,8 @@ def gy94_m0_fit_model(dtype, device, seed=11):
                               params, bl, 4096, datatype="codon")
     sp = SitePattern.from_alignment(seqs, "codon")
     return TreeLikelihood(sp, topo, GY94(fixed_freqs=True, **kw),
-                          distances_init=np.full(topo.N - 1, 0.3), **kw)
+                          distances_init=np.full(topo.N - 1, 0.3),
+                          pattern_pad_multiple=pattern_pad_multiple, **kw)
 
 
 def engine_inputs(tlk, params):
@@ -3198,6 +3213,487 @@ def tree_mcmc_card(dev, smi):
     return rec
 
 
+# ---- the seventeenth slice: the Interface API, the tools, pattern sharding
+
+# the legacy CLI's fluA run (NJ start tree, JC69 meta) that phase 44 runs
+# on the card in float64 and holds against the same run on the CPU, which
+# main() starts in a process of its own while the kernels build
+LEGACY_ARGV = ["-i", str(DATA / "fluA.fa"), "-m", "JC69", "-D", "nj"]
+LEGACY_CPU_CODE = (
+    "import json, os, sys, time\n"
+    "from physher_tpu_torch import legacy_cli\n"
+    "t0 = time.perf_counter()\n"
+    "with open(os.devnull, 'w') as out:\n"
+    "    r = legacy_cli.run(sys.argv[1:], out=out)\n"
+    "res = r.results['metaopt']\n"
+    "tlk = r.ctx.objects['treelikelihood']\n"
+    "print(json.dumps({'logp': res.logp, 'iterations': res.iterations,\n"
+    "                  'seconds': time.perf_counter() - t0,\n"
+    "                  'logp_at_params': float(tlk.log_likelihood(\n"
+    "                      res.params)),\n"
+    "                  'params': {k: v.tolist()\n"
+    "                             for k, v in res.params.items()}}))\n")
+# the CPU run's threads, beside the four nvcc of the build
+LEGACY_CPU_THREADS = 3
+# the legacy meta maximum, card (float64) against CPU: the runs stop where
+# a round gains less than the config's precision (1e-3), and their paths
+# part by rounding (run 1: 1691 iterations on the card, 1679 on the CPU,
+# maxima 1.2e-4 apart), so the maxima agree to that precision; the card's
+# logP at the CPU run's optimum agrees with the CPU's to float64 rounding
+LEGACY_ML_ATOL = 1e-3
+LEGACY_AT_CPU_OPTIMUM_RTOL = 1e-12
+# sharded against unsharded in float64: rounding only (the shards' sums in
+# another order), relative to the largest entry of logP, of the site logs
+# and of the model's gradient (one vector over all its parameters)
+SHARD_F64_RTOL = 1e-12
+
+
+def start_legacy_cpu() -> subprocess.Popen:
+    """The legacy CLI's fluA run on the CPU, in a process of its own (no
+    CUDA device, ``LEGACY_CPU_THREADS`` threads); ``legacy_cpu_result``
+    reads it."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=str(LEGACY_CPU_THREADS),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    return subprocess.Popen(
+        [sys.executable, "-c", LEGACY_CPU_CODE, *LEGACY_ARGV, "--device",
+         "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=str(ROOT))
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def legacy_cpu_result(proc: subprocess.Popen) -> dict:
+    """The CPU run's {logp, iterations, seconds}, waiting for it."""
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the legacy CLI's CPU run: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    rec["waited_seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def host_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median host time of ``fn()`` in ms; ``fn`` returns host values, so
+    each call ends in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def api_flua(api, **kw):
+    """The reference's fluA JC69 strict-clock time tree (checkpoint A)
+    through the Interface API."""
+    cfg = json.loads((DATA / "jc69-time.json").read_text())["model"]["tree"]
+    tm = api.ReparameterizedTimeTreeModelInterface(
+        cfg["newick"], dates=cfg["dates"], **kw)
+    clock = api.StrictClockModelInterface(0.001, tm)
+    return api.TreeLikelihoodInterface(
+        read_alignment(str(DATA / "fluA.fa")), tm, api.JC69Interface(),
+        api.ConstantSiteModelInterface(), clock, use_tip_states=True, **kw)
+
+
+def api_gtrg4(api, **kw):
+    """GTR+G4 on fluA's tree at the golden's values (tests/data/goldens/
+    gtrg4_fluA.json) through the Interface API."""
+    m = json.loads((DATA / "goldens" / "gtrg4_fluA.json").read_text())[
+        "model"]
+    sm = m["sitemodel"]["substitutionmodel"]
+    rates = [sm["rates"][k]["value"] if k in sm["rates"] else 1.0
+             for k in ("ac", "ag", "at", "cg", "ct", "gt")]
+    dist = m["sitemodel"]["distribution"]
+    tm = api.UnRootedTreeModelInterface(m["tree"]["newick"], **kw)
+    return api.TreeLikelihoodInterface(
+        read_alignment(str(DATA / "fluA.fa")), tm,
+        api.GTRInterface(rates, sm["frequencies"]["values"]),
+        api.GammaSiteModelInterface(dist["parameters"]["value"],
+                                    dist["categories"]),
+        use_tip_states=True, **kw)
+
+
+def api_card(dev, smi):
+    """(43) The Interface API on the card in float64: checkpoint A's logP
+    and d logP / d rate through LogLikelihood and Gradient, Gradient
+    against TreeLikelihood's autograd gradient on the card (1e-12
+    relative), GTR+G4 fluA card against CPU (1e-10), the kernel launches a
+    call and the median host ms a call over 30 (what a torchtree user pays
+    an evaluation)."""
+    from physher_tpu_torch import api
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    flua = api_flua(api)
+    check(flua.device == dev and flua.dtype == torch.float64,
+          "the API's default device and dtype")
+    zero_all_launches()
+    logp = flua.LogLikelihood()
+    per_logl = all_launches()
+    zero_all_launches()
+    grad = flua.Gradient()
+    per_grad = all_launches()
+    # TreeLikelihood's autograd gradient on the card, in the API's order
+    tlk = load_fluA_time(torch.float64, dev)
+    params = {k: v.requires_grad_() for k, v in
+              tlk.param_space().init_params(**f64).items()}
+    grads = dict(zip(params, torch.autograd.grad(tlk.log_likelihood(params),
+                                                 list(params.values()))))
+    ref = np.concatenate([np.atleast_1d(grads[k].cpu().numpy())
+                          for k in sorted(grads)])
+    rec = {"card": smi, "engine_flua": flua.tlk.engine_name(),
+           "logp": logp, "logp_err": logp - GOLDEN_LOGP,
+           "rate_grad_rel_err": grad[0] / GOLDEN_RATE_GRAD - 1,
+           "gradient_vs_autograd_rel_err": rel_err(grad, ref),
+           "launches_flua": {"log_likelihood": per_logl,
+                             "gradient": per_grad}}
+    ok = (abs(rec["logp_err"]) <= 1e-8
+          and abs(rec["rate_grad_rel_err"]) <= 1e-8
+          and rec["gradient_vs_autograd_rel_err"] <= 1e-12
+          and per_logl["fused_forward"] == 1 and sum(per_logl.values()) == 1
+          and per_grad["fused_forward"] == 1
+          and per_grad["fused_backward"] == 1
+          and sum(per_grad.values()) == 2)
+    # GTR+G4 fluA, card against CPU, and its launches
+    gtr, gtr_cpu = api_gtrg4(api), api_gtrg4(api, device="cpu")
+    zero_all_launches()
+    l_card = gtr.LogLikelihood()
+    gtr_logl = all_launches()
+    zero_all_launches()
+    g_card = gtr.Gradient()
+    gtr_grad = all_launches()
+    rec.update(engine_gtrg4=gtr.tlk.engine_name(),
+               gtrg4_logp=l_card,
+               gtrg4_logp_rel_err=rel_err(l_card, gtr_cpu.LogLikelihood()),
+               gtrg4_gradient_rel_err=rel_err(g_card, gtr_cpu.Gradient()),
+               launches_gtrg4={"log_likelihood": gtr_logl,
+                               "gradient": gtr_grad})
+    kind = "staged" if gtr.tlk.engine_name() == "cuda-staged" else "fused"
+    ok = (ok and rec["gtrg4_logp_rel_err"] <= 1e-10
+          and rec["gtrg4_gradient_rel_err"] <= 1e-10
+          and gtr_logl[f"{kind}_forward"] == 1
+          and sum(gtr_logl.values()) == 1
+          and gtr_grad[f"{kind}_forward"] == 1
+          and gtr_grad[f"{kind}_backward"] == 1)
+    # the host time a call, SetParameters included (the user's loop)
+    tm, clock = flua.tree_model, flua.branch_model
+    r0 = tm.GetParameters()
+    rates = iter(np.linspace(0.9e-3, 1.1e-3, 10 ** 4))
+    flua_set = lambda: clock.SetParameters([next(rates)])  # noqa: E731
+    rec["host_ms"] = {
+        "flua_log_likelihood": host_ms(flua.LogLikelihood),
+        "flua_gradient": host_ms(flua.Gradient),
+        "flua_set_and_log_likelihood": host_ms(
+            lambda: (flua_set(), flua.LogLikelihood())),
+        "gtrg4_log_likelihood": host_ms(gtr.LogLikelihood),
+        "gtrg4_gradient": host_ms(gtr.Gradient),
+        "tree_likelihood_f64_value_and_grad": host_ms(
+            lambda: [g.item() for g in torch.autograd.grad(
+                tlk.log_likelihood(params), [params["rate"]])]),
+    }
+    tm.SetParameters(r0)
+    clock.SetParameters([1e-3])
+    check(flua.LogLikelihood() == logp, "SetParameters back to the start")
+    rec["tolerance"] = dict(logp_atol=1e-8, rate_grad_rtol=1e-8,
+                            gradient_vs_autograd=1e-12, gtrg4_card_cpu=1e-10)
+    rec["ok"] = ok
+    emit("api_card", **rec)
+    check(ok, "the Interface API on the card")
+    return rec
+
+
+def tools_card(dev, smi, legacy_cpu):
+    """(44) The legacy CLI's fluA run on the card in float64 (its meta
+    maximum within LEGACY_ML_ATOL of the same run on the CPU, started at
+    the beginning of main, and its logP at the CPU run's optimum within
+    LEGACY_AT_CPU_OPTIMUM_RTOL of the CPU's) and the dumper after it (read
+    back equal to the pool, the meta optimum), then a 200-iteration
+    one-chain nni tree MCMC with a tree logger through the CLI (float64)
+    and the sbn action on its log (rootsplit probabilities summing to
+    1)."""
+    from physher_tpu_torch import legacy_cli
+
+    rec = {"card": smi}
+    zero_all_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    runner = legacy_cli.run(LEGACY_ARGV + ["--f64"], out=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = runner.results["metaopt"]
+    launches = all_launches()
+    cpu = legacy_cpu_result(legacy_cpu)
+    tlk = runner.ctx.objects["treelikelihood"]
+    with torch.no_grad():
+        at_cpu = float(tlk.log_likelihood({
+            k: torch.tensor(v, dtype=torch.float64, device=dev)
+            for k, v in cpu.pop("params").items()}))
+    rec["legacy"] = dict(
+        logp=res.logp, iterations=res.iterations, wall_seconds=wall,
+        engine=tlk.engine_name(), launches=launches, cpu=cpu,
+        err=res.logp - cpu["logp"], tolerance=LEGACY_ML_ATOL,
+        card_logp_at_cpu_optimum=at_cpu,
+        at_cpu_optimum_rel_err=rel_err(at_cpu, cpu["logp_at_params"]),
+        at_cpu_optimum_tolerance=LEGACY_AT_CPU_OPTIMUM_RTOL)
+    ok = (abs(rec["legacy"]["err"]) <= LEGACY_ML_ATOL
+          and rec["legacy"]["at_cpu_optimum_rel_err"]
+          <= LEGACY_AT_CPU_OPTIMUM_RTOL
+          and "Maximum log likelihood" in out.getvalue()
+          and launches["fused_forward"] >= res.iterations)
+    with tempfile.TemporaryDirectory() as tmp:
+        dumped = runner.action_dumper({"type": "dumper",
+                                       "file": str(Path(tmp) / "pool.json")})
+        back = json.loads((Path(tmp) / "pool.json").read_text())
+        pool_ok = (back == dumped and sorted(back) == sorted(runner.pool)
+                   and len(back) > 0 and all(
+                       np.array_equal(np.asarray(back[k]), v.cpu().numpy())
+                       for k, v in runner.pool.items()))
+        rec["dumper"] = dict(names=sorted(back), equal=pool_ok)
+    ok = ok and pool_ok
+    with tempfile.TemporaryDirectory() as tmp:
+        node = {"id": "mcmc", "type": "mcmc", "model": "&treelikelihood",
+                "length": 200,
+                "operators": [
+                    {"id": "o1", "type": "operator", "algorithm": "nni",
+                     "x": "&tree", "weight": 1},
+                    {"id": "o2", "type": "operator", "algorithm": "scaler",
+                     "x": "%tree.distances", "weight": 4}],
+                "log": [{"id": "l1", "type": "logger", "every": 10,
+                         "file": "chain.trees", "models": "&tree"}]}
+        path = flua_nj_config(Path(tmp), [
+            node, {"id": "sbn", "type": "sbn", "file": "chain.trees",
+                   "burnin": 0.1}], name="tools.json")
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([path, "--f64"])
+        wall = time.perf_counter() - t0
+        sbn = runner.results["sbn"]
+        roots, conds = sbn.probabilities()
+        rec["tree_mcmc_sbn"] = dict(
+            wall_seconds=wall, launches=all_launches(),
+            trees=len((Path(tmp) / "chain.trees").read_text().split()),
+            sbn_trees=sbn.n_trees, rootsplits=len(roots),
+            parent_clades=len(conds),
+            rootsplit_sum_err=abs(sum(roots.values()) - 1.0))
+    ok = (ok and rec["tree_mcmc_sbn"]["rootsplit_sum_err"] <= 1e-12
+          and sbn.n_trees == 18)
+    rec["ok"] = ok
+    emit("tools_card", **rec)
+    check(ok, "the legacy CLI, sbn and dumper on the card")
+    return rec
+
+
+def shard_layouts(dev) -> dict:
+    """The device lists to shard over: every visible card when there are
+    two or more (and the first two), else the card listed 2 and 4 times;
+    and the four places of a 2 x 2 chains x patterns mesh."""
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    if n >= 2:
+        layouts = {f"cards{k}": cards[:k] for k in sorted({2, n})}
+    else:
+        layouts = {"x2": [dev] * 2, "x4": [dev] * 4}
+    return layouts, [cards[i % n] for i in range(4)]
+
+
+def shard_case(name, build, params, devices, dtype, chains=False):
+    """A model sharded over ``devices`` (a 2 x (n/2) chains x patterns mesh
+    with ``chains``) against the unsharded one at ``params``: the errors of
+    logP, the site logs and every gradient, the engine and the launches of
+    the sharded value-and-gradient."""
+    from physher_tpu_torch.models.parameters import ParamBatch
+    from physher_tpu_torch.parallel.mesh import (
+        chain_pattern_mesh, pattern_mesh, shard_tree_likelihood)
+
+    base = build(1)
+    mesh = (chain_pattern_mesh(2, devices=devices) if chains
+            else pattern_mesh(devices=devices))
+    shd = shard_tree_likelihood(build(4), mesh)
+    batch = params.batch_shape if isinstance(params, ParamBatch) else None
+    out, launches = [], None
+    for tlk in (base, shd):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        p = ParamBatch(leaves, batch) if batch else leaves
+        zero_all_launches()
+        logp = tlk.log_likelihood(p)
+        grads = torch.autograd.grad(logp.sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        launches = all_launches()
+        with torch.no_grad():
+            site = tlk.site_log_likelihoods(p)
+        # the model's gradient: one vector over all its parameters
+        out.append([logp.detach(), site,
+                    torch.cat([g.reshape(-1) for g in grads])])
+    tol = TOL[dtype]
+    errs = {k: rel_err(b.cpu(), a.cpu())
+            for k, a, b in zip(("logp", "site", "grad"), *out)}
+    limits = ({"logp": SHARD_F64_RTOL, "site": SHARD_F64_RTOL,
+               "grad": SHARD_F64_RTOL} if dtype == torch.float64 else
+              {"logp": tol["logl"], "site": tol["site"],
+               "grad": tol["grad"]})
+    L = batch[0] if batch else None
+    rec = dict(errs=errs, limits=limits, engine=shd.engine_name(L),
+               unsharded_engine=base.engine_name(L), mesh=repr(shd.mesh),
+               P=base.tip_partials.shape[-1],
+               P_shard=shd._shard_rows[0][0][1].shape[-1], launches=launches)
+    ok = (all(errs[k] <= limits[k] for k in errs)
+          and rec["engine"] == rec["unsharded_engine"])
+    return ok, rec
+
+
+def sharding_card(dev, smi, reps=20):
+    """(45) Pattern sharding on the card: every kernel pair sharded against
+    unsharded in float64 (SHARD_F64_RTOL) and float32 (TOL) on K1'/K2' at
+    checkpoint A, K3'/K4' on the balanced 128 x 16384 GTR+G4, K7'/K8' on
+    GY94 (codon_small in float64, the simulated M0 32 x 4096 in float32)
+    and K5'/K6' with 8 chains on a 2 x 2 chains x patterns mesh; an
+    8-chain fluA mcmc of 200 iterations with --mesh 2x2 through the CLI in
+    float64 against the unsharded run (rtol 1e-9); the value-and-gradient
+    host time at 1, 2 and 4 shards."""
+    from physher_tpu_torch.parallel.mesh import (
+        pattern_mesh, shard_tree_likelihood)
+
+    layouts, mesh4 = shard_layouts(dev)
+    one_card = torch.cuda.device_count() < 2
+    rec = {"card": smi, "layouts": {k: [str(d) for d in v]
+                                    for k, v in layouts.items()},
+           "chains_mesh": [str(d) for d in mesh4],
+           "note": ("one card listed several times: the times show only "
+                    "the overhead of splitting") if one_card else None}
+    emit("sharding_layouts", **rec)
+    balanced = balanced_topology(128)
+    sp128 = random_sitepattern(128, 16384, seed=7)
+
+    def flua_time(dtype):
+        return lambda pad: load_fluA_time(dtype, dev, pad)
+
+    def gtr128(dtype):
+        kw = dict(dtype=dtype, device=dev)
+        return lambda pad: TreeLikelihood(
+            sp128, balanced, GTR(**kw), GammaSiteModel(4, **kw),
+            pattern_pad_multiple=pad, **kw)
+
+    def gy94(dtype):
+        if dtype == torch.float64:
+            return lambda pad: codon_small("gy94", dtype, dev, pad)[0]
+        return lambda pad: gy94_m0_fit_model(dtype, dev,
+                                             pattern_pad_multiple=pad)
+
+    def gy94_params(dtype, build):
+        kw = dict(dtype=dtype, device=dev)
+        p = build(1).param_space().init_params(**kw)
+        values = ({"kappa": 2.5, "omega": 0.3} if dtype == torch.float64
+                  else M0_TRUTH)
+        p.update({k: torch.tensor(v, **kw) for k, v in values.items()})
+        return p
+
+    cases, ok = {}, True
+    for dtype in (torch.float64, torch.float32):
+        label = str(dtype).replace("torch.", "")
+        kw = dict(dtype=dtype, device=dev)
+        specs = {
+            "k1k2_checkpoint_a": (flua_time(dtype), lambda b: b(1)
+                                  .param_space().init_params(**kw),
+                                  "cuda-fused", False),
+            "k3k4_balanced_128x16384": (gtr128(dtype), lambda b: b(1)
+                                        .param_space().init_params(**kw),
+                                        "cuda-staged", False),
+            # float64: codon_small at the golden's values; float32: the
+            # GY94 M0 data simulated on the card (32 x 4096) at its truth,
+            # since on codon_small float32's P(t) at the golden's values
+            # has entries near -3e-7 (NaN site logs at two patterns) and
+            # its gradient at kappa = omega = 1 is NaN (run 1)
+            "k7k8_gy94": (gy94(dtype), lambda b: gy94_params(dtype, b),
+                          "cuda-wide", False),
+            "k5k6_flua_L8_2x2": (flua_time(dtype), lambda b: chain_params(
+                b(1), 8, seed=3), "cuda-loop", True)}
+        for name, (build, make_params, engine, chains) in specs.items():
+            params = make_params(build)
+            runs = ({"2x2": mesh4} if chains else layouts)
+            for lay, devs in runs.items():
+                good, r = shard_case(name, build, params, devs, dtype, chains)
+                good = good and r["engine"] == engine
+                cases[f"{name}_{label}_{lay}"] = r
+                ok = ok and good
+                emit("sharding_case", case=name, dtype=label, layout=lay,
+                     ok=good, **r)
+        torch.cuda.empty_cache()
+    # an 8-chain fluA mcmc through the CLI, --mesh 2x2 against unsharded
+    mc = {"type": "mcmc", "id": "mc", "model": "&treelikelihood",
+          "length": 200, "chains": 8, "log": [{"every": 20}]}
+    samples = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = json.loads((DATA / "jc69-time.json").read_text())
+        cfg["physher"] = [mc]
+        path = Path(tmp) / "mcmc.json"
+        path.write_text(json.dumps(cfg).replace(
+            '"fluA.fa"', json.dumps(str(DATA / "fluA.fa"))))
+        for lay, extra in (("unsharded", {}),
+                           ("mesh2x2", {"mesh_devices": mesh4})):
+            zero_all_launches()
+            t0 = time.perf_counter()
+            argv = [str(path), "--f64"] + (["--mesh", "2x2"] if extra
+                                           else [])
+            runner = cli.run(argv, out=io.StringIO(), **extra)
+            torch.cuda.synchronize()
+            res = runner.results["mc"]
+            samples[lay] = (res.samples_u, res.log_posterior)
+            rec[f"mcmc_{lay}"] = dict(
+                wall_seconds=time.perf_counter() - t0,
+                launches=all_launches(), shape=list(res.samples_u.shape),
+                mesh=repr(runner.ctx.mesh))
+    a, b = samples["unsharded"], samples["mesh2x2"]
+    mcmc_err = max(rel_err(b[0], a[0]), rel_err(b[1], a[1]))
+    mcmc_ok = bool(np.allclose(b[0], a[0], rtol=1e-9, atol=1e-12)
+                   and np.allclose(b[1], a[1], rtol=1e-9)
+                   and a[0].shape == (10, 8, 69))
+    rec["mcmc_max_rel_err"] = mcmc_err
+    ok = ok and mcmc_ok
+    # the value-and-gradient host time at 1, 2 and 4 shards (float32)
+    times = {}
+    for name, build in (("flua_k1k2", flua_time(torch.float32)),
+                        ("balanced_128x16384_k3k4",
+                         gtr128(torch.float32))):
+        params = build(1).param_space().init_params(dtype=torch.float32,
+                                                    device=dev)
+        leaves = {k: v.requires_grad_() for k, v in params.items()}
+        for n in (1, 2, 4):
+            tlk = build(4)
+            if n > 1:
+                devs = (layouts.get(f"x{n}") or layouts.get(f"cards{n}")
+                        or [dev] * n)
+                tlk = shard_tree_likelihood(tlk, pattern_mesh(devices=devs))
+
+            def vg(tlk=tlk):
+                logp = tlk.log_likelihood(leaves)
+                torch.autograd.grad(logp, list(leaves.values()))
+                return logp.item()
+
+            times[f"{name}_shards{n}_ms"] = host_ms(vg, reps=reps)
+    rec["value_and_grad_host_ms"] = times
+    rec["ok"] = ok
+    emit("sharding_card", **{k: v for k, v in rec.items()
+                             if not k.startswith("layouts")})
+    check(mcmc_ok, "the --mesh 2x2 mcmc's samples against unsharded")
+    check(ok, "pattern sharding on the card")
+    return rec, cases
+
+
 def c5_times(rec, shape, kind, suffix=""):
     """A kernel's device time at C = 4 and 5 (and 8 where measured) on one
     shape, and the ratio of C = 5 to C = 4 (median and range over the
@@ -3224,6 +3720,9 @@ def main() -> int:
     # ---- 1. device
     dev = cuda_device()
     smi = nvidia_smi()
+    # phase 44's CPU run of the legacy CLI, beside the build
+    legacy_cpu = start_legacy_cpu()
+    atexit.register(stop_process, legacy_cpu)
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
@@ -3753,6 +4252,30 @@ def main() -> int:
     walls["42_tree_mcmc"] = time.perf_counter() - t0
     emit("topology_phases", card=smi, seconds=walls)
 
+    # ---- 43-45. the seventeenth slice: (43) the Interface API on the card
+    # (K1'/K2' at checkpoint A, the staged gate's pair at GTR+G4), (44) the
+    # legacy CLI against its CPU run, a tree MCMC, sbn and dumper, (45)
+    # every kernel pair on pattern shards and a --mesh 2x2 mcmc
+    walls = {}
+    t0 = time.perf_counter()
+    api_rec = api_card(dev, smi)
+    walls["43_api"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools = tools_card(dev, smi, legacy_cpu)
+    walls["44_tools"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_rec, shard_cases = sharding_card(dev, smi)
+    walls["45_sharding"] = time.perf_counter() - t0
+    emit("interface_phases", card=smi, seconds=walls)
+
+    def sharded(prefix, key):
+        return {k[len(prefix) + 1:]: v["launches"][key]
+                for k, v in shard_cases.items() if k.startswith(prefix)}
+
+    api_flua_n = api_rec["launches_flua"]
+    api_gtr_n = api_rec["launches_gtrg4"]
+    mesh_mcmc_n = shard_rec["mcmc_mesh2x2"]["launches"]
+
     emit("total", seconds=time.perf_counter() - t_start)
     fused_src = "physher_tpu_torch/csrc/pruning.cu"
     wide_src = "physher_tpu_torch/csrc/wide.cu"
@@ -3768,7 +4291,13 @@ def main() -> int:
                  "fused_forward"],
              topology_search_launches=search_launches["fused_forward"],
              tree_mcmc_launches=tree_mc["one_chain"]["launches"][
-                 "fused_forward"]),
+                 "fused_forward"],
+             api_log_likelihood_launches=api_flua_n["log_likelihood"][
+                 "fused_forward"],
+             api_gradient_launches=api_flua_n["gradient"]["fused_forward"],
+             legacy_meta_f64_launches=tools["legacy"]["launches"][
+                 "fused_forward"],
+             sharded_launches=sharded("k1k2_checkpoint_a", "fused_forward")),
         dict(kernel_row("pruning_backward", fused_src,
                         "physher_tpu/ops/pallas_fused.py:390",
                         launches_fused["backward"], fused_alone,
@@ -3776,13 +4305,20 @@ def main() -> int:
              ml_meta_time_f64_launches=ml_time["fused_backward"],
              analyses_meta_jc69_f64_launches=analyses["jc69"]["launches"][
                  "fused_backward"],
-             topology_search_launches=search_launches["fused_backward"]),
-        kernel_row("wide_forward", wide_src,
-                   "physher_tpu/ops/pallas_wide.py:217",
-                   wide_launches["forward"], wide_alone, "forward"),
-        kernel_row("wide_backward", wide_src,
-                   "physher_tpu/ops/pallas_wide.py:396",
-                   wide_launches["backward"], wide_alone, "backward"),
+             topology_search_launches=search_launches["fused_backward"],
+             api_gradient_launches=api_flua_n["gradient"]["fused_backward"],
+             legacy_meta_f64_launches=tools["legacy"]["launches"][
+                 "fused_backward"],
+             sharded_launches=sharded("k1k2_checkpoint_a",
+                                      "fused_backward")),
+        dict(kernel_row("wide_forward", wide_src,
+                        "physher_tpu/ops/pallas_wide.py:217",
+                        wide_launches["forward"], wide_alone, "forward"),
+             sharded_launches=sharded("k7k8_gy94", "wide_forward")),
+        dict(kernel_row("wide_backward", wide_src,
+                        "physher_tpu/ops/pallas_wide.py:396",
+                        wide_launches["backward"], wide_alone, "backward"),
+             sharded_launches=sharded("k7k8_gy94", "wide_backward")),
         dict(kernel_row("staged_forward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:234",
                         staged_launches["forward"], staged_alone, "forward"),
@@ -3791,6 +4327,12 @@ def main() -> int:
              advi_g4i_relaxed_launches=g4i_advi["staged_forward"],
              analyses_meta_gtrg4_f64_launches=analyses["gtrg4"][
                  "launches"]["staged_forward"],
+             api_gtrg4_log_likelihood_launches=api_gtr_n["log_likelihood"][
+                 "staged_forward"],
+             api_gtrg4_gradient_launches=api_gtr_n["gradient"][
+                 "staged_forward"],
+             sharded_launches=sharded("k3k4_balanced_128x16384",
+                                      "staged_forward"),
              **c5_times(c5, "staged-balanced-128x16384", "forward")),
         dict(kernel_row("staged_backward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:375",
@@ -3801,6 +4343,10 @@ def main() -> int:
              advi_g4i_relaxed_launches=g4i_advi["staged_backward"],
              analyses_meta_gtrg4_f64_launches=analyses["gtrg4"][
                  "launches"]["staged_backward"],
+             api_gtrg4_gradient_launches=api_gtr_n["gradient"][
+                 "staged_backward"],
+             sharded_launches=sharded("k3k4_balanced_128x16384",
+                                      "staged_backward"),
              **c5_times(c5, "staged-balanced-128x16384", "backward")),
         dict(kernel_row("loop_forward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",
@@ -3818,6 +4364,8 @@ def main() -> int:
              estimator_f64_launches={
                  k: v["loop_forward"] for k, v in est["launches"].items()},
              mixed_mcmc_launches=mixed_launches["loop_forward"],
+             sharded_launches=sharded("k5k6_flua_L8_2x2", "loop_forward"),
+             mesh2x2_mcmc_f64_launches=mesh_mcmc_n["loop_forward"],
              **c5_times(c5, "loop-fluA-238", "forward", "-L8")),
         dict(kernel_row("loop_backward", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:314",
@@ -3827,6 +4375,7 @@ def main() -> int:
              hessian_launches=ml_hessian["loop_backward"],
              advi_gradsamples4_launches=checks["advi_gradsamples4"][
                  "launches"]["loop_backward"],
+             sharded_launches=sharded("k5k6_flua_L8_2x2", "loop_backward"),
              **c5_times(c5, "loop-fluA-238", "backward", "-L8")),
         dict(kernel_row("loop_forward_wide", loop_src,
                         "physher_tpu/ops/pallas_pruning_loop.py:119",

@@ -7,6 +7,7 @@ src/physher.c:62-326): parse the config, build the model graph, run the
     python -m physher_tpu_torch.cli config.json [--seed N] [--dry] [--f64]
                                                 [--device {cuda,cpu}]
                                                 [-c checkpoint.csv]
+                                                [--devices N | --mesh CxP]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits
 non-zero with a message when there is none: it never falls back to the CPU.
@@ -14,6 +15,12 @@ Models are float32 on the card and float64 on the CPU; ``--f64`` asks for
 float64 on the card too (the reference's goldens need it). ``-c`` seeds
 the parameter pool of every model from a checkpoint CSV (the ``name,value``
 lines that an optimizer's ``"checkpoint"`` writes) before the actions run.
+``--devices N`` shards the site patterns over N devices and ``--mesh CxP``
+over a chains x patterns mesh (overriding the config's ``init.devices`` /
+``init.mesh``): the first visible CUDA devices on the card, the CPU listed
+N (C x P) times with ``--device cpu``; in-process callers may give the
+mesh's devices themselves (``run(..., mesh_devices=[...])``, a list that
+may repeat a device).
 """
 
 from __future__ import annotations
@@ -31,9 +38,10 @@ class NoDeviceError(RuntimeError):
     """No CUDA device, and ``--device cpu`` was not given."""
 
 
-def run(argv=None, out=None):
+def run(argv=None, out=None, mesh_devices=None):
     """Parse ``argv`` and run the config; returns the action Runner (with
-    its context and results), or None for ``--dry``."""
+    its context and results), or None for ``--dry``. ``mesh_devices``: the
+    devices of the ``--devices`` / ``--mesh`` mesh, in row-major order."""
     ap = argparse.ArgumentParser(
         prog="python -m physher_tpu_torch.cli",
         description="phylogenetic inference on an NVIDIA GPU "
@@ -49,6 +57,12 @@ def run(argv=None, out=None):
                     help="float64 on the card (the CPU always runs float64)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the models run (default: cuda)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shard site patterns over N devices "
+                         "(overrides config init.devices)")
+    ap.add_argument("--mesh", default=None, metavar="CxP",
+                    help="2-D device mesh 'chains x patterns', e.g. 2x4 "
+                         "(overrides config init.mesh)")
     args = ap.parse_args(argv)
     out = out or sys.stdout
 
@@ -71,7 +85,8 @@ def run(argv=None, out=None):
     t0 = time.time()
     base_dir = os.path.dirname(os.path.abspath(args.config))
     ctx, actions = build_config(cfg, base_dir=base_dir, dtype=dtype,
-                                device=device)
+                                device=device,
+                                devices=_mesh_request(args, mesh_devices))
     seed = args.seed if args.seed is not None else ctx.seed
 
     from .config.actions import Runner
@@ -89,6 +104,23 @@ def run(argv=None, out=None):
     runner.run(actions)
     print(f"Total runtime: {time.time() - t0:.3f}s", file=out)
     return runner
+
+
+def _mesh_request(args, mesh_devices):
+    """``build_config``'s ``devices`` for ``--mesh`` / ``--devices``: the
+    shape, or a Mesh over ``mesh_devices`` when given."""
+    if args.mesh:
+        c, p = args.mesh.lower().replace("x", " ").split()
+        shape = {"chains": int(c), "patterns": int(p)}
+    elif args.devices:
+        shape = {"chains": 1, "patterns": args.devices}
+    else:
+        return None
+    if mesh_devices is None:
+        return shape
+    from .parallel.mesh import mesh_from_shape
+
+    return mesh_from_shape(shape, mesh_devices)
 
 
 def main(argv=None, out=None) -> int:

@@ -3,8 +3,8 @@
 Port of the ``optimizer`` (with the ``topology`` search), ``logger``,
 ``mcmc`` (with the ``nni`` tree MCMC), ``mmcmc``, ``marginallikelihood``,
 ``laplace``, ``hessian``, ``bridgesampling``, ``is``, ``nest``, ``cpo``,
-``mc``, ``predictive``, ``asr``, ``ppsite``, ``cat`` and ``simultron``
-actions of ``physher_tpu/config/actions.py`` (reference:
+``mc``, ``predictive``, ``asr``, ``ppsite``, ``cat``, ``simultron``,
+``sbn`` and ``dumper`` actions of ``physher_tpu/config/actions.py`` (reference:
 src/physher.c:207-305).
 Actions share one parameter pool, so sequential actions see each other's
 results (the reference's shared Parameter objects in its hashtable). The
@@ -15,8 +15,7 @@ optimizer, the difference points of the Hessian and the points at which an
 estimator evaluates the model (proposal draws, posterior or prior samples,
 live points) run as batches of chains through the model
 (``inference/mcmc.py``, ``inference/ml.py``, ``inference/marginal.py``),
-where the JAX package ``vmap``s them. ``sbn`` and ``dumper`` raise
-``NotImplementedError`` naming their ROADMAP item.
+where the JAX package ``vmap``s them.
 """
 
 from __future__ import annotations
@@ -35,8 +34,6 @@ from ..models.treelikelihood import TreeLikelihood
 from .builder import Context
 from .variational import VariationalHandle
 
-# the JAX package's actions that are not ported yet -> ROADMAP Queue 1 item
-_UNPORTED_ACTIONS = {"sbn": 17, "dumper": 17}
 # chains evaluated at once when a logger recomputes values over samples
 _LOG_BATCH = 256
 
@@ -69,14 +66,9 @@ class Runner:
         for node in actions:
             typ = str(node.get("type", "")).lower()
             handler = getattr(self, f"action_{typ}", None)
-            if handler is not None:
-                handler(node)
-            elif typ in _UNPORTED_ACTIONS:
-                raise NotImplementedError(
-                    f"action {typ!r} is not ported to physher_tpu_torch yet "
-                    f"(ROADMAP Queue 1 item {_UNPORTED_ACTIONS[typ]})")
-            else:
+            if handler is None:
                 raise ValueError(f"unknown action type {typ!r}")
+            handler(node)
         return self.results
 
     # -- actions -----------------------------------------------------------
@@ -303,6 +295,19 @@ class Runner:
 
     # -- MCMC and marginal likelihood --------------------------------------
 
+    def _mesh_chains(self, n_chains: int) -> int:
+        """The chains of a batch of ``n_chains`` (0: the mesh's chain
+        groups, or 1): on a mesh with a chain axis they split into one
+        group a mesh row, so a count that the rows do not divide raises,
+        as the JAX package's does."""
+        mesh = self.ctx.mesh
+        rows = mesh.shape.get("chains", 1) if mesh is not None else 1
+        n_chains = n_chains or rows
+        if n_chains % rows:
+            raise ValueError(f"n_chains={n_chains} not divisible by mesh "
+                             f"axis chains={rows}")
+        return n_chains
+
     def action_mcmc(self, node):
         """Block Metropolis-Hastings over the model's parameters, all
         chains (``"chains"``) as one batch (reference: src/phyc/mcmc.c;
@@ -351,7 +356,7 @@ class Runner:
             vb_w = float(op.get("weight", 1.0))
         sampler = mcmc_mod.MCMC(space, log_prob, weights=weights or None,
                                 vb_proposal=vb_prop, vb_weight=vb_w)
-        n_chains = int(node.get("chains", 0)) or 1
+        n_chains = self._mesh_chains(int(node.get("chains", 0)))
         res = sampler.run(self.generator, params, n_iter=length,
                           every=every, n_chains=n_chains)
         self.results[node.get("id", "mcmc")] = res
@@ -583,7 +588,8 @@ class Runner:
         like, prior = self._split_like_prior(model)
         space = model.param_space()
         params = self.params_for(space)
-        n_temps = int(node.get("temperatures", node.get("steps", 16)))
+        n_temps = self._mesh_chains(
+            int(node.get("temperatures", node.get("steps", 16))))
         length = int(node.get("length", 10000))
         temps, lls, res = marginal.run_tempered_ladder(
             self.generator, space, like, prior, params, n_temps=n_temps,
@@ -827,6 +833,43 @@ class Runner:
                 write_fasta(seqs, self._path(fname))
         self.results[node.get("id", "simultron")] = seqs
         return seqs
+
+    def action_sbn(self, node):
+        """SBN estimation from a tree log (reference: physher.c:293,
+        sbn.c): rootsplit and subsplit frequencies of the trees in
+        ``"file"`` (or ``"trees"``) after the ``"burnin"`` fraction."""
+        from ..inference.sbn import SBN
+        from ..io.treeio import TreeFileIterator
+
+        fname = node.get("file", node.get("trees"))
+        sbn = SBN()
+        trees = list(TreeFileIterator(self._path(fname)))
+        start = int(len(trees) * float(node.get("burnin", 0.0)))
+        for topo, _ in trees[start:]:
+            sbn.add_tree(topo)
+        roots, conds = sbn.probabilities()
+        print(f"SBN: {len(roots)} rootsplits, {len(conds)} parent clades "
+              f"from {sbn.n_trees:.0f} trees", file=self.out)
+        self.results[node.get("id", "sbn")] = sbn
+        return sbn
+
+    def action_dumper(self, node):
+        """Dump the pool's current values as JSON for a restart (reference:
+        src/phyc/logger.c Dumper), to ``"file"`` or the first 1000
+        characters to the output; returns the dict written."""
+        import json
+
+        out = {}
+        for name, val in self.pool.items():
+            arr = val.detach().cpu().numpy()
+            out[name] = arr.tolist() if arr.ndim else float(arr)
+        fname = node.get("file")
+        if fname:
+            with open(self._path(fname), "w") as fh:
+                json.dump(out, fh, indent=1)
+        else:
+            print(json.dumps(out)[:1000], file=self.out)
+        return out
 
     def action_predictive(self, node):
         """Posterior-predictive simulation check (reference:

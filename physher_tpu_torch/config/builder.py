@@ -18,16 +18,19 @@ The config's ``"engine"`` names map to the port's by :func:`route_engine`:
 on the card ``pallas-fused`` -> ``cuda-fused``, ``pallas-staged`` ->
 ``cuda-staged``, ``pallas-wide`` -> ``cuda-wide``, ``pallas-loop`` ->
 ``cuda-loop`` (K7'/K8' for the first two at S != 4, K5'/K6' for a batch of
-chains), on the CPU the plain engine; ``xla`` -> ``torch``. A model type the
-JAX builder supports and the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item; nothing falls back
-silently.
+chains), on the CPU the plain engine; ``xla`` -> ``torch``.
+
+Pattern sharding (``"init": {"devices": n}`` or ``{"mesh": {"chains": c,
+"patterns": p}}``, or ``build_config(devices=...)``) pads every
+TreeLikelihood's patterns to a multiple of the pattern devices and shards
+them over a :class:`~physher_tpu_torch.parallel.mesh.Mesh` (``ctx.mesh``).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import re
 
@@ -60,12 +63,6 @@ ENGINE_NAMES = {"auto": "auto", "pallas-fused": "cuda-fused",
                 "pallas-loop": "cuda-loop", "xla": "torch"}
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to physher_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 class Context:
     """Build-time registry (the reference's Hashtable, src/physher.c:140),
     with the dtype and device every model is built in."""
@@ -81,6 +78,9 @@ class Context:
         self.slices: dict[str, list] = {}
         self.extra_specs: list[ParamSpec] = []
         self.seed = 0
+        # the device mesh (build_config's devices / init.devices / init.mesh)
+        self.mesh = None
+        self.pattern_devices = 1
 
     @property
     def kw(self) -> dict:
@@ -605,6 +605,10 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
     dist0 = np.nan_to_num(np.asarray(handle.distances)[: topo.N - 1], nan=0.1)
     tid = node.get("id", "treelikelihood")
     route = (engine, ctx.device.type, sp.datatype.state_count)
+    # the CUDA kernels take any pattern count: no padding by default; a
+    # mesh run pads to a multiple of its pattern devices (zero weights)
+    pad = int(node.get("pattern_pad_multiple", 1))
+    pad = pad * ctx.pattern_devices // math.gcd(pad, ctx.pattern_devices)
     tlk = TreeLikelihood(
         sp, topo, subst, site_model, clock=clock, time_data=td,
         distances_init=dist0,
@@ -613,8 +617,7 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
         # the reference defaults tipstates to true (treelikelihood.c:841)
         tipstates=bool(node.get("tipstates", True)),
         prefix=handle.prefix,
-        # the CUDA kernels take any pattern count: no padding by default
-        pattern_pad_multiple=int(node.get("pattern_pad_multiple", 1)),
+        pattern_pad_multiple=pad,
         engine=route_engine(*route),
         batch_engine=route_engine(*route, batch=2),
         height_transform=handle.transform, **ctx.kw)
@@ -648,20 +651,49 @@ BUILDERS = {
 
 
 def build_config(cfg: dict, base_dir: str = ".", *, dtype: torch.dtype,
-                 device):
+                 device, devices=None):
     """Build every top-level model object; returns (Context, actions).
 
-    Pattern sharding (``"init": {"devices": n}`` or ``{"mesh": ...}``)
-    raises: it is ROADMAP Queue 1 item 18."""
+    Multi-device runs are declared in the config's ``init`` block (the
+    reference's seed block, src/physher.c:152) or by ``devices``, which
+    overrides it (the CLI's ``--devices`` / ``--mesh``):
+
+    - ``"init": {"devices": 4}``: shard site patterns over 4 devices;
+    - ``"init": {"mesh": {"chains": 2, "patterns": 4}}``: a 2-D mesh, MCMC
+      chains and tempered-ladder replicas on 'chains', patterns on
+      'patterns';
+    - ``devices``: an int, such a dict, or a
+      :class:`~physher_tpu_torch.parallel.mesh.Mesh` whose devices are used
+      as they are (a list may repeat a device).
+
+    Without a Mesh, the mesh takes the first visible CUDA devices on the
+    card (raising when there are fewer) and the CPU listed as often as the
+    mesh has places on the CPU. Every TreeLikelihood is padded to a
+    multiple of the pattern devices and sharded by
+    ``parallel.mesh.shard_tree_likelihood``; the actions read
+    ``ctx.mesh``."""
+    from ..parallel.mesh import Mesh
+
     cfg = _prune(copy.deepcopy(cfg))
     ctx = Context(base_dir, dtype=dtype, device=device)
     actions = cfg.pop("physher", [])
     init = cfg.pop("init", {})
-    if isinstance(init, dict):
-        ctx.seed = int(init.get("seed", 0))
-        if "devices" in init or "mesh" in init:
-            raise not_ported("pattern sharding (init.devices / init.mesh)",
-                             18)
+    if not isinstance(init, dict):
+        init = {}
+    ctx.seed = int(init.get("seed", 0))
+    req = devices if devices is not None else init.get(
+        "mesh", init.get("devices"))
+    if req is not None:
+        if isinstance(req, Mesh):
+            shape = {"chains": req.shape.get("chains", 1),
+                     "patterns": req.shape["patterns"]}
+        elif isinstance(req, dict):
+            shape = {"chains": int(req.get("chains", 1)),
+                     "patterns": int(req.get("patterns", 1))}
+        else:
+            shape = {"chains": 1, "patterns": int(req)}
+        # the tree likelihoods' pattern padding reads it
+        ctx.pattern_devices = shape["patterns"]
     for key, node in cfg.items():
         if not isinstance(node, dict):
             continue
@@ -690,4 +722,28 @@ def build_config(cfg: dict, base_dir: str = ".", *, dtype: torch.dtype,
             build_coalescent(node, ctx)
         else:
             raise ValueError(f"unknown model type {typ!r} for {key!r}")
+    if req is not None:
+        _attach_mesh(ctx, shape, req if isinstance(req, Mesh) else None)
     return ctx, actions
+
+
+def _attach_mesh(ctx: Context, shape: dict, mesh=None):
+    """Make the ``shape`` mesh ({"chains", "patterns"}) unless ``mesh`` is
+    given, and shard every TreeLikelihood's pattern columns over it (the
+    reduction point: the weighted root sum, reference
+    src/phyc/treelikelihood.c:1483-1486)."""
+    from ..parallel.mesh import (cuda_devices, mesh_from_shape,
+                                 shard_tree_likelihood)
+
+    if mesh is None:
+        total = shape["chains"] * shape["patterns"]
+        if ctx.device.type == "cuda":
+            devs = cuda_devices(total, f"config requests a {shape['chains']}"
+                                       f"x{shape['patterns']} mesh, which")
+        else:
+            devs = [ctx.device] * total
+        mesh = mesh_from_shape(shape, devs)
+    ctx.mesh = mesh
+    for obj in ctx.objects.values():
+        if isinstance(obj, TreeLikelihood):
+            shard_tree_likelihood(obj, mesh)

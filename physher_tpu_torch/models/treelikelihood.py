@@ -33,6 +33,10 @@ run) gives ``[L]`` log-likelihoods: the batch runs through the model as a
 leading axis (branch lengths ``[L, N]``, P matrices ``[L, N, C, S, S]``)
 into the plain engine on the CPU and K5'/K6' on the card, for every state
 count the kernels take (2 to 64: nucleotide, protein and codon models).
+
+With a device mesh (``parallel/mesh.shard_tree_likelihood``) the engine
+that :meth:`TreeLikelihood.engine_name` picks for the whole model runs once
+per pattern shard, on the shard's device (:meth:`TreeLikelihood.set_mesh`).
 """
 
 from __future__ import annotations
@@ -210,6 +214,10 @@ class TreeLikelihood(nn.Module):
             distances_init = np.full(topo.N - 1, 0.1)
         self.distances_init = np.asarray(distances_init, dtype=np.float64)[
             : topo.N - 1]
+        # the device mesh (set_mesh) and its shards: per mesh row, a
+        # (device, tips [T, S, P/n], weights [P/n]) per pattern shard
+        self.mesh = None
+        self._shard_rows = None
 
     # -- parameters --------------------------------------------------------
 
@@ -290,6 +298,37 @@ class TreeLikelihood(nn.Module):
         return self.tip_partials.element_size() * (
             2 * topo.I * C * S * P + -(-P // 128) * topo.N * C * S * S)
 
+    def set_mesh(self, mesh) -> None:
+        """Shard the pattern columns over ``mesh`` (a
+        ``parallel.mesh.Mesh`` whose first device holds this model; its
+        pattern axis must divide the padded pattern count). The whole
+        ``tip_partials`` and ``weights`` stay on the first device for every
+        other path (``tips_for``, the upper partials, the analyses, the
+        dynamic engine); each shard gets contiguous copies of its columns
+        on its device, one per (column block, device)."""
+        n = mesh.shape["patterns"]
+        P = self.tip_partials.shape[-1]
+        if P % n:
+            raise ValueError(f"padded pattern count {P} not divisible by "
+                             f"mesh axis {n}; rebuild the likelihood with "
+                             f"pattern_pad_multiple={n}")
+        if mesh.devices.flat[0] != self.tip_partials.device:
+            raise ValueError(f"the mesh starts on {mesh.devices.flat[0]}, "
+                             f"the model lives on {self.tip_partials.device}")
+        step, made, rows = P // n, {}, []
+        for row in mesh.rows():
+            shards = []
+            for j, dev in enumerate(row):
+                if (j, dev) not in made:
+                    cols = slice(j * step, (j + 1) * step)
+                    made[j, dev] = (
+                        dev,
+                        self.tip_partials[..., cols].to(dev).contiguous(),
+                        self.weights[cols].to(dev).contiguous())
+                shards.append(made[j, dev])
+            rows.append(shards)
+        self.mesh, self._shard_rows = mesh, rows
+
     def _run_engine(self, params):
         bl = self.branch_lengths(params)                  # [(L,) N]
         batch = bl.shape[0] if bl.dim() == 2 else None
@@ -303,15 +342,47 @@ class TreeLikelihood(nn.Module):
         if batch is not None:
             freqs = freqs.expand(batch, S)
             props = props.expand(batch, props.shape[-1])
-        if batch == 1 and name not in _BATCH_ENGINES:
-            # one chain: the one-dict kernels, with the axis put back
-            logL, site_log = _ENGINE_FUNCTIONS[name](
-                self.tip_partials, pmats[0], self.topo, freqs[0], props[0],
-                self.weights, rescale=self.rescale)
-            return logL[None], site_log[None]
-        return _ENGINE_FUNCTIONS[name](
-            self.tip_partials, pmats, self.topo, freqs, props, self.weights,
-            rescale=self.rescale)
+        fn = _ENGINE_FUNCTIONS[name]
+        # one chain: the one-dict kernels, with the axis put back
+        one = batch == 1 and name not in _BATCH_ENGINES
+        if one:
+            pmats, freqs, props, batch = pmats[0], freqs[0], props[0], None
+        if self.mesh is None:
+            logL, site_log = fn(self.tip_partials, pmats, self.topo, freqs,
+                                props, self.weights, rescale=self.rescale)
+        else:
+            logL, site_log = self._run_shards(fn, batch, pmats, freqs, props)
+        return (logL[None], site_log[None]) if one else (logL, site_log)
+
+    def _run_shards(self, fn, batch, pmats, freqs, props):
+        """``fn`` once per pattern shard of the mesh: a batch of chains
+        that the mesh rows divide splits into contiguous groups, one a row,
+        any other call runs on the first row. Returns the shards' summed
+        logL (on the first device, in shard order) and their site logs
+        concatenated back to ``[(L,) P]``."""
+        first = self.tip_partials.device
+        rows = self._shard_rows
+        if batch is None or batch % len(rows):
+            groups = [(rows[0], pmats, freqs, props)]
+        else:
+            g = batch // len(rows)
+            groups = [(row, pmats[r * g:(r + 1) * g],
+                       freqs[r * g:(r + 1) * g], props[r * g:(r + 1) * g])
+                      for r, row in enumerate(rows)]
+        logLs, sites = [], []
+        for row, pm, fr, pr in groups:
+            logL, parts = None, []
+            for dev, tips, weights in row:
+                lk, site = fn(tips, pm.to(dev), self.topo, fr.to(dev),
+                              pr.to(dev), weights, rescale=self.rescale)
+                lk = lk.to(first)
+                logL = lk if logL is None else logL + lk
+                parts.append(site.to(first))
+            logLs.append(logL)
+            sites.append(torch.cat(parts, -1))
+        if len(groups) == 1:
+            return logLs[0], sites[0]
+        return torch.cat(logLs), torch.cat(sites)
 
     def tips_for(self, topo: Topology) -> torch.Tensor:
         """The tip partials in the tip order of ``topo``, a topology over

@@ -449,18 +449,42 @@ def test_cli_without_cuda_exits_nonzero(data_dir, capsys):
 
 
 @pytest.mark.parametrize("what", ["sbn", "mesh", "dumper"])
-def test_unported_raises(data_dir, tmp_path, what):
-    """What is still unported raises, naming its ROADMAP item: the sbn and
-    dumper actions (item 17) and pattern sharding (item 18)."""
+def test_formerly_unported_runs(data_dir, tmp_path, what):
+    """What raised until it was ported runs on the CPU: the sbn action on
+    the config's tree file, pattern sharding over two shards of the CPU
+    (init.devices) under a short ADVI fit, and the dumper after one,
+    whose file reads back as the pool."""
     def edit(c):
-        if what == "mesh":
+        fit = dict(c["physher"][0], max=5)
+        fit.pop("checkpoint")
+        if what == "sbn":
+            c["physher"] = [{"id": "x", "type": "sbn",
+                             "file": "fluA-rooted.nxs"}]
+        elif what == "mesh":
             c["init"] = {"devices": 2}
+            c["physher"] = [fit]
         else:
-            c["physher"] = [{"id": "x", "type": what,
-                             "model": "&treelikelihood"}]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.run([_config(data_dir, tmp_path, edit), "--device", "cpu"],
-                out=io.StringIO())
+            c["physher"] = [fit, {"id": "x", "type": "dumper",
+                                  "file": "pool.json"}]
+    out = io.StringIO()
+    runner = cli.run([_config(data_dir, tmp_path, edit), "--device", "cpu"],
+                     out=out)
+    if what == "sbn":
+        roots, _ = runner.results["x"].probabilities()
+        assert np.isclose(sum(roots.values()), 1.0)
+        assert out.getvalue().startswith("SBN: ")
+    elif what == "mesh":
+        tlk = runner.ctx.objects["treelikelihood"]
+        assert runner.ctx.mesh.shape == {"patterns": 2}
+        assert tlk.mesh is runner.ctx.mesh
+        assert tlk.tip_partials.shape[-1] % 2 == 0
+        assert np.isfinite(runner.results["sg"].elbo)
+    else:
+        dumped = json.loads((tmp_path / "pool.json").read_text())
+        assert sorted(dumped) == sorted(runner.pool)
+        for k, v in runner.pool.items():
+            np.testing.assert_array_equal(np.asarray(dumped[k]),
+                                          v.cpu().numpy())
 
 
 @pytest.mark.parametrize("engine,expected", [

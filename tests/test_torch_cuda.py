@@ -771,3 +771,89 @@ def test_staged_wrapper_rejects_bad_input(device):
         staged.staged_forward(tips, pm.repeat(1, 3, 1, 1).contiguous(),
                               children, rootw.repeat(3), schedule)
     assert staged.STAGED_FORWARD_LAUNCHES == n0
+
+
+def test_api_on_card(device):
+    """The Interface API on the card (its default) in float64 against the
+    API on the CPU: LogLikelihood one K1' launch, Gradient one K1' and one
+    K2' launch."""
+    from physher_tpu_torch import api
+
+    seqs = {f"t{i}": s for i, s in enumerate(
+        ["ACGTACGTACGTTA", "ACGTACCTAAGTTA", "AGGTACGTATGTCA",
+         "ACGAACGTAAGTTC", "TCGAACGTAAGATC"])}
+    newick = "(((t0:0.1,t1:0.2):0.05,t2:0.3):0.05,(t3:0.1,t4:0.15):0.02);"
+    out = []
+    for kw in ({}, {"device": "cpu"}):
+        tm = api.UnRootedTreeModelInterface(newick)
+        tlk = api.TreeLikelihoodInterface(
+            seqs, tm, api.HKYInterface(kappa=2.5),
+            api.ConstantSiteModelInterface(), **kw)
+        f0, b0 = fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
+        ll = tlk.LogLikelihood()
+        f1 = fused.FORWARD_LAUNCHES
+        g = tlk.Gradient()
+        out.append((ll, g, f1 - f0, fused.FORWARD_LAUNCHES - f1,
+                    fused.BACKWARD_LAUNCHES - b0, tlk.tlk.engine_name()))
+    (ll, g, *card), (ll_cpu, g_cpu, *cpu) = out
+    assert card == [1, 1, 1, "cuda-fused"] and cpu == [0, 0, 0, "torch"]
+    np.testing.assert_allclose(ll, ll_cpu, rtol=1e-12)
+    np.testing.assert_allclose(g, g_cpu, rtol=0,
+                               atol=1e-12 * np.abs(g_cpu).max())
+
+
+@pytest.mark.parametrize("engine,S,L", [
+    ("cuda-fused", 4, None), ("cuda-staged", 4, None), ("cuda-wide", 20, None),
+    ("cuda-loop", 4, 4)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_kernels_on_card(device, engine, S, L, n):
+    """A TreeLikelihood sharded over the card listed n times against the
+    unsharded one, float64, at 1e-12 of the largest entry (of logP, the
+    site logs and the model's gradient vector): each kernel pair at the
+    shard's pattern count (K5'/K6' on a 2 x n/2 chains x patterns mesh)."""
+    from physher_tpu_torch.models.parameters import ParamBatch
+    from physher_tpu_torch.models.protein import WAG
+    from physher_tpu_torch.models.sitemodel import GammaSiteModel
+    from physher_tpu_torch.models.substitution import GTR
+    from physher_tpu_torch.models.treelikelihood import TreeLikelihood
+    from physher_tpu_torch.parallel.mesh import (
+        chain_pattern_mesh, pattern_mesh, shard_tree_likelihood)
+    from physher_tpu_torch.utils.synthetic import random_sitepattern
+
+    kw = dict(dtype=torch.float64, device=device)
+    topo = balanced_topology(32)
+
+    def build():
+        sp = random_sitepattern(32, 1000, seed=7,
+                                datatype="nucleotide" if S == 4 else "aa")
+        subst = GTR(**kw) if S == 4 else WAG(**kw)
+        return TreeLikelihood(sp, topo, subst, GammaSiteModel(4, **kw),
+                              engine=engine, pattern_pad_multiple=4, **kw)
+
+    base = build()
+    devs = [device] * n
+    mesh = (chain_pattern_mesh(2, devs) if L else pattern_mesh(devices=devs))
+    shd = shard_tree_likelihood(build(), mesh)
+    space = base.param_space()
+    params = space.init_params(**kw)
+    if L:
+        g = torch.Generator(device=device).manual_seed(0)
+        u = space.unconstrain(params)
+        params = space.constrain({k: v.expand((L,) + v.shape)
+                                  + 0.05 * torch.randn((L,) + v.shape,
+                                                       generator=g, **kw)
+                                  for k, v in u.items()})
+    res = []
+    for tlk in (base, shd):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        p = ParamBatch(leaves, (L,)) if L else leaves
+        logp = tlk.log_likelihood(p)
+        grads = torch.autograd.grad(logp.sum(), list(leaves.values()))
+        # the model's gradient: one vector over all its parameters
+        res.append([logp.detach(), tlk.site_log_likelihoods(p).detach(),
+                    torch.cat([g.reshape(-1) for g in grads])])
+    assert shd.engine_name(L) == base.engine_name(L) == engine
+    for a, b in zip(*res):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-12 * float(a.abs().max()))
