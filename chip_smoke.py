@@ -94,7 +94,17 @@ slices' main paths through them and times kernel against plain:
   kernel pair on pattern shards (the card listed 2 and 4 times, or every
   card when there are two or more) against unsharded in float64 and
   float32, an 8-chain mcmc with --mesh 2x2 through the CLI against the
-  unsharded run, and the value-and-gradient time at 1, 2 and 4 shards.
+  unsharded run, and the value-and-gradient time at 1, 2 and 4 shards;
+- K1'/K2' at S != 4 (``csrc/pruning.cu`` fused_wide_*_kernel, on K5'/K6''s
+  walks) in the TPU wrapper's category-split mode at WAG+G4 64 x 8192 and
+  GY94 M0 32 x 4096 and its packed mode at WAG 64 x 8192, float32 and
+  float64: a value and gradient through TreeLikelihood(engine="cuda-fused")
+  (one launch of each, nothing else) against the plain engine, the kernels
+  against the plain version of the mode and against K7'/K8' on the same
+  inputs, each alone timed beside K7'/K8'; the staged sweep at S = 20
+  (``csrc/wide.cu``'s level kernels) through engine="cuda-staged" and
+  against plain; and the ``"pallas-fused"`` WAG+G4 config through the CLI
+  (an L-BFGS fit, float64) against ``"pallas-wide"`` at its optimum.
 
     python3 chip_smoke.py
 
@@ -253,11 +263,13 @@ SITE_LOG = {fused: (fused.fused_site_log, fused.fused_site_log_reference),
             wide: (wide.wide_site_log, wide.wide_site_log_reference)}
 
 
-def compare(name, topo, inputs, dtype, mod=fused, phase="kernel_vs_plain"):
+def compare(name, topo, inputs, dtype, mod=fused, phase="kernel_vs_plain",
+            fns=None):
     """Kernel against plain on one shape (``mod`` is ops.fused, ops.staged
-    or ops.wide); returns the error record."""
+    or ops.wide; ``fns`` a (kernel, reference) pair of site-log functions
+    in its place); returns the error record."""
     tol = TOL[dtype]
-    kernel, plain = SITE_LOG[mod]
+    kernel, plain = fns or SITE_LOG[mod]
     k = value_and_grad(kernel, topo, *inputs)
     p = value_and_grad(plain, topo, *inputs)
     torch.cuda.synchronize()
@@ -1599,8 +1611,9 @@ def hmc_wag(dev, n_chains=4, n_iter=20, every=5, burnin=20):
 def engine_names(dev):
     """The JAX package's engine names in a config on the card (float64):
     tiny_aa under WAG (tests/data/goldens/wag.json's model) with
-    ``pallas-fused`` runs K7'/K8' and with ``pallas-loop`` K5' for a batch of
-    2 chains and for one dict, each at the ``auto`` build's logP."""
+    ``pallas-fused`` runs K1' (packed at S = 20, C = 1) and with
+    ``pallas-loop`` K5' for a batch of 2 chains and for one dict, each at
+    the ``auto`` build's logP (K7')."""
     from physher_tpu_torch.config.builder import build_config, load_json
 
     kw = dict(dtype=torch.float64, device=dev)
@@ -1619,10 +1632,10 @@ def engine_names(dev):
         ref_batch = [float(auto.log_likelihood({k: v[i] for k, v in
                                                 batch.items()}))
                      for i in range(2)]
-        zero_launches()
-        wide.WIDE_FORWARD_LAUNCHES = 0
+        zero_all_launches()
         fused_one = float(models["pallas-fused"].log_likelihood(
             auto.param_space().init_params(**kw)))
+        fused_launches = fused.FORWARD_LAUNCHES
         wide_launches = wide.WIDE_FORWARD_LAUNCHES
         loop_one = float(models["pallas-loop"].log_likelihood(
             auto.param_space().init_params(**kw)))
@@ -1634,14 +1647,14 @@ def engine_names(dev):
                                   zip(loop_batch, ref_batch))}
     names = {e: (m.engine_name(), m.engine_name(2))
              for e, m in models.items()}
-    ok = bool(names["pallas-fused"] == ("cuda-wide", "cuda-loop")
+    ok = bool(names["pallas-fused"] == ("cuda-fused", "cuda-loop")
               and names["pallas-loop"] == ("cuda-loop", "cuda-loop")
               and names["auto"] == ("cuda-wide", "cuda-loop")
-              and wide_launches == 1 and loop_launches_ == 2
-              and max(errs.values()) <= 1e-12)
+              and fused_launches == 1 and wide_launches == 0
+              and loop_launches_ == 2 and max(errs.values()) <= 1e-12)
     emit("engine_names", ok=ok, engines=names, logp_auto=ref_one,
-         rel_err=errs, rtol=1e-12, wide_launches=wide_launches,
-         loop_launches=loop_launches_)
+         rel_err=errs, rtol=1e-12, fused_launches=fused_launches,
+         wide_launches=wide_launches, loop_launches=loop_launches_)
     check(ok, "the pallas-* engine names on the card")
 
 
@@ -3694,6 +3707,323 @@ def sharding_card(dev, smi, reps=20):
     return rec, cases
 
 
+# ---- phase 46: K1'/K2' at S != 4 (packed and category-split) and the
+# level-staged sweep at S = 20
+
+
+def wag_large(dtype, device):
+    """WAG without Gamma at the JAX package's benchmark size: the patterns
+    of :func:`wag_g4_large` (S = 20, C = 1: K1'/K2''s packed mode)."""
+    sp = random_sitepattern(64, 8192, seed=9, datatype="aminoacid")
+    kw = dict(dtype=dtype, device=device)
+    return TreeLikelihood(sp, balanced_topology(64), WAG(**kw), **kw)
+
+
+def fused_wide_alone(topo, tips, pmats, freqs, props, w, split):
+    """K1' and K2' at S != 4 alone, in the TPU wrapper's mode ``split``,
+    against the plain version of the mode on one model's inputs: max abs
+    errors (site logs; d pmats, d freqs, d props), median times (CUDA
+    events; one launch each a call), the plain version's, the bounds
+    (:func:`pruning_work`) and, with ``split``, K2''s per-block dP scratch
+    in bytes."""
+    T, S, P = tips.shape
+    C = pmats.shape[1]
+    children = topo_constant(topo, "children", lambda: topo.children, tips,
+                             torch.int32)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
+
+    def fwd():
+        return fused.fused_wide_forward(tips, pmats, children, rootw, split)
+    n0 = (fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES)
+    out, partials, scale = fwd()
+    # the cotangent of the kernel's output: per category the logsumexp's
+    # gradient g exp(site_c - site_log) in split mode
+    site_k = torch.logsumexp(out, 0) if split else out
+    g = (w * torch.exp(out - site_k)).contiguous() if split else w
+
+    def bwd():
+        return fused.fused_wide_backward(tips, pmats, children, rootw, split,
+                                         partials, scale, g)
+    dP, drootw = bwd()
+    launches = (fused.FORWARD_LAUNCHES - n0[0],
+                fused.BACKWARD_LAUNCHES - n0[1])
+    dr = drootw.view(C, S)
+    grads_k = (dP, (props[:, None] * dr).sum(0), (freqs[None, :] * dr).sum(1))
+    plain = (fused.fused_split_site_log_reference if split
+             else fused.fused_site_log_reference)
+    leaves = [x.clone().requires_grad_(True) for x in (pmats, freqs, props)]
+    site_graph = plain(tips, leaves[0], topo, leaves[1], leaves[2])
+    grads_p = torch.autograd.grad(site_graph, leaves, w, retain_graph=True)
+    site_p = site_graph.detach()
+    rec = {"split": split, "launches_per_call": launches,
+           "forward_err": float((site_k - site_p).abs().max()),
+           "forward_rel_err": max_err(site_k, site_p)[1],
+           "backward_err": max(max_err(a, b)[0]
+                               for a, b in zip(grads_k, grads_p)),
+           "backward_rel_err": max(max_err(a, b)[1]
+                                   for a, b in zip(grads_k, grads_p))}
+    rec["forward_ms"] = median_ms(fwd, reps=50)
+    rec["backward_ms"] = median_ms(bwd, reps=50)
+    with torch.no_grad():
+        rec["forward_plain_ms"] = median_ms(lambda: plain(
+            tips, pmats, topo, freqs, props), reps=10)
+    rec["backward_plain_ms"] = median_ms(lambda: torch.autograd.grad(
+        site_graph, leaves, w, retain_graph=True), reps=10)
+    dims = (T, topo.I, C, S, children.shape[1], P, tips.element_size())
+    for kind, is_bwd in (("forward", False), ("backward", True)):
+        ms, by = bound(*pruning_work(is_bwd, *dims))
+        rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
+    nb = -(-P // fused.WIDE_BACKWARD_BLOCK)
+    rec["dP_scratch_bytes"] = nb * (T + topo.I) * C * S * S * \
+        tips.element_size()
+    return rec
+
+
+def tlk_value_and_grad(tlk, params):
+    """(logP, its gradient in every parameter, in ``params``' order)."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    logp = tlk.log_likelihood(leaves)
+    grads = torch.autograd.grad(logp, list(leaves.values()),
+                                allow_unused=True)
+    return logp.detach(), [torch.zeros_like(v) if g is None else g
+                           for v, g in zip(leaves.values(), grads)]
+
+
+def engine_path(tlk, params, engine):
+    """One value and gradient of ``tlk`` through ``engine`` with every
+    launch count set to 0 just before: (logP, gradients, the counts)."""
+    tlk.engine = engine
+    zero_all_launches()
+    logp, grads = tlk_value_and_grad(tlk, params)
+    torch.cuda.synchronize()
+    return logp, grads, all_launches()
+
+
+def wag_g4_config(workdir: Path, dev, engine, n_tips=64, n_sites=8192,
+                  seed=17) -> Path:
+    """WAG+G4 data simulated on the card down a balanced ``n_tips`` tree
+    (branch lengths 0.1, shape 0.5), written as FASTA beside a config:
+    WAG+G4 on that tree with ``"engine": engine`` and an L-BFGS fit of the
+    branch lengths and the shape. Returns the config's path."""
+    from physher_tpu_torch.io.seqio import write_fasta
+    from physher_tpu_torch.io.treeio import write_newick
+
+    kw = dict(dtype=torch.float64, device=dev)
+    topo = balanced_topology(n_tips)
+    subst, site = WAG(**kw), GammaSiteModel(4, **kw)
+    params = {**subst.param_space().init_params(**kw),
+              **site.param_space().init_params(**kw)}
+    bl = np.full(topo.N, 0.1)
+    bl[topo.root] = 0.0
+    fasta = workdir / "wag.fa"
+    if not fasta.exists():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        seqs = simulate_alignment(gen, topo, subst, site, params, bl,
+                                  n_sites, datatype="aa")
+        write_fasta(seqs, str(fasta))
+    bl[topo.root] = np.nan
+    cfg = {
+        "model": {
+            "id": "treelikelihood", "type": "treelikelihood",
+            "engine": engine,
+            "sitepattern": {"id": "patterns", "type": "sitepattern",
+                            "datatype": "aa",
+                            "alignment": {"id": "seqs", "type": "alignment",
+                                          "file": fasta.name}},
+            "sitemodel": {
+                "id": "sitemodel", "type": "sitemodel",
+                "distribution": {"distribution": "gamma", "categories": 4,
+                                 "parameters": {"alpha": {
+                                     "id": "alpha", "type": "parameter",
+                                     "value": 0.5, "lower": 0}}},
+                "substitutionmodel": {"id": "sm", "type": "substitutionmodel",
+                                      "model": "wag", "datatype": "aa"}},
+            "tree": {"id": "tree", "type": "tree",
+                     "newick": write_newick(topo, bl)}},
+        "physher": [{"id": "ml", "type": "optimizer", "algorithm": "lbfgs",
+                     "model": "&treelikelihood"}]}
+    path = workdir / f"wag-g4-{engine}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+# the pallas-fused CLI run against pallas-wide at the fused run's optimum
+# (float64): the same function through other kernels, rounding only
+CLI_FUSED_RTOL = 1e-10
+
+
+def cli_fused_wag_g4(dev):
+    """The ``"engine": "pallas-fused"`` CLI run on a WAG+G4 config (64 taxa
+    x 8192 sites simulated on the card, float64, an L-BFGS fit): through
+    K1'/K2' in category-split mode by their launch counts, and its logP
+    within CLI_FUSED_RTOL of the same config under ``pallas-wide`` at the
+    fused run's optimum."""
+    from physher_tpu_torch.config.builder import build_config, load_json
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        fused_cfg = wag_g4_config(work, dev, "pallas-fused")
+        wide_cfg = wag_g4_config(work, dev, "pallas-wide")
+        zero_all_launches()
+        t0 = time.perf_counter()
+        runner, lines = run_cli([fused_cfg, "--f64"])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        ctx, _ = build_config(load_json(str(wide_cfg)), base_dir=tmp,
+                              dtype=torch.float64, device=dev)
+    tlk = runner.ctx.objects["treelikelihood"]
+    wide_tlk = ctx.objects["treelikelihood"]
+    res = runner.results["ml"]
+    params = runner.params_for(tlk.param_space())
+    with torch.no_grad():
+        logp = float(tlk.log_likelihood(params))
+        wide.WIDE_FORWARD_LAUNCHES = 0
+        logp_wide = float(wide_tlk.log_likelihood(params))
+        wide_n = wide.WIDE_FORWARD_LAUNCHES
+    rel = abs(logp / logp_wide - 1)
+    names = (tlk.engine_name(), wide_tlk.engine_name())
+    ok = bool(names == ("cuda-fused", "cuda-wide") and wide_n == 1
+              and launches["fused_forward"] >= res.iterations >= 1
+              and launches["fused_backward"] >= res.iterations
+              and launches["wide_forward"] == 0
+              and launches["wide_backward"] == 0
+              and np.isfinite(res.logp) and rel <= CLI_FUSED_RTOL
+              and fused.needs_csplit(4, 20))
+    rec = dict(ok=ok, lines=lines, patterns=tlk.sp.pattern_count,
+               engines=names, ml_iterations=res.iterations, ml_logp=res.logp,
+               logp_at_optimum=logp, logp_wide_at_optimum=logp_wide,
+               rel_err=rel, rtol=CLI_FUSED_RTOL, launches=launches,
+               wall_seconds=wall)
+    return rec
+
+
+def fused_wide_card(dev, smi):
+    """Phase 46. At the three full-width shapes (WAG+G4 64 x 8192 and GY94
+    M0 32 x 4096: category-split; WAG 64 x 8192: packed), float32 and
+    float64: TreeLikelihood(engine="cuda-fused") value and gradient (one
+    K1' and one K2' launch, no other kernel) against the plain engine;
+    K1'/K2' against the plain version of the mode and against K7'/K8' on
+    the same inputs; ``cuda-staged`` at S = 20 (csrc/wide.cu's level
+    kernels) against the plain version; then the ``pallas-fused`` CLI run.
+    Float32: each kernel alone by CUDA events beside K7'/K8' and plain."""
+    shapes = (("wag-g4-64x8192", wag_g4_large, True),
+              ("gy94-32x4096", gy94_m0_fit_model, True),
+              ("wag-64x8192", wag_large, False))
+    rec = {"card": smi}
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        kw = dict(dtype=dtype, device=dev)
+        for name, make, split in shapes:
+            tlk = make(dtype, dev)
+            params = tlk.param_space().init_params(**kw)
+            tips, pm, fr, pr, w = inputs = engine_inputs(tlk, params)
+            C, S = pm.shape[1], tips.shape[1]
+            out = {"categories": C, "states": S, "split": split}
+            ok = ok and fused.needs_csplit(C, S) == split
+            # the main path: one value and gradient through each named pair
+            logp_k, g_k, n_fused = engine_path(tlk, params, "cuda-fused")
+            logp_p, g_p, _ = engine_path(tlk, params, "torch")
+            out["launches_fused"] = n_fused
+            out["logp_rel_err"] = abs(float(logp_k) / float(logp_p) - 1)
+            out["grad_rel_err"] = max(max_err(a, b)[1]
+                                      for a, b in zip(g_k, g_p))
+            tol = TOL[dtype]
+            path_ok = (n_fused["fused_forward"] == 1
+                       and n_fused["fused_backward"] == 1
+                       and sum(n_fused.values()) == 2
+                       and out["logp_rel_err"] <= tol["logl"]
+                       and out["grad_rel_err"] <= tol["grad"])
+            if S == 20 and split:
+                logp_s, g_s, n_staged = engine_path(tlk, params,
+                                                    "cuda-staged")
+                out["launches_staged"] = n_staged
+                out["staged_logp_rel_err"] = abs(float(logp_s)
+                                                 / float(logp_p) - 1)
+                out["staged_grad_rel_err"] = max(
+                    max_err(a, b)[1] for a, b in zip(g_s, g_p))
+                path_ok = path_ok and (
+                    n_staged["wide_forward"] == 1
+                    and n_staged["wide_backward"] == 1
+                    and sum(n_staged.values()) == 2
+                    and out["staged_logp_rel_err"] <= tol["logl"]
+                    and out["staged_grad_rel_err"] <= tol["grad"])
+            tlk.engine = "auto"
+            out["path_ok"] = path_ok
+            ok = ok and path_ok
+            # the kernels alone: against the plain version of the mode and
+            # against K7'/K8' on the same inputs, at compare()'s tolerances
+            plain = (fused.fused_split_site_log_reference if split
+                     else fused.fused_site_log_reference)
+            out["vs_plain"] = compare(
+                f"{name}-{'split' if split else 'packed'}", tlk.topo, inputs,
+                dtype, phase="fused_wide_vs_plain",
+                fns=(fused.fused_site_log, plain))
+            out["vs_k7k8"] = compare(
+                f"{name}-vs-k7k8", tlk.topo, inputs, dtype,
+                phase="fused_wide_vs_k7k8",
+                fns=(fused.fused_site_log, wide.wide_site_log))
+            if S == 20 and split:
+                out["staged_vs_plain"] = compare(
+                    f"{name}-staged", tlk.topo, inputs, dtype, mod=staged,
+                    phase="staged_wide_vs_plain")
+            if dtype == torch.float32:
+                out["kernel_alone"] = fused_wide_alone(tlk.topo, *inputs,
+                                                       split)
+                out["k7k8_alone"] = kernels_alone(wide, tlk.topo, tips, pm,
+                                                  fr, pr, w)
+            rec[f"{name}-{dt}"] = out
+            del tlk, params, inputs, tips, pm, fr, pr, w
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["cli"] = cli_fused_wag_g4(dev)
+    rec["cli_seconds"] = time.perf_counter() - t0
+    ok = ok and rec["cli"]["ok"]
+    rec["ok"] = ok
+    emit("fused_wide_card", **rec)
+    check(ok, "K1'/K2' at S != 4 and the staged sweep at S = 20 on the card")
+    return rec
+
+
+def fused_wide_rows(fw, fused_src, wide_src) -> list:
+    """The ``kernels`` line's rows of phase 46: K1'/K2' at S != 4 split (at
+    WAG+G4, launches from the pallas-fused CLI run; GY94's times beside)
+    and packed (WAG; launches from its cuda-fused value and gradient), and
+    the staged sweep at S = 20 on csrc/wide.cu (launches from the
+    cuda-staged value and gradient, times those of K7'/K8' at WAG+G4)."""
+    split, gy, packed = (fw[f"{n}-float32"] for n in (
+        "wag-g4-64x8192", "gy94-32x4096", "wag-64x8192"))
+    cli = fw["cli"]["launches"]
+    rows = []
+    for kind, line in (("forward", 245), ("backward", 390)):
+        rows.append(dict(
+            kernel_row(f"fused_wide_{kind}_split", fused_src,
+                       f"physher_tpu/ops/pallas_fused.py:{line}",
+                       cli[f"fused_{kind}"], split["kernel_alone"], kind),
+            k7k8_ms=split["k7k8_alone"][f"{kind}_ms"],
+            gy94_32x4096_ms=gy["kernel_alone"][f"{kind}_ms"],
+            gy94_32x4096_bound_ms=gy["kernel_alone"][f"{kind}_bound_ms"],
+            gy94_32x4096_k7k8_ms=gy["k7k8_alone"][f"{kind}_ms"],
+            path_launches=split["launches_fused"][f"fused_{kind}"],
+            **({"dP_scratch_bytes": split["kernel_alone"][
+                "dP_scratch_bytes"]} if kind == "backward" else {})))
+        rows.append(dict(
+            kernel_row(f"fused_wide_{kind}_packed", fused_src,
+                       f"physher_tpu/ops/pallas_fused.py:{line}",
+                       packed["launches_fused"][f"fused_{kind}"],
+                       packed["kernel_alone"], kind),
+            k7k8_ms=packed["k7k8_alone"][f"{kind}_ms"]))
+    for kind, line in (("forward", 234), ("backward", 375)):
+        rows.append(kernel_row(
+            f"staged_{kind}_wide", wide_src,
+            f"physher_tpu/ops/pallas_staged.py:{line}",
+            split["launches_staged"][f"wide_{kind}"], split["k7k8_alone"],
+            kind))
+    return rows
+
+
 def c5_times(rec, shape, kind, suffix=""):
     """A kernel's device time at C = 4 and 5 (and 8 where measured) on one
     shape, and the ratio of C = 5 to C = 4 (median and range over the
@@ -4268,6 +4598,14 @@ def main() -> int:
     walls["45_sharding"] = time.perf_counter() - t0
     emit("interface_phases", card=smi, seconds=walls)
 
+    # ---- 46. the eighteenth slice: K1'/K2' at S != 4 in the TPU wrapper's
+    # packed and category-split modes, and the staged sweep at S = 20
+    # (csrc/wide.cu's level kernels), at the full-width protein and codon
+    # shapes, and the pallas-fused CLI run on a WAG+G4 config
+    t0 = time.perf_counter()
+    fw = fused_wide_card(dev, smi)
+    emit("fused_wide_phase", card=smi, seconds=time.perf_counter() - t0)
+
     def sharded(prefix, key):
         return {k[len(prefix) + 1:]: v["launches"][key]
                 for k, v in shard_cases.items() if k.startswith(prefix)}
@@ -4391,6 +4729,7 @@ def main() -> int:
                    "physher_tpu/ops/pallas_pruning_loop.py:314",
                    hmc_wag_launches["backward"],
                    wide_loop_times["wag-g4-64x8192-L4"], "backward"),
+        *fused_wide_rows(fw, fused_src, wide_src),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

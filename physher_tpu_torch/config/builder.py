@@ -17,8 +17,8 @@ built in the :class:`Context`'s ``dtype`` on its ``device``.
 The config's ``"engine"`` names map to the port's by :func:`route_engine`:
 on the card ``pallas-fused`` -> ``cuda-fused``, ``pallas-staged`` ->
 ``cuda-staged``, ``pallas-wide`` -> ``cuda-wide``, ``pallas-loop`` ->
-``cuda-loop`` (K7'/K8' for the first two at S != 4, K5'/K6' for a batch of
-chains), on the CPU the plain engine; ``xla`` -> ``torch``.
+``cuda-loop`` at every S from 2 to 64 (K5'/K6' for a batch of chains),
+on the CPU the plain engine; ``xla`` -> ``torch``.
 
 Pattern sharding (``"init": {"devices": n}`` or ``{"mesh": {"chains": c,
 "patterns": p}}``, or ``build_config(devices=...)``) pads every
@@ -56,8 +56,8 @@ from ..trees.build import nj, upgma
 from ..trees.timetree import TimeTreeData
 from .treehandle import TreeHandle
 
-# the JAX package's engine names -> the port's, on the card at S = 4 for one
-# parameter dict (route_engine maps them by device, S and chains)
+# the JAX package's engine names -> the port's, on the card for one
+# parameter dict (route_engine maps them by device and chains)
 ENGINE_NAMES = {"auto": "auto", "pallas-fused": "cuda-fused",
                 "pallas-staged": "cuda-staged", "pallas-wide": "cuda-wide",
                 "pallas-loop": "cuda-loop", "xla": "torch"}
@@ -564,12 +564,14 @@ def route_engine(name: str, device_type: str, n_states: int,
     mode off the TPU) and at any S, and a batch of two or more chains
     through its batched engine (``physher_tpu/inference/mcmc.py:344-357``).
     So here a ``pallas-*`` name takes the plain engine on the CPU, which
-    computes what interpret mode computes, and on the card K5'/K6' for a
-    batch of chains. ``pallas-fused`` and ``pallas-staged`` at S != 4 take
-    K7'/K8', which compute the same function for S from 2 to 64, until
-    ROADMAP Queue 2 items 2 (K1/K2 category-split) and 3 (K3/K4 at S != 4)
-    are ported. A ``cuda-*`` engine given to ``TreeLikelihood`` directly is
-    not mapped: it raises where it cannot run."""
+    computes what interpret mode computes, on the card K5'/K6' for a batch
+    of chains, and otherwise its own pair at any S from 2 to 64:
+    ``pallas-fused`` K1'/K2' (at S != 4 in the TPU wrapper's packed or
+    category-split mode), ``pallas-staged`` the level-staged sweep (K3'/K4'
+    at S = 4, ``csrc/wide.cu``'s level kernels at any other S); a state
+    count outside 2 to 64 raises here. A ``cuda-*`` engine given to
+    ``TreeLikelihood`` directly is not mapped: it raises where it cannot
+    run."""
     name = str(name).lower()
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; one of "
@@ -579,10 +581,11 @@ def route_engine(name: str, device_type: str, n_states: int,
         return engine
     if device_type != "cuda":
         return "torch"
+    if not 2 <= n_states <= 64:
+        raise ValueError(f"engine {name!r}: {n_states} states; the CUDA "
+                         f"kernels take 2 to 64")
     if batch is not None and batch >= 2:
         return "cuda-loop"
-    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
-        return "cuda-wide"
     return engine
 
 

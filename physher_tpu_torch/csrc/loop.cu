@@ -169,8 +169,9 @@ cudaError_t launch_backward(const void* tips, const void* pmats,
 // K5' for S from 2 to 64: grid (pattern blocks of one step, C, L), as
 // clusters (1, C, 1). A block walks the postorder of chain l at category c
 // for its patterns (128 at S <= 32, 32 above), one WideForwardStep a node
-// (csrc/wide_forward.cuh); the C blocks of a cluster meet for each node's
-// per-pattern max and for the root.
+// (forward_walk, csrc/wide_forward.cuh, which K1' at S != 4 shares); the C
+// blocks of a cluster meet for each node's per-pattern max and for the
+// root.
 // Registers: float32 at four blocks an SM (64 registers, up to 32 B
 // spilled), float64 at two; at three or two blocks an SM float32 spills
 // less and runs 3-25 % slower (chip_profile.py --k5-bounds).
@@ -192,15 +193,16 @@ __global__ void __launch_bounds__(THREADS, sizeof(scalar_t) == 4 ? 4 : 2)
                   partials + (size_t)l * I * C * S * P,
                   scale + (size_t)l * I * P, smem_raw, T, C, S, maxc, P, c,
                   blockIdx.x * Step::TQ, rescale);
-  scalar_t x[A], log_sum = 0;
-  for (int k = 0; k < I; ++k) log_sum += step.node(k, k & 1, x);
-  step.root(freqs + (size_t)l * S, props + (size_t)l * C, x, log_sum,
-            site_log + (size_t)l * P);
+  forward_walk(step, I,
+               StateWeights<scalar_t>{freqs + (size_t)l * S,
+                                      props + (size_t)l * C, 0},
+               site_log + (size_t)l * P);
 }
 
 // K6' for S from 2 to 64: grid (pattern blocks of BWD_P, C, L), 256 threads.
-// A block walks the reverse postorder of chain l at category c for its 128
-// patterns, one WideBackwardStep a node (csrc/wide_backward.cuh).
+// A block seeds category c at the root and walks the reverse postorder of
+// chain l for its 128 patterns, one WideBackwardStep a node
+// (backward_walk, csrc/wide_backward.cuh, which K2' at S != 4 shares).
 // gbuf [L, I, C, S, P]; dP_part [L, nb, N, C, S, S] (the caller zeroes the
 // root's rows); drootw_part [L, nb, C, S].
 
@@ -222,68 +224,18 @@ __global__ void __launch_bounds__(THREADS,
         scalar_t* __restrict__ drootw_part, int T, int I, int C, int S,
         int maxc, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const auto sm = WideSmem<scalar_t>::template at<A, CP>(smem_raw, S);
   const int c = blockIdx.y, l = blockIdx.z;
-  const int nb = gridDim.x;
   const int N = T + I;
-  const int CS = C * S, SS = S * S;
-  const scalar_t* pm = pmats + (size_t)l * N * C * SS;
-  const scalar_t* part = partials + (size_t)l * I * CS * P;
-  const scalar_t* sc = scale + (size_t)l * I * P;
-  scalar_t* gb = gbuf + (size_t)l * I * CS * P;
-  const size_t blk = (size_t)l * nb + blockIdx.x;
-  scalar_t* dP = dP_part + blk * N * C * SS;
-  const scalar_t* fr = freqs + (size_t)l * S;
-  const scalar_t* pr = props + (size_t)l * C;
-  const int pb = blockIdx.x * BWD_P;
-
-  // ---- root seed of category c: gbuf[root, c] = props_c freqs g / site and
-  // d rootw[c] summed over the block's patterns; site (over every category,
-  // in scaled coordinates as the forward had it) is recomputed by each of
-  // the C blocks of a pattern block
-  scalar_t* inv_s = sm.Os;  // [BWD_P], free until the first node
-  const size_t root = (size_t)(I - 1) * CS * P;
-  const scalar_t tiny = Limits<scalar_t>::tiny();
-  for (int r = threadIdx.x; r < BWD_P; r += blockDim.x) {
-    const int p = pb + r;
-    scalar_t inv = 0;
-    if (p < P) {
-      scalar_t site = 0;
-      for (int cc = 0; cc < C; ++cc) {
-        scalar_t per_cat = 0;
-        for (int s = 0; s < S; ++s)
-          per_cat += __ldg(fr + s) * part[root + ((size_t)cc * S + s) * P + p];
-        site += __ldg(pr + cc) * per_cat;
-      }
-      site = site > tiny ? site : tiny;
-      inv = g[(size_t)l * P + p] / site;
-    }
-    inv_s[r] = inv;
-  }
-  __syncthreads();
-  const size_t root_c = root + (size_t)c * S * P;
-  for (int t = threadIdx.x; t < S * BWD_P; t += blockDim.x) {
-    const int s = t / BWD_P, r = t - s * BWD_P, p = pb + r;
-    if (p < P)
-      gb[root_c + (size_t)s * P + p] = __ldg(pr + c) * __ldg(fr + s) * inv_s[r];
-  }
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    scalar_t acc = 0;
-    for (int r = 0; r < BWD_P && pb + r < P; ++r)
-      acc += part[root_c + (size_t)s * P + pb + r] * inv_s[r];
-    drootw_part[(blk * C + c) * S + s] = acc;
-  }
-  __syncthreads();  // inv_s is read
-  zero_spare_o_rows<scalar_t, A, CP>(sm.Os);
-  // ---- reverse postorder, category c
-  const WideBackwardStep<scalar_t, A, CP> step(tips, pm, children, part, sc,
-                                               gb, dP, sm, T, C, S, maxc, P,
-                                               c, pb, min(pb + BWD_P, P));
-  if (maxc <= 2) {
-    for (int k = I - 1; k >= 0; --k) step.pair(k);
-    return;
-  }
-  for (int k = I - 1; k >= 0; --k) step.polytomy(k);
+  const size_t blk = (size_t)l * gridDim.x + blockIdx.x;
+  backward_walk<scalar_t, A, CP>(
+      tips, pmats + (size_t)l * N * C * S * S, children,
+      partials + (size_t)l * I * C * S * P, scale + (size_t)l * I * P,
+      gbuf + (size_t)l * I * C * S * P, dP_part + blk * N * C * S * S,
+      drootw_part + (blk * C + c) * S,
+      StateWeights<scalar_t>{freqs + (size_t)l * S, props + (size_t)l * C,
+                             0},
+      g + (size_t)l * P, smem_raw, T, I, C, S, maxc, P, c,
+      blockIdx.x * BWD_P, 0);
 }
 
 bool wide_bad_dims(int C, int S, int maxc, int L) {
@@ -304,7 +256,7 @@ template <typename scalar_t, int A, int CP> struct LoopWideForward {
     constexpr int TQ = WideForwardStep<scalar_t, A, CP>::TQ;
     return launch_clusters(
         loop_wide_forward_kernel<scalar_t, A, CP>,
-        dim3((P + TQ - 1) / TQ, C, L), smem(S), stream,
+        dim3((P + TQ - 1) / TQ, C, L), smem(S), stream, true,
         static_cast<const scalar_t*>(tips),
         static_cast<const scalar_t*>(pmats),
         static_cast<const int*>(children),

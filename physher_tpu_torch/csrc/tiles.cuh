@@ -39,6 +39,21 @@ template <> struct Limits<double> {
 __device__ inline float log_(float x) { return logf(x); }
 __device__ inline double log_(double x) { return log(x); }
 
+// The root's weight of (category c, state s), factor(c) * states(c)[s]:
+// props_c freqs_s of one chain (K5'/K6': w = freqs [S], props [C], cstride
+// 0) or rootw [C, S] (K1'/K2': props null, cstride S)
+template <typename scalar_t> struct StateWeights {
+  const scalar_t* w;
+  const scalar_t* props;
+  int cstride;
+  __device__ const scalar_t* states(int c) const {
+    return w + (size_t)c * cstride;
+  }
+  __device__ scalar_t factor(int c) const {
+    return props ? __ldg(props + c) : scalar_t(1);
+  }
+};
+
 // 16-byte vectors of the tiles: 4 floats or 2 doubles
 template <typename scalar_t> struct Vec;
 template <> struct Vec<float> {

@@ -234,7 +234,7 @@ template <typename scalar_t, int A, int CP> struct ForwardLevels {
     for (int l = 0; l < n_levels; ++l) {
       const dim3 grid((P + TQ - 1) / TQ, C, offsets[l + 1] - offsets[l]);
       const cudaError_t e = launch_clusters(
-          forward_level<scalar_t, A, CP>, grid, smem(S), stream,
+          forward_level<scalar_t, A, CP>, grid, smem(S), stream, true,
           static_cast<const scalar_t*>(tips),
           static_cast<const scalar_t*>(pmats),
           static_cast<const int*>(children), nodes + offsets[l],

@@ -1,12 +1,19 @@
 // The node step of the forward sweep for any state count S from 2 to 64,
 // shared by K5' at S != 4 (csrc/loop.cu loop_wide_forward_kernel: one block
-// walks every node of one chain) and K7' (csrc/wide.cu forward_level: one
-// block takes one node of a level). A block of 256 threads takes one
-// category c of one node k for one step's patterns p0 .. p0 + TQ - 1 (128
-// at S <= 32, 32 above; csrc/tiles.cuh):
+// walks every node of one chain), K1' at S != 4 (csrc/pruning.cu
+// fused_wide_forward_kernel: the same walk, rootw for the root's weights)
+// and K7' (csrc/wide.cu forward_level: one block takes one node of a
+// level). A block of 256 threads takes one category c of one node k for
+// one step's patterns p0 .. p0 + TQ - 1 (128 at S <= 32, 32 above;
+// csrc/tiles.cuh):
 //   x_k[c] = prod_j P_j[c] @ x_j[c]   (a missing child contributes 1)
 //   m_k = max(tiny, max over (c', s) of x_k[c', s]),  partials = x_k / m_k
-// and the root's props_c sum_s freqs_s root[c, s] for its category.
+// and the root's props_c sum_s freqs_s root[c, s] for its category. In
+// category-split mode (`csplit`, K1' at S != 4 where the TPU kernel splits
+// the categories) each category is a sweep of its own: m_k is the max over
+// its own states, each block writes its own scalers, and the root writes
+// log(max(w_c . root_c, tiny)) + sum_k log m_k per category, which the
+// caller combines by a logsumexp over c.
 //
 // What bounds it: per branch, category and pattern 2 S^2 FLOPs (the child's
 // product P x) against S partials read and written, so the FLOPs bound the
@@ -94,23 +101,24 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
   const scalar_t* pm;
   const int* children;
   scalar_t* part;
-  scalar_t* sc;  // written by the c = 0 block only
+  scalar_t* sc;  // written by the c = 0 block only (with csplit, by each)
   scalar_t *Ps, *Xs, *red, *bmax, *site;
-  int T, C, S, SP, maxc, P, c, p0, rescale;
+  int T, C, S, SP, maxc, P, c, p0, rescale, csplit;
   int wi, col, p;  // the products' row offset, pattern in the step, pattern
   bool vec;        // tiles staged in 16-byte copies
 
-  // pm [N, C, S, S], part [I, C, S, P], sc [I, P] (one chain's); the
-  // block's patterns start at p0. Every argument is uniform over the block.
+  // pm [N, C, S, S], part [I, C, S, P], sc [I, P] (one chain's, or with
+  // csplit category c's); the block's patterns start at p0. Every argument
+  // is uniform over the block.
   __device__ WideForwardStep(const scalar_t* tips_, const scalar_t* pm_,
                              const int* children_, scalar_t* part_,
                              scalar_t* sc_, unsigned char* smem, int T_,
                              int C_, int S_, int maxc_, int P_, int c_,
-                             int p0_, int rescale_)
+                             int p0_, int rescale_, int csplit_ = 0)
       : tips(tips_), pm(pm_), children(children_), part(part_),
-        sc(c_ == 0 ? sc_ : nullptr), T(T_), C(C_), S(S_),
+        sc(c_ == 0 || csplit_ ? sc_ : nullptr), T(T_), C(C_), S(S_),
         SP(Tiles::sp(S_)), maxc(maxc_), P(P_), c(c_), p0(p0_),
-        rescale(rescale_) {
+        rescale(rescale_), csplit(csplit_) {
     Ps = reinterpret_cast<scalar_t*>(smem);
     Xs = Ps + 2 * RA * SP;
     red = Xs + 2 * SP * TX;
@@ -147,10 +155,10 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
   }
 
   // Node k: x <- its category-c partials at this thread's rows and pattern,
-  // rescaled; writes them (and, in the c = 0 block, m) to device memory and
-  // returns log m (0 with rescale off). `slot` alternates between
-  // consecutive calls of a block (node parity). The block's partials
-  // written by earlier calls are read back after a barrier.
+  // rescaled; writes them (and, in the c = 0 block or with csplit, m) to
+  // device memory and returns log m (0 with rescale off). `slot` alternates
+  // between consecutive calls of a block (node parity). The block's
+  // partials written by earlier calls are read back after a barrier.
   __device__ scalar_t node(int k, int slot, scalar_t x[A]) const {
     const int* kids = children + (size_t)k * maxc;
 #pragma unroll
@@ -177,7 +185,7 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
         if (wi + WPC * i < S) mx = x[i] > mx ? x[i] : mx;
       red[wi * TQ + col] = mx;
       __syncthreads();
-      if (C == 1) {
+      if (C == 1 || csplit) {
         m = red[col];
         for (int v = 1; v < WPC; ++v)
           m = red[v * TQ + col] > m ? red[v * TQ + col] : m;
@@ -214,11 +222,13 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
   }
 
   // The root from its rescaled partials x (node() of rank I - 1):
-  // site_log[p] = log(max(sum_c props_c sum_s freqs_s root[c, s], tiny))
-  // + log_sum, written by the c = 0 block; fr [S], pr [C] (one chain's)
-  __device__ void root(const scalar_t* __restrict__ fr,
-                       const scalar_t* __restrict__ pr, const scalar_t x[A],
+  // site_log[p] = log(max(sum_c w(c, s) root[c, s], tiny)) + log_sum,
+  // written by the c = 0 block; with csplit every block writes
+  // log(max(sum_s w(c, s) root[c, s], tiny)) + log_sum of its category to
+  // its own row, site_log
+  __device__ void root(const StateWeights<scalar_t>& rw, const scalar_t x[A],
                        scalar_t log_sum, scalar_t* site_log) const {
+    const scalar_t* __restrict__ fr = rw.states(c);
     scalar_t s = 0;
 #pragma unroll
     for (int i = 0; i < A; ++i) {
@@ -232,9 +242,9 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
     if (wi == 0) {
       v = red[col];
       for (int u = 1; u < WPC; ++u) v += red[u * TQ + col];
-      v *= __ldg(pr + c);
+      v *= rw.factor(c);
     }
-    if (C > 1) {
+    if (C > 1 && !csplit) {
       if (wi == 0) site[col] = v;
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();
@@ -244,7 +254,7 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
       }
       cluster.sync();  // no block leaves while the c = 0 block reads it
     }
-    if (c == 0 && wi == 0 && p < P) {
+    if ((c == 0 || csplit) && wi == 0 && p < P) {
       const scalar_t tiny = Limits<scalar_t>::tiny();
       site_log[p] = log_(v > tiny ? v : tiny) + log_sum;
     }
@@ -253,16 +263,28 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
   // Where a block ends after node() without root(): no block of the cluster
   // leaves while another reads its maxima
   __device__ void leave() const {
-    if (rescale && C > 1) cg::this_cluster().sync();
+    if (rescale && C > 1 && !csplit) cg::this_cluster().sync();
   }
 };
 
-// Launches `kernel` on grid (x, C, z) as clusters (1, C, 1) (none at C = 1)
-// with the forward step's dynamic shared memory (raising the limit above
-// 48 KB where needed)
+// The walk of K5' and K1' at S != 4: every node of one chain's postorder at
+// the step's category and patterns, one node() a node, then the root
+template <typename scalar_t, int A, int CP>
+__device__ inline void forward_walk(
+    const WideForwardStep<scalar_t, A, CP>& step, int I,
+    const StateWeights<scalar_t>& rw, scalar_t* site_log) {
+  scalar_t x[A], log_sum = 0;
+  for (int k = 0; k < I; ++k) log_sum += step.node(k, k & 1, x);
+  step.root(rw, x, log_sum, site_log);
+}
+
+// Launches `kernel` on grid (x, C, z) as clusters (1, C, 1) (none at C = 1
+// or without `cluster`) with the forward step's dynamic shared memory
+// (raising the limit above 48 KB where needed)
 template <typename Kernel, typename... Args>
 cudaError_t launch_clusters(Kernel kernel, dim3 grid, size_t smem,
-                            cudaStream_t stream, Args... args) {
+                            cudaStream_t stream, bool cluster,
+                            Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -277,7 +299,7 @@ cudaError_t launch_clusters(Kernel kernel, dim3 grid, size_t smem,
   attr[0].val.clusterDim.y = grid.y;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = grid.y > 1 ? 1 : 0;
+  cfg.numAttrs = cluster && grid.y > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -26,7 +26,8 @@ state count and chains, ``config/builder.route_engine``).
 and for S = 4 polytomies, K3'/K4' (``ops/staged.py``) for S = 4 on a binary
 tree whose levels are wide enough, K1'/K2' (``ops/fused.py``) for any other
 S = 4 model, K7'/K8' (``ops/wide.py``) for any other S. ``engine_name()``
-says which one a model takes.
+says which one a model takes. A named pair (``"cuda-fused"``,
+``"cuda-staged"``, ...) runs at any S from 2 to 64.
 
 A batch of parameter dicts (tensors ``[L, ...]``, the chains of an MCMC
 run) gives ``[L]`` log-likelihoods: the batch runs through the model as a
@@ -99,10 +100,15 @@ def select_engine(engine: str, device_type: str, n_states: int,
     S = 4 on a binary tree with ``n_categories * nodes_per_level >=
     STAGED_MIN_LEVEL_WORK``), ``"cuda-fused"`` (K1'/K2', any other S = 4
     model), ``"cuda-wide"`` (K7'/K8', any other S from 2 to 64) or
-    ``"torch"`` (the plain engine, every batch on the CPU). A batch of one
-    chain is routed as one parameter dict. A CUDA engine on a non-CUDA
-    device, a state count outside 2 to 64 on the card, and a named kernel
-    that cannot take the state count or a batch, raise."""
+    ``"torch"`` (the plain engine, every batch on the CPU). That is
+    ``auto``'s choice, which never picks the fused or staged pair at
+    S != 4 (nor does the JAX package's). A named pair is taken at any S
+    from 2 to 64: ``"cuda-fused"`` runs K1'/K2' at S != 4 in the TPU
+    wrapper's packed or category-split mode (``ops/fused.needs_csplit``),
+    ``"cuda-staged"`` the level-staged sweep of ``csrc/wide.cu``. A batch
+    of one chain is routed as one parameter dict. A CUDA engine on a
+    non-CUDA device, a state count outside 2 to 64 on the card, and a
+    named pair given a batch of chains, raise."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     on_cuda = device_type == "cuda"
@@ -111,13 +117,11 @@ def select_engine(engine: str, device_type: str, n_states: int,
                          f"lives on {device_type}")
     if engine == "torch" or not on_cuda:
         return "torch"
-    # K5'/K6' and K7'/K8' take the same state counts (csrc/tiles.cuh)
+    # every kernel pair takes the state counts of csrc/tiles.cuh
     if not STATES[0] <= n_states <= STATES[1]:
         raise ValueError(f"{n_states} states: the CUDA kernels take "
                          f"{STATES[0]} to {STATES[1]}")
     chains = batch is not None and batch >= 2
-    if engine in ("cuda-fused", "cuda-staged") and n_states != 4:
-        raise ValueError(f"engine={engine!r} takes 4 states, not {n_states}")
     if chains and engine in KERNEL_ENGINES and engine != "cuda-loop":
         raise ValueError(f"engine={engine!r} takes no batch of chains; "
                          f"'cuda-loop' does")

@@ -93,6 +93,13 @@ def cluster_occupancy(lib: ctypes.CDLL, entry: str, dtype, S: int,
     return n.value
 
 
+def entry(lib: ctypes.CDLL, name: str, like: torch.Tensor):
+    """``lib``'s C entry point ``name`` for ``like``'s dtype (``_f32`` or
+    ``_f64``)."""
+    return getattr(lib, name + ("_f32" if like.dtype == torch.float32
+                                else "_f64"))
+
+
 def check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     """Raise ValueError unless ``t`` has this device, dtype and shape and
     is contiguous."""

@@ -45,7 +45,7 @@ import torch
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
 from . import cuda_build
-from .cuda_build import check, stream
+from .cuda_build import check, entry, stream
 from .pruning import rescaled_site_log
 
 LOOP_FORWARD_LAUNCHES = 0
@@ -117,12 +117,6 @@ def _dims(tips, pmats, children, freqs, props):
     return L, T, I, C, S, maxc, P
 
 
-def _entry(lib, name: str, tips):
-    """The C entry point ``name`` for the tips' dtype."""
-    return getattr(lib, name + ("_f32" if tips.dtype == torch.float32
-                                else "_f64"))
-
-
 def loop_forward(tips, pmats, children, freqs, props, schedule,
                  rescale: bool = True):
     """Launch K5' (at S = 4 by ``schedule``, the (order, offsets) of
@@ -140,12 +134,12 @@ def loop_forward(tips, pmats, children, freqs, props, schedule,
     with torch.cuda.device(tips.device):
         if S == 4:
             order, offsets = schedule
-            err = _entry(lib, "loop_forward", tips)(
+            err = entry(lib, "loop_forward", tips)(
                 *ptrs, order.data_ptr(), offsets.data_ptr(),
                 freqs.data_ptr(), props.data_ptr(), *outs, n_levels, T, I,
                 C, maxc, P, L, int(bool(rescale)), stream(tips))
         else:
-            err = _entry(lib, "loop_wide_forward", tips)(
+            err = entry(lib, "loop_wide_forward", tips)(
                 *ptrs, freqs.data_ptr(), props.data_ptr(), *outs, T, I, C, S,
                 maxc, P, L, int(bool(rescale)), stream(tips))
     LOOP_FORWARD_LAUNCHES += 1
@@ -190,7 +184,7 @@ def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
             inv = tips.new_empty((L, P))
             dfreqs_part = tips.new_empty((L, n_blocks, 4))
             dprops_part = tips.new_empty((L, n_blocks, C))
-            err = _entry(lib, "loop_backward", tips)(
+            err = entry(lib, "loop_backward", tips)(
                 *ptrs, order.data_ptr(), offsets.data_ptr(),
                 freqs.data_ptr(), props.data_ptr(), *rest, inv.data_ptr(),
                 dP_part.data_ptr(), dfreqs_part.data_ptr(),
@@ -199,7 +193,7 @@ def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
         else:
             dP_part[:, :, N - 1].zero_()  # the root is no node's child
             drootw_part = tips.new_empty((L, n_blocks, C, S))
-            err = _entry(lib, "loop_wide_backward", tips)(
+            err = entry(lib, "loop_wide_backward", tips)(
                 *ptrs, freqs.data_ptr(), props.data_ptr(), *rest,
                 dP_part.data_ptr(), drootw_part.data_ptr(), T, I, C, S, maxc,
                 P, L, stream(tips))

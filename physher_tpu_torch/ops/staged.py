@@ -13,10 +13,21 @@ log-scalers in device memory; the backward reads them and never recomputes
 the forward. The source note in ``csrc/staged.cu`` says what bounds them on
 the card and what the design does about it.
 
+At any other S from 2 to 64 (the TPU wrapper takes any S, padding C until
+C*S % 8 == 0) the level-staged sweep is ``csrc/wide.cu``'s level kernels,
+K7'/K8' (``ops/wide.py``), launched from here. On the TPU, ``pallas_staged``
+and ``pallas_wide`` differ in where the stage lives (VMEM or HBM,
+``physher_tpu/ops/pallas_wide.py:12-20``); on the card both keep every
+node's rescaled partials ``[I, C, S, P]`` and scalers ``[I, P]`` in device
+memory and launch one kernel a level, so ``csrc/wide.cu`` is the staged
+design at any S, and no second any-S level kernel is written. Those
+launches count in ``ops.wide``'s counters.
+
 - :func:`staged_site_log` / :func:`staged_tree_log_likelihood` are the entry
   points (the JAX signatures without ``B`` and ``interpret``). On a CUDA
-  tensor they launch the kernels or raise; on a CPU tensor they run
-  :func:`staged_site_log_reference`, the plain PyTorch version.
+  tensor they launch the kernels (K3'/K4' at S = 4, K7'/K8' at any other
+  S) or raise; on a CPU tensor they run :func:`staged_site_log_reference`,
+  the plain PyTorch version.
 - :func:`staged_forward` / :func:`staged_backward` are the launch wrappers.
   ``STAGED_FORWARD_LAUNCHES`` / ``STAGED_BACKWARD_LAUNCHES`` count their
   calls: one forward sweep is ``len(topo.levels)`` CUDA launches (the root's
@@ -38,7 +49,7 @@ import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
-from . import cuda_build
+from . import cuda_build, wide
 from .cuda_build import check, level_schedule, offsets_arg, stream
 from .pruning import rescaled_site_log
 
@@ -241,10 +252,13 @@ staged_site_log_reference = rescaled_site_log
 def staged_site_log(tip_partials, pmats, topo: Topology, freqs, props):
     """Per-pattern site log-likelihoods [P], differentiable w.r.t.
     pmats/freqs/props (tips are constants). CUDA tensors go through the
-    kernels (or raise); CPU tensors through the plain version."""
+    kernels, K3'/K4' at S = 4 and ``csrc/wide.cu``'s level kernels at any
+    other S (or raise); CPU tensors through the plain version."""
     if tip_partials.device.type == "cpu":
         return staged_site_log_reference(tip_partials, pmats, topo, freqs,
                                          props)
+    if tip_partials.shape[1] != 4:
+        return wide.wide_site_log(tip_partials, pmats, topo, freqs, props)
     children = topo_constant(topo, "children", lambda: topo.children,
                              tip_partials, torch.int32)
     nodes, offsets = level_schedule(topo, tip_partials)

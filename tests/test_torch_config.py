@@ -487,17 +487,25 @@ def test_formerly_unported_runs(data_dir, tmp_path, what):
                                           v.cpu().numpy())
 
 
-@pytest.mark.parametrize("engine,expected", [
-    ("pallas-fused", "cuda-fused"), ("pallas-staged", "cuda-staged"),
-    ("pallas-wide", "cuda-wide"), ("pallas-loop", "cuda-loop"),
-    ("xla", "torch"), ("auto", "auto")])
-def test_engine_names_map(data_dir, engine, expected):
+@pytest.mark.parametrize("engine,S,expected", [
+    ("pallas-fused", 4, "cuda-fused"), ("pallas-staged", 4, "cuda-staged"),
+    ("pallas-wide", 4, "cuda-wide"), ("pallas-loop", 4, "cuda-loop"),
+    ("xla", 4, "torch"), ("auto", 4, "auto"),
+    # protein and codon: K1'/K2' in the TPU wrapper's modes, the staged
+    # sweep on csrc/wide.cu's level kernels
+    ("pallas-fused", 20, "cuda-fused"), ("pallas-staged", 61, "cuda-staged")],
+    ids=["pallas-fused-cuda-fused", "pallas-staged-cuda-staged",
+         "pallas-wide-cuda-wide", "pallas-loop-cuda-loop", "xla-torch",
+         "auto-auto", "pallas-fused-S20-cuda-fused",
+         "pallas-staged-S61-cuda-staged"])
+def test_engine_names_map(data_dir, engine, S, expected):
     """A config's engine name is the port's ``expected`` on the card at
-    S = 4; built on the CPU, a JAX kernel's name runs the plain engine."""
+    S states; built on the CPU, a JAX kernel's name runs the plain
+    engine."""
     cfg = load_json(os.path.join(data_dir, "fluA-elbo.json"))
     cfg["model"]["distributions"][0]["engine"] = engine
     ctx, _ = build_config(cfg, base_dir=data_dir, **KW)
-    assert route_engine(engine, "cuda", 4) == expected
+    assert route_engine(engine, "cuda", S) == expected
     assert ctx.objects["treelikelihood"].engine == (
         "torch" if engine.startswith("pallas-") else expected)
 
@@ -532,8 +540,8 @@ def test_pallas_engine_names_run_on_cpu(data_dir, tmp_path, engine):
 
 
 @pytest.mark.parametrize("engine,device,S,batch,expected", [
-    ("pallas-fused", "cuda", 20, None, "cuda-wide"),   # Queue 2 item 2
-    ("pallas-staged", "cuda", 61, None, "cuda-wide"),  # Queue 2 item 3
+    ("pallas-fused", "cuda", 20, None, "cuda-fused"),   # category-split
+    ("pallas-staged", "cuda", 61, None, "cuda-staged"),  # on csrc/wide.cu
     ("pallas-loop", "cuda", 61, 8, "cuda-loop"),
     ("pallas-loop", "cuda", 20, None, "cuda-loop"),
     ("pallas-fused", "cuda", 4, 4, "cuda-loop"),       # chains: K5'/K6'

@@ -1,4 +1,5 @@
-"""The CUDA pruning kernels (K1'/K2' of ops/fused.py, K3'/K4' of
+"""The CUDA pruning kernels (K1'/K2' of ops/fused.py at S = 4 and, in the
+packed and category-split modes, at S from 2 to 64, K3'/K4' of
 ops/staged.py, K5'/K6' of ops/loop.py at S = 4 and at S from 2 to 64,
 K7'/K8' of ops/wide.py) against their plain PyTorch version, on the card;
 the forward of K5' at S != 4 and K7' (thread-block clusters of the C
@@ -595,6 +596,120 @@ def test_wide_backward_is_deterministic(device):
                                    partials, scale, g) for _ in range(2)]
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+# K1'/K2' at any other S than 4 (csrc/pruning.cu fused_wide_*_kernel, the
+# walks of K5'/K6' at S != 4), in the TPU wrapper's two modes: (shape, S, C,
+# P, split) with the split cases of the TPU kernel's tests (S = 20, C = 4;
+# S = 61, C = 1), packed at S = 20, C = 1, split at S = 4, both step shapes,
+# C up to 8, polytomies, ragged P and several backward blocks
+FUSED_WIDE_CASES = [
+    ("balanced", 20, 4, 300, True), ("balanced", 61, 1, 257, True),
+    ("caterpillar", 20, 1, 129, False), ("polytomy", 20, 4, 300, True),
+    ("polytomy", 61, 2, 95, True), ("balanced", 5, 3, 300, False),
+    ("star", 33, 8, 2049, False), ("balanced", 4, 4, 300, True),
+    ("caterpillar", 12, 8, 77, True), ("balanced", 64, 2, 130, False),
+    ("balanced", 20, 4, 2048, False), ("star", 61, 3, 600, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,S,C,P,split", FUSED_WIDE_CASES)
+def test_fused_wide_kernels_match_plain(device, dtype, shape, S, C, P,
+                                        split):
+    """K1'/K2' at S != 4 (and split at S = 4) against the plain version of
+    the mode, one launch each a value and gradient."""
+    topo = {"balanced": lambda: balanced_topology(16),
+            "caterpillar": lambda: caterpillar_topology(12),
+            "polytomy": _polytomy, "star": _star}[shape]()
+    inputs = _inputs(topo, P, C, dtype, device, S=S)
+    f0, b0 = fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
+
+    def kernel(*a):
+        return fused.fused_site_log(*a, split_categories=split)
+    site_k, grads_k = _value_and_grad(kernel, topo, *inputs)
+    assert (fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES) == (f0 + 1,
+                                                                 b0 + 1)
+    plain = (fused.fused_split_site_log_reference if split
+             else fused.fused_site_log_reference)
+    site_p, grads_p = _value_and_grad(plain, topo, *inputs)
+    rtol, atol, grtol = _tolerances(dtype)
+    torch.testing.assert_close(site_k, site_p, rtol=rtol, atol=atol)
+    for a, b in zip(grads_k, grads_p):
+        torch.testing.assert_close(a, b, rtol=grtol,
+                                   atol=grtol * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("S,C", [(20, 4), (61, 1), (12, 3)])
+def test_fused_split_forward_is_k5_over_categories(device, S, C):
+    """Category-split K1' computes K5''s function with the categories on its
+    chain axis: the same rescaled partials and scalers bit for bit (the
+    same node step at C = 1), the site logs to rounding (the root's weight
+    rounds in another order); each category's partials peak at exactly 1
+    over its states."""
+    topo = balanced_topology(16)
+    tips, pm, freqs, props, _ = _inputs(topo, 1000, C, torch.float64,
+                                        device, S=S)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    per, partials, scale = fused.fused_wide_forward(tips, pm, children,
+                                                    rootw, True)
+    chains = pm.transpose(0, 1)[:, :, None].contiguous()  # [C, N, 1, S, S]
+    site5, part5, scale5 = loop.loop_forward(
+        tips, chains, children, freqs.expand(C, -1).contiguous(),
+        props[:, None].contiguous(), cuda_build.postorder_schedule(topo, tips))
+    assert torch.equal(partials, part5[:, :, 0].transpose(0, 1))
+    assert torch.equal(scale, scale5)
+    torch.testing.assert_close(per, site5, rtol=1e-13, atol=1e-13)
+    assert torch.all(partials.amax(2) == 1)
+
+
+def test_fused_wide_is_deterministic(device):
+    """K1' and K2' at S != 4 take fixed orders for every sum, no atomics:
+    two launches on the same inputs are bit-identical, in both modes."""
+    topo = balanced_topology(16)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    for S, C, split in ((20, 4, True), (61, 1, True), (20, 1, False),
+                        (20, 4, False)):
+        tips, pm, freqs, props, g = _inputs(topo, 1000, C, torch.float32,
+                                            device, S=S)
+        rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+        g = g.expand(C, -1).contiguous() if split else g
+        fwd = [fused.fused_wide_forward(tips, pm, children, rootw, split)
+               for _ in range(2)]
+        for a, b in zip(*fwd):
+            assert torch.equal(a, b)
+        _, partials, scale = fwd[0]
+        bwd = [fused.fused_wide_backward(tips, pm, children, rootw, split,
+                                         partials, scale, g)
+               for _ in range(2)]
+        for a, b in zip(*bwd):
+            assert torch.equal(a, b)
+
+
+def test_fused_wide_wrapper_rejects_bad_input(device):
+    topo = balanced_topology(8)
+    tips, pm, freqs, props, g = _inputs(topo, 64, 4, torch.float32, device,
+                                        S=20)
+    children = torch.as_tensor(topo.children, dtype=torch.int32,
+                               device=device)
+    rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+    n0 = fused.FORWARD_LAUNCHES
+    with pytest.raises(ValueError, match="dtype"):
+        fused.fused_wide_forward(tips, pm.double(), children, rootw, True)
+    with pytest.raises(ValueError, match="states"):
+        t65, p65, f65, r65, _ = _inputs(topo, 64, 1, torch.float32, device,
+                                        S=65)
+        fused.fused_wide_forward(t65, p65, children,
+                                 (r65[:, None] * f65[None, :]).reshape(-1),
+                                 True)
+    assert fused.FORWARD_LAUNCHES == n0
+    _, partials, scale = fused.fused_wide_forward(tips, pm, children, rootw,
+                                                  True)
+    with pytest.raises(ValueError, match="shape"):  # split takes g [C, P]
+        fused.fused_wide_backward(tips, pm, children, rootw, True, partials,
+                                  scale, g)
 
 
 # K5' at S != 4 and K7' share one forward node step (csrc/wide_forward.cuh):

@@ -390,22 +390,27 @@ FLUA = 68 / 33
     ("cuda-staged", "cuda", 4, 3, 1, 1.0, "cuda-staged"),
     ("cuda-fused", "cuda", 4, 2, 4, 18.0, "cuda-fused"),
     ("cuda-wide", "cuda", 4, 2, 1, 1.0, "cuda-wide"),
+    # named pairs at S != 4: the level-staged sweep (csrc/wide.cu's level
+    # kernels) and K1'/K2' in category-split mode
+    ("cuda-staged", "cuda", 20, 2, 4, 18.0, "cuda-staged"),
+    ("cuda-fused", "cuda", 61, 2, 1, 1.0, "cuda-fused"),
 ])
 def test_engine_routing(engine, device, S, maxc, C, npl, expected):
     """The measured rule: staged on a binary S = 4 tree where C times the
     mean internal nodes per level reaches STAGED_MIN_LEVEL_WORK, fused
     below it, wide for any other S; each named kernel pair can be
-    forced."""
+    forced, at any S from 2 to 64."""
     assert select_engine(engine, device, S, maxc, C, npl) == expected
 
 
 @pytest.mark.parametrize("engine,device,S", [
-    ("cuda-staged", "cuda", 20), ("cuda-fused", "cuda", 61),
+    ("cuda-staged", "cuda", 65), ("cuda-fused", "cuda", 65),
     ("cuda-wide", "cuda", 65), ("cuda-staged", "cpu", 4),
     ("pallas-staged", "cuda", 4)])
 def test_engine_routing_refuses(engine, device, S):
-    """A named kernel that cannot take the shape, or a CUDA engine on the
-    CPU, raises; so does a JAX engine name (the builder maps those)."""
+    """A named kernel that cannot take the shape (S past the kernels' 64),
+    or a CUDA engine on the CPU, raises; so does a JAX engine name (the
+    builder maps those)."""
     with pytest.raises(ValueError):
         select_engine(engine, device, S, 2, 4, 18.0)
 

@@ -373,7 +373,8 @@ def test_level_schedule():
     ("torch", "cuda", 61, "torch"),
 ])
 def test_engine_routing(engine, device, S, expected):
-    """The kernels are chosen by state count: K1'/K2' only take S = 4."""
+    """``auto`` chooses by state count: K1'/K2' at S = 4, K7'/K8' at any
+    other S (K1'/K2' take S != 4 only when named)."""
     assert select_engine(engine, device, S) == expected
 
 
