@@ -59,15 +59,25 @@ it uses only entry points that older checkouts have, so a copy run from an
 older checkout's root times that checkout.
 
 With ``--staged``, only K3'/K4' alone (CUDA events, median of 100) against
-the plain version, with their bounds and the level-by-level design's floor
-(the bytes it must move through device memory), at the balanced
-128 x 16384 tree (C = 4) and at the 128-taxon GTR+G4 config model that
-``chip_smoke.py`` simulates (about 16 000 patterns, 14 levels), float32 and
-float64, beside the staged value-and-gradient, the device time of each of
-K3''s and K4''s launches (torch.profiler; the levels leaves first for K3',
-root first for K4') and nvcc's register and spill lines. Like
+the plain version, with their bounds and the design's floors (the bytes it
+must move through device memory; the level-by-level design's beside the
+walk's), at the 128-taxon GTR+G4 config model that ``chip_smoke.py``
+simulates (16 291 patterns, 14 levels), the balanced 128 x 16384 tree
+(C = 4) and the GTR+G4 fluA golden's model, float32 and float64, beside
+the staged value-and-gradient, each sweep's device time in a CUDA graph
+of 20 calls (``graph_launch_us``), the wrappers' host time, K3''s kernel
+launches a sweep, the device time of each of K3''s and K4''s launches
+(torch.profiler; K3''s levels below the switch leaves first, then the
+walk; K4''s root first), K3' through each walk at other switch levels, and
+nvcc's register and spill lines. Like
 ``--wide-backward`` it uses only entry points that older checkouts have, so
 a copy run from an older checkout's root times that checkout.
+
+With ``--switch``, only K3' (float32, device time in a CUDA graph) through
+each of its walks at each switch level (each level up to the first of one
+node, and none) over the gate's trees, pattern counts and C = 1 and 4: the
+measurement behind ``ops/staged.py``'s ``walk_level``; ``--out`` names a
+file for its lines.
 
 With ``--k4-variants``, only K4' (float32) at the config model and the
 balanced 128 x 16384 tree through ``csrc/staged.cu`` as committed and
@@ -587,84 +597,165 @@ def host_us(run, n=50):
     return sorted(times)[n // 2]
 
 
-def staged_design_floor_ms(T, I, C, P, itemsize):
-    """(K3', K4') floors of the level-by-level design, ms at 3.35 TB/s: the
-    bytes it must move through device memory, where every internal node's
-    partials and cotangent pass between levels. K3': tips and the internal
-    children's partials read, every node's partials and scalers written.
-    K4': tips, partials, scalers and the site cotangent read, every node's
-    cotangent written and read."""
-    fwd = 4 * T * P + 4 * C * P * (I - 1) + 4 * C * P * I + I * P
+def staged_design_floor_ms(T, I, C, P, itemsize, read_back=None):
+    """(K3', K4') floors of the staged design, ms at 3.35 TB/s: the bytes it
+    must move through device memory. K3': tips read, every node's partials
+    and scalers written, and the partials of the ``read_back`` internal
+    nodes read again by a later launch (all I - 1 children in the
+    level-by-level design; those below the switch where the walk hands the
+    rest on in shared memory). K4': tips, partials, scalers and the site
+    cotangent read, every node's cotangent written and read."""
+    read_back = I - 1 if read_back is None else read_back
+    fwd = 4 * T * P + 4 * C * P * read_back + 4 * C * P * I + I * P
     bwd = 4 * T * P + 3 * 4 * C * P * I + I * P + P
     return tuple(n * itemsize / cs.PEAK_BYTES_PER_S * 1e3 for n in (fwd, bwd))
 
 
+def staged_shapes(dev, dtype, path):
+    """(name, topology, inputs) of ``--staged``: the 128-taxon GTR+G4
+    config model (written to ``path`` by ``chip_smoke.large_config``), the
+    balanced 128 x 16384 tree and the GTR+G4 fluA golden's model."""
+    ctx, _ = build_config(load_json(str(path)), base_dir=str(path.parent),
+                          dtype=dtype, device=dev)
+    tlk = ctx.objects["treelikelihood"]
+    gtr = cs.load_gtrg4_fluA(dtype, dev)
+    topo128 = balanced_topology(128)
+    kw = dict(dtype=dtype, device=dev)
+    return [("config-128", tlk.topo, cs.engine_inputs(
+                 tlk, tlk.param_space().init_params(**kw))),
+            ("balanced-128x16384", topo128, cs.random_inputs(
+                topo128, 16384, 4, 7, dtype, dev)),
+            ("fluA-gtrg4", gtr.topo, cs.engine_inputs(
+                gtr, gtr.param_space().init_params(**kw)))]
+
+
 def staged_kernels(dev):
-    """K3'/K4' alone against plain, the design's floors, the staged
-    value-and-gradient and each launch's device time, at the balanced
-    128 x 16384 tree and the 128-taxon GTR+G4 config model, float32 and
-    float64."""
+    """K3'/K4' alone against plain (CUDA events, median of 100), the bound
+    and the design's floors, each K3' sweep's device time in a CUDA graph
+    of 20 calls, its launches' device times (torch.profiler) and count,
+    the wrappers' host time and the staged value-and-gradient, at the
+    128-taxon GTR+G4 config model, balanced 128 x 16384 and GTR+G4 fluA,
+    float32 and float64; where the tree has K3''s walks, also the sweep
+    through each at other switch levels."""
     print(json.dumps({
+        "card": cs.nvidia_smi(),
         "ptxas_k3": cs.ptxas_by_kernel(staged.build_log, "forward"),
         "ptxas_k4": cs.ptxas_by_kernel(staged.build_log, "backward")}),
         flush=True)
-    topo128 = balanced_topology(128)
+    walk = getattr(staged, "walk_level", None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
         path, _ = cs.large_config(Path(tmp), 128, 20480, dev)
         for dtype in (torch.float32, torch.float64):
-            ctx, _ = build_config(load_json(str(path)),
-                                  base_dir=str(path.parent), dtype=dtype,
-                                  device=dev)
-            tlk = ctx.objects["treelikelihood"]
-            params = tlk.param_space().init_params(dtype=dtype, device=dev)
-            for name, topo, inputs in (
-                    ("config-128", tlk.topo, cs.engine_inputs(tlk, params)),
-                    ("balanced-128x16384", topo128, cs.random_inputs(
-                        topo128, 16384, 4, 7, dtype, dev))):
+            for name, topo, inputs in staged_shapes(dev, dtype, path):
                 tips, pm, fr, pr, w = inputs
                 children = cs.topo_constant(topo, "children",
                                             lambda: topo.children, tips,
                                             torch.int32)
                 rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
                 schedule = cuda_build.level_schedule(topo, tips)
-                _, part, ls = staged.staged_forward(tips, pm, children, rootw,
-                                                    schedule)
-                floors = staged_design_floor_ms(
-                    topo.T, topo.I, pm.shape[1], tips.shape[2],
-                    tips.element_size())
+                offsets = schedule[1]
+                P, C = tips.shape[2], pm.shape[1]
+
+                def fwd(*switch):
+                    return staged.staged_forward(tips, pm, children, rootw,
+                                                 schedule, *switch)
+                _, part, ls = fwd()
+
+                def bwd():
+                    return staged.staged_backward(tips, pm, children, rootw,
+                                                  schedule, part, ls, w)
+                top, kind = (walk(offsets, C, P, sms) if walk
+                             else (len(offsets) - 1, None))
+                level_floor = staged_design_floor_ms(
+                    topo.T, topo.I, C, P, tips.element_size())
                 rec = {"phase": "staged", "shape": name,
                        "dtype": str(dtype).replace("torch.", ""),
-                       "patterns": tips.shape[2],
+                       "patterns": P, "categories": C,
                        "level_nodes": [len(lv) for lv in topo.levels],
+                       "switch_level": top, "walk": kind,
                        "kernel_alone": cs.kernels_alone(staged, topo,
                                                         *inputs),
-                       "forward_design_floor_ms": floors[0],
-                       "backward_design_floor_ms": floors[1],
+                       "level_design_floor_ms": level_floor,
+                       "forward_design_floor_ms": staged_design_floor_ms(
+                           topo.T, topo.I, C, P, tips.element_size(),
+                           min(offsets[top], topo.I - 1))[0],
+                       "backward_design_floor_ms": level_floor[1],
+                       "forward_graph_us": graph_launch_us(fwd),
+                       "backward_graph_us": graph_launch_us(bwd),
+                       "forward_host_us": host_us(fwd),
+                       "backward_host_us": host_us(bwd),
                        "value_and_grad_ms": cs.median_ms(
                            lambda: cs.value_and_grad(
                                staged.staged_site_log, topo, *inputs),
-                           reps=100),
-                       # the levels leaves first, the root's last
-                       "forward_launch_us": launch_device_us(
-                           lambda: staged.staged_forward(
-                               tips, pm, children, rootw, schedule),
-                           ("forward_level",)),
-                       "forward_host_us": host_us(
-                           lambda: staged.staged_forward(
-                               tips, pm, children, rootw, schedule)),
-                       "backward_host_us": host_us(
-                           lambda: staged.staged_backward(
-                               tips, pm, children, rootw, schedule, part, ls,
-                               w)),
-                       # the root seed, the levels root first, the last sum
-                       "backward_launch_us": launch_device_us(
-                           lambda: staged.staged_backward(
-                               tips, pm, children, rootw, schedule, part, ls,
-                               w), ("backward_root", "backward_level",
-                                    "backward_sum"))}
+                           reps=100)}
+                k0 = getattr(staged, "STAGED_FORWARD_KERNELS", None)
+                if k0 is not None:
+                    fwd()
+                    rec["forward_kernels_a_sweep"] = (
+                        staged.STAGED_FORWARD_KERNELS - k0)
+                if walk:
+                    # each walk with the switch a level or two either side
+                    # of walk_level's, and none
+                    near = sorted({*range(max(0, top - 2),
+                                          min(len(offsets) - 1, top + 3)),
+                                   len(offsets) - 1})
+                    rec["switch_graph_us"] = {
+                        f"{w}-{t}": graph_launch_us(
+                            functools.partial(fwd, t, w))
+                        for w in staged.WALKS for t in near}
+                # the levels below the switch leaves first, then the walk;
+                # K4''s root seed, the levels root first, the last sum
+                rec["forward_launch_us"] = launch_device_us(
+                    fwd, ("forward_level", "s4_forward_kernel",
+                          "forward_chain"))
+                rec["backward_launch_us"] = launch_device_us(
+                    bwd, ("backward_root", "backward_level",
+                          "backward_sum"))
                 print(json.dumps(rec), flush=True)
                 del inputs, tips, pm, part, ls
-            del ctx, tlk
+            torch.cuda.empty_cache()
+
+
+def switch_candidates(widths) -> list:
+    """K3''s switch levels worth timing on a tree of these level widths:
+    each level up to the first of one node, and past the last."""
+    first_one = next(i for i, n in enumerate(widths) if n == 1)
+    return sorted({*range(first_one + 1), len(widths)})
+
+
+def switch_sweep(dev, out: Path):
+    """K3' alone (float32, device time in a CUDA graph of 20 calls) through
+    each walk at each switch level of ``switch_candidates`` (the last: no
+    walk) over the gate's trees, pattern counts and C = 1 and 4: the
+    measurement behind ``ops/staged.py`` walk_level. A line a shape, also
+    written to ``out``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with out.open("w") as fh:
+        for kind, topo in gate_trees():
+            widths = [len(lv) for lv in topo.levels]
+            for P in (256, 1024, 4096, 8192, 16384, 32768):
+                for C in (1, 4):
+                    tips, pm, fr, pr, _ = device_inputs(topo, P, C,
+                                                        torch.float32, dev)
+                    children = torch.as_tensor(topo.children,
+                                               dtype=torch.int32, device=dev)
+                    rootw = (pr[:, None] * fr[None, :]).reshape(-1)
+                    schedule = cuda_build.level_schedule(topo, tips)
+                    row = {"tree": kind, "taxa": topo.T, "widths": widths,
+                           "patterns": P, "categories": C, "sms": sms,
+                           "walk_level": staged.walk_level(schedule[1], C,
+                                                           P, sms),
+                           "forward_us": {
+                               f"{w}-{t}": graph_launch_us(functools.partial(
+                                   staged.staged_forward, tips, pm,
+                                   children, rootw, schedule, t, w))
+                               for w in staged.WALKS
+                               for t in switch_candidates(widths)}}
+                    line = json.dumps(row)
+                    print(line, flush=True)
+                    fh.write(line + "\n")
+                    del tips, pm
             torch.cuda.empty_cache()
 
 
@@ -1124,7 +1215,7 @@ S4_TRACE_AT = {
     "s4_forward.cuh": ((
         ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n",
          "  const long long t_in_ = clock64();\n", False),
-        ("  for (int d = 0; d < n_levels; ++d) {\n", _TRACE_START, False),
+        ("  for (int d = d0; d < n_levels; ++d) {\n", _TRACE_START, False),
         ("    x_root = x;  // the last level holds the root alone\n",
          "    if (tr_) {\n      if (x == scalar_t(-12345)) w.part[0] = 1;\n"
          "      s4_trace[d][1] = clock64();\n    }\n", True),
@@ -1692,6 +1783,9 @@ def main() -> int:
     ap.add_argument("--staged", action="store_true",
                     help="only K3'/K4' alone, their launches and "
                          "value-and-gradient")
+    ap.add_argument("--switch", action="store_true",
+                    help="only K3' at each switch level to its walk over "
+                         "the gate's trees and pattern counts")
     ap.add_argument("--s4-backward", action="store_true",
                     help="only K6' at S = 4 and K2' alone, their launches, "
                          "HMC and the ADVI step")
@@ -1712,7 +1806,8 @@ def main() -> int:
                     help="only four seeds of that ladder through K5' and "
                          "through the plain engine")
     ap.add_argument("--out", type=Path, default=Path(os.devnull),
-                    help="with --gate, also write the sweep's lines here")
+                    help="with --gate or --switch, also write the sweep's "
+                         "lines here")
     args = ap.parse_args()
     dev = cs.cuda_device()
     smi = cs.nvidia_smi()
@@ -1737,6 +1832,10 @@ def main() -> int:
         return 0
     if args.staged:
         staged_kernels(dev)
+        print(smi, flush=True)
+        return 0
+    if args.switch:
+        switch_sweep(dev, args.out)
         print(smi, flush=True)
         return 0
     if args.s4_backward:

@@ -17,8 +17,10 @@ slices' main paths through them and times kernel against plain:
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
   ADVI and ML of a GTR+G4 config on 128 taxa x about 16 000 patterns
   simulated on the card (through K3'/K4'); K3'/K4' against plain also at
-  C = 1 and 8 and on a tree with polytomies, their launches' device times
-  at the config's model and both twice on the same inputs (bit for bit);
+  C = 1 and 8, on a tree with polytomies, on the GTR+G4 fluA tree and the
+  config's tree, their launches' device times and K3''s launches a sweep
+  (the levels below its switch and one walk: 7 at the config's model, 1
+  at GTR+G4 fluA) and both twice on the same inputs (bit for bit);
 - MCMC and marginal likelihood over a batch of chains (K5'/K6',
   ``csrc/loop.cu``): the kernels against plain on chains of the fluA
   models and on a fluA tree with polytomies, mmcmc (16 temperatures as one
@@ -763,9 +765,13 @@ def k8_deterministic(topo, tips, pmats, freqs, props, g) -> bool:
 
 def staged_checks(topo, tips, pmats, freqs, props, g) -> dict:
     """K3' and K4' on one model's inputs: each launch's device time (us,
-    torch.profiler; K3''s levels leaves first, K4''s root seed, levels root
-    first and last sum) and both twice on the same inputs (bit-identical
-    site logs, partials, scalers, d pmats and d rootw)."""
+    torch.profiler, None where it saw no kernel; K3''s levels below the
+    switch leaves first, then its walk of the rest, ``s4_forward_kernel``
+    or ``forward_chain``; K4''s root seed, levels root first and last
+    sum), K3''s kernel launches a sweep as its C code counts them
+    (``staged.STAGED_FORWARD_KERNELS``) and as ``staged.forward_launches``
+    plans them, and both twice on the same inputs (bit-identical site
+    logs, partials, scalers, d pmats and d rootw)."""
     # chip_profile imports this module, so it is imported here
     from chip_profile import launch_device_us
 
@@ -774,15 +780,27 @@ def staged_checks(topo, tips, pmats, freqs, props, g) -> dict:
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
     schedule = cuda_build.level_schedule(topo, tips)
     g = g.contiguous()
+    top, walk = staged.walk_level(
+        schedule[1], pmats.shape[1], tips.shape[2],
+        torch.cuda.get_device_properties(tips.device).multi_processor_count)
 
     def fwd():
         return staged.staged_forward(tips, pmats, children, rootw, schedule)
+    k0 = staged.STAGED_FORWARD_KERNELS
     _, partials, logscale = fwd()
+    kernels = staged.STAGED_FORWARD_KERNELS - k0
 
     def bwd():
         return staged.staged_backward(tips, pmats, children, rootw, schedule,
                                       partials, logscale, g)
-    return {"forward_launch_us": launch_device_us(fwd, ("forward_level",)),
+    fwd_us = launch_device_us(fwd, ("forward_level", "s4_forward_kernel",
+                                    "forward_chain"))
+    return {"switch_level": top, "walk": walk,
+            "forward_kernels_a_sweep": kernels,
+            "forward_launches_planned": staged.forward_launches(
+                schedule[1], top),
+            "forward_launches_profiled": len(fwd_us) if fwd_us else None,
+            "forward_launch_us": fwd_us,
             "backward_launch_us": launch_device_us(
                 bwd, ("backward_root", "backward_level", "backward_sum")),
             "forward_bit_identical": bit_identical(fwd),
@@ -892,10 +910,23 @@ WIDE_SHAPES = [
 ]
 
 
+def gtrg4_flua_topology():
+    """The GTR+G4 fluA golden's tree (69 taxa, 21 levels)."""
+    with open(DATA / "goldens" / "gtrg4_fluA.json") as fh:
+        return read_newick(json.load(fh)["model"]["tree"]["newick"])[0]
+
+
+def config_128_topology():
+    """The tree of the 128-taxon GTR+G4 config (cli_staged_large)."""
+    return read_newick(random_dated_tree(128, 13)[0])[0]
+
+
 # K3'/K4' against plain: (name, topology, patterns, categories): the JAX
 # package's large shape, a caterpillar (one node per level, the prototype
 # K9's many-step case), a ragged pattern count, C = 1 and 8 (one and eight
-# warps a pattern row in K4') and a tree with polytomies (K4''s general path)
+# warps a pattern row in K4'), a tree with polytomies (K4''s general path),
+# the GTR+G4 fluA tree (K3' walks it whole) and the 128-taxon config's
+# tree (K3''s switch at level 3)
 STAGED_SHAPES = [
     ("balanced-128x16384-C4", lambda: balanced_topology(128), 16384, 4),
     ("caterpillar-64x8192-C4", lambda: caterpillar_topology(64), 8192, 4),
@@ -904,6 +935,8 @@ STAGED_SHAPES = [
     ("caterpillar-32x700-C8", lambda: caterpillar_topology(32), 700, 8),
     ("polytomy-64x1500-C4",
      lambda: collapsed_topology(balanced_topology(64)), 1500, 4),
+    ("fluA-gtrg4-238-C4", gtrg4_flua_topology, 238, 4),
+    ("config-128x16291-C4", config_128_topology, 16291, 4),
 ]
 
 
@@ -4329,6 +4362,23 @@ def main() -> int:
              **staged_checks(tlk.topo, *inputs)}
     check(times["forward_bit_identical"] and times["backward_bit_identical"],
           "K3' and K4' twice on the same inputs, bit for bit")
+    check(times["forward_kernels_a_sweep"]
+          == times["forward_launches_planned"]
+          <= times["switch_level"] + 1
+          and times["forward_launches_profiled"] in (
+              None, times["forward_kernels_a_sweep"]),
+          "K3' at the 128-taxon config: a launch a wide level and one walk")
+    # K3' at GTR+G4 fluA: the whole tree in one walk
+    gtr = load_gtrg4_fluA(torch.float32, dev)
+    flua = staged_checks(gtr.topo, *engine_inputs(
+        gtr, gtr.param_space().init_params(dtype=torch.float32, device=dev)))
+    times["fluA_gtrg4"] = flua
+    check(flua["forward_kernels_a_sweep"] == 1 and flua["switch_level"] == 0
+          and flua["forward_launches_profiled"] in (None, 1)
+          and flua["forward_bit_identical"]
+          and flua["backward_bit_identical"],
+          "K3' walks the GTR+G4 fluA tree in one launch, bit for bit")
+    del gtr
     for label, fn in (("staged", staged.staged_site_log),
                       ("fused", fused.fused_site_log),
                       ("plain", staged.staged_site_log_reference)):
@@ -4343,6 +4393,21 @@ def main() -> int:
             median_ms(lambda: value_and_grad(fn, topo128, *inputs64))
     times["build_seconds"] = build_staged_s
     emit("staged_times", **times)
+    staged_walk = {
+        "kernels": {"s4": "s4_forward_kernel<scalar_t, RootWeights, "
+                          "TopOfStage> (physher_tpu_torch/csrc/"
+                          "s4_forward.cuh)",
+                    "chain": "forward_chain (physher_tpu_torch/csrc/"
+                             "staged.cu)"},
+        "launched_from": "physher_tpu_torch/csrc/staged.cu",
+        "walk": {"config_128x16291": times["walk"],
+                 "fluA_gtrg4": times["fluA_gtrg4"]["walk"]},
+        "launches_a_sweep": {
+            "config_128x16291": times["forward_kernels_a_sweep"],
+            "fluA_gtrg4": times["fluA_gtrg4"]["forward_kernels_a_sweep"]},
+        "switch_level": {
+            "config_128x16291": times["switch_level"],
+            "fluA_gtrg4": times["fluA_gtrg4"]["switch_level"]}}
 
     # ---- 17. K5'/K6' against plain at the fourth slice's shapes: chains of
     # the checkpoint B model (L = 16, the mmcmc ladder; L = 4, the HMC
@@ -4671,6 +4736,7 @@ def main() -> int:
                  "staged_forward"],
              sharded_launches=sharded("k3k4_balanced_128x16384",
                                       "staged_forward"),
+             walk=staged_walk,
              **c5_times(c5, "staged-balanced-128x16384", "forward")),
         dict(kernel_row("staged_backward", staged_src,
                         "physher_tpu/ops/pallas_staged.py:375",

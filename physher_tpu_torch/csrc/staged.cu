@@ -1,5 +1,6 @@
-// Felsenstein pruning for large nucleotide alignments, one launch per tree
-// level, and its reverse sweep, for Hopper (sm_90a).
+// Felsenstein pruning for large nucleotide alignments, one launch per wide
+// tree level and one walk of the rest, and its reverse sweep, one launch
+// per level, for Hopper (sm_90a).
 //
 // Kernel K3' (staged_forward_*) replaces the TPU kernel
 // physher_tpu/ops/pallas_staged.py _fwd_kernel (built by build_staged_forward
@@ -33,25 +34,53 @@
 // product per pattern, 32 FLOPs against 16 bytes of child partials read and
 // 16 bytes written in float32: about 1 FLOP per byte, far below the H100's
 // float32 ridge (67 TFLOP/s over 3.35 TB/s, about 20 FLOP per byte), so both
-// kernels are bound by device-memory (or L2) bandwidth. In this
-// level-by-level design every internal node's partials and cotangent pass
-// through device memory, so the design's own floor is above the function's
-// bound (at 128 taxa x 16 291 patterns, C = 4, float32, 0.091 ms for K3'
-// and 0.131 ms for K4' against 0.052; chip_profile.staged_design_floor_ms).
+// kernels are bound by device-memory (or L2) bandwidth where a launch has
+// the bytes to fill the card, and by latency where it has not: a launch of
+// a level of one node costs 5-6 us of device time at 16 384 patterns and
+// C = 4, against 1 us of bytes. The function's bound at 128 taxa x 16 291
+// patterns, C = 4, float32 is 0.052 ms; the level-by-level design's floor,
+// every internal child read back from device memory, 0.091 ms for K3' and
+// 0.131 for K4' (chip_profile.staged_design_floor_ms).
 //
-// K3': grid (pattern tiles of 128, nodes of the level), one thread per
-// pattern, the C x 4 partials in registers (C a template parameter). A block
-// stages its node's children's C x maxc x 16 P entries in shared memory; a
-// tip child's 4 states are loaded once for all C categories. The root's
-// level holds the root alone; its launch also computes site_log. Three
-// other designs were measured and not kept (chip_profile.py --staged; at
-// 128 x 16 291, C = 4, the levels' launches sum to about 182 us): K4''s
-// threads (categories across the warps, up to 4 patterns a thread) took
-// 1.25x longer, their max over categories costing two barriers a pattern;
-// each node writing its subtree's sum of log-scalers for its parent took
-// the root's launch from 15 to 7 us but the wide levels 5-10 % longer (the
-// extra bytes and registers); the root's level as a kernel of its own,
-// four warps on each 32 patterns' sum, took it to 13 us, 1 % of the sweep.
+// K3', redesigned for this card. The first design, one launch a level with
+// the root's launch summing every scaler row in one serial loop a thread,
+// spent 14 launches a sweep at the 128-taxon config and 21 on the GTR+G4
+// fluA tree, whose levels each fill two of 132 SMs. Now:
+// - The levels below a switch level (ops/staged.py walk_level) one launch
+//   each, forward_level: grid (pattern tiles, nodes of the level), the C x 4
+//   partials of a pattern in one thread's registers (C a template
+//   parameter); a block stages its node's children's P matrices in shared
+//   memory, a tip child's 4 states are loaded once for all C categories.
+//   In float32, where P is a multiple of 4 and the level still gives every
+//   SM four blocks (forward_ppt), a thread takes 16 bytes of consecutive
+//   patterns a row as one vector load and store (7-10 % off balanced 128 x
+//   16 384's two widest levels; as many strided patterns took 9 % longer
+//   than one a thread, and float64's pairs 5 % longer).
+// - The rest of the tree in one launch, by one of two walks, each summing
+//   every node's log m into the site log in a fixed order (the stage's
+//   rows with SUM_LOADS loads in flight):
+//   - over few patterns (P x C' <= 16 384), the S = 4 walk of
+//     csrc/s4_forward.cuh, which K1' and K5' share, with the TopOfStage
+//     policy: threads on (pattern, category, state), a level's nodes across
+//     the block, one barrier a level, children below the switch read from
+//     the stage with plain loads and walked ones handed on in shared
+//     memory, log m stored. The GTR+G4 fluA tree is walked whole: 21
+//     launches and 87 us of device time became one of 25 us, K1''s time.
+//   - over more, the chain walk (forward_chain): threads on (pattern,
+//     category), each walking the remaining nodes in turn with no barrier,
+//     since a pattern's node depends on that pattern alone; a lane's rows
+//     are contiguous across the warp, which the S = 4 walk's (four state
+//     lanes a pattern) are not, and its grid is resident where the S = 4
+//     walk's takes two to three waves, each paying every level's latency.
+//     At the 128-taxon config it walks levels 6-13 (15 nodes) in 39 us,
+//     where their launches took 60.
+// - walk_level's rule was fitted to the least summed time over 192 shapes
+//   (chip_profile.py --switch): its sum is 1.5 % above that of the best
+//   switch for each shape, a launch a level's 55 % above.
+// What bounds it now: the widest level moves about 2.1 TB/s (73 MB in 34
+// us at the config); the config's sweep takes 161 us against its 0.052 ms
+// bound and this design's floor of 0.087 ms (the walked nodes' partials
+// are written but not read back from device memory).
 //
 // K4', redesigned for this card. The first design (one thread per pattern
 // walking every category and child, each dP entry reduced over every
@@ -94,13 +123,16 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <cstdint>
+
+#include "s4_forward.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int NW = 8;                  // warps per block
-constexpr int THREADS = NW * 32;
-constexpr int FWD_THREADS = 128;       // K3': one pattern a thread
+constexpr int FWD_THREADS = 128;       // K3''s levels and chain walk
+// rows of the stage's log m summed with this many loads in flight
+constexpr int SUM_LOADS = 4;
 // K4''s binary node: scalars staged a pattern (log m, the cotangent, two
 // children), patterns staged ahead (BWD_DEPTH - 1), and the blocks an SM its
 // registers allow in float32 (float64 takes one)
@@ -108,16 +140,6 @@ constexpr int STAGED = 13;
 constexpr int BWD_DEPTH = 4;
 constexpr int BWD_BLOCKS = 2;
 
-template <typename scalar_t> struct Limits;
-template <> struct Limits<float> {
-  __device__ static float tiny() { return FLT_MIN; }
-};
-template <> struct Limits<double> {
-  __device__ static double tiny() { return DBL_MIN; }
-};
-
-__device__ inline float log_(float x) { return logf(x); }
-__device__ inline double log_(double x) { return log(x); }
 __device__ inline float exp_(float x) { return expf(x); }
 __device__ inline double exp_(double x) { return exp(x); }
 
@@ -273,9 +295,57 @@ __device__ inline void store_pt(const scalar_t* Pm, const scalar_t o[4],
   }
 }
 
-// One level of the postorder: grid (pattern tiles, nodes of the level).
-// smem: Ps [maxc, C, 16].
-template <typename scalar_t, int C>
+// K3''s patterns a thread at a wide level below the walk (ops/staged.py
+// forward_ppt picks this or one a level): in float32 16 bytes of each row
+// at C <= 4, 8 above, where the C x 4 partials of each pattern take more
+// registers; one in float64, whose pairs took 5 % longer than one
+template <typename scalar_t, int C> struct FwdPatterns {
+  static constexpr int n = sizeof(scalar_t) == 8 ? 1 : C <= 4 ? 4 : 2;
+};
+
+// n consecutive scalars of a row as one load or store of n * sizeof bytes
+template <typename scalar_t, int n> struct Pack {
+  static_assert(n == 1, "one scalar");
+  __device__ static void load(const scalar_t* p, scalar_t v[1]) { v[0] = *p; }
+  __device__ static void store(scalar_t* p, const scalar_t v[1]) { *p = v[0]; }
+};
+template <> struct Pack<float, 2> {
+  __device__ static void load(const float* p, float v[2]) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x, v[1] = u.y;
+  }
+  __device__ static void store(float* p, const float v[2]) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+};
+template <> struct Pack<float, 4> {
+  __device__ static void load(const float* p, float v[4]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  }
+  __device__ static void store(float* p, const float v[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// A thread's PPT consecutive patterns of one level, read and written as one
+// vector a row (where PPT > 1, P is a multiple of PPT and every row is
+// 16-byte aligned: run_forward checks)
+template <typename scalar_t, int PPT> struct FwdRows {
+  int p0;
+  __device__ void load(const scalar_t* row, scalar_t v[PPT]) const {
+    Pack<scalar_t, PPT>::load(row + p0, v);
+  }
+  __device__ void store(scalar_t* row, const scalar_t v[PPT]) const {
+    Pack<scalar_t, PPT>::store(row + p0, v);
+  }
+};
+
+// One level below the walk: grid (pattern tiles of FWD_THREADS x PPT,
+// nodes of the level), each thread PPT consecutive patterns. With no walk
+// (a switch past the last level) the root's level is launched here too and
+// its launch computes site_log. smem: Ps [maxc, C, 16].
+template <typename scalar_t, int C, int PPT>
 __global__ void __launch_bounds__(FWD_THREADS)
     forward_level(const scalar_t* __restrict__ tips,
                   const scalar_t* __restrict__ pmats,
@@ -289,54 +359,200 @@ __global__ void __launch_bounds__(FWD_THREADS)
   const int k = __ldg(nodes + blockIdx.y);
   stage_pmats(pmats, children, k, C, maxc, Ps);
   __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  scalar_t res[C][4];
+  const int p0 = (blockIdx.x * FWD_THREADS + threadIdx.x) * PPT;
+  const FwdRows<scalar_t, PPT> rows{p0};
+  if (rows.p0 >= P) return;
+  scalar_t res[C][4][PPT];
 #pragma unroll
   for (int c = 0; c < C; ++c)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) res[c][a] = 1;
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) res[c][a][i] = 1;
   for (int j = 0; j < maxc; ++j) {
     const int ch = __ldg(children + k * maxc + j);
     if (ch < 0) continue;  // a missing child contributes 1
-    scalar_t x[4], contrib[4];
-    if (ch < T) load_child(tips, partials, ch, 0, T, C, P, p, x);
+    scalar_t x[4][PPT];
+    if (ch < T)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) rows.load(tips + ((size_t)ch * 4 + b) * P, x[b]);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      if (ch >= T) load_child(tips, partials, ch, c, T, C, P, p, x);
-      apply_p(Ps + (j * C + c) * 16, x, contrib);
+      if (ch >= T)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) res[c][a] *= contrib[a];
+        for (int b = 0; b < 4; ++b)
+          rows.load(partials + (((size_t)(ch - T) * C + c) * 4 + b) * P,
+                    x[b]);
+      const scalar_t* Pm = Ps + (j * C + c) * 16;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) {
+          scalar_t y = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) y += Pm[a * 4 + b] * x[b][i];
+          res[c][a][i] *= y;
+        }
     }
   }
-  scalar_t m = Limits<scalar_t>::tiny();
+  const scalar_t tiny = Limits<scalar_t>::tiny();
+  scalar_t m[PPT], lm[PPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c)
+  for (int i = 0; i < PPT; ++i) {
+    m[i] = tiny;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) m = res[c][a] > m ? res[c][a] : m;
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) m[i] = res[c][a][i] > m[i] ? res[c][a][i] : m[i];
+    lm[i] = log_(m[i]);
+  }
 #pragma unroll
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      res[c][a] = res[c][a] / m;
-      partials[(((size_t)k * C + c) * 4 + a) * P + p] = res[c][a];
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) res[c][a][i] = res[c][a][i] / m[i];
+      rows.store(partials + (((size_t)k * C + c) * 4 + a) * P, res[c][a]);
     }
-  const scalar_t lm = log_(m);
-  logscale[(size_t)k * P + p] = lm;
+  rows.store(logscale + (size_t)k * P, lm);
   if (k == I - 1) {
-    // the root: its level holds it alone, and every other node's scaler was
-    // written by an earlier launch on the same stream
-    scalar_t site = 0;
+    // the root, with no walk: its level holds it alone, and every other
+    // node's scaler was written by an earlier launch on the same stream
 #pragma unroll
-    for (int c = 0; c < C; ++c)
+    for (int i = 0; i < PPT; ++i) {
+      const int p = rows.p0 + i;
+      scalar_t site = 0;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) site += __ldg(rootw + c * 4 + a) * res[c][a];
-    const scalar_t tiny = Limits<scalar_t>::tiny();
-    site = site > tiny ? site : tiny;
-    scalar_t log_sum = lm;
-    for (int r = 0; r < I - 1; ++r) log_sum += logscale[(size_t)r * P + p];
-    site_log[p] = log_(site) + log_sum;
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          site += __ldg(rootw + c * 4 + a) * res[c][a][i];
+      site = site > tiny ? site : tiny;
+      scalar_t log_sum = 0;
+      for (int r = 0; r < I - 1; r += SUM_LOADS) {
+        scalar_t v[SUM_LOADS];
+#pragma unroll
+        for (int u = 0; u < SUM_LOADS; ++u)
+          v[u] = logscale[(size_t)min(r + u, I - 2) * P + p];
+#pragma unroll
+        for (int u = 0; u < SUM_LOADS; ++u)
+          if (r + u < I - 1) log_sum += v[u];
+      }
+      site_log[p] = log_(site) + (lm[i] + log_sum);
+    }
   }
+}
+
+// The top of a tree over many patterns in one launch (the chain walk):
+// grid (blocks of FWD_THREADS / CP patterns), threads on (pattern,
+// category), the CP lanes of a pattern adjacent in a warp (CP: C rounded up
+// to a power of two; a padded lane repeats category C - 1 and stores
+// nothing), each walking the nodes of `nodes` from position j0 to the root
+// in turn, children first. A pattern's node depends on that pattern alone,
+// so no lane waits on another pattern's: a node's 4 partials of a category
+// are formed in registers from its children's (the stage's, written by
+// earlier launches, or this lane's own from an earlier node: plain loads;
+// a binary node's two children loaded at once), its max over (C, 4) met by
+// shuffles over the pattern's lanes, and the rescaled partials and log m
+// written to the stage. The site log sums the walked nodes' log m as they
+// come, the stage's rows below the walk (the pattern's lanes taking every
+// CP-th, SUM_LOADS loads in flight, then a butterfly) and the root's site.
+template <typename scalar_t, int C>
+__global__ void __launch_bounds__(FWD_THREADS)
+    forward_chain(const scalar_t* __restrict__ tips,
+                  const scalar_t* __restrict__ pmats,
+                  const int* __restrict__ children,
+                  const int* __restrict__ nodes,
+                  const scalar_t* __restrict__ rootw, scalar_t* partials,
+                  scalar_t* logscale, scalar_t* __restrict__ site_log, int T,
+                  int I, int maxc, int P, int j0) {
+  constexpr int CP = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
+  const int c = threadIdx.x & (CP - 1);
+  const bool cin = c < C;
+  const int cc = cin ? c : C - 1;
+  const int p = blockIdx.x * (FWD_THREADS / CP) + threadIdx.x / CP;
+  const bool valid = p < P;
+  const int pc = valid ? p : P - 1;  // every lane loads; only these store
+  const scalar_t tiny = Limits<scalar_t>::tiny();
+  // x[b] <- child ch's partials of category cc at this pattern
+  auto load = [&](int ch, scalar_t x[4]) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[b] = ch < T ? __ldg(tips + ((size_t)ch * 4 + b) * P + pc)
+                    : partials[(((size_t)(ch - T) * C + cc) * 4 + b) * P + pc];
+  };
+  // res[a] *= (P_ch x)[a]
+  auto times = [&](int ch, const scalar_t x[4], scalar_t res[4]) {
+    const scalar_t* Pm = pmats + ((size_t)ch * C + cc) * 16;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      scalar_t y = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) y += __ldg(Pm + a * 4 + b) * x[b];
+      res[a] *= y;
+    }
+  };
+  scalar_t res[4], walked = 0;
+  for (int j = j0; j < I; ++j) {
+    const int k = __ldg(nodes + j);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) res[a] = 1;
+    const int c0 = __ldg(children + k * maxc);
+    const int c1 = maxc == 2 ? __ldg(children + k * maxc + 1) : -1;
+    if (c0 >= 0 && c1 >= 0) {
+      scalar_t x0[4], x1[4];
+      load(c0, x0);
+      load(c1, x1);
+      times(c0, x0, res);
+      times(c1, x1, res);
+    } else {
+      for (int i = 0; i < maxc; ++i) {
+        const int ch = __ldg(children + k * maxc + i);
+        if (ch < 0) continue;  // a missing child contributes 1
+        scalar_t x[4];
+        load(ch, x);
+        times(ch, x, res);
+      }
+    }
+    scalar_t m = tiny;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) m = cin && res[a] > m ? res[a] : m;
+#pragma unroll
+    for (int off = 1; off < CP; off <<= 1) {
+      const scalar_t o = __shfl_xor_sync(FULL, m, off);
+      m = o > m ? o : m;
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      res[a] = res[a] / m;
+      if (valid && cin)
+        partials[(((size_t)k * C + c) * 4 + a) * P + p] = res[a];
+    }
+    const scalar_t lm = log_(m);
+    if (valid && c == 0) logscale[(size_t)k * P + p] = lm;
+    walked += lm;
+  }
+  // the root is the last node walked: res holds its partials
+  scalar_t site = 0, below = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    site += cin ? __ldg(rootw + c * 4 + a) * res[a] : scalar_t(0);
+  for (int j = c; j < j0; j += SUM_LOADS * CP) {
+    scalar_t v[SUM_LOADS];
+#pragma unroll
+    for (int u = 0; u < SUM_LOADS; ++u)
+      v[u] = logscale[(size_t)__ldg(nodes + min(j + u * CP, j0 - 1)) * P + pc];
+#pragma unroll
+    for (int u = 0; u < SUM_LOADS; ++u)
+      if (j + u * CP < j0) below += v[u];
+  }
+#pragma unroll
+  for (int off = 1; off < CP; off <<= 1) {
+    site += __shfl_xor_sync(FULL, site, off);
+    below += __shfl_xor_sync(FULL, below, off);
+  }
+  site = site > tiny ? site : tiny;
+  if (valid && c == 0) site_log[p] = log_(site) + (below + walked);
 }
 
 // Root seed of the reverse sweep: grid (blocks of QB x ppt patterns),
@@ -618,26 +834,70 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// K3''s walks of the top of the tree: the S = 4 walk of csrc/s4_forward.cuh
+// (a TopOfStage), or the chain walk (forward_chain)
+constexpr int WALK_S4 = 0;
+constexpr int WALK_CHAIN = 1;
+
+// The levels below `top` one launch each, the rest in one launch of the
+// walk `walk`; top == n_levels: every level one launch, the root's
+// computing site_log. Level l's threads take ppt[l] patterns (1 or
+// FwdPatterns' n) as one vector where the rows allow (P a multiple of it,
+// every base 16-byte aligned), else one.
 template <typename scalar_t, int C>
 cudaError_t run_forward(const scalar_t* tips, const scalar_t* pmats,
                         const int* children, const int* nodes,
-                        const int* offsets, int n_levels,
-                        const scalar_t* rootw, scalar_t* partials,
-                        scalar_t* logscale, scalar_t* site_log, int T, int I,
-                        int maxc, int P, cudaStream_t stream) {
+                        const int* offsets, const int* dev_offsets,
+                        const int* slots, const int* ppt, int n_levels,
+                        int top, int walk, const scalar_t* rootw,
+                        scalar_t* partials, scalar_t* logscale,
+                        scalar_t* site_log, int T, int I, int maxc, int P,
+                        int* launched, cudaStream_t stream) {
+  constexpr int V = FwdPatterns<scalar_t, C>::n;
   const size_t smem = (size_t)maxc * C * 16 * sizeof(scalar_t);
-  cudaError_t e = allow_smem(forward_level<scalar_t, C>, smem);
-  if (e != cudaSuccess) return e;
-  const int tiles = (P + FWD_THREADS - 1) / FWD_THREADS;
-  for (int l = 0; l < n_levels; ++l) {
-    const dim3 grid(tiles, offsets[l + 1] - offsets[l]);
-    forward_level<scalar_t, C><<<grid, FWD_THREADS, smem, stream>>>(
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0;
+  };
+  const bool vec = P % V == 0 && aligned(tips) && aligned(partials) &&
+                   aligned(logscale);
+  const auto one = forward_level<scalar_t, C, 1>;
+  const auto wide = forward_level<scalar_t, C, V>;
+  cudaError_t e = cudaSuccess;
+  if (top > 0) {
+    if ((e = allow_smem(one, smem)) != cudaSuccess) return e;
+    if ((e = allow_smem(wide, smem)) != cudaSuccess) return e;
+  }
+  for (int l = 0; l < top; ++l) {
+    if (ppt[l] != 1 && ppt[l] != V) return cudaErrorInvalidValue;
+    const bool w = ppt[l] == V && vec;
+    const auto level = w ? wide : one;
+    const int span = FWD_THREADS * (w ? V : 1);
+    const dim3 grid((P + span - 1) / span, offsets[l + 1] - offsets[l]);
+    level<<<grid, FWD_THREADS, smem, stream>>>(
         tips, pmats, children, nodes + offsets[l], rootw, partials, logscale,
         site_log, T, I, maxc, P);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
+    ++*launched;
   }
-  return cudaSuccess;
+  if (top == n_levels) return cudaSuccess;
+  if (walk == WALK_CHAIN) {
+    constexpr int per_block = FWD_THREADS / Lanes<C>::CP;
+    forward_chain<scalar_t, C>
+        <<<(P + per_block - 1) / per_block, FWD_THREADS, 0, stream>>>(
+            tips, pmats, children, nodes, rootw, partials, logscale,
+            site_log, T, I, maxc, P, offsets[top]);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ++*launched;
+    return e;
+  }
+  e = launch_s4_forward<scalar_t>(
+      tips, pmats, children, nodes, dev_offsets, n_levels,
+      RootWeights<scalar_t>{rootw, nullptr}, partials, logscale, site_log, T,
+      I, C, maxc, P, 1, 1, stream, TopOfStage{slots, top},
+      I - offsets[top]);
+  if (e == cudaSuccess) ++*launched;
+  return e;
 }
 
 template <typename scalar_t, int C>
@@ -697,18 +957,26 @@ cudaError_t run_backward(const scalar_t* tips, const scalar_t* pmats,
 template <typename scalar_t>
 cudaError_t launch_forward(const void* tips, const void* pmats,
                            const void* children, const void* nodes,
-                           const int* offsets, int n_levels,
-                           const void* rootw, void* partials, void* logscale,
-                           void* site_log, int T, int I, int C, int maxc,
-                           int P, cudaStream_t stream) {
-  if (maxc < 1 || n_levels < 1) return cudaErrorInvalidValue;
+                           const int* offsets, const void* dev_offsets,
+                           const void* slots, const int* ppt, int n_levels,
+                           int top, int walk, const void* rootw,
+                           void* partials, void* logscale, void* site_log,
+                           int T, int I,
+                           int C, int maxc, int P, int* launched,
+                           cudaStream_t stream) {
+  *launched = 0;
+  if (maxc < 1 || n_levels < 1 || top < 0 || top > n_levels ||
+      (walk != WALK_S4 && walk != WALK_CHAIN))
+    return cudaErrorInvalidValue;
 #define PHYSHER_FWD(CC)                                                       \
   run_forward<scalar_t, CC>(                                                  \
       static_cast<const scalar_t*>(tips), static_cast<const scalar_t*>(pmats), \
       static_cast<const int*>(children), static_cast<const int*>(nodes),      \
-      offsets, n_levels, static_cast<const scalar_t*>(rootw),                 \
-      static_cast<scalar_t*>(partials), static_cast<scalar_t*>(logscale),     \
-      static_cast<scalar_t*>(site_log), T, I, maxc, P, stream)
+      offsets, static_cast<const int*>(dev_offsets),                          \
+      static_cast<const int*>(slots), ppt, n_levels, top, walk,               \
+      static_cast<const scalar_t*>(rootw), static_cast<scalar_t*>(partials),  \
+      static_cast<scalar_t*>(logscale), static_cast<scalar_t*>(site_log), T,  \
+      I, maxc, P, launched, stream)
   PHYSHER_STAGED_CASES(PHYSHER_FWD)
 #undef PHYSHER_FWD
 }
@@ -750,12 +1018,14 @@ extern "C" {
 #define PHYSHER_STAGED_ENTRY(SUFFIX, TYPE)                                     \
   cudaError_t staged_forward_##SUFFIX(                                         \
       const void* tips, const void* pmats, const void* children,               \
-      const void* nodes, const int* offsets, int n_levels, const void* rootw,  \
-      void* partials, void* logscale, void* site_log, int T, int I, int C,     \
-      int maxc, int P, void* stream) {                                         \
+      const void* nodes, const int* offsets, const void* dev_offsets,          \
+      const void* slots, const int* ppt, int n_levels, int top, int walk,      \
+      const void* rootw, void* partials, void* logscale, void* site_log,       \
+      int T, int I, int C, int maxc, int P, int* launched, void* stream) {     \
     return launch_forward<TYPE>(tips, pmats, children, nodes, offsets,         \
-                                n_levels, rootw, partials, logscale, site_log, \
-                                T, I, C, maxc, P,                              \
+                                dev_offsets, slots, ppt, n_levels, top, walk,  \
+                                rootw, partials, logscale, site_log, T, I, C,  \
+                                maxc, P, launched,                             \
                                 static_cast<cudaStream_t>(stream));            \
   }                                                                            \
   cudaError_t staged_backward_##SUFFIX(                                        \

@@ -83,8 +83,10 @@ _BATCH_ENGINES = ("torch", "cuda-loop")
 # S = 4 reverse step of csrc/s4_backward.cuh, K1'/K2' won 18 and 17 of the
 # 24 caterpillars at C = 4 (4.0) in two runs, and a gate at 5 gave the
 # least summed time of both (68.3 and 72.8 ms, against 70.9 and 75.7 at 4;
-# 68.8 and 72.8 at 8).
-STAGED_MIN_LEVEL_WORK = 5.0
+# 68.8 and 72.8 at 8). With K3' walking the top of the tree in one launch
+# (a caterpillar's whole tree), a gate at 4 gave the least summed time of
+# two runs (73.24 and 68.69 ms, against 74.48 and 70.27 at 5).
+STAGED_MIN_LEVEL_WORK = 4.0
 
 
 def select_engine(engine: str, device_type: str, n_states: int,

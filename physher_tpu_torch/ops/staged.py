@@ -7,10 +7,13 @@ Port of ``physher_tpu/ops/pallas_staged.py``. The two TPU kernels there,
 ``csrc/staged.cu``: the same function as ``ops/fused.py`` (the rescaled
 postorder sweep to per-pattern site log-likelihoods, and its reverse sweep
 to d pmats and d (props x freqs)) for S = 4, with the tree step as a
-parallel axis: one launch per level of the postorder, the level's nodes and
-the pattern tiles on the grid. The forward keeps its rescaled partials and
-log-scalers in device memory; the backward reads them and never recomputes
-the forward. The source note in ``csrc/staged.cu`` says what bounds them on
+parallel axis: one launch per wide level of the postorder, the level's
+nodes and the pattern tiles on the grid, and the narrow top of the tree,
+from :func:`walk_level` to the root, in one launch: the S = 4 forward walk
+(``csrc/s4_forward.cuh``, which K1' and K5' share) over few patterns, a
+walk of one thread a pattern over many. The forward keeps
+its rescaled partials and log-scalers in device memory; the backward reads
+them and never recomputes the forward. The source note in ``csrc/staged.cu`` says what bounds them on
 the card and what the design does about it.
 
 At any other S from 2 to 64 (the TPU wrapper takes any S, padding C until
@@ -30,10 +33,14 @@ launches count in ``ops.wide``'s counters.
   the plain PyTorch version.
 - :func:`staged_forward` / :func:`staged_backward` are the launch wrappers.
   ``STAGED_FORWARD_LAUNCHES`` / ``STAGED_BACKWARD_LAUNCHES`` count their
-  calls: one forward sweep is ``len(topo.levels)`` CUDA launches (the root's
-  launch also computes the site log-likelihoods), one reverse sweep
-  ``len(topo.levels) + 2`` (the root seed, the levels, the sum of the
-  per-block partial sums).
+  calls: one forward sweep is :func:`forward_launches` CUDA launches (the
+  levels below the walk, then the walk, which also computes the site
+  log-likelihoods), one reverse sweep ``len(topo.levels) + 2`` (the root
+  seed, the levels, the sum of the per-block partial sums).
+- :func:`walk_level` and :func:`forward_ppt` are the forward's schedule:
+  the level from which one launch walks to the root, and which walk (the
+  S = 4 walk of ``csrc/s4_forward.cuh``, or ``csrc/staged.cu``'s chain
+  walk over many patterns); the patterns a thread at each level below.
 - :func:`level_ppt` and :func:`backward_rows` are the reverse sweep's
   schedule: the patterns a thread takes at each level and where each node's
   per-block partial sums go.
@@ -55,6 +62,8 @@ from .pruning import rescaled_site_log
 
 STAGED_FORWARD_LAUNCHES = 0
 STAGED_BACKWARD_LAUNCHES = 0
+# the CUDA kernel launches that K3''s calls made, as its C code counts them
+STAGED_FORWARD_KERNELS = 0
 
 # children per node: the backward stages [maxc, C, 16] P entries and an
 # [8 warps, 32] reduction in shared memory, at most 18 KB in float64 (a
@@ -71,6 +80,22 @@ WARPS = 8
 MAX_PPT = 16
 BLOCKS = 2
 FIXED = 4
+# K3''s switch to a walk of the top of the tree (walk_level), fitted to the
+# least summed time over 192 shapes on an NVIDIA H100 (chip_profile.py
+# --switch): the S = 4 walk where P x C' (C rounded up to a power of two)
+# is at most WALK_S4_PATTERNS, from the first level whose nodes x pattern
+# tiles of WALK_TILE fall under WALK_BLOCKS blocks an SM; over more
+# patterns the chain walk from the first level of at most CHAIN_NODES
+# nodes
+WALKS = ("s4", "chain")
+WALK_S4_PATTERNS = 16384
+WALK_TILE = 128
+WALK_BLOCKS = 1
+CHAIN_NODES = 3
+# K3''s levels below the walk: a wide level's threads take 16 bytes of
+# each row as one vector (forward_ppt) where its blocks then give every SM
+# at least VECTOR_BLOCKS
+VECTOR_BLOCKS = 4
 
 _SOURCE = cuda_build.PKG / "csrc" / "staged.cu"
 
@@ -92,7 +117,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"staged_forward_{dt}")
-        fwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 4 + [i32] * 5 + [ptr]
+        fwd.argtypes = ([ptr] * 8 + [i32] * 3 + [ptr] * 4 + [i32] * 5
+                        + [ctypes.POINTER(i32), ptr])
         fwd.restype = i32
         bwd = getattr(lib, f"staged_backward_{dt}")
         bwd.argtypes = [ptr] * 5 + [i32] + [ptr] * 11 + [i32] * 5 + [ptr]
@@ -115,6 +141,45 @@ def level_ppt(offsets, C: int, P: int, sms: int) -> tuple:
         out.append(min((1 << i for i in range(MAX_PPT.bit_length())),
                        key=cost))
     return tuple(out)
+
+
+def walk_level(offsets, C: int, P: int, sms: int) -> tuple:
+    """K3''s switch for the schedule ``offsets``: (the level from which one
+    launch walks to the root, which walk: "s4" or "chain"). The levels
+    below it take a launch each; ``len(offsets) - 1`` is past the last
+    level (a launch a level, the root's computing the site
+    log-likelihoods), where no level qualifies."""
+    n_levels = len(offsets) - 1
+    widths = [hi - lo for lo, hi in zip(offsets[:-1], offsets[1:])]
+    if P * (1 << (C - 1).bit_length()) <= WALK_S4_PATTERNS:
+        tiles, wave = -(-P // WALK_TILE), WALK_BLOCKS * sms
+        return next((d for d, n in enumerate(widths) if n * tiles <= wave),
+                    n_levels), "s4"
+    return next((d for d, n in enumerate(widths) if n <= CHAIN_NODES),
+                n_levels), "chain"
+
+
+def forward_ppt(offsets, top: int, C: int, P: int, sms: int,
+                itemsize: int) -> tuple:
+    """K3''s patterns a thread at each level below the switch ``top``: in
+    float32, 16 bytes of each row (8 above C = 4; csrc/staged.cu
+    FwdPatterns), read as one vector, where P is a multiple of them and the
+    level's blocks of 128 threads then give every SM at least
+    VECTOR_BLOCKS; else one (as many strided took 9 % longer at the widest
+    level of the 128-taxon config, and float64's pairs 5 % longer at
+    balanced 128 x 16 384)."""
+    wide = (4 if C <= 4 else 2) if itemsize == 4 else 1
+    out = []
+    for lo, hi in zip(offsets[:top], offsets[1:top + 1]):
+        blocks = (hi - lo) * -(-P // (128 * wide))
+        out.append(wide if P % wide == 0 and blocks >= VECTOR_BLOCKS * sms
+                   else 1)
+    return tuple(out)
+
+
+def forward_launches(offsets, top: int) -> int:
+    """CUDA launches of one K3' sweep that switches to the walk at ``top``."""
+    return top + (top < len(offsets) - 1)
 
 
 def backward_rows(offsets, ppt, C: int, maxc: int, P: int):
@@ -145,6 +210,14 @@ def _backward_plan(offsets, C, maxc, P, device, *rule):
             -(-P // (block_patterns(C) * ppt[-1])))
 
 
+@functools.lru_cache(maxsize=64)
+def _forward_plan(offsets, top, C, P, sms, itemsize, *rule):
+    """forward_ppt as a C array, built once for each schedule and switch;
+    ``rule`` keys the cache on VECTOR_BLOCKS."""
+    ppt = forward_ppt(offsets, top, C, P, sms, itemsize)
+    return (ctypes.c_int * max(len(ppt), 1))(*ppt)
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -158,25 +231,68 @@ def _dims(tips, pmats, children, rootw, schedule):
     return T, I, C, maxc, P
 
 
-def staged_forward(tips, pmats, children, rootw, schedule):
-    """Launch K3' (one launch per level; the root's also computes the site
-    log-likelihoods): returns (site_log [P], partials [I, C, 4, P],
+# the walk's tables of one schedule and switch level: key -> (the nodes
+# tensor, its level offsets on the device, each rank's hand-off slot)
+_walks: dict = {}
+
+
+def _walk_tables(nodes, offsets, top: int):
+    """(offsets [levels + 1], slots [I]) as int32 tensors on ``nodes``'s
+    device: rank k's slot is its position in ``nodes`` less ``offsets[top]``
+    for a walked node, -1 below the walk. Built once for each schedule
+    (the nodes tensor, kept alive by its topology) and switch level."""
+    key = (nodes.data_ptr(), nodes.device, tuple(offsets), top)
+    hit = _walks.get(key)
+    if hit is not None and hit[0] is nodes:
+        return hit[1:]
+    j0 = offsets[top]
+    slots = torch.full_like(nodes, -1)
+    slots[nodes[j0:].long()] = torch.arange(
+        len(nodes) - j0, dtype=torch.int32, device=nodes.device)
+    dev_offsets = torch.tensor(offsets, dtype=torch.int32,
+                               device=nodes.device)
+    if len(_walks) >= 64:
+        _walks.clear()
+    _walks[key] = (nodes, dev_offsets, slots)
+    return dev_offsets, slots
+
+
+def staged_forward(tips, pmats, children, rootw, schedule, top=None,
+                   walk=None):
+    """Launch K3': the levels below ``top`` one launch each, then one walk
+    of the rest to the root (``walk``: "s4" or "chain"), which also
+    computes the site log-likelihoods; ``top`` = the number of levels: a
+    launch a level, the root's computing them. Either left None is
+    :func:`walk_level`'s. Returns (site_log [P], partials [I, C, 4, P],
     logscale [I, P])."""
-    global STAGED_FORWARD_LAUNCHES
+    global STAGED_FORWARD_LAUNCHES, STAGED_FORWARD_KERNELS
     T, I, C, maxc, P = _dims(tips, pmats, children, rootw, schedule)
+    offsets, n_levels = offsets_arg(schedule)
+    level, kind = walk_level(schedule[1], C, P, _sms(tips.device))
+    top = level if top is None else top
+    walk = kind if walk is None else walk
+    if not 0 <= top <= n_levels or walk not in WALKS:
+        raise ValueError(f"switch level {top} of {n_levels} levels, walk "
+                         f"{walk!r}: levels 0 to {n_levels}, walks {WALKS}")
     lib = build()
     partials = tips.new_empty((I, C, 4, P))
     logscale = tips.new_empty((I, P))
     site_log = tips.new_empty((P,))
-    offsets, n_levels = offsets_arg(schedule)
+    dev_offsets, slots = _walk_tables(schedule[0], schedule[1], top)
+    ppt = _forward_plan(schedule[1], top, C, P, _sms(tips.device),
+                        tips.element_size(), VECTOR_BLOCKS)
+    launched = ctypes.c_int(0)
     fn = (lib.staged_forward_f32 if tips.dtype == torch.float32
           else lib.staged_forward_f64)
     with torch.cuda.device(tips.device):
         err = fn(tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
-                 schedule[0].data_ptr(), offsets, n_levels, rootw.data_ptr(),
-                 partials.data_ptr(), logscale.data_ptr(), site_log.data_ptr(),
-                 T, I, C, maxc, P, stream(tips))
+                 schedule[0].data_ptr(), offsets, dev_offsets.data_ptr(),
+                 slots.data_ptr(), ppt, n_levels, top, WALKS.index(walk),
+                 rootw.data_ptr(), partials.data_ptr(), logscale.data_ptr(),
+                 site_log.data_ptr(), T, I, C, maxc, P,
+                 ctypes.byref(launched), stream(tips))
     STAGED_FORWARD_LAUNCHES += 1
+    STAGED_FORWARD_KERNELS += launched.value
     if err:
         raise RuntimeError(f"staged forward kernel launch failed: "
                            f"cudaError {err}")

@@ -185,25 +185,38 @@ STAGED_TOPOLOGIES = {"balanced": lambda: balanced_topology(16),
                      "polytomy": _polytomy}
 
 
-@pytest.mark.parametrize("ppt", ["card", "max"])
+def _forced_walk(name, n_levels):
+    """A forced switch to K3''s walk: (level 0, a middle level, or past the
+    last level: no walk; the walk)."""
+    walk, _, at = name.partition("-")
+    return {"0": 0, "mid": n_levels // 2, "": n_levels}[at], walk
+
+
+@pytest.mark.parametrize("schedule", ["card", "max-ppt", "s4-0", "s4-mid",
+                                      "chain-0", "chain-mid", "none"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape,P,C", [
     ("balanced", 300, 4), ("balanced", 128, 1), ("caterpillar", 257, 4),
     ("caterpillar", 64, 1), ("polytomy", 129, 3), ("balanced", 8192 + 37, 4),
     ("balanced", 1000 + 3, 4), ("balanced", 37, 8), ("balanced", 2000, 1),
     ("caterpillar", 700, 8), ("polytomy", 1500, 4),
-    ("balanced64", 20000 + 5, 4)])
-def test_staged_kernels_match_plain(device, dtype, shape, P, C, ppt,
+    ("balanced64", 20000 + 5, 4), ("balanced64", 20000, 5)])
+def test_staged_kernels_match_plain(device, dtype, shape, P, C, schedule,
                                     monkeypatch, request):
     """K3'/K4' against the plain version: balanced, caterpillar and polytomy
-    trees, C in {1, 3, 4, 8}, ragged P, P under one block; K4''s patterns a
-    thread as level_ppt picks them for this card and (ppt "max") MAX_PPT at
-    every level."""
-    if ppt == "max":
+    trees, C in {1, 3, 4, 5, 8}, ragged P, P under one block; K3''s switch
+    to its walk and K4''s patterns a thread as walk_level and level_ppt pick
+    them for this card, K4' at MAX_PPT at every level ("max-ppt"), and each
+    walk forced from level 0 and a middle level, and no walk."""
+    if schedule == "max-ppt":
         monkeypatch.setattr(staged, "level_ppt", lambda offsets, *_: (
             staged.MAX_PPT,) * (len(offsets) - 1))
         staged._backward_plan.cache_clear()
         request.addfinalizer(staged._backward_plan.cache_clear)
+    elif schedule != "card":
+        monkeypatch.setattr(staged, "walk_level", lambda offsets, *_: (
+            _forced_walk("s4-" if schedule == "none" else schedule,
+                         len(offsets) - 1)))
     topo = STAGED_TOPOLOGIES[shape]()
     inputs = _inputs(topo, P, C, dtype, device)
     f0, b0 = staged.STAGED_FORWARD_LAUNCHES, staged.STAGED_BACKWARD_LAUNCHES
@@ -784,7 +797,8 @@ def test_forward_clusters_match_plain(device, dtype, shape, S, C, P):
 def test_staged_is_deterministic(device):
     """K3' and K4' take fixed orders for every sum: two launches on the same
     inputs give bit-identical site logs, partials, scalers, d pmats and
-    d rootw."""
+    d rootw, with K3''s switch where walk_level puts it, each walk from
+    level 0 and a middle level, and past the last level."""
     for topo, P, C in ((balanced_topology(64), 20000 + 5, 4),
                        (_polytomy(), 1500, 3)):
         tips, pm, freqs, props, g = _inputs(topo, P, C, torch.float32,
@@ -793,15 +807,21 @@ def test_staged_is_deterministic(device):
                                    device=device)
         rootw = (props[:, None] * freqs[None, :]).reshape(-1)
         schedule = cuda_build.level_schedule(topo, tips)
-        runs = [staged.staged_forward(tips, pm, children, rootw, schedule)
-                for _ in range(2)]
-        runs += [staged.staged_backward(tips, pm, children, rootw, schedule,
-                                        *runs[0][1:], g) for _ in range(2)]
-        torch.cuda.synchronize()
-        for a, b in zip(*runs[:2]):
-            assert torch.equal(a, b)
-        for a, b in zip(*runs[2:]):
-            assert torch.equal(a, b)
+        n_levels = len(topo.levels)
+        for top, walk in ((None, None), (0, "s4"), (n_levels // 2, "s4"),
+                          (0, "chain"), (n_levels // 2, "chain"),
+                          (n_levels, None)):
+            runs = [staged.staged_forward(tips, pm, children, rootw,
+                                          schedule, top, walk)
+                    for _ in range(2)]
+            runs += [staged.staged_backward(tips, pm, children, rootw,
+                                            schedule, *runs[0][1:], g)
+                     for _ in range(2)]
+            torch.cuda.synchronize()
+            for a, b in zip(*runs[:2]):
+                assert torch.equal(a, b)
+            for a, b in zip(*runs[2:]):
+                assert torch.equal(a, b)
 
 
 def test_forward_is_deterministic(device):

@@ -11,6 +11,9 @@ largest entry for the gradients (the kernel's MXU-ordered products and the
 port's einsums sum in other orders).
 """
 
+import json
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +29,25 @@ from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import JC69
 from physher_tpu_torch.ops import staged
 from physher_tpu_torch.ops.pruning import pad_patterns, pruning_root_levels
+from physher_tpu_torch.io.treeio import read_newick
 from physher_tpu_torch.ops.cuda_build import level_schedule
 from physher_tpu_torch.trees.topology import Topology
 from physher_tpu_torch.utils.synthetic import (
     balanced_topology, caterpillar_topology, random_sitepattern)
 
 TILE = 256
+DATA = Path(__file__).parent / "data"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the emulated schedules run many ops on small
+    tensors, which gain nothing from more threads, and beside other test
+    processes on the same cores each op's thread barrier stalls."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _j_caterpillar(n_tips):
@@ -115,14 +131,20 @@ def test_plain_matches_pallas_staged(shape, P, C, dtype):
                                    atol=tol * np.abs(b).max())
 
 
-# -- the CUDA kernels' level-launch schedule, emulated on the CPU -------------
+# -- the CUDA kernels' schedule, emulated on the CPU --------------------------
 #
-# csrc/staged.cu cannot run here. These functions follow its launches: one
-# per level of topo.levels, every node of a level at once (the grid's y
-# axis), every category at once (vectorized: K3' holds them in one thread,
-# K4' in the warps of a block); K3''s node partials divided by their max
-# over (C, 4) and its log-scaler stored, the root's launch summing every
-# scaler into the site log; K4''s
+# csrc/staged.cu cannot run here. These functions follow its launches. K3':
+# the levels of topo.levels below the switch level (staged.walk_level, as
+# the wrapper picks it) one launch each, every node of a level at once (the
+# grid's y axis), every category at once (vectorized: K3' holds them in one
+# thread), each node's partials divided by their max over (C, 4) and its
+# log-scaler written to the stage; then one walk of the rest to the root,
+# summing every rank's log-scaler into the site log: the S = 4 walk level by
+# level, reading a child below the switch from the stage and a walked one
+# from the block's hand-off (its slot from staged._walk_tables), or the
+# chain walk node by node, every child from the stage (NaN until written).
+# A switch past the last level is the level-launch schedule alone, the
+# root's launch summing the scalers. K4''s
 # root seed, then the levels in reverse, each reading its nodes' cotangents
 # and writing their internal children's.
 # A binary node computes each child's product once and forms both "other"
@@ -150,7 +172,26 @@ def _children_x(tips, partials, ch, C, T):
     return torch.stack(out)
 
 
-def _emulate_forward(tips, pmats, topo, rootw):
+def _node_step(tips, pmats, topo, ks, read):
+    """The rescaled partials and log-scalers of internal ranks ``ks``, each
+    internal child's partials from ``read(rank)``."""
+    T, C, P = topo.T, pmats.shape[1], tips.shape[-1]
+    tiny = torch.finfo(tips.dtype).tiny
+    res = tips.new_ones((len(ks), C, 4, P))
+    for j in range(topo.children.shape[1]):
+        ch = torch.as_tensor(topo.children[ks.numpy(), j])
+        have = ch >= 0
+        kids = torch.where(have, ch, 0)
+        x = torch.stack([tips[c][None].expand(C, -1, -1) if c < T
+                         else read(c - T) for c in kids.tolist()])
+        contrib = _apply_p(pmats[kids], x)
+        res = res * torch.where(have[:, None, None, None], contrib, 1.0)
+    m = torch.clamp(res.amax((1, 2)), min=tiny)
+    return res / m[:, None, None], torch.log(m)
+
+
+def _emulate_forward(tips, pmats, topo, rootw, top=None, walk=None,
+                     sms=132):
     T, _, P = tips.shape
     C = pmats.shape[1]
     I = topo.I
@@ -158,24 +199,53 @@ def _emulate_forward(tips, pmats, topo, rootw):
     partials = tips.new_full((I, C, 4, P), float("nan"))
     logscale = tips.new_full((I, P), float("nan"))
     nodes, offsets = level_schedule(topo, tips)
-    site_log = None
-    for lo, hi in zip(offsets[:-1], offsets[1:]):
+    n_levels = len(offsets) - 1
+    level, kind = staged.walk_level(offsets, C, P, sms)
+    top = level if top is None else top
+    walk = kind if walk is None else walk
+    levels = list(zip(offsets[:-1], offsets[1:]))
+    # the launches below the switch: children from the stage
+    for lo, hi in levels[:top]:
         ks = nodes[lo:hi].long()
-        res = tips.new_ones((len(ks), C, 4, P))
-        for j in range(topo.children.shape[1]):
-            ch = torch.as_tensor(topo.children[ks.numpy(), j])
-            have = ch >= 0
-            x = _children_x(tips, partials, torch.where(have, ch, 0), C, T)
-            contrib = _apply_p(pmats[torch.where(have, ch, 0)], x)
-            res = res * torch.where(have[:, None, None, None], contrib, 1.0)
-        m = torch.clamp(res.amax((1, 2)), min=tiny)
-        partials[ks] = res / m[:, None, None]
-        logscale[ks] = torch.log(m)
-        if hi == I:  # the root's launch
-            assert hi - lo == 1 and int(ks[0]) == I - 1
-            site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum(
-                (0, 1)), min=tiny)
-            site_log = torch.log(site) + logscale.sum(0)
+        partials[ks], logscale[ks] = _node_step(
+            tips, pmats, topo, ks, lambda k: partials[k])
+    if top == n_levels:  # no walk: the root's launch sums the scalers
+        assert int(nodes[-1]) == I - 1
+        site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum(
+            (0, 1)), min=tiny)
+        site_log = torch.log(site) + (logscale[I - 1]
+                                      + logscale[:I - 1].sum(0))
+    elif walk == "chain":
+        below = logscale[nodes[:offsets[top]].long()].sum(0)
+        for k in nodes[offsets[top]:].long():
+            x, lm = _node_step(tips, pmats, topo, k[None],
+                               lambda c: partials[c])
+            partials[k], logscale[k] = x[0], lm[0]
+        assert int(k) == I - 1
+        site = torch.clamp((rootw.view(C, 4, 1) * partials[I - 1]).sum(
+            (0, 1)), min=tiny)
+        site_log = torch.log(site) + (below
+                                      + logscale[nodes[offsets[top]:]
+                                                 .long()].sum(0))
+    else:
+        # the S = 4 walk: walked children from the hand-off, the rest from
+        # the stage (NaN there until the level that writes them)
+        _, slots = staged._walk_tables(nodes, offsets, top)
+        hand = tips.new_full((I - offsets[top], C, 4, P), float("nan"))
+
+        def read(k):
+            return hand[slots[k]] if slots[k] >= 0 else partials[k]
+        for lo, hi in levels[top:]:
+            ks = nodes[lo:hi].long()
+            x, lm = _node_step(tips, pmats, topo, ks, read)
+            hand[slots[ks].long()] = x
+            partials[ks], logscale[ks] = x, lm
+        assert torch.equal(slots[nodes[offsets[top]:].long()],
+                           torch.arange(I - offsets[top], dtype=torch.int32))
+        assert bool((slots[nodes[:offsets[top]].long()] == -1).all())
+        site = torch.clamp((rootw.view(C, 4, 1) * hand[-1]).sum((0, 1)),
+                           min=tiny)
+        site_log = torch.log(site) + logscale.sum(0)
     assert torch.isfinite(partials).all() and torch.isfinite(logscale).all()
     return site_log, partials, logscale
 
@@ -264,16 +334,41 @@ def _polytomy():
     return Topology.from_nested(nested)[0]
 
 
-@pytest.mark.parametrize("shape,C,P", [
-    ("balanced", 4, 300), ("caterpillar", 1, 257), ("polytomy", 3, 129),
-    ("balanced", 1, 1000), ("balanced", 8, 37), ("caterpillar", 8, 300),
-    ("polytomy", 4, 700)])
-def test_kernel_schedule_matches_plain(shape, C, P):
-    """float64: the kernels' emulated level schedule against the plain
-    version (site logs, d pmats, d rootw) to rounding, on a card of one SM
-    and of 132: ragged P over several blocks, P under one block (C = 8),
-    C = 1 and 8, a caterpillar (one node a level) and a polytomy."""
-    _schedule_against_plain(shape, C, P)
+def _gtrg4_flua_topology():
+    """The GTR+G4 fluA golden's tree (69 taxa, 21 levels)."""
+    with open(DATA / "goldens" / "gtrg4_fluA.json") as fh:
+        return read_newick(json.load(fh)["model"]["tree"]["newick"])[0]
+
+
+SCHEDULE_TOPOLOGIES = {
+    "balanced": lambda: _topologies("balanced")[0],
+    "caterpillar": lambda: _topologies("caterpillar")[0],
+    "polytomy": _polytomy,
+    "balanced128": lambda: balanced_topology(128),
+    "fluA": _gtrg4_flua_topology}
+
+
+# the switch: as walk_level picks it at 132 SMs (the S = 4 walk from level
+# 0 at these P), or forced: each walk from level 0 or a middle level, or
+# past the last level (no walk)
+@pytest.mark.parametrize("shape,C,P,top,walk", [
+    ("balanced", 4, 300, "auto", None), ("caterpillar", 1, 257, "auto", None),
+    ("polytomy", 3, 129, "auto", None), ("balanced", 1, 1000, "mid", "s4"),
+    ("balanced", 8, 37, "past", None), ("caterpillar", 8, 300, "mid", "s4"),
+    ("polytomy", 4, 700, "mid", "chain"), ("polytomy", 8, 300, "past", None),
+    ("balanced", 5, 300, 0, "chain"), ("caterpillar", 5, 130, "past", None),
+    ("fluA", 4, 238, "auto", None), ("fluA", 1, 300, "mid", "chain"),
+    ("fluA", 5, 129, "past", None), ("balanced128", 4, 300, "mid", "chain"),
+    ("balanced128", 8, 257, 0, "s4"), ("balanced128", 1, 129, "past", None),
+    ("caterpillar", 4, 200, 0, "chain"), ("balanced", 3, 257, "mid", "chain")])
+def test_kernel_schedule_matches_plain(shape, C, P, top, walk):
+    """float64: the kernels' emulated schedule against the plain version
+    (site logs, d pmats, d rootw) to rounding, on a card of one SM and of
+    132: the switch to each walk at level 0 and a middle level, and past
+    the last; ragged P over several blocks, P under one block (C = 8), C =
+    1, 5 and 8, the fluA tree, a caterpillar (one node a level), balanced
+    128 and a polytomy."""
+    _schedule_against_plain(shape, C, P, top=top, walk=walk)
 
 
 @pytest.mark.parametrize("shape,C,P", [
@@ -286,8 +381,9 @@ def test_kernel_schedule_identity_category(shape, C, P):
     _schedule_against_plain(shape, C, P, identity=True)
 
 
-def _schedule_against_plain(shape, C, P, identity=False):
-    topo = _polytomy() if shape == "polytomy" else _topologies(shape)[0]
+def _schedule_against_plain(shape, C, P, identity=False, top="auto",
+                            walk=None):
+    topo = SCHEDULE_TOPOLOGIES[shape]()
     tips, pm, freqs, props, w = (torch.as_tensor(x) for x in
                                  _setup(topo, P, C, seed=2))
     if identity:
@@ -298,8 +394,11 @@ def _schedule_against_plain(shape, C, P, identity=False):
     root, scal = pruning_root_levels(tips, pm_, topo, rescale=True)
     ref = torch.log(torch.einsum("cs,csp->p", rootw.view(C, 4), root)) + scal
     ref_dP, ref_drootw = torch.autograd.grad(torch.sum(w * ref), [pm_, rootw])
+    n_levels = len(topo.levels)
+    level = {"auto": None, "mid": n_levels // 2, "past": n_levels}.get(top,
+                                                                      top)
     site, partials, logscale = _emulate_forward(tips, pm, topo,
-                                                rootw.detach())
+                                                rootw.detach(), level, walk)
     torch.testing.assert_close(site, ref.detach(), rtol=1e-12, atol=1e-12)
     for sms in SMS:
         dP, drootw = _emulate_backward(tips, pm, topo, rootw.detach(),
@@ -308,6 +407,65 @@ def _schedule_against_plain(shape, C, P, identity=False):
                                    atol=1e-12 * float(ref_dP.abs().max()))
         torch.testing.assert_close(drootw, ref_drootw, rtol=1e-12,
                                    atol=1e-12)
+
+
+# level widths of the 128-taxon GTR+G4 config's tree
+# (chip_smoke.random_dated_tree(128, 13), 16 291 patterns)
+CONFIG_128_WIDTHS = (45, 25, 17, 11, 8, 6, 3, 3, 3, 2, 1, 1, 1, 1)
+
+
+def _offsets(widths):
+    return tuple(int(x) for x in np.cumsum((0,) + tuple(widths)))
+
+
+def test_walk_level():
+    """K3''s switch on the H100's 132 SMs: the S = 4 walk where P x C' is at
+    most WALK_S4_PATTERNS, from the first level whose nodes x 128-pattern
+    tiles fall under WALK_BLOCKS blocks an SM; else the chain walk from the
+    first level of at most CHAIN_NODES nodes; past the last level where no
+    level qualifies. The GTR+G4 fluA tree is walked whole (238 patterns),
+    the 128-taxon config (16 291 patterns, C = 4) from level 6 (3 nodes),
+    balanced 128 x 16 384 from level 5 (2 nodes)."""
+    flua = _gtrg4_flua_topology()
+    flua_offsets = level_schedule(flua, torch.zeros(1))[1]
+    assert staged.walk_level(flua_offsets, 4, 238, 132) == (0, "s4")
+    assert staged.forward_launches(flua_offsets, 0) == 1
+    config = _offsets(CONFIG_128_WIDTHS)
+    assert staged.walk_level(config, 4, 16291, 132) == (6, "chain")
+    assert staged.forward_launches(config, 6) == 7
+    balanced = _offsets((64, 32, 16, 8, 4, 2, 1))
+    assert staged.walk_level(balanced, 4, 16384, 132) == (5, "chain")
+    assert staged.forward_launches(balanced, 5) == 6
+    # C' x P at the S = 4 walk's limit; the first level under one block an
+    # SM of 128-pattern tiles
+    assert staged.walk_level(balanced, 4, 4096, 132) == (4, "s4")
+    assert staged.walk_level(balanced, 3, 4096, 132) == (4, "s4")
+    assert staged.walk_level(balanced, 5, 4096, 132) == (5, "chain")
+    assert staged.walk_level(balanced, 1, 16384, 132) == (6, "s4")
+    assert staged.walk_level(balanced, 1, 16384, 1) == (7, "s4")
+    assert staged.forward_launches(balanced, 7) == 7
+    caterpillar = _offsets((1,) * 127)
+    assert staged.walk_level(caterpillar, 4, 16384, 132) == (0, "chain")
+    assert staged.walk_level(_offsets((5, 4)), 4, 40000, 132) == (2,
+                                                                  "chain")
+
+
+def test_forward_ppt():
+    """K3''s patterns a thread below the switch: in float32, 16 bytes of
+    each row (8 above C = 4) where P is a multiple of them and the level's
+    blocks of 128 threads give every SM VECTOR_BLOCKS, else one."""
+    config = _offsets(CONFIG_128_WIDTHS)
+    assert staged.forward_ppt(config, 3, 4, 16384, 132, 4) == (4, 4, 4)
+    assert staged.forward_ppt(config, 3, 4, 16384, 132, 8) == (1, 1, 1)
+    assert staged.forward_ppt(config, 3, 5, 16384, 132, 4) == (2, 2, 2)
+    assert staged.forward_ppt(config, 3, 8, 16384, 132, 8) == (1, 1, 1)
+    # 16 291 patterns take no vectors; 17 nodes x 28 tiles of 512 patterns
+    # fall under 4 blocks an SM of 132
+    assert staged.forward_ppt(config, 3, 4, 16291, 132, 4) == (1, 1, 1)
+    assert staged.forward_ppt(config, 3, 4, 14336, 132, 4) == (4, 4, 1)
+    assert staged.forward_ppt(config, 0, 4, 16384, 132, 4) == ()
+    # one tile a node on a card of one SM: the levels of four nodes or more
+    assert staged.forward_ppt(config, 14, 4, 300, 1, 4) == (4,) * 6 + (1,) * 8
 
 
 def test_backward_schedule():
@@ -369,15 +527,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 # (C, mean internal nodes per level) on either side of the gate: the fluA
-# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar at C = 4 and
-# 3 (both below the gate), and a balanced 64-taxon tree with C = 1
+# tree (68 nodes in 33 levels) with C = 4 and 1, a caterpillar at C = 4 (at
+# the gate) and 3 (below it), and a balanced 64-taxon tree with C = 1
 FLUA = 68 / 33
 
 
 @pytest.mark.parametrize("engine,device,S,maxc,C,npl,expected", [
     ("auto", "cuda", 4, 2, 4, FLUA, "cuda-staged"),
     ("auto", "cuda", 4, 2, 1, FLUA, "cuda-fused"),
-    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-fused"),    # a caterpillar
+    ("auto", "cuda", 4, 2, 4, 1.0, "cuda-staged"),   # a caterpillar
     ("auto", "cuda", 4, 2, 3, 1.0, "cuda-fused"),
     ("auto", "cuda", 4, 2, 1, 10.5, "cuda-staged"),
     ("auto", "cuda", 4, 2, 2, STAGED_MIN_LEVEL_WORK / 2, "cuda-staged"),
