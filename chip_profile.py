@@ -133,6 +133,20 @@ bytes at 3.35 TB/s), nvcc's register lines and the cost of a level on
 caterpillars. Like ``--s4-backward`` a copy run from an older checkout's
 root times that checkout.
 
+With ``--fused-wide``, only K1' and K2' at S != 4 alone (one sweep each,
+device time in a CUDA graph of 20 calls and by CUDA events, median of 50)
+beside K7' and K8' on the same inputs, with their bounds, at WAG+G4 64 x
+8192 and GY94 M0 32 x 4096 (category-split), WAG 64 x 8192 and WAG on a
+128-taxon caterpillar at 8192 patterns (packed), float32 and float64; the
+kernel launches a sweep from the C code's counter
+(``fused.kernel_launches``, where the checkout has it: the profiler stops
+seeing kernels after a few sessions) and, where the checkout has them,
+each kernel walked and on the tree's schedule (``fused.SCHEDULE``), the
+rule's choice and whether the two agree bit for bit; and nvcc's register
+and spill lines of both kernels. It uses only ``fused.fused_wide_forward`` /
+``fused_wide_backward``, which older checkouts have, so a copy run from an
+older checkout's root times that checkout.
+
 With ``--calibrated-settings``, only the estimators of
 ``tests/data/fluA-calibrated.json`` in float64 against their chain
 settings, over four seeds, in the config's order: the config's
@@ -158,6 +172,7 @@ estimates of a seed differ only where K5' and the plain engine disagree.
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
                             [--staged] [--k4-variants] [--s4-backward]
                             [--s4-forward] [--s4-trace] [--s4-host]
+                            [--fused-wide]
                             [--calibrated-settings] [--ladder-spread]
                             [--ladder-plain]
 
@@ -187,6 +202,7 @@ from physher_tpu_torch.inference import vb
 import numpy as np
 
 from physher_tpu_torch.io.treeio import read_newick
+from physher_tpu_torch.models.protein import WAG
 from physher_tpu_torch.models.sitemodel import GammaSiteModel
 from physher_tpu_torch.models.substitution import GTR
 from physher_tpu_torch.models.treelikelihood import TreeLikelihood
@@ -1189,6 +1205,120 @@ def s4_forward(dev):
           flush=True)
 
 
+def wag_caterpillar(dtype, dev):
+    """WAG (packed) on a 128-taxon caterpillar at 8192 patterns (as
+    ``chip_smoke.wag_caterpillar``, which older checkouts lack)."""
+    sp = random_sitepattern(128, 8192, seed=19, datatype="aminoacid")
+    kw = dict(dtype=dtype, device=dev)
+    return TreeLikelihood(sp, caterpillar_topology(128), WAG(**kw), **kw)
+
+
+def schedule_variants(k1, k2, topo, tips, C, S) -> dict:
+    """The candidates of K1'/K2''s schedule on one shape (device time in a
+    CUDA graph): each kernel walked (the walk kernels) and on the tree's
+    schedule (the tree kernels); the rule's choice; and whether each
+    kernel's outputs agree bit for bit across the schedules."""
+    P = tips.shape[2]
+    rec, outs = {}, {}
+    res_f = fused.resident_blocks(tips.device, S, tips.dtype, False)
+    res_b = fused.resident_blocks(tips.device, S, tips.dtype, True)
+    chain = fused.is_chain(topo.children, topo.T)
+    rec["resident_blocks"] = [res_f, res_b]
+    rec["rule_walks"] = [
+        fused.walks(-(-P // (128 if S <= 32 else 32)), C, res_f, chain),
+        fused.walks(-(-P // 128), C, res_b, chain)]
+    try:
+        for sched in ("walk", "tree"):
+            fused.SCHEDULE = sched
+            outs[sched] = (k1(), k2())
+            rec[f"forward_{sched}_graph_us"] = graph_launch_us(k1)
+            rec[f"backward_{sched}_graph_us"] = graph_launch_us(k2)
+    finally:
+        fused.SCHEDULE = None
+    torch.cuda.synchronize()
+    for i, kind in enumerate(("forward", "backward")):
+        rec[f"{kind}_walk_equals_tree"] = all(
+            torch.equal(a, b)
+            for a, b in zip(outs["walk"][i], outs["tree"][i]))
+    return rec
+
+
+def fused_wide(dev):
+    """K1'/K2' at S != 4 alone beside K7'/K8' (CUDA graph of 20 and CUDA
+    events) at the three phase-46 shapes and the caterpillar, float32 and
+    float64, with the bounds, the C code's launches a sweep, each kernel
+    walked and on the tree's schedule, and nvcc's register lines."""
+    tree = "change" if hasattr(fused, "backward_plan") else "parent"
+    print(json.dumps({"phase": "fw_ptxas", "tree": tree,
+                      "k1": cs.ptxas_by_kernel(fused.build_log,
+                                               "fused_wide_forward"),
+                      "k2": cs.ptxas_by_kernel(fused.build_log,
+                                               "fused_wide_backward")}),
+          flush=True)
+    shapes = (("wag-g4-64x8192", cs.wag_g4_large, True),
+              ("gy94-32x4096", cs.gy94_m0_fit_model, True),
+              ("wag-64x8192", cs.wag_large, False),
+              ("wag-caterpillar-128x8192", wag_caterpillar, False))
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        kw = dict(dtype=dtype, device=dev)
+        for name, make, split in shapes:
+            tlk = make(dtype, dev)
+            tips, pm, fr, pr, w = cs.engine_inputs(
+                tlk, tlk.param_space().init_params(**kw))
+            topo = tlk.topo
+            children = cs.topo_constant(topo, "children",
+                                        lambda: topo.children, tips,
+                                        torch.int32)
+            rootw = (pr[:, None] * fr[None, :]).reshape(-1).contiguous()
+
+            def k1():
+                return fused.fused_wide_forward(tips, pm, children, rootw,
+                                                split)
+            out, part, sc = k1()
+            site = torch.logsumexp(out, 0) if split else out
+            g = (w * torch.exp(out - site)).contiguous() if split else w
+
+            def k2():
+                return fused.fused_wide_backward(tips, pm, children, rootw,
+                                                 split, part, sc, g)
+            sched = cuda_build.level_schedule(topo, tips)
+
+            def k7():
+                return wide.wide_forward(tips, pm, children, rootw, sched)
+            _, wpart, wsc = k7()
+
+            def k8():
+                return wide.wide_backward(tips, pm, children, rootw, sched,
+                                          wpart, wsc, w)
+            T, S, P = tips.shape
+            C = pm.shape[1]
+            dims = (T, topo.I, C, S, children.shape[1], P,
+                    tips.element_size())
+            rec = {"phase": "fw_kernels", "tree": tree, "shape": name,
+                   "dtype": dt, "split": split, "categories": C,
+                   "states": S, "patterns": P, "internal": topo.I}
+            if hasattr(fused, "kernel_launches"):
+                n0 = fused.kernel_launches()
+                k2()
+                k1()
+                rec["kernel_launches_a_sweep_pair"] = \
+                    fused.kernel_launches() - n0
+                rec.update(schedule_variants(k1, k2, topo, tips, C, S))
+            for kind, run, other in (("forward", k1, k7),
+                                     ("backward", k2, k8)):
+                rec[f"{kind}_graph_us"] = graph_launch_us(run)
+                rec[f"{kind}_ms"] = cs.median_ms(run, reps=50)
+                rec[f"{kind}_k7k8_graph_us"] = graph_launch_us(other)
+                rec[f"{kind}_k7k8_ms"] = cs.median_ms(other, reps=50)
+                ms, by = cs.bound(*cs.pruning_work(kind == "backward",
+                                                   *dims))
+                rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = ms, by
+            print(json.dumps(rec), flush=True)
+            del tlk, tips, pm, part, sc, wpart, wsc
+            torch.cuda.empty_cache()
+
+
 # where --s4-trace stamps each S = 4 walk (thread 0 of block 0): (line,
 # stamp, before) in each header, and the names of the three spans a level
 # has between its stamps [0], [1], [2] and the next level's [0]. The
@@ -1796,6 +1926,8 @@ def main() -> int:
                          "a level")
     ap.add_argument("--s4-host", action="store_true",
                     help="only the host time of K2''s and K6''s wrappers")
+    ap.add_argument("--fused-wide", action="store_true",
+                    help="only K1'/K2' at S != 4 alone beside K7'/K8'")
     ap.add_argument("--calibrated-settings", action="store_true",
                     help="only the calibrated config's estimators against "
                          "their chain settings, over four seeds")
@@ -1811,6 +1943,12 @@ def main() -> int:
     args = ap.parse_args()
     dev = cs.cuda_device()
     smi = cs.nvidia_smi()
+    if args.fused_wide:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda m: m.build(), (fused, wide)))
+        fused_wide(dev)
+        print(smi, flush=True)
+        return 0
     with ThreadPoolExecutor(4) as pool:
         list(pool.map(lambda m: m.build(), (fused, staged, loop, wide)))
     if args.calibrated_settings:

@@ -97,13 +97,16 @@ slices' main paths through them and times kernel against plain:
   card when there are two or more) against unsharded in float64 and
   float32, an 8-chain mcmc with --mesh 2x2 through the CLI against the
   unsharded run, and the value-and-gradient time at 1, 2 and 4 shards;
-- K1'/K2' at S != 4 (``csrc/pruning.cu`` fused_wide_*_kernel, on K5'/K6''s
-  walks) in the TPU wrapper's category-split mode at WAG+G4 64 x 8192 and
-  GY94 M0 32 x 4096 and its packed mode at WAG 64 x 8192, float32 and
-  float64: a value and gradient through TreeLikelihood(engine="cuda-fused")
-  (one launch of each, nothing else) against the plain engine, the kernels
-  against the plain version of the mode and against K7'/K8' on the same
-  inputs, each alone timed beside K7'/K8'; the staged sweep at S = 20
+- K1'/K2' at S != 4 (``csrc/pruning.cu`` fused_wide_*_kernel: one launch a
+  sweep, K5'/K6''s node steps spread over the card) in the TPU wrapper's
+  category-split mode at WAG+G4 64 x 8192 and GY94 M0 32 x 4096 and its
+  packed mode at WAG 64 x 8192 and on a 128-taxon caterpillar at 8192,
+  float32 and float64: a value and gradient through
+  TreeLikelihood(engine="cuda-fused") (one launch of each, nothing else)
+  against the plain engine, the kernels against the plain version of the
+  mode and against K7'/K8' on the same inputs, each alone timed beside
+  K7'/K8', and one sweep replayed three times from a CUDA graph bit for bit
+  as the eager call; the staged sweep at S = 20
   (``csrc/wide.cu``'s level kernels) through engine="cuda-staged" and
   against plain; and the ``"pallas-fused"`` WAG+G4 config through the CLI
   (an L-BFGS fit, float64) against ``"pallas-wide"`` at its optimum.
@@ -3752,6 +3755,40 @@ def wag_large(dtype, device):
     return TreeLikelihood(sp, balanced_topology(64), WAG(**kw), **kw)
 
 
+def wag_caterpillar(dtype, device):
+    """WAG (C = 1: packed) on a 128-taxon caterpillar at 8192 patterns: 127
+    internal nodes in a row, the worst case for K1'/K2''s hand-offs between
+    blocks."""
+    sp = random_sitepattern(128, 8192, seed=19, datatype="aminoacid")
+    kw = dict(dtype=dtype, device=device)
+    return TreeLikelihood(sp, caterpillar_topology(128), WAG(**kw), **kw)
+
+
+def graph_replays_identical(run, replays=3) -> bool:
+    """``run()`` captured in a CUDA graph and replayed ``replays`` times,
+    its outputs set to NaN before each: every replay bit for bit the eager
+    call's (a kernel's counter or flag left set would show here)."""
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    same = True
+    for _ in range(replays):
+        for x in captured:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b)
+                            for a, b in zip(captured, eager))
+    del graph
+    return bool(same)
+
+
 def fused_wide_alone(topo, tips, pmats, freqs, props, w, split):
     """K1' and K2' at S != 4 alone, in the TPU wrapper's mode ``split``,
     against the plain version of the mode on one model's inputs: max abs
@@ -3797,6 +3834,12 @@ def fused_wide_alone(topo, tips, pmats, freqs, props, w, split):
                                    for a, b in zip(grads_k, grads_p))}
     rec["forward_ms"] = median_ms(fwd, reps=50)
     rec["backward_ms"] = median_ms(bwd, reps=50)
+
+    def sweep():
+        out_, part_, scale_ = fwd()
+        return (out_, part_, scale_) + fused.fused_wide_backward(
+            tips, pmats, children, rootw, split, part_, scale_, g)
+    rec["graph_replays_identical"] = graph_replays_identical(sweep)
     with torch.no_grad():
         rec["forward_plain_ms"] = median_ms(lambda: plain(
             tips, pmats, topo, freqs, props), reps=10)
@@ -3933,16 +3976,19 @@ def cli_fused_wag_g4(dev):
 
 def fused_wide_card(dev, smi):
     """Phase 46. At the three full-width shapes (WAG+G4 64 x 8192 and GY94
-    M0 32 x 4096: category-split; WAG 64 x 8192: packed), float32 and
-    float64: TreeLikelihood(engine="cuda-fused") value and gradient (one
-    K1' and one K2' launch, no other kernel) against the plain engine;
-    K1'/K2' against the plain version of the mode and against K7'/K8' on
-    the same inputs; ``cuda-staged`` at S = 20 (csrc/wide.cu's level
-    kernels) against the plain version; then the ``pallas-fused`` CLI run.
-    Float32: each kernel alone by CUDA events beside K7'/K8' and plain."""
+    M0 32 x 4096: category-split; WAG 64 x 8192: packed) and a 128-taxon
+    caterpillar (WAG at 8192, packed), float32 and float64:
+    TreeLikelihood(engine="cuda-fused") value and gradient (one K1' and one
+    K2' launch, no other kernel) against the plain engine; K1'/K2' against
+    the plain version of the mode and against K7'/K8' on the same inputs;
+    ``cuda-staged`` at S = 20 (csrc/wide.cu's level kernels) against the
+    plain version; then the ``pallas-fused`` CLI run. Float32: each kernel
+    alone by CUDA events beside K7'/K8' and plain, and a sweep replayed from
+    a CUDA graph three times bit for bit."""
     shapes = (("wag-g4-64x8192", wag_g4_large, True),
               ("gy94-32x4096", gy94_m0_fit_model, True),
-              ("wag-64x8192", wag_large, False))
+              ("wag-64x8192", wag_large, False),
+              ("wag-caterpillar-128x8192", wag_caterpillar, False))
     rec = {"card": smi}
     ok = True
     for dtype in (torch.float32, torch.float64):
@@ -4006,6 +4052,7 @@ def fused_wide_card(dev, smi):
                                                        split)
                 out["k7k8_alone"] = kernels_alone(wide, tlk.topo, tips, pm,
                                                   fr, pr, w)
+                ok = ok and out["kernel_alone"]["graph_replays_identical"]
             rec[f"{name}-{dt}"] = out
             del tlk, params, inputs, tips, pm, fr, pr, w
             torch.cuda.synchronize()
@@ -4023,11 +4070,13 @@ def fused_wide_card(dev, smi):
 def fused_wide_rows(fw, fused_src, wide_src) -> list:
     """The ``kernels`` line's rows of phase 46: K1'/K2' at S != 4 split (at
     WAG+G4, launches from the pallas-fused CLI run; GY94's times beside)
-    and packed (WAG; launches from its cuda-fused value and gradient), and
+    and packed (WAG; launches from its cuda-fused value and gradient; the
+    caterpillar's times beside), and
     the staged sweep at S = 20 on csrc/wide.cu (launches from the
     cuda-staged value and gradient, times those of K7'/K8' at WAG+G4)."""
-    split, gy, packed = (fw[f"{n}-float32"] for n in (
-        "wag-g4-64x8192", "gy94-32x4096", "wag-64x8192"))
+    split, gy, packed, cat = (fw[f"{n}-float32"] for n in (
+        "wag-g4-64x8192", "gy94-32x4096", "wag-64x8192",
+        "wag-caterpillar-128x8192"))
     cli = fw["cli"]["launches"]
     rows = []
     for kind, line in (("forward", 245), ("backward", 390)):
@@ -4047,7 +4096,11 @@ def fused_wide_rows(fw, fused_src, wide_src) -> list:
                        f"physher_tpu/ops/pallas_fused.py:{line}",
                        packed["launches_fused"][f"fused_{kind}"],
                        packed["kernel_alone"], kind),
-            k7k8_ms=packed["k7k8_alone"][f"{kind}_ms"]))
+            k7k8_ms=packed["k7k8_alone"][f"{kind}_ms"],
+            caterpillar_128x8192_ms=cat["kernel_alone"][f"{kind}_ms"],
+            caterpillar_128x8192_bound_ms=cat["kernel_alone"][
+                f"{kind}_bound_ms"],
+            caterpillar_128x8192_k7k8_ms=cat["k7k8_alone"][f"{kind}_ms"]))
     for kind, line in (("forward", 234), ("backward", 375)):
         rows.append(kernel_row(
             f"staged_{kind}_wide", wide_src,

@@ -169,7 +169,7 @@ cudaError_t launch_backward(const void* tips, const void* pmats,
 // K5' for S from 2 to 64: grid (pattern blocks of one step, C, L), as
 // clusters (1, C, 1). A block walks the postorder of chain l at category c
 // for its patterns (128 at S <= 32, 32 above), one WideForwardStep a node
-// (forward_walk, csrc/wide_forward.cuh, which K1' at S != 4 shares); the C
+// (forward_walk, csrc/wide_forward.cuh; K1' at S != 4 shares the step); the C
 // blocks of a cluster meet for each node's per-pattern max and for the
 // root.
 // Registers: float32 at four blocks an SM (64 registers, up to 32 B
@@ -202,7 +202,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(scalar_t) == 4 ? 4 : 2)
 // K6' for S from 2 to 64: grid (pattern blocks of BWD_P, C, L), 256 threads.
 // A block seeds category c at the root and walks the reverse postorder of
 // chain l for its 128 patterns, one WideBackwardStep a node
-// (backward_walk, csrc/wide_backward.cuh, which K2' at S != 4 shares).
+// (backward_walk, csrc/wide_backward.cuh; K2' at S != 4 shares the step).
 // gbuf [L, I, C, S, P]; dP_part [L, nb, N, C, S, S] (the caller zeroes the
 // root's rows); drootw_part [L, nb, C, S].
 

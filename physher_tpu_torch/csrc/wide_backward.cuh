@@ -1,7 +1,9 @@
 // The node step of the reverse sweep for any state count S from 2 to 64,
 // shared by K6' at S != 4 (csrc/loop.cu loop_wide_backward_kernel: one block
 // walks every node of one chain, backward_walk below), K2' at S != 4
-// (csrc/pruning.cu fused_wide_backward_kernel: the same walk) and K8'
+// (csrc/pruning.cu: that walk, fused_wide_backward_walk, or
+// fused_wide_backward_tree, where blocks claim (node or child of a node,
+// pattern block, category) items of one launch) and K8'
 // (csrc/wide.cu backward_level: one block takes one node, or one child of a
 // node, of a level). A block of 256
 // threads takes one category c of one node k for its patterns pb .. pe - 1
@@ -320,34 +322,26 @@ template <typename scalar_t, int A, int CP> struct WideBackwardStep {
   }
 };
 
-// The reverse sweep of K6' and K2' at S != 4 in one block: category c of
-// one chain for its patterns pb .. min(pb + BWD_P, P) - 1. First the root
-// seed of category c: gbuf[root, c] = w(c, s) g / site, and the block's
-// d rootw[c, s], the sum over its patterns of root[c, s] g / site, where
-// site = max(sum_c' w(c', .) . root[c'], tiny) over every category (in
-// scaled coordinates as the forward had it), recomputed by each of the C
-// blocks of a pattern block. With csplit, site is category c's own
-// w(c, .) . root[c], g its own cotangent row, and the seed 0 where site is
-// below tiny (the forward's log max(site, tiny) is flat there). Then the
-// reverse postorder, one WideBackwardStep a node. m_k is read from sc.
-// pm [N, C, S, S], part and gb [I, C, S, P], sc [I, P] (one chain's, or
-// with csplit category c's), g [P]; dP the block's row [N, C, S, S] of the
-// per-block sums (the caller zeroes the root's rows), drootw the block's
-// d rootw[c] [S].
-template <typename scalar_t, int A, int CP>
-__device__ inline void backward_walk(
-    const scalar_t* __restrict__ tips, const scalar_t* __restrict__ pm,
-    const int* __restrict__ children, const scalar_t* __restrict__ part,
-    const scalar_t* __restrict__ sc, scalar_t* gb,
-    scalar_t* __restrict__ dP, scalar_t* __restrict__ drootw,
-    const StateWeights<scalar_t>& rw, const scalar_t* __restrict__ g,
-    unsigned char* smem_raw, int T, int I, int C, int S, int maxc, int P,
-    int c, int pb, int csplit) {
-  const auto sm = WideSmem<scalar_t>::template at<A, CP>(smem_raw, S);
+// The root seed of the reverse sweep for category c of one chain at
+// patterns pb .. min(pb + BWD_P, P) - 1: gbuf[root, c] = w(c, s) g / site,
+// and the block's d rootw[c, s], the sum over its patterns of
+// root[c, s] g / site, where site = max(sum_c' w(c', .) . root[c'], tiny)
+// over every category (in scaled coordinates as the forward had it),
+// recomputed by each of the C blocks of a pattern block. With csplit, site
+// is category c's own w(c, .) . root[c], g its own cotangent row, and the
+// seed 0 where site is below tiny (the forward's log max(site, tiny) is flat
+// there). inv_s: BWD_P scalars of shared memory, free until the barrier at
+// the end.
+template <typename scalar_t>
+__device__ inline void backward_seed(const scalar_t* __restrict__ part,
+                                     scalar_t* gb, scalar_t* __restrict__ drootw,
+                                     const StateWeights<scalar_t>& rw,
+                                     const scalar_t* __restrict__ g,
+                                     scalar_t* inv_s, int I, int C, int S,
+                                     int P, int c, int pb, int csplit) {
   const size_t root = (size_t)(I - 1) * C * S * P;
   const size_t root_c = root + (size_t)c * S * P;
   const scalar_t tiny = Limits<scalar_t>::tiny();
-  scalar_t* inv_s = sm.Os;  // [BWD_P], free until the first node
   for (int r = threadIdx.x; r < BWD_P; r += blockDim.x) {
     const int p = pb + r;
     scalar_t inv = 0;
@@ -386,6 +380,28 @@ __device__ inline void backward_walk(
     drootw[s] = acc;
   }
   __syncthreads();  // inv_s is read
+}
+
+// The reverse sweep of K6' at S != 4 in one block: category c of one chain
+// for its patterns pb .. min(pb + BWD_P, P) - 1. First the root seed of
+// category c (backward_seed), then the reverse postorder, one
+// WideBackwardStep a node. m_k is read from sc.
+// pm [N, C, S, S], part and gb [I, C, S, P], sc [I, P] (one chain's, or
+// with csplit category c's), g [P]; dP the block's row [N, C, S, S] of the
+// per-block sums (the caller zeroes the root's rows), drootw the block's
+// d rootw[c] [S].
+template <typename scalar_t, int A, int CP>
+__device__ inline void backward_walk(
+    const scalar_t* __restrict__ tips, const scalar_t* __restrict__ pm,
+    const int* __restrict__ children, const scalar_t* __restrict__ part,
+    const scalar_t* __restrict__ sc, scalar_t* gb,
+    scalar_t* __restrict__ dP, scalar_t* __restrict__ drootw,
+    const StateWeights<scalar_t>& rw, const scalar_t* __restrict__ g,
+    unsigned char* smem_raw, int T, int I, int C, int S, int maxc, int P,
+    int c, int pb, int csplit) {
+  const auto sm = WideSmem<scalar_t>::template at<A, CP>(smem_raw, S);
+  // Os is free until the first node
+  backward_seed(part, gb, drootw, rw, g, sm.Os, I, C, S, P, c, pb, csplit);
   zero_spare_o_rows<scalar_t, A, CP>(sm.Os);
   const WideBackwardStep<scalar_t, A, CP> step(tips, pm, children, part, sc,
                                                gb, dP, sm, T, C, S, maxc, P,

@@ -1,9 +1,10 @@
 // The node step of the forward sweep for any state count S from 2 to 64,
 // shared by K5' at S != 4 (csrc/loop.cu loop_wide_forward_kernel: one block
-// walks every node of one chain), K1' at S != 4 (csrc/pruning.cu
-// fused_wide_forward_kernel: the same walk, rootw for the root's weights)
-// and K7' (csrc/wide.cu forward_level: one block takes one node of a
-// level). A block of 256 threads takes one category c of one node k for
+// walks every node of one chain), K1' at S != 4 (csrc/pruning.cu: that
+// walk, fused_wide_forward_walk, or fused_wide_forward_tree, where a block
+// goes up the tree from a node of tips while it is the last of a parent's
+// children to arrive; rootw for the root's weights) and K7' (csrc/wide.cu
+// forward_level: one block takes one node of a level). A block of 256 threads takes one category c of one node k for
 // one step's patterns p0 .. p0 + TQ - 1 (128 at S <= 32, 32 above;
 // csrc/tiles.cuh):
 //   x_k[c] = prod_j P_j[c] @ x_j[c]   (a missing child contributes 1)
@@ -267,8 +268,8 @@ template <typename scalar_t, int A, int CP> struct WideForwardStep {
   }
 };
 
-// The walk of K5' and K1' at S != 4: every node of one chain's postorder at
-// the step's category and patterns, one node() a node, then the root
+// The walk of K5' at S != 4: every node of one chain's postorder at the
+// step's category and patterns, one node() a node, then the root
 template <typename scalar_t, int A, int CP>
 __device__ inline void forward_walk(
     const WideForwardStep<scalar_t, A, CP>& step, int I,

@@ -9,11 +9,16 @@ d (props x freqs)), but not the TPU layout, for any state count from 2 to
 64. At S = 4, F is the S = 4 forward step of ``csrc/s4_forward.cuh`` (a
 walk by postorder level, which K5' at S = 4 shares), B the S = 4 reverse
 step of ``csrc/s4_backward.cuh`` (a walk by preorder level and a dP pass,
-which K6' at S = 4 shares), each at one chain. At any other S they are
-``fused_wide_forward_kernel`` / ``fused_wide_backward_kernel``, the walks of
-K5'/K6' at S != 4 (``csrc/wide_forward.cuh``, ``csrc/wide_backward.cuh``) at
-one chain, in both of the TPU wrapper's modes, chosen by its rule
-(:func:`needs_csplit`, a copy of ``_needs_csplit``):
+which K6' at S = 4 shares), each at one chain. At any other S each is one
+launch a sweep of one of two kernels on the node steps of K5'/K6' and
+K7'/K8' (``csrc/wide_forward.cuh``, ``csrc/wide_backward.cuh``), chosen a
+call by :func:`walks`: ``fused_wide_*_walk`` (one block per pattern block
+and category visits every node: the walks of K5'/K6') where those blocks
+fill the card or the tree is a chain, else ``fused_wide_*_tree``, which
+spreads the tree's (node, pattern block, category) steps over the card in
+an order built here from the tree (:func:`forward_plan`,
+:func:`backward_plan`); both in the TPU wrapper's two modes, chosen by its
+rule (:func:`needs_csplit`, a copy of ``_needs_csplit``):
 
 - packed: one sweep, rescaled by the per-pattern max over (C, S);
 - category-split (protein at C = 4, codon): one sweep per rate category
@@ -41,12 +46,20 @@ them on the card and what the design does about it.
 - ``FORWARD_LAUNCHES`` / ``BACKWARD_LAUNCHES`` count the wrappers' calls:
   one CUDA launch for F, two for B at S = 4 (the walk and the dP pass),
   one each at any other S.
+- At S != 4 the tree kernels hand work between blocks through counters
+  and flags in a per-device int32 workspace (:func:`sync_words`), zeroed
+  once when it is made; every launch leaves it at zero, so a CUDA graph
+  can replay a sweep. Sweeps on one device must not run at once on two
+  streams. The schedules come from a host copy of ``children`` kept on
+  that tensor (:func:`fused_site_log` leaves the topology's there; a
+  wrapper given another tensor copies it from the device once).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..trees.heights import topo_constant
@@ -89,11 +102,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         bwd.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
         bwd.restype = i32
         wfwd = getattr(lib, f"fused_wide_forward_{dt}")
-        wfwd.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        wfwd.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
         wfwd.restype = i32
         wbwd = getattr(lib, f"fused_wide_backward_{dt}")
-        wbwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
+        wbwd.argtypes = [ptr] * 14 + [i32] * 9 + [ptr]
         wbwd.restype = i32
+        blocks = getattr(lib, f"fused_wide_blocks_{dt}")
+        blocks.argtypes = [i32, i32, ptr]
+        blocks.restype = i32
     return lib
 
 
@@ -192,6 +208,207 @@ def _wide_dims(tips, pmats, children, rootw):
                                    rootw, states=STATES)
 
 
+# the patterns a step of the S != 4 forward takes at S > 32 (128 below, as
+# the backward's blocks; csrc/tiles.cuh), the fewest, which bounds its
+# pattern blocks
+_FORWARD_MIN_PATTERNS = 32
+# A sweep at S != 4 walks the tree in one block per (pattern block,
+# category), as K5'/K6' walk a chain (the walk kernels), where those blocks
+# number at least WALK_FILL of the blocks that the card keeps resident,
+# so that the walk fills the card by itself, or where the tree is a chain
+# (its postorder levels more than half its internal nodes: a caterpillar),
+# which no schedule spreads; other shapes take the tree's schedule (the
+# tree kernels). "walk" or "tree" in SCHEDULE forces one.
+WALK_FILL = 0.5
+SCHEDULE = None
+
+
+def _tree(children: np.ndarray, T: int):
+    """(parent [I], the parent's internal rank or -1 at the root; the
+    number of internal children [I]; the height [I], 0 where every child
+    is a tip) of ``children`` [I, maxc]."""
+    I = children.shape[0]
+    inner = children >= T
+    rows, cols = np.nonzero(inner)
+    parent = np.full(I, -1, np.int32)
+    parent[children[rows, cols] - T] = rows
+    height = np.zeros(I, np.int64)
+    for k in range(I):                   # a child's rank is below its parent's
+        kids = children[k][inner[k]] - T
+        if kids.size:
+            height[k] = 1 + height[kids].max()
+    return parent, inner.sum(1).astype(np.int32), height
+
+
+def forward_plan(children: np.ndarray, T: int):
+    """The tree's schedule of F at S != 4 from ``children`` [I, maxc] (node
+    ids, -1 for none; internal rank k is node T + k, the root rank I - 1):
+    (next [I], the parent's rank, -1 at the root; need [I], the number of
+    internal children; starts, the ranks whose children are all tips),
+    int32. A block starts at each start and goes up to the parent; at a
+    parent of ``need`` > 1 internal children only the last of them to
+    arrive goes on."""
+    parent, need, _ = _tree(np.asarray(children), T)
+    return parent, need, np.nonzero(need == 0)[0].astype(np.int32)
+
+
+def is_chain(children: np.ndarray, T: int) -> bool:
+    """Whether the tree's postorder levels number more than half its
+    internal nodes (a caterpillar: all of them)."""
+    height = _tree(np.asarray(children), T)[2]
+    return 2 * (int(height.max()) + 1) > len(height)
+
+
+def backward_plan(children: np.ndarray, T: int, blocks: int, C: int,
+                  split_width: int):
+    """The schedule of B at S != 4 from ``children`` [I, maxc], at
+    ``blocks`` pattern blocks of 128 and C categories: (items [n, 4], claims
+    [m], consumers [I]), int32.
+
+    Item i is (node rank k, child index j or -1 for all of k's children,
+    the item to continue with or -1, 0 / 1 / 2: continued / waits for k's
+    cotangent rows / the root's seed, plus 4 where it writes rows that
+    other items wait on). A node whose preorder level holds at
+    most ``split_width`` (node, pattern block, category) steps has an item
+    per child, as K8' splits such a level, its lead first (the one at the
+    tallest internal child); any other node one item. The item that writes
+    a node's cotangent rows goes on with that node's lead item (at its
+    tallest internal child), so a chain of nodes is one block's; the other
+    items are claimed in ``claims``' order: preorder level, root first,
+    then rank and lead. ``consumers[k]``: the items that
+    wait on node k's rows."""
+    children = np.asarray(children)
+    I, maxc = children.shape
+    parent, _, height = _tree(children, T)
+    depth = np.zeros(I, np.int64)
+    for k in range(I - 2, -1, -1):       # a parent's rank is above its child's
+        depth[k] = depth[parent[k]] + 1
+    split = blocks * C * np.bincount(depth)[depth] <= split_width
+
+    def tallest(kids):
+        """Index into ``kids`` of the internal child of greatest height,
+        None if every one is a tip or missing."""
+        inner = [i for i, ch in enumerate(kids) if ch >= T]
+        return max(inner, key=lambda i: height[kids[i] - T]) if inner \
+            else None
+    items, first = [], np.zeros(I, np.int64)
+    for k in np.lexsort((np.arange(I), depth)):
+        first[k] = len(items)
+        if split[k]:
+            parts = [int(j) for j in np.nonzero(children[k] >= 0)[0]]
+            lead = tallest(children[k, parts])
+            if lead:
+                parts.insert(0, parts.pop(lead))
+        else:
+            parts = [-1]
+        items += [[k, j, -1, 1] for j in parts]
+    items = np.array(items, np.int32).reshape(-1, 4)
+    items[first[I - 1], 3] = 2
+    for i, (k, j, _, _) in enumerate(items):
+        kids = children[k] if j < 0 else children[k, j:j + 1]
+        t = tallest(kids)
+        if t is not None:
+            ch = first[kids[t] - T]
+            items[i, 2] = ch
+            items[ch, 3] = 0
+    waiting = items[:, 3] == 1
+    consumers = np.bincount(items[waiting, 0], minlength=I).astype(np.int32)
+    claims = np.nonzero(items[:, 3] > 0)[0].astype(np.int32)
+    for i, (k, j, _, _) in enumerate(items):
+        kids = children[k] if j < 0 else children[k, j:j + 1]
+        if consumers[kids[kids >= T] - T].any():
+            items[i, 3] |= 4
+    return items, claims, consumers
+
+
+def _plans(children: torch.Tensor) -> dict:
+    """The cache of schedules built from ``children`` (a tensor of the
+    device), kept on the tensor itself: its host copy is read once per
+    tensor (:func:`fused_site_log` leaves the topology's there, so that
+    call makes no copy)."""
+    cache = getattr(children, "_fused_plans", None)
+    if cache is None:
+        cache = {"host": children.cpu().numpy()}
+        children._fused_plans = cache
+    return cache
+
+
+def resident_blocks(device, S: int, dtype, backward: bool) -> int:
+    """Blocks of F (``backward``: B) at S != 4 that the card keeps
+    resident at once: blocks an SM (occupancy) x SMs."""
+    n = ctypes.c_int(0)
+    err = cuda_build.entry(build(), "fused_wide_blocks",
+                           torch.empty(0, dtype=dtype))(
+        S, int(backward), ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"fused_wide_blocks failed: cudaError {err}")
+    return n.value * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
+def walks(blocks: int, C: int, resident: int, chain: bool) -> bool:
+    """Whether a sweep of ``blocks`` pattern blocks x C categories walks
+    (one block each visits every node) rather than takes the tree's
+    schedule: where those blocks fill WALK_FILL of the ``resident`` blocks
+    or the tree is a ``chain``, unless SCHEDULE forces one."""
+    if SCHEDULE is not None:
+        return SCHEDULE == "walk"
+    return chain or blocks * C >= WALK_FILL * resident
+
+
+_SYNC: dict = {}
+
+
+def sync_words(device, n: int) -> torch.Tensor:
+    """A zeroed int32 workspace of at least ``n`` words on ``device`` for
+    the S != 4 kernels' counters and flags (every launch leaves it zero).
+    A larger one replaces it when needed; the old ones are kept, since a
+    captured CUDA graph may still point at them."""
+    bufs = _SYNC.setdefault(torch.device(device), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
+def _launch_setup(children: torch.Tensor, backward: bool, T: int, C: int,
+                  S: int, P: int, dtype):
+    """(walk, the schedule's tensors, the workspace) of one sweep's shape,
+    built once and kept on ``children`` (:func:`_plans`), so that a call
+    costs a lookup; SCHEDULE is part of the key."""
+    cache = _plans(children)
+    key = (backward, C, S, P, dtype, SCHEDULE)
+    setup = cache.get(key)
+    if setup is None:
+        dev, host, I = children.device, cache["host"], children.shape[0]
+        if "chain" not in cache:
+            cache["chain"] = is_chain(host, T)
+        blocks = -(-P // (WIDE_BACKWARD_BLOCK if backward or S <= 32
+                          else _FORWARD_MIN_PATTERNS))
+        walk = walks(blocks, C, resident_blocks(dev, S, dtype, backward),
+                     cache["chain"])
+        # levels of at most one (node, pattern block, category) an SM split
+        # by child, as K8' splits them
+        plan = (backward_plan(host, T, blocks, C, torch.cuda
+                              .get_device_properties(dev)
+                              .multi_processor_count)
+                if backward else forward_plan(host, T))
+        # the claim counter, then a word per (internal node, pattern block,
+        # category) at the forward's smallest step (the most blocks)
+        sync = sync_words(dev, 1 + I * -(-P // _FORWARD_MIN_PATTERNS) * C)
+        setup = cache[key] = (walk, [torch.as_tensor(a, device=dev)
+                                     for a in plan], sync)
+    return setup
+
+
+def kernel_launches() -> int:
+    """CUDA kernel launches that the S != 4 entries made in this process
+    (one a sweep), counted by the C code."""
+    fn = build().fused_wide_kernel_launches
+    fn.restype = ctypes.c_long
+    return int(fn())
+
+
 def fused_wide_forward(tips, pmats, children, rootw, split: bool):
     """Launch F at any S from 2 to 64 (one launch): packed, returns
     (site_log [P], partials [I, C, S, P], scale [I, P]); category-split
@@ -200,6 +417,8 @@ def fused_wide_forward(tips, pmats, children, rootw, split: bool):
     global FORWARD_LAUNCHES
     T, I, C, S, maxc, P = _wide_dims(tips, pmats, children, rootw)
     lib = build()
+    walk, (nxt, need, starts), sync = _launch_setup(children, False, T, C,
+                                                    S, P, tips.dtype)
     partials = tips.new_empty((I, C, S, P))
     scale = tips.new_empty((C, I, P) if split else (I, P))
     site = tips.new_empty((C, P) if split else (P,))
@@ -207,8 +426,9 @@ def fused_wide_forward(tips, pmats, children, rootw, split: bool):
         err = cuda_build.entry(lib, "fused_wide_forward", tips)(
             tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
             rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
-            site.data_ptr(), T, I, C, S, maxc, P, int(bool(split)),
-            _stream(tips))
+            site.data_ptr(), nxt.data_ptr(), need.data_ptr(),
+            starts.data_ptr(), sync.data_ptr(), starts.numel(), T, I, C, S,
+            maxc, P, int(bool(split)), int(walk), _stream(tips))
     FORWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"fused forward kernel launch failed at S = {S}: "
@@ -231,17 +451,20 @@ def fused_wide_backward(tips, pmats, children, rootw, split: bool, partials,
     lib = build()
     N = T + I
     n_blocks = -(-P // WIDE_BACKWARD_BLOCK)
+    walk, (items, claims, consumers), sync = _launch_setup(
+        children, True, T, C, S, P, tips.dtype)
     gbuf = tips.new_empty((I, C, S, P))
+    # the kernel writes every row, the root's zero rows too
     dP_part = tips.new_empty((n_blocks, N, C, S, S))
-    dP_part[:, N - 1].zero_()  # the root is no node's child
     drootw_part = tips.new_empty((n_blocks, C * S))
     with torch.cuda.device(tips.device):
         err = cuda_build.entry(lib, "fused_wide_backward", tips)(
             tips.data_ptr(), pmats.data_ptr(), children.data_ptr(),
             rootw.data_ptr(), partials.data_ptr(), scale.data_ptr(),
             g.data_ptr(), gbuf.data_ptr(), dP_part.data_ptr(),
-            drootw_part.data_ptr(), T, I, C, S, maxc, P, int(bool(split)),
-            _stream(tips))
+            drootw_part.data_ptr(), items.data_ptr(), claims.data_ptr(),
+            consumers.data_ptr(), sync.data_ptr(), claims.numel(), T, I, C,
+            S, maxc, P, int(bool(split)), int(walk), _stream(tips))
     BACKWARD_LAUNCHES += 1
     if err:
         raise RuntimeError(f"fused backward kernel launch failed at S = "
@@ -340,6 +563,10 @@ def fused_site_log(tip_partials, pmats, topo: Topology, freqs, props, *,
     # and d freqs
     rootw = (props[:, None] * freqs[None, :]).reshape(-1).contiguous()
     tips = tip_partials.detach().contiguous()
+    if not hasattr(children, "_fused_plans"):
+        # the schedules of the S != 4 kernels come from the topology's own
+        # host copy, with no copy back from the device
+        children._fused_plans = {"host": topo.children}
     if S == 4 and not split:
         return _FusedSiteLog.apply(
             tips, pmats.contiguous(), rootw, children,

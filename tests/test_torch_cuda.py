@@ -611,18 +611,40 @@ def test_wide_backward_is_deterministic(device):
             assert torch.equal(a, b)
 
 
-# K1'/K2' at any other S than 4 (csrc/pruning.cu fused_wide_*_kernel, the
-# walks of K5'/K6' at S != 4), in the TPU wrapper's two modes: (shape, S, C,
-# P, split) with the split cases of the TPU kernel's tests (S = 20, C = 4;
-# S = 61, C = 1), packed at S = 20, C = 1, split at S = 4, both step shapes,
-# C up to 8, polytomies, ragged P and several backward blocks
+def _polytomy3():
+    """Internal nodes of two and three children (maxc 3)."""
+    def tip(i):
+        return {"name": f"t{i}", "length": 0.1, "children": []}
+
+    def node(*kids):
+        return {"name": None, "length": 0.1, "children": list(kids)}
+    nested = node(node(tip(0), tip(1), tip(2)),
+                  node(node(tip(3), tip(4)), tip(5), node(tip(6), tip(7),
+                                                          tip(8))),
+                  tip(9))
+    del nested["length"]
+    return Topology.from_nested(nested)[0]
+
+
+# K1'/K2' at any other S than 4 (csrc/pruning.cu fused_wide_*_kernel: one
+# launch a sweep, the node steps of K5'/K6' spread over the card by the
+# schedules of ops/fused.forward_plan / backward_plan), in the TPU
+# wrapper's two modes: (shape, S, C, P, split) with the split cases of the
+# TPU kernel's tests (S = 20, C = 4; S = 61, C = 1), packed at S = 20,
+# C = 1, split at S = 4, both step shapes, C up to 8, polytomies (maxc 3
+# and 4), ragged P and several backward blocks, and chains: a 128-taxon
+# caterpillar (127 nodes in a row) packed and split, at more (item,
+# pattern block) pairs than the persistent grid holds
 FUSED_WIDE_CASES = [
     ("balanced", 20, 4, 300, True), ("balanced", 61, 1, 257, True),
     ("caterpillar", 20, 1, 129, False), ("polytomy", 20, 4, 300, True),
     ("polytomy", 61, 2, 95, True), ("balanced", 5, 3, 300, False),
     ("star", 33, 8, 2049, False), ("balanced", 4, 4, 300, True),
     ("caterpillar", 12, 8, 77, True), ("balanced", 64, 2, 130, False),
-    ("balanced", 20, 4, 2048, False), ("star", 61, 3, 600, True)]
+    ("balanced", 20, 4, 2048, False), ("star", 61, 3, 600, True),
+    ("caterpillar128", 20, 1, 8192, False),
+    ("caterpillar128", 61, 2, 1000, True),
+    ("polytomy3", 20, 3, 700, False), ("polytomy3", 61, 1, 300, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -633,7 +655,9 @@ def test_fused_wide_kernels_match_plain(device, dtype, shape, S, C, P,
     the mode, one launch each a value and gradient."""
     topo = {"balanced": lambda: balanced_topology(16),
             "caterpillar": lambda: caterpillar_topology(12),
-            "polytomy": _polytomy, "star": _star}[shape]()
+            "caterpillar128": lambda: caterpillar_topology(128),
+            "polytomy": _polytomy, "polytomy3": _polytomy3,
+            "star": _star}[shape]()
     inputs = _inputs(topo, P, C, dtype, device, S=S)
     f0, b0 = fused.FORWARD_LAUNCHES, fused.BACKWARD_LAUNCHES
 
@@ -699,6 +723,78 @@ def test_fused_wide_is_deterministic(device):
                for _ in range(2)]
         for a, b in zip(*bwd):
             assert torch.equal(a, b)
+
+
+def test_fused_wide_replays_in_cuda_graph(device):
+    """One K1' and one K2' sweep at S != 4 captured in a CUDA graph and
+    replayed three times: each replay bit for bit the eager call's, in both
+    modes, at a balanced tree (split levels, waiting items) and a
+    caterpillar (chains). The kernels' counters and flags come back to zero
+    inside each launch; a flag left set would let a replay read rows before
+    they are written."""
+    for topo, S, C, P, split in (
+            (balanced_topology(64), 20, 4, 4096, True),
+            (balanced_topology(32), 61, 1, 4096, True),
+            (balanced_topology(64), 20, 1, 8192, False),
+            (caterpillar_topology(64), 20, 1, 4096, False)):
+        tips, pm, freqs, props, g = _inputs(topo, P, C, torch.float32,
+                                            device, S=S)
+        children = torch.as_tensor(topo.children, dtype=torch.int32,
+                                   device=device)
+        rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+        g = g.expand(C, -1).contiguous() if split else g
+
+        def sweep():
+            site, partials, scale = fused.fused_wide_forward(
+                tips, pm, children, rootw, split)
+            return (site, partials, scale) + fused.fused_wide_backward(
+                tips, pm, children, rootw, split, partials, scale, g)
+        eager = sweep()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sweep()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = sweep()
+        for _ in range(3):
+            for x in captured:
+                x.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(captured, eager):
+                assert torch.equal(a, b)
+        del graph
+
+
+def test_fused_wide_schedules_agree(device):
+    """K1' and K2' at S != 4 walked (one block per pattern block and
+    category visits every node) and on the tree's schedule run the same
+    node steps and sum log m in the same rank order: bit for bit the same
+    outputs, both modes, at a balanced tree and a caterpillar."""
+    try:
+        for topo, S, C, P, split in (
+                (balanced_topology(32), 20, 4, 3000, True),
+                (balanced_topology(32), 20, 3, 3000, False),
+                (caterpillar_topology(40), 61, 1, 1000, True)):
+            tips, pm, freqs, props, g = _inputs(topo, P, C, torch.float64,
+                                                device, S=S)
+            children = torch.as_tensor(topo.children, dtype=torch.int32,
+                                       device=device)
+            rootw = (props[:, None] * freqs[None, :]).reshape(-1)
+            g = g.expand(C, -1).contiguous() if split else g
+            outs = []
+            for sched in ("walk", "tree"):
+                fused.SCHEDULE = sched
+                fwd = fused.fused_wide_forward(tips, pm, children, rootw,
+                                               split)
+                outs.append(fwd + fused.fused_wide_backward(
+                    tips, pm, children, rootw, split, fwd[1], fwd[2], g))
+            for a, b in zip(*outs):
+                assert torch.equal(a, b)
+    finally:
+        fused.SCHEDULE = None
 
 
 def test_fused_wide_wrapper_rejects_bad_input(device):
