@@ -167,8 +167,21 @@ through K5' and then through the plain engine (the config's ``"engine":
 "xla"``): the same generator and seeds give the same chains, so the two
 estimates of a seed differ only where K5' and the plain engine disagree.
 
+With ``--decomposition``, only what P(t) of a reversible model costs where
+it comes from an eigendecomposition of Q, float32 models: the batched
+``torch.linalg.eigh`` of [8, 61, 61] in float32 and in float64 (CUDA
+events, median of 50); GY94's P(t) for 8 chains on the 32-taxon M0 tree
+(CUDA events, median of 50); the 8-chain GY94 mcmc through the CLI with
+its MH step (``chip_smoke.cli_mcmc_codon``); the checkpoint B model's MH
+step at L = 1, 4, 16, 64 (as ``--mcmc``); the fluA ADVI step (as the
+default); and the Adam step of GTR+G4 on fluA (S = 4 through an
+eigendecomposition; ``chip_smoke.adam_step_ms``, mean of 50). It uses only
+entry points that older checkouts have, so a copy run from an older
+checkout's root times that checkout.
+
     python3 chip_profile.py [--steps 20] [--gate [--out sweep.jsonl]]
-                            [--mcmc] [--wide-forward] [--wide-backward]
+                            [--mcmc] [--decomposition]
+                            [--wide-forward] [--wide-backward]
                             [--k8] [--k8-blocks] [--k6-bounds] [--k5-bounds]
                             [--staged] [--k4-variants] [--s4-backward]
                             [--s4-forward] [--s4-trace] [--s4-host]
@@ -434,6 +447,42 @@ def profile_mcmc(dev, n_steps: int):
             "busy_share": device_ms / step_ms if device_ms else None,
             "kernel_launches_per_step": launches, "top_kernels": top}),
             flush=True)
+
+
+def decomposition_cost(dev):
+    """The float32 models' costs that go through an eigendecomposition of
+    Q: ``eigh`` of [8, 61, 61] in both dtypes, GY94's P(t) for 8 chains,
+    the 8-chain GY94 MH step, the checkpoint B MH step, the fluA ADVI step
+    and the GTR+G4 fluA Adam step (see the module's docstring)."""
+    from physher_tpu_torch.models.codon import GY94
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sym = torch.randn((8, 61, 61), generator=gen, device=dev)
+    sym = sym + sym.transpose(-1, -2)
+    sym64 = sym.double()
+    kw = dict(dtype=torch.float32, device=dev)
+    subst = GY94(fixed_freqs=True, **kw)
+    params = subst.param_space().init_params(**kw)
+    params.update(kappa=torch.linspace(1.0, 3.0, 8, **kw),
+                  omega=torch.linspace(0.1, 1.0, 8, **kw),
+                  frequencies=params["frequencies"].expand(8, 61))
+    t = torch.full((8, balanced_topology(32).N, 1), 0.3, **kw)
+    with torch.no_grad():
+        p_t_ms = cs.median_ms(lambda: subst.p_t(params, t), reps=50)
+    print(json.dumps({
+        "eigh_8x61x61_f32_ms": cs.median_ms(
+            lambda: torch.linalg.eigh(sym), reps=50),
+        "eigh_8x61x61_f64_ms": cs.median_ms(
+            lambda: torch.linalg.eigh(sym64), reps=50),
+        "gy94_p_t_8_chains_32_taxa_f32_ms": p_t_ms}), flush=True)
+    cs.cli_mcmc_codon(dev)
+    profile_mcmc(dev, 200)
+    profile_advi("fluA-elbo", cs.DATA / "fluA-elbo.json", dev, 50)
+    gtr32 = cs.load_gtrg4_fluA(torch.float32, dev)
+    start = gtr32.param_space().init_params(**kw)
+    print(json.dumps({"gtrg4_fluA_adam_step_ms": cs.adam_step_ms(
+        gtr32, start, n_steps=50), "engine": gtr32.engine_name()}),
+        flush=True)
 
 
 def wide_backward(dev):
@@ -1893,6 +1942,9 @@ def main() -> int:
                     help="only the staged-against-fused measurement")
     ap.add_argument("--mcmc", action="store_true",
                     help="only the MH step against the number of chains")
+    ap.add_argument("--decomposition", action="store_true",
+                    help="only the eigendecomposition's costs: eigh, GY94's "
+                         "P(t), the MH, ADVI and Adam steps")
     ap.add_argument("--wide-backward", action="store_true",
                     help="only K5'/K6' at S != 4 and HMC on WAG+G4")
     ap.add_argument("--wide-forward", action="store_true",
@@ -2018,6 +2070,10 @@ def main() -> int:
         return 0
     if args.k8_blocks:
         k8_blocks(dev)
+        print(smi, flush=True)
+        return 0
+    if args.decomposition:
+        decomposition_cost(dev)
         print(smi, flush=True)
         return 0
     if args.mcmc:

@@ -6,12 +6,15 @@ slices' main paths through them and times kernel against plain:
   and the GTR+G4 golden, and Adam steps of GTR+G4 fluA through the pair
   that ``select_engine`` picks;
 - codon and protein (K7'/K8', ``csrc/wide.cu``): the libphyc and WAG
-  goldens, a GY94 M0 fit to data simulated on the card at 32 taxa x 4096
-  codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns; K7' and K8'
-  (redesigned around K5''s and K6''s node steps, ``csrc/wide_forward.cuh``
-  and ``csrc/wide_backward.cuh``) also on one small case per tile shape and
-  cluster size and a WAG tree with polytomies, K8' twice on the same
-  inputs (bit for bit), with its registers, spills and dP scratch;
+  goldens, GY94 and MG94 on codon_small in float32 at the goldens' and
+  the degenerate point (through K7'/K8' and, as two chains, K5'/K6')
+  against float64, a GY94 M0 fit to data simulated on the card at 32 taxa
+  x 4096 codons, and Adam steps of WAG+G4 at 64 taxa x 8192 patterns; K7'
+  and K8' (redesigned around K5''s and K6''s node steps,
+  ``csrc/wide_forward.cuh`` and ``csrc/wide_backward.cuh``) also on one
+  small case per tile shape and cluster size and a WAG tree with
+  polytomies, K8' twice on the same inputs (bit for bit), with its
+  registers, spills and dP scratch;
 - large nucleotide alignments (K3'/K4', ``csrc/staged.cu``) and the
   JSON-config CLI: checkpoint A and the GTR+G4 golden through K3'/K4',
   the reference's fluA ADVI config to checkpoint B (through K1'/K2'), and
@@ -182,6 +185,18 @@ F32_LOGP_ATOL = 0.05
 # and WAG on tiny_aa (tests/data/goldens/wag.json) at atol 1e-8, the
 # tolerances of tests/test_codon_protein.py
 WAG_GOLDEN_LOGP = -1297.2958256864874
+# the codon goldens' parameters, and the points where the generator has
+# repeated eigenvalues
+CODON_GOLDEN_VALUES = {"gy94": {"kappa": 2.5, "omega": 0.3},
+                       "mg94": {"alpha": 1.0, "beta": 0.4, "kappa": 2.0}}
+CODON_DEGENERATE_VALUES = {"gy94": {"kappa": 1.0, "omega": 1.0},
+                           "mg94": {"alpha": 1.0, "beta": 1.0, "kappa": 1.0}}
+# codon models in float32 on codon_small against float64 (P(t) from a
+# float64 decomposition of Q): logP within 1e-5 relative, each gradient in
+# the model's parameters within 1e-3 of the largest float64 entry, as
+# tests/test_torch_codon_protein.py holds them on the CPU
+F32_CODON_LOGP_RTOL = 1e-5
+F32_CODON_GRAD_ATOL = 1e-3
 # the GY94 M0 fit: simulated kappa 2, omega 0.2; recovered within these
 M0_TRUTH = {"kappa": 2.0, "omega": 0.2}
 M0_ATOL = {"kappa": 0.5, "omega": 0.05}
@@ -354,9 +369,8 @@ def codon_small(model, dtype, device, pattern_pad_multiple=1):
     topo, dist = read_newick((DATA / "codon_small.nwk").read_text().strip())
     sp = SitePattern.from_alignment(seqs, "codon")
     golden = (DATA / "goldens" / "codon_small.txt").read_text()
-    maker, values = {"gy94": (GY94, {"kappa": 2.5, "omega": 0.3}),
-                     "mg94": (MG94, {"alpha": 1.0, "beta": 0.4,
-                                     "kappa": 2.0})}[model]
+    maker = {"gy94": GY94, "mg94": MG94}[model]
+    values = CODON_GOLDEN_VALUES[model]
     logp = next(float(ln.split()[-1]) for ln in golden.splitlines()
                 if ln.startswith(model + " "))
     kw = dict(dtype=dtype, device=device)
@@ -366,6 +380,73 @@ def codon_small(model, dtype, device, pattern_pad_multiple=1):
     params = tlk.param_space().init_params(**kw)
     params.update({k: torch.tensor(v, **kw) for k, v in values.items()})
     return tlk, params, logp
+
+
+def codon_value_and_grad(tlk, values):
+    """logP of a codon_small model at the model parameters ``values``
+    (floats, or lists: one chain each) and its gradient in them, as float64
+    numpy."""
+    kw = dict(dtype=tlk.dtype, device=tlk.tip_partials.device)
+    p = tlk.param_space().init_params(**kw)
+    lead = np.shape(next(iter(values.values())))
+    p = {k: v.expand(lead + v.shape) for k, v in p.items()}
+    p.update({k: torch.tensor(v, **kw).requires_grad_(True)
+              for k, v in values.items()})
+    logp = tlk.log_likelihood(p)
+    grads = torch.autograd.grad(logp.sum(), [p[k] for k in values])
+    return (logp.detach().double().cpu().numpy(),
+            {k: g.double().cpu().numpy() for k, g in zip(values, grads)})
+
+
+def codon_float32(dev):
+    """(9, float32) GY94 and MG94 on codon_small in float32 at the golden's
+    and the degenerate point, through K7'/K8' a point a call and through
+    K5'/K6' with the two points as two chains, against the golden logP
+    (the degenerate point: float64 on the card, K7'/K8') and the float64
+    gradients, at F32_CODON_LOGP_RTOL and F32_CODON_GRAD_ATOL."""
+    rec, ok = {}, True
+    zero_all_launches()
+    for model in ("gy94", "mg94"):
+        tlk64, _, golden = codon_small(model, torch.float64, dev)
+        tlk32 = codon_small(model, torch.float32, dev)[0]
+        points = (CODON_GOLDEN_VALUES[model], CODON_DEGENERATE_VALUES[model])
+        refs = [codon_value_and_grad(tlk64, v) for v in points]
+        refs[0] = (np.float64(golden), refs[0][1])
+        two = {k: [v[k] for v in points] for k in points[0]}
+        got = [codon_value_and_grad(tlk32, v) for v in points]
+        chains = codon_value_and_grad(tlk32, two)
+        got += [(chains[0][i], {k: g[i] for k, g in chains[1].items()})
+                for i in range(2)]
+        for (val, grad), (ref_val, ref_grad), case in zip(
+                got, refs + refs, ("golden_cuda_wide", "degenerate_cuda_wide",
+                                   "golden_cuda_loop",
+                                   "degenerate_cuda_loop")):
+            big = float(max(np.abs(g).max() for g in ref_grad.values()))
+            rel = abs(float(val) - float(ref_val)) / abs(float(ref_val))
+            g_err = max(float(np.abs(grad[k] - ref_grad[k]).max())
+                        for k in ref_grad) / big
+            finite = bool(np.isfinite(val).all() and all(
+                np.isfinite(g).all() for g in grad.values()))
+            good = (finite and rel <= F32_CODON_LOGP_RTOL
+                    and g_err <= F32_CODON_GRAD_ATOL)
+            rec[f"{model}_{case}"] = dict(
+                ok=good, logp=float(val), reference=float(ref_val),
+                logp_rel_err=rel,
+                grad={k: g.tolist() for k, g in grad.items()},
+                grad_f64={k: g.tolist() for k, g in ref_grad.items()},
+                grad_err_of_largest=g_err)
+            ok = ok and good
+        ok = (ok and tlk32.engine_name() == "cuda-wide"
+              and tlk32.engine_name(2) == "cuda-loop")
+    launches = {"wide_forward": wide.WIDE_FORWARD_LAUNCHES,
+                "wide_backward": wide.WIDE_BACKWARD_LAUNCHES,
+                "loop_forward": loop.LOOP_FORWARD_LAUNCHES,
+                "loop_backward": loop.LOOP_BACKWARD_LAUNCHES}
+    ok = ok and min(launches.values()) >= 2
+    emit("codon_float32", ok=ok, launches=launches,
+         logp_rtol=F32_CODON_LOGP_RTOL, grad_atol=F32_CODON_GRAD_ATOL, **rec)
+    check(ok, "codon models in float32 against float64 through K7'/K8' "
+          "and K5'/K6'")
 
 
 def wag_tiny_aa(dtype, device):
@@ -1527,7 +1608,7 @@ def cli_mcmc_codon(dev, length=2000, n_chains=8, n_profiled=20,
     simulation's 0.2; then the MH step of the built model alone (host
     clock, a profiler window for its device time and launches) and the
     eigendecomposition of [8, 61, 61] that each step's P(t) needs (CUDA
-    events)."""
+    events), in float32 and in float64, the dtype P(t) decomposes Q in."""
     from physher_tpu_torch.inference.mcmc import MCMC
     from torch.profiler import ProfilerActivity, profile
 
@@ -1578,6 +1659,9 @@ def cli_mcmc_codon(dev, length=2000, n_chains=8, n_profiled=20,
     sym = torch.randn((n_chains, 61, 61), generator=gen, device=dev)
     sym = sym + sym.transpose(-1, -2)
     eigh_ms = median_ms(lambda: torch.linalg.eigh(sym), reps=20)
+    # float32 models decompose Q in float64 (models/substitution.py)
+    sym64 = sym.double()
+    eigh64_ms = median_ms(lambda: torch.linalg.eigh(sym64), reps=20)
     ok = bool(launches["forward"] >= length
               and tlk.engine_name(n_chains) == "cuda-loop"
               and tlk.engine_name() == "cuda-wide"
@@ -1599,7 +1683,8 @@ def cli_mcmc_codon(dev, length=2000, n_chains=8, n_profiled=20,
          mh_step_ms=step_ms, k5_launches_per_step=k5_per_step,
          device_ms_per_step=device_ms, busy_share=device_ms / step_ms,
          kernel_launches_per_step=kernels_per_step, top_kernels=top,
-         eigh_8x61x61_f32_ms=eigh_ms, launches=launches,
+         eigh_8x61x61_f32_ms=eigh_ms, eigh_8x61x61_f64_ms=eigh64_ms,
+         launches=launches,
          engine_batch=tlk.engine_name(n_chains),
          engine_one=tlk.engine_name())
     check(ok, "mcmc with 8 chains on GY94 through K5' at S = 61")
@@ -3609,11 +3694,10 @@ def sharding_card(dev, smi, reps=20):
     """(45) Pattern sharding on the card: every kernel pair sharded against
     unsharded in float64 (SHARD_F64_RTOL) and float32 (TOL) on K1'/K2' at
     checkpoint A, K3'/K4' on the balanced 128 x 16384 GTR+G4, K7'/K8' on
-    GY94 (codon_small in float64, the simulated M0 32 x 4096 in float32)
-    and K5'/K6' with 8 chains on a 2 x 2 chains x patterns mesh; an
-    8-chain fluA mcmc of 200 iterations with --mesh 2x2 through the CLI in
-    float64 against the unsharded run (rtol 1e-9); the value-and-gradient
-    host time at 1, 2 and 4 shards."""
+    GY94 on codon_small at the golden's values and K5'/K6' with 8 chains on
+    a 2 x 2 chains x patterns mesh; an 8-chain fluA mcmc of 200 iterations
+    with --mesh 2x2 through the CLI in float64 against the unsharded run
+    (rtol 1e-9); the value-and-gradient host time at 1, 2 and 4 shards."""
     from physher_tpu_torch.parallel.mesh import (
         pattern_mesh, shard_tree_likelihood)
 
@@ -3638,17 +3722,13 @@ def sharding_card(dev, smi, reps=20):
             pattern_pad_multiple=pad, **kw)
 
     def gy94(dtype):
-        if dtype == torch.float64:
-            return lambda pad: codon_small("gy94", dtype, dev, pad)[0]
-        return lambda pad: gy94_m0_fit_model(dtype, dev,
-                                             pattern_pad_multiple=pad)
+        return lambda pad: codon_small("gy94", dtype, dev, pad)[0]
 
     def gy94_params(dtype, build):
         kw = dict(dtype=dtype, device=dev)
         p = build(1).param_space().init_params(**kw)
-        values = ({"kappa": 2.5, "omega": 0.3} if dtype == torch.float64
-                  else M0_TRUTH)
-        p.update({k: torch.tensor(v, **kw) for k, v in values.items()})
+        p.update({k: torch.tensor(v, **kw)
+                  for k, v in CODON_GOLDEN_VALUES["gy94"].items()})
         return p
 
     cases, ok = {}, True
@@ -3662,11 +3742,6 @@ def sharding_card(dev, smi, reps=20):
             "k3k4_balanced_128x16384": (gtr128(dtype), lambda b: b(1)
                                         .param_space().init_params(**kw),
                                         "cuda-staged", False),
-            # float64: codon_small at the golden's values; float32: the
-            # GY94 M0 data simulated on the card (32 x 4096) at its truth,
-            # since on codon_small float32's P(t) at the golden's values
-            # has entries near -3e-7 (NaN site logs at two patterns) and
-            # its gradient at kappa = omega = 1 is NaN (run 1)
             "k7k8_gy94": (gy94(dtype), lambda b: gy94_params(dtype, b),
                           "cuda-wide", False),
             "k5k6_flua_L8_2x2": (flua_time(dtype), lambda b: chain_params(
@@ -4254,7 +4329,8 @@ def main() -> int:
                     mod=wide, phase="wide_kernel_vs_plain")
         torch.cuda.synchronize()
 
-    # ---- 9. codon and protein goldens through K7'/K8' (float64)
+    # ---- 9. codon and protein goldens through K7'/K8' (float64), then the
+    # codon models in float32 through K7'/K8' and K5'/K6'
     kw64 = dict(dtype=torch.float64, device=dev)
     wide.WIDE_FORWARD_LAUNCHES = wide.WIDE_BACKWARD_LAUNCHES = 0
     rec, ok = {}, True
@@ -4289,6 +4365,7 @@ def main() -> int:
     ok = ok and min(launches.values()) >= len(cases)
     emit("codon_protein_goldens", ok=ok, launches=launches, **rec)
     check(ok, "codon and protein goldens through the wide kernels")
+    codon_float32(dev)
 
     # ---- 10. the codon and protein main path: a GY94 M0 fit to data
     # simulated on the card, then 20 Adam steps of WAG+G4 64 x 8192 (f32)

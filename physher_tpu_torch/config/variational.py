@@ -33,6 +33,14 @@ class VariationalHandle:
         self.grad_samples = grad_samples
         self.vparams = family.init  # updated by the optimizer action
 
+    def elbo(self, generator: torch.Generator = None, vparams=None,
+             n_samples=None, eps=None):
+        """The family's Monte-Carlo ELBO at ``vparams`` (the handle's own by
+        default) over ``n_samples`` draws (``elbo_samples`` by default) from
+        ``generator``, or over the given standard draws ``eps``."""
+        return self.family.elbo(vparams or self.vparams, generator,
+                                n_samples or self.elbo_samples, eps=eps)
+
 
 def build_variational(node, ctx: Context):
     node = ctx.resolve(node)

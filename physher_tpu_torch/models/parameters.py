@@ -308,3 +308,11 @@ class ParamSpace:
                 vec.shape[:-1] + s.unconstrained_shape)
             i += n
         return out
+
+    def merge(self, *others: "ParamSpace") -> "ParamSpace":
+        """This space's specs followed by each other space's, a shared
+        name kept once."""
+        specs = list(self.specs)
+        for o in others:
+            specs.extend(o.specs)
+        return ParamSpace(specs)

@@ -6,7 +6,8 @@ nucsubst.c, unrest.c, nonstat.c):
 
 - JC69, K80, F81 and HKY use their closed-form P(t),
 - GTR and the general reversible model (the 5-digit rate-class codes)
-  symmetrize Q with sqrt(pi) and use a self-adjoint ``eigh``.
+  symmetrize Q with sqrt(pi) and use a self-adjoint ``eigh``, in float64
+  whatever the model's dtype (P(t) is cast back).
   ``torch.linalg.eigh``'s own gradient is NaN/inf at repeated eigenvalues,
   which JC-like GTR states have (a triple eigenvalue), so
   :func:`p_t_reversible` is an ``autograd.Function`` whose backward is the
@@ -67,6 +68,10 @@ class SubstitutionModel:
         if self.reversible:
             return p_t_reversible(Q, self.frequencies(params), t)
         return expm_pade(_bcast(Q, t, 2) * t[..., None, None])
+
+    def dp_dt(self, params, t: torch.Tensor) -> torch.Tensor:
+        """d P(t) / dt = P(t) Q for branch lengths t [...]: [..., S, S]."""
+        return self.p_t(params, t) @ _bcast(self.q(params), t, 2)
 
 
 def normalize_q(Q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
@@ -172,8 +177,19 @@ def p_t_reversible(Q: torch.Tensor, pi: torch.Tensor,
                    t: torch.Tensor) -> torch.Tensor:
     """P(t) = expm(Q t) for a reversible generator ``Q [*B, S, S]``, over
     branch lengths ``t [*B, ...]``. Differentiable w.r.t. Q and t even at
-    degenerate eigenvalues."""
-    return _PtReversible.apply(Q, pi, t)
+    degenerate eigenvalues.
+
+    The decomposition, P(t) and the backward run in float64 whatever Q's
+    dtype, and P comes back in Q's (a float64 Q is not copied). A float32
+    ``eigh`` of a 61-state codon generator rebuilds P with ~1e-7 absolute
+    error, so entries whose true value is smaller come out negative (a
+    negative site likelihood), and eigenvalues that are equal up to
+    rounding noise pass the 1e-10 degeneracy test as distinct, whose
+    divided differences then cancel (a wrong gradient at kappa = omega =
+    1). The JAX package's float32 keeps that fault."""
+    f64 = torch.float64
+    P = _PtReversible.apply(Q.to(f64), pi.to(f64), t.to(f64))
+    return P.to(Q.dtype)
 
 
 def expm_pade(A: torch.Tensor, max_squarings: int = 10) -> torch.Tensor:
@@ -235,6 +251,11 @@ class JC69(SubstitutionModel):
         e = torch.exp(-4.0 / 3.0 * t)[..., None, None]
         eye = torch.eye(4, dtype=e.dtype, device=e.device)
         return 0.25 + e * (eye - 0.25)
+
+    def dp_dt(self, params, t):
+        e = torch.exp(-4.0 / 3.0 * t)[..., None, None] * (-4.0 / 3.0)
+        eye = torch.eye(4, dtype=e.dtype, device=e.device)
+        return e * (eye - 0.25)
 
 
 class K80(SubstitutionModel):

@@ -244,3 +244,65 @@ def test_param_space_transforms():
     for k in ju:
         np.testing.assert_allclose(t_g[k], np.asarray(j_g[k]), rtol=1e-12,
                                    atol=1e-14, err_msg=k)
+
+
+@pytest.mark.parametrize("model", ["jc69", "gtr", "hky"])
+def test_dp_dt_matches_jax(model):
+    """dP/dt: JC69's closed form, and P(t) Q for GTR and HKY, against the
+    JAX package's at the same numpy parameters (float64, 1e-12)."""
+    p_np, _ = _pt_case("gtr" if model == "gtr" else "jc69", 12, False)
+    if model == "hky":
+        rng = np.random.default_rng(13)
+        p_np.update(kappa=np.asarray(2.7),
+                    frequencies=rng.dirichlet(np.ones(4) * 5))
+    jm = {"jc69": j_subst.JC69, "gtr": j_subst.GTR, "hky": j_subst.HKY}[
+        model]()
+    tm = {"jc69": substitution.JC69, "gtr": substitution.GTR,
+          "hky": substitution.HKY}[model](**F64)
+    p = params_from_numpy(p_np, **F64)
+    got = tm.dp_dt(p, p["t"])
+    want = np.asarray(jm.dp_dt({k: jnp.asarray(v) for k, v in p_np.items()},
+                               jnp.asarray(p_np["t"])))
+    assert got.shape == (7, 4, 4, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    if model == "jc69":   # the closed form is the general P(t) Q
+        np.testing.assert_allclose(
+            got.numpy(),
+            substitution.SubstitutionModel.dp_dt(tm, p, p["t"]).numpy(),
+            rtol=1e-12, atol=1e-12)
+
+
+def test_param_space_merge():
+    """merge: the specs in order, a shared spec kept once, a conflicting
+    duplicate refused, as in the JAX ParamSpace."""
+    from physher_tpu.models.parameters import (
+        ParamSpace as JParamSpace, ParamSpec as JParamSpec)
+    from physher_tpu_torch.models.parameters import ParamSpace, ParamSpec
+
+    def spaces(mod, space):
+        shared = mod.simplex("f", [0.1, 0.2, 0.3, 0.4])
+        return (space([mod.scalar("a", 2.0, lower=0.0), shared]),
+                space([shared, mod.vector("b", [0.3, 0.6], lower=0.0,
+                                          upper=1.0)]),
+                space([mod.fixed("c", [1.5])]),
+                space([mod.scalar("a", 3.0, lower=0.0)]))
+
+    a, b, c, bad = spaces(ParamSpec, ParamSpace)
+    ja, jb, jc, jbad = spaces(JParamSpec, JParamSpace)
+    merged, jmerged = a.merge(b, c), ja.merge(jb, jc)
+    assert merged.names == jmerged.names == ["a", "f", "b", "c"]
+    assert merged.unconstrained_slices() == jmerged.unconstrained_slices()
+    for s, js in zip(merged.specs, jmerged.specs):
+        np.testing.assert_array_equal(s.init, js.init)
+        assert (s.lower, s.upper, s.transform) == (js.lower, js.upper,
+                                                   js.transform)
+    params = merged.init_params(**F64)
+    jparams = jmerged.init_params()
+    u, ju = merged.unconstrain(params), jmerged.unconstrain(jparams)
+    np.testing.assert_allclose(
+        float(merged.log_jacobian(u)), float(jmerged.log_jacobian(ju)),
+        rtol=1e-12)
+    assert a.merge().names == ["a", "f"]
+    for space, other in ((a, bad), (ja, jbad)):
+        with pytest.raises(ValueError):
+            space.merge(other)

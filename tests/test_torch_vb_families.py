@@ -121,6 +121,43 @@ def test_batched_elbo_equals_draw_loop(elbo_b):
             rtol=1e-12)
 
 
+def test_variational_handle_elbo_matches_jax():
+    """``VariationalHandle.elbo`` over a mean-field normal on a two-
+    parameter target: at the handle's own parameters and ``elbo_samples``,
+    and at given ones, against the JAX handle's at its key's standard
+    draws (float64, 1e-12); from a generator, the family's ELBO over the
+    generator's draws."""
+    from physher_tpu.config.variational import (
+        VariationalHandle as JVariationalHandle)
+    from physher_tpu_torch.config.variational import VariationalHandle
+
+    def log_prob(p):
+        return -0.5 * ((p["x"] - 1.2) ** 2).sum(-1) - p["x"].sum(-1)
+
+    jspace = JParamSpace([JParamSpec.vector("x", np.array([1.0, 1.0]),
+                                            lower=0.0)])
+    jparams = {"x": jnp.asarray([1.5, 0.7])}
+    params = {"x": torch.tensor([1.5, 0.7], **KW)}
+    jfam = j_vb.MeanFieldNormalVB(log_prob, jspace, jparams)
+    fam = vb.MeanFieldNormalVB(log_prob, _space(), params)
+    jh = JVariationalHandle(jfam, None, jspace, jparams, elbo_samples=6)
+    h = VariationalHandle(fam, None, _space(), params, elbo_samples=6)
+    key = jax.random.PRNGKey(7)
+    jvp = {"loc": jnp.asarray([0.2, -0.4]),
+           "log_scale": jnp.asarray([-0.5, 0.1])}
+    vp = vparams_from_numpy({k: np.asarray(v) for k, v in jvp.items()},
+                            **KW)
+    for j_vparams, vparams, n in ((None, None, None), (jvp, vp, 9)):
+        eps = jax.random.normal(key, (n or 6, 2), dtype=jnp.float64)
+        np.testing.assert_allclose(
+            float(h.elbo(vparams=vparams, n_samples=n,
+                         eps=torch.as_tensor(np.array(eps)))),
+            float(jh.elbo(key, j_vparams, n)), rtol=1e-12)
+    got = h.elbo(torch.Generator().manual_seed(5), vp, 9)
+    eps = fam.draw(vp, torch.Generator().manual_seed(5), 9)
+    assert float(got) == float(fam.elbo(vp, eps=eps))
+
+
 def test_gamma_family_recovers_gamma_target():
     def log_prob(params):
         return gamma_logpdf(params["x"], 10.0, rate=5.0).sum(-1)
