@@ -42,6 +42,7 @@ from .models.treelikelihood import TreeLikelihood
 from .trees.heights import (branch_durations, heights_from_ratios,
                             ratio_log_jacobian)
 from .trees.timetree import TimeTreeData
+from .utils.profiling import span, spanned
 
 
 def resolve_device(device) -> torch.device:
@@ -56,7 +57,9 @@ def resolve_device(device) -> torch.device:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", torch.float64).numpy()
+    """``t`` on the host in float64: a host-device synchronization."""
+    with span("physher.sync.numpy"):
+        return t.detach().to("cpu", torch.float64).numpy()
 
 
 class GradientFlags(enum.Enum):
@@ -94,6 +97,7 @@ class _ValueHolder(ModelInterface):
     def __init__(self):
         self._values = {}
 
+    @spanned("physher.api.set_parameters")
     def SetParameters(self, parameters) -> None:
         vec = np.asarray(parameters, dtype=np.float64).ravel()
         i = 0
@@ -446,13 +450,19 @@ class TreeLikelihoodInterface:
                 for k, s in self._slices.items()}
 
     def _load(self) -> None:
-        """Write the current values into the flat tensor (one copy)."""
-        self._flat.copy_(torch.from_numpy(self._values()))
+        """Write the current values into the flat tensor (one copy from
+        the host's pageable memory, which waits for the device)."""
+        values = torch.from_numpy(self._values())
+        with span("physher.sync.load"):
+            self._flat.copy_(values)
 
+    @spanned("physher.api.log_likelihood")
     def LogLikelihood(self) -> float:
         self._load()
         with torch.no_grad():
-            return float(self.tlk.log_likelihood(self._params(self._flat)))
+            logl = self.tlk.log_likelihood(self._params(self._flat))
+        with span("physher.sync.float"):
+            return float(logl)
 
     def RequestGradient(self, flags=None) -> None:
         """reference: physher.hpp:378-380 + TreeLikelihood_initialize_
@@ -460,6 +470,7 @@ class TreeLikelihoodInterface:
         parameter's gradient is produced."""
         self._flags = list(flags or [])
 
+    @spanned("physher.api.gradient")
     def Gradient(self, gradient=None) -> np.ndarray:
         """The gradient of the log-likelihood, one block a parameter in the
         order of their names (the JAX package's), the blocks that the

@@ -8,6 +8,7 @@ src/physher.c:62-326): parse the config, build the model graph, run the
                                                 [--device {cuda,cpu}]
                                                 [-c checkpoint.csv]
                                                 [--devices N | --mesh CxP]
+                                                [--trace DIR]
 
 It runs on the CUDA device unless ``--device cpu`` is given, and exits
 non-zero with a message when there is none: it never falls back to the CPU.
@@ -20,12 +21,16 @@ over a chains x patterns mesh (overriding the config's ``init.devices`` /
 ``init.mesh``): the first visible CUDA devices on the card, the CPU listed
 N (C x P) times with ``--device cpu``; in-process callers may give the
 mesh's devices themselves (``run(..., mesh_devices=[...])``, a list that
-may repeat a device).
+may repeat a device). ``--trace DIR`` runs the actions under
+``torch.profiler`` and writes ``DIR/trace.json`` (Chrome trace format, read
+by Perfetto): the program's ``physher.*`` spans (README.md lists them)
+beside the card's kernels, copies and runtime calls.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -63,6 +68,8 @@ def run(argv=None, out=None, mesh_devices=None):
     ap.add_argument("--mesh", default=None, metavar="CxP",
                     help="2-D device mesh 'chains x patterns', e.g. 2x4 "
                          "(overrides config init.mesh)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="profile the actions; write DIR/trace.json")
     args = ap.parse_args(argv)
     out = out or sys.stdout
 
@@ -101,7 +108,10 @@ def run(argv=None, out=None, mesh_devices=None):
             if hasattr(obj, "param_space"):
                 pool.update(obj.param_space().init_params(**ctx.kw))
         runner.pool = load_checkpoint(args.checkpoint, pool)
-    runner.run(actions)
+    from .utils.profiling import trace
+
+    with trace(args.trace) if args.trace else contextlib.nullcontext():
+        runner.run(actions)
     print(f"Total runtime: {time.time() - t0:.3f}s", file=out)
     return runner
 

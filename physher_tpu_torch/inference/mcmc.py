@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.parameters import ParamSpace
+from ..utils.profiling import span
 
 
 def _per_chain(x, like: torch.Tensor) -> torch.Tensor:
@@ -46,6 +47,13 @@ def _per_chain(x, like: torch.Tensor) -> torch.Tensor:
     return torch.broadcast_to(torch.as_tensor(x, dtype=like.dtype,
                                               device=like.device),
                               like.shape[:1])
+
+
+def _host(x: torch.Tensor, name: str) -> np.ndarray:
+    """``x`` copied to the host (a host-device synchronization) inside the
+    span ``name``."""
+    with span(name):
+        return x.cpu().numpy()
 
 
 @dataclass
@@ -66,7 +74,8 @@ class MCMCResult:
     def constrain(self, u: np.ndarray) -> dict:
         """Unconstrained samples [..., dim] -> constrained values (a batch
         for a leading axis), on the result's device."""
-        z = torch.as_tensor(u, dtype=self.dtype, device=self.device)
+        with span("physher.sync.h2d"):
+            z = torch.as_tensor(u, dtype=self.dtype, device=self.device)
         with torch.no_grad():
             return self.space.constrain(self.space.unflatten_unconstrained(z))
 
@@ -264,45 +273,55 @@ class MCMC:
         if temperatures is None:
             temps = torch.ones(n_chains, **kw)
         else:
-            temps = torch.as_tensor(np.asarray(temperatures), **kw)
+            with span("physher.sync.h2d"):
+                temps = torch.as_tensor(np.asarray(temperatures), **kw)
             n_chains = temps.shape[0]
         us = u0.expand(n_chains, dim).clone()
         if init_jitter:
             us = us + init_jitter * torch.randn(us.shape, generator=generator,
                                                 **kw)
         n_blocks = len(self.blocks)
-        masks = torch.as_tensor(self.masks, **kw)
-        probs = torch.as_tensor(self.weights, **kw).expand(n_chains, n_blocks)
+        with span("physher.sync.h2d"):
+            masks = torch.as_tensor(self.masks, **kw)
+        with span("physher.sync.h2d"):
+            probs = torch.as_tensor(self.weights, **kw).expand(n_chains,
+                                                               n_blocks)
         sigmas = torch.full((n_blocks,), init_step, **kw)
         ones = torch.ones((n_chains, 1), **kw)
         vb = self.vb_proposal
 
+        def target(u):
+            with span("physher.mcmc.target"):
+                return self._split_target(u, temps)
+
         def step(u, logp, ll, acc, tries):
-            b = torch.multinomial(probs, 1, generator=generator)  # [L, 1]
-            noise = torch.randn(u.shape, generator=generator, **kw)
-            u_new = u + sigmas[b] * masks[b[:, 0]] * noise
-            log_hr = 0.0
-            if vb is not None:
-                sample_fn, logq_fn = vb
-                u_vb = sample_fn(generator, n_chains).to(u.dtype)
-                is_vb = b == n_blocks - 1                        # [L, 1]
-                u_new = torch.where(is_vb, u_vb, u_new)
-                # Hastings ratio of an independence proposal
-                log_hr = torch.where(is_vb[:, 0], logq_fn(u) - logq_fn(u_vb),
-                                     0.0)
-            logp_new, ll_new = self._split_target(u_new, temps)
-            log_alpha = logp_new - logp + log_hr
-            accept = (torch.log(torch.rand(n_chains, generator=generator,
-                                           **kw)) < log_alpha)
-            accept = accept & torch.isfinite(logp_new)
-            acc.scatter_add_(1, b, accept[:, None].to(u.dtype))
-            tries.scatter_add_(1, b, ones)
-            return (torch.where(accept[:, None], u_new, u),
-                    torch.where(accept, logp_new, logp),
-                    torch.where(accept, ll_new, ll))
+            with span("physher.mcmc.propose"):
+                b = torch.multinomial(probs, 1, generator=generator)
+                noise = torch.randn(u.shape, generator=generator, **kw)
+                u_new = u + sigmas[b] * masks[b[:, 0]] * noise   # b [L, 1]
+                log_hr = 0.0
+                if vb is not None:
+                    sample_fn, logq_fn = vb
+                    u_vb = sample_fn(generator, n_chains).to(u.dtype)
+                    is_vb = b == n_blocks - 1                    # [L, 1]
+                    u_new = torch.where(is_vb, u_vb, u_new)
+                    # Hastings ratio of an independence proposal
+                    log_hr = torch.where(is_vb[:, 0],
+                                         logq_fn(u) - logq_fn(u_vb), 0.0)
+            logp_new, ll_new = target(u_new)
+            with span("physher.mcmc.accept"):
+                log_alpha = logp_new - logp + log_hr
+                accept = (torch.log(torch.rand(n_chains, generator=generator,
+                                               **kw)) < log_alpha)
+                accept = accept & torch.isfinite(logp_new)
+                acc.scatter_add_(1, b, accept[:, None].to(u.dtype))
+                tries.scatter_add_(1, b, ones)
+                return (torch.where(accept[:, None], u_new, u),
+                        torch.where(accept, logp_new, logp),
+                        torch.where(accept, ll_new, ll))
 
         with torch.no_grad():
-            logp, ll = self._split_target(us, temps)
+            logp, ll = target(us)
             acc = torch.zeros((n_chains, n_blocks), **kw)
             tries = torch.zeros((n_chains, n_blocks), **kw)
             n_samples = n_iter // every
@@ -320,31 +339,38 @@ class MCMC:
             try:
                 for ci in range(n_samples + burn_chunks):
                     for _ in range(every):
-                        us, logp, ll = step(us, logp, ll, acc, tries)
-                    if ci >= burn_chunks:
-                        samples[si] = us.cpu().numpy()
-                        lps[si] = logp.cpu().numpy()
-                        lls[si] = ll.cpu().numpy()
-                        si += 1
-                    if adapt and (ci + 1) % adapt_every_chunks == 0:
-                        a = acc.sum(0).cpu().numpy()
-                        t = tries.sum(0).cpu().numpy()
-                        cum_acc += a
-                        cum_tries += t
-                        rate = np.where(t > 0, a / np.maximum(t, 1), 0.24)
-                        factor = np.exp(np.clip(rate - 0.24, -0.5, 0.5))
-                        sigmas = sigmas * torch.as_tensor(factor, **kw)
-                        acc.zero_()
-                        tries.zero_()
+                        with span("physher.mcmc.step"):
+                            us, logp, ll = step(us, logp, ll, acc, tries)
+                    with span("physher.mcmc.block"):
+                        if ci >= burn_chunks:
+                            samples[si] = _host(us, "physher.sync.samples")
+                            lps[si] = _host(logp, "physher.sync.samples")
+                            lls[si] = _host(ll, "physher.sync.samples")
+                            si += 1
+                        if adapt and (ci + 1) % adapt_every_chunks == 0:
+                            a = _host(acc.sum(0), "physher.sync.adapt")
+                            t = _host(tries.sum(0), "physher.sync.adapt")
+                            cum_acc += a
+                            cum_tries += t
+                            rate = np.where(t > 0, a / np.maximum(t, 1),
+                                            0.24)
+                            factor = np.exp(np.clip(rate - 0.24, -0.5, 0.5))
+                            with span("physher.sync.h2d"):
+                                sigmas = sigmas * torch.as_tensor(factor,
+                                                                  **kw)
+                            acc.zero_()
+                            tries.zero_()
             except KeyboardInterrupt:
                 interrupted = True
-            cum_acc += acc.sum(0).cpu().numpy()
-            cum_tries += tries.sum(0).cpu().numpy()
+            with span("physher.mcmc.block"):
+                cum_acc += _host(acc.sum(0), "physher.sync.adapt")
+                cum_tries += _host(tries.sum(0), "physher.sync.adapt")
+                sigmas_host = _host(sigmas, "physher.sync.adapt")
         res = MCMCResult(
             samples[:si], lps[:si], lls[:si],
             np.where(cum_tries > 0, cum_acc / np.maximum(cum_tries, 1),
                      np.nan),
-            sigmas.cpu().numpy(), space, interrupted, u0.dtype, u0.device)
+            sigmas_host, space, interrupted, u0.dtype, u0.device)
         return res
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..models.parameters import ParamSpace
 from ..ops.loop import MAX_CHAINS
+from ..utils.profiling import span
 from .ml import batched_rows
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -307,10 +308,15 @@ def step(vb, vparams: dict, opt, schedule, generator: torch.Generator,
          grad_samples: int = 1):
     """One Adam step, in place, of the leaf tensors ``vparams`` on the
     negative ELBO over ``grad_samples`` draws."""
-    opt.zero_grad(set_to_none=True)
-    (-vb.elbo(vparams, generator, grad_samples)).backward()
-    opt.step()
-    schedule.step()
+    with span("physher.vb.step"):
+        opt.zero_grad(set_to_none=True)
+        with span("physher.vb.elbo"):
+            loss = -vb.elbo(vparams, generator, grad_samples)
+        with span("physher.vb.backward"):
+            loss.backward()
+        with span("physher.vb.adam"):
+            opt.step()
+            schedule.step()
 
 
 def fit(vb, generator: torch.Generator, *, steps: int = 5000,

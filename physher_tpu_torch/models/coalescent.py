@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .parameters import ParamSpec, ParamSpace
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
@@ -109,6 +110,7 @@ class CoalescentModel:
         self.tree_param_fn = heights_fn
         return self
 
+    @spanned("physher.coalescent")
     def log_prob(self, params):
         if self.tree_param_fn is None:
             raise ValueError("coalescent not bound to a tree; call bind_tree")

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..data.gcode import CODON_TRIPLETS, GENETIC_CODES, sense_codon_indices
+from ..utils.profiling import span
 from .parameters import ParamSpec
 from .substitution import (
     SubstitutionModel, _set_diagonal_neg_rowsum, normalize_q,
@@ -73,8 +74,9 @@ class _CodonModel(SubstitutionModel):
     def _q_from_class_rates(self, class_rates, pi):
         """class_rates: [(L,) 5] with entry 0 == 0, frequencies pi [(L,) S]
         -> Q [(L,) S, S]."""
-        idx = torch.as_tensor(self.classes, dtype=torch.long,
-                              device=class_rates.device)
+        with span("physher.sync.h2d"):
+            idx = torch.as_tensor(self.classes, dtype=torch.long,
+                                  device=class_rates.device)
         Q = _set_diagonal_neg_rowsum(class_rates[..., idx]
                                      * pi[..., None, :])
         return normalize_q(Q, pi)

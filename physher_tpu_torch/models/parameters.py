@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span_backward
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -145,11 +147,18 @@ def _offsets(K: int, like: torch.Tensor) -> torch.Tensor:
                                   device=like.device))
 
 
+def _stick(z: torch.Tensor) -> torch.Tensor:
+    """The stick left before each break, [1, cumprod(1 - z)]; on the card
+    cumprod's backward checks its input for zeros on the host."""
+    left = span_backward(torch.cumprod(1 - z, -1), "physher.sync.cumprod")
+    return torch.cat([torch.ones_like(z[..., :1]), left], -1)
+
+
 def simplex_constrain(y: torch.Tensor) -> torch.Tensor:
     """Unconstrained R^{K-1} -> K-simplex (stick breaking, Stan convention)."""
     K = y.shape[-1] + 1
     z = torch.sigmoid(y - _offsets(K, y))
-    zl = torch.cat([torch.ones_like(z[..., :1]), torch.cumprod(1 - z, -1)], -1)
+    zl = _stick(z)
     x = zl[..., :-1] * z
     return torch.cat([x, zl[..., -1:]], dim=-1)
 
@@ -167,7 +176,7 @@ def simplex_log_jacobian(y: torch.Tensor) -> torch.Tensor:
     """log |det d(constrain)/dy| for the stick-breaking transform."""
     K = y.shape[-1] + 1
     z = torch.sigmoid(y - _offsets(K, y))
-    zl = torch.cat([torch.ones_like(z[..., :1]), torch.cumprod(1 - z, -1)], -1)
+    zl = _stick(z)
     return torch.sum(torch.log(z) + torch.log1p(-z) + torch.log(zl[..., :-1]),
                      -1)
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span, spanned
 from .parameters import ParamSpec, ParamSpace
 
 
@@ -86,6 +87,7 @@ def _set_diagonal_neg_rowsum(Q: torch.Tensor) -> torch.Tensor:
     return off - eye * off.sum(-1)[..., :, None]
 
 
+@spanned("physher.subst.eig")
 def reversible_eig(Q: torch.Tensor, pi: torch.Tensor):
     """Eigendecomposition of a reversible generator via symmetrization.
 
@@ -100,7 +102,9 @@ def reversible_eig(Q: torch.Tensor, pi: torch.Tensor):
     bad = ~torch.isfinite(S).all(-1).all(-1)
     S = torch.where(bad[..., None, None], torch.eye(
         S.shape[-1], dtype=S.dtype, device=S.device), S)
-    lam, W = torch.linalg.eigh(S)
+    # on the card eigh checks its info output on the host
+    with span("physher.sync.eigh"):
+        lam, W = torch.linalg.eigh(S)
     lam = torch.where(bad[..., None], torch.full_like(lam, float("nan")),
                       lam)
     # a generator's spectrum is <= 0; clamp the numerical-noise positive tail
@@ -146,6 +150,7 @@ class _PtReversible(torch.autograd.Function):
         return pt_from_eig(lam, V, Vinv, t)
 
     @staticmethod
+    @spanned("physher.subst.p_t.backward")
     def backward(ctx, Pbar):
         lam, V, Vinv, t = ctx.saved_tensors
         lead = lam.shape[:-1]
@@ -173,6 +178,7 @@ class _PtReversible(torch.autograd.Function):
         return gQ, None, gt
 
 
+@spanned("physher.subst.p_t")
 def p_t_reversible(Q: torch.Tensor, pi: torch.Tensor,
                    t: torch.Tensor) -> torch.Tensor:
     """P(t) = expm(Q t) for a reversible generator ``Q [*B, S, S]``, over

@@ -58,6 +58,7 @@ from ..trees.heights import (
     heights_from_ratios, heights_from_shifts, shifts_from_heights,
     ratio_log_jacobian, branch_durations, ratio_params,
 )
+from ..utils.profiling import span, spanned
 from .parameters import ParamSpec, ParamSpace
 from .clock import BranchModel
 from .sitemodel import SiteModel, ConstantSiteModel
@@ -335,12 +336,14 @@ class TreeLikelihood(nn.Module):
             rows.append(shards)
         self.mesh, self._shard_rows = mesh, rows
 
+    @spanned("physher.treelikelihood.forward")
     def _run_engine(self, params):
         bl = self.branch_lengths(params)                  # [(L,) N]
         batch = bl.shape[0] if bl.dim() == 2 else None
         S = self.tip_partials.shape[1]
         name = self.engine_name(batch)
-        rates, props = self.site_model.rates_props(params)
+        with span("physher.sitemodel.rates"):
+            rates, props = self.site_model.rates_props(params)
         blc = bl[..., :, None] * rates[..., None, :]       # [(L,) N, C]
         pmats = self.subst.p_t(params, blc).to(self.dtype)  # [(L,) N, C, S, S]
         freqs = self.subst.frequencies(params).to(self.dtype)

@@ -64,6 +64,7 @@ import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
+from ..utils.profiling import spanned
 from . import cuda_build
 from .cuda_build import check as _check, stream as _stream
 # at S != 4 the walks of K5'/K6' (csrc/tiles.cuh): their state counts, and
@@ -135,6 +136,7 @@ def _dims(tips, pmats, children, rootw):
     return T, I, C, maxc, P
 
 
+@spanned("physher.ops.fused.forward")
 def pruning_forward(tips, pmats, children, rootw, schedule):
     """Launch kernel F by ``schedule``, the (order, offsets) of
     ``cuda_build.postorder_schedule``: returns (site_log [P], partials
@@ -161,6 +163,7 @@ def pruning_forward(tips, pmats, children, rootw, schedule):
     return site_log, partials, scale
 
 
+@spanned("physher.ops.fused.backward")
 def pruning_backward(tips, pmats, children, rootw, schedule, partials,
                      scale, g):
     """Launch kernel B (the walk and the dP pass of
@@ -409,6 +412,7 @@ def kernel_launches() -> int:
     return int(fn())
 
 
+@spanned("physher.ops.fused.forward")
 def fused_wide_forward(tips, pmats, children, rootw, split: bool):
     """Launch F at any S from 2 to 64 (one launch): packed, returns
     (site_log [P], partials [I, C, S, P], scale [I, P]); category-split
@@ -436,6 +440,7 @@ def fused_wide_forward(tips, pmats, children, rootw, split: bool):
     return site, partials, scale
 
 
+@spanned("physher.ops.fused.backward")
 def fused_wide_backward(tips, pmats, children, rootw, split: bool, partials,
                         scale, g):
     """Launch B at any S from 2 to 64 (one launch) from the forward's

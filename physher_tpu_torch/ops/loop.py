@@ -44,6 +44,7 @@ import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
+from ..utils.profiling import spanned
 from . import cuda_build
 from .cuda_build import check, entry, stream
 from .pruning import rescaled_site_log
@@ -117,6 +118,7 @@ def _dims(tips, pmats, children, freqs, props):
     return L, T, I, C, S, maxc, P
 
 
+@spanned("physher.ops.loop.forward")
 def loop_forward(tips, pmats, children, freqs, props, schedule,
                  rescale: bool = True):
     """Launch K5' (at S = 4 by ``schedule``, the (order, offsets) of
@@ -156,6 +158,7 @@ def wide_forward_clusters(dtype, S: int, C: int) -> int:
                                         dtype, S, C)
 
 
+@spanned("physher.ops.loop.backward")
 def loop_backward(tips, pmats, children, freqs, props, schedule, partials,
                   scale, g):
     """Launch K6' (at S = 4 by ``schedule``, the (order, offsets) of

@@ -56,6 +56,7 @@ import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
+from ..utils.profiling import spanned
 from . import cuda_build, wide
 from .cuda_build import check, level_schedule, offsets_arg, stream
 from .pruning import rescaled_site_log
@@ -257,6 +258,7 @@ def _walk_tables(nodes, offsets, top: int):
     return dev_offsets, slots
 
 
+@spanned("physher.ops.staged.forward")
 def staged_forward(tips, pmats, children, rootw, schedule, top=None,
                    walk=None):
     """Launch K3': the levels below ``top`` one launch each, then one walk
@@ -299,6 +301,7 @@ def staged_forward(tips, pmats, children, rootw, schedule, top=None,
     return site_log, partials, logscale
 
 
+@spanned("physher.ops.staged.backward")
 def staged_backward(tips, pmats, children, rootw, schedule, partials,
                     logscale, g):
     """Launch K4' (the root seed, one launch per level, root first, then

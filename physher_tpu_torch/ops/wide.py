@@ -29,6 +29,7 @@ import torch
 
 from ..trees.heights import topo_constant
 from ..trees.topology import Topology
+from ..utils.profiling import spanned
 from . import cuda_build
 from .cuda_build import check, level_schedule, offsets_arg, stream
 from .pruning import rescaled_site_log
@@ -80,6 +81,7 @@ def _dims(tips, pmats, children, rootw, schedule):
                                    schedule=schedule)
 
 
+@spanned("physher.ops.wide.forward")
 def wide_forward(tips, pmats, children, rootw, schedule):
     """Launch K7' (one launch per level, then the root): returns
     (site_log [P], partials [I, C, S, P], scale [I, P])."""
@@ -111,6 +113,7 @@ def forward_clusters(dtype, S: int, C: int) -> int:
                                         dtype, S, C)
 
 
+@spanned("physher.ops.wide.backward")
 def wide_backward(tips, pmats, children, rootw, schedule, partials, scale, g):
     """Launch K8' (the root seed, then one launch per level, root first, its
     grid (pattern blocks, C, nodes of the level)): returns (d pmats [N, C,

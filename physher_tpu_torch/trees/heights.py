@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span, spanned
 from .topology import Topology
 
 
@@ -56,7 +57,10 @@ def topo_constant(topo: Topology, name: str, make, like: torch.Tensor,
 
 
 def _as(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    """A host array copied to ``like``'s device: on the card the copy from
+    pageable memory waits for the device."""
+    with span("physher.sync.h2d"):
+        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
 def _ratio_ancestor_mask(topo: Topology) -> np.ndarray:
@@ -81,6 +85,7 @@ def ratio_params(ratios: torch.Tensor,
     return torch.cat([ratios, root_height[..., None]], -1)
 
 
+@spanned("physher.heights")
 def heights_from_ratios(params: torch.Tensor, topo: Topology,
                         tip_heights, lowers) -> torch.Tensor:
     """Forward ratio transform: params [(L,) I] (root height last) ->

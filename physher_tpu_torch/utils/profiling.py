@@ -1,4 +1,4 @@
-"""Tracing, timing, and roofline accounting on the card.
+"""Tracing and timing on the card.
 
 Port of ``physher_tpu/utils/profiling.py``. The reference has no in-library
 profiling — only wall-clock totals (reference: src/physher.c:320-324) and
@@ -11,18 +11,67 @@ the benchmark harness's clock_gettime loops (examples/benchmarking.c:
 - :func:`trace` is a ``torch.profiler`` context that writes a Chrome trace;
 - :func:`trace_op_times` sums the device time of each kernel name over a
   run of calls (``torch.profiler``'s ``key_averages``);
-- :class:`Roofline` / :func:`pruning_roofline` hold a likelihood
-  evaluation's operations and bytes against the card's peaks.
+- :func:`span` / :func:`spanned` / :func:`span_backward` mark the
+  program's layers (the estimator steps, the entry points, the models, the
+  ops wrappers and each host-device synchronization) in a
+  ``torch.profiler`` trace, on the profiler's clock beside the card's
+  kernels, and cost one flag check when no profiler records.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a span (``record_function``)
+    while a ``torch.profiler`` records on this thread (or on the autograd
+    engine's threads, which inherit its state), else one shared no-op
+    context. Spans nest by their intervals (``cpu_parent``); the count of
+    a name's spans in a window is the count of its calls."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function inside :func:`span` ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def span_backward(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t``; while a profiler records, the autograd node that makes its
+    gradient runs inside :func:`span` ``(name)`` (on the autograd engine's
+    thread): a span around a library backward that synchronizes inside."""
+    node = t.grad_fn
+    if node is None or not torch.autograd._profiler_enabled():
+        return t
+    opened = []
+
+    def enter(grad_outputs):
+        opened.append(torch.profiler.record_function(name))
+        opened[-1].__enter__()
+
+    def leave(grad_inputs, grad_outputs):
+        opened.pop().__exit__(None, None, None)
+    node.register_prehook(enter)
+    node.register_hook(leave)
+    return t
 
 
 def _activities(device_type: str) -> list:
@@ -123,108 +172,6 @@ def trace_op_times(fn, args_seq, *, top: int = 20):
             rows.append((ev.key, us / 1e6, ev.count))
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:top]
-
-
-# -- roofline ---------------------------------------------------------------
-
-# peak rates per chip: (float32 FLOP/s, float64 FLOP/s, device bytes/s)
-CHIP_PEAKS = {
-    # NVIDIA H100 SXM data sheet (at its 700 W limit): 67 TFLOP/s float32
-    # and 34 TFLOP/s float64 on the CUDA cores (no tensor cores), 3.35 TB/s
-    # of HBM3; the float32 rate and the bandwidth are chip_smoke.py's
-    # PEAK_F32_FLOPS and PEAK_BYTES_PER_S
-    "h100": (67e12, 34e12, 3.35e12),
-}
-
-
-@dataclass
-class Roofline:
-    flops: float
-    bytes: float
-    seconds: float
-    chip: str = "h100"
-    notes: dict = field(default_factory=dict)
-    dtype_bytes: int = 4
-
-    def _peaks(self) -> tuple:
-        """(FLOP/s for this dtype, bytes/s) of the chip: a key of
-        :data:`CHIP_PEAKS`, or a device name that contains one."""
-        keys = [k for k in CHIP_PEAKS if k in self.chip.lower()]
-        if not keys:
-            raise ValueError(f"no peak rates for chip {self.chip!r}; one of "
-                             f"{sorted(CHIP_PEAKS)}")
-        f32, f64, bw = CHIP_PEAKS[keys[0]]
-        return (f64 if self.dtype_bytes == 8 else f32), bw
-
-    @property
-    def intensity(self) -> float:
-        """Arithmetic intensity, FLOPs/byte."""
-        return self.flops / max(self.bytes, 1.0)
-
-    @property
-    def achieved_tflops(self) -> float:
-        return self.flops / max(self.seconds, 1e-12) / 1e12
-
-    @property
-    def achieved_gbs(self) -> float:
-        return self.bytes / max(self.seconds, 1e-12) / 1e9
-
-    def bound_ms(self) -> float:
-        """The least time the chip could take: the larger of the FLOPs over
-        the peak rate and the bytes over the bandwidth."""
-        peak_flops, peak_bw = self._peaks()
-        return max(self.flops / peak_flops, self.bytes / peak_bw) * 1e3
-
-    def bound(self) -> str:
-        peak_flops, peak_bw = self._peaks()
-        return ("compute" if self.intensity > peak_flops / peak_bw
-                else "memory")
-
-    def fraction_of_peak(self) -> float:
-        peak_flops, peak_bw = self._peaks()
-        if self.bound() == "compute":
-            return self.achieved_tflops * 1e12 / peak_flops
-        return self.achieved_gbs * 1e9 / peak_bw
-
-    def report(self) -> str:
-        frac = self.fraction_of_peak()
-        # with both roofs far away the limiting-roof label misleads:
-        # the kernel is really bound by per-op latency / occupancy
-        bound = (self.bound() if frac >= 0.3
-                 else f"{self.bound()}-roof, latency/occupancy")
-        return (f"{self.flops/1e9:.2f} GFLOP, {self.bytes/1e6:.1f} MB, "
-                f"{self.seconds*1e3:.3f} ms -> "
-                f"{self.achieved_tflops:.2f} TFLOP/s, "
-                f"{self.achieved_gbs:.1f} GB/s "
-                f"({bound}-bound, "
-                f"{100*frac:.1f}% of peak on "
-                f"{self.chip})")
-
-
-def pruning_roofline(n_nodes: int, n_cat: int, n_states: int,
-                     n_patterns: int, seconds: float, *,
-                     dtype_bytes: int = 4, chip: str = "h100",
-                     with_gradient: bool = False) -> Roofline:
-    """Roofline model of one likelihood evaluation (the JAX package's
-    count).
-
-    FLOPs: per internal node, per category: S x S x P multiply-adds per
-    child (x2 children) plus the S x P product — the arithmetic the
-    reference's SIMD kernels perform (treelikelihood4.c update_partials).
-    Bytes: partials read/write + P-matrices, the floor of a sweep that
-    keeps every node's partials in device memory (the level-batched plain
-    engine).
-    """
-    internal = n_nodes // 2
-    flops = internal * n_cat * (2 * 2 * n_states * n_states * n_patterns
-                                + n_states * n_patterns)
-    byts = (n_nodes * n_cat * n_states * n_patterns * 2      # partials rw
-            + n_nodes * n_cat * n_states * n_states) * dtype_bytes
-    if with_gradient:
-        flops *= 3
-        byts *= 2
-    return Roofline(float(flops), float(byts), seconds, chip,
-                    dtype_bytes=dtype_bytes)
 
 
 def detect_chip() -> str:

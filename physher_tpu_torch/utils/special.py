@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def _log_pdf(a, x):
     return (a - 1.0) * torch.log(x) - x - torch.lgamma(a)
@@ -117,6 +119,18 @@ def _qgamma_table(p_tuple):
     return tab
 
 
+def _rows(table: torch.Tensor, *index: torch.Tensor) -> list:
+    """``table[j]`` for each index tensor ``j``; a 0-d index is read on the
+    host, one host-device synchronization each."""
+    if index[0].dim():
+        return [table[j] for j in index]
+    rows = []
+    for j in index:
+        with span("physher.sync.index"):
+            rows.append(table[j])
+    return rows
+
+
 def qgamma_fixed_p(p_tuple: tuple, alpha: torch.Tensor) -> torch.Tensor:
     """Gamma(alpha, rate=alpha) quantiles at fixed probabilities ``p_tuple``:
     ``[..., K]`` for shapes ``alpha [...]``.
@@ -138,10 +152,7 @@ def qgamma_fixed_p(p_tuple: tuple, alpha: torch.Tensor) -> torch.Tensor:
     t = (u - u0) / du
     i = torch.clamp(torch.floor(t).long(), 1, n - 3)
     f = (t - i)[..., None]
-    y0 = logq[i - 1]
-    y1 = logq[i]
-    y2 = logq[i + 1]
-    y3 = logq[i + 2]
+    y0, y1, y2, y3 = _rows(logq, i - 1, i, i + 1, i + 2)
     a0 = y1
     a1 = 0.5 * (y2 - y0)
     a2 = y0 - 2.5 * y1 + 2.0 * y2 - 0.5 * y3

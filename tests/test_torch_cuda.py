@@ -1088,3 +1088,102 @@ def test_sharded_kernels_on_card(device, engine, S, L, n):
     for a, b in zip(*res):
         torch.testing.assert_close(b, a, rtol=0,
                                    atol=1e-12 * float(a.abs().max()))
+
+
+def _kernel_spans(prof) -> list:
+    """(name, [the program's spans around its launch]) of each kernel that
+    no aten op launched (this repo's, through ctypes) in a finished
+    ``torch.profiler`` run. A kernel shares its correlation id with the
+    runtime call that launched it, and is linked to the host event
+    innermost there, whose thread the spans are looked for on."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    runtime = {e.correlation_id(): e for e in host
+               if e.name().startswith("cu")}
+    ops = {}
+    for e in host:
+        if not e.name().startswith("cu"):
+            ops.setdefault(e.correlation_id(), e)
+    spans = [e for e in host if e.name().startswith("physher.")]
+    out = []
+    for k in events:
+        if k.device_type() != DeviceType.CUDA or k.is_user_annotation():
+            continue
+        launch = runtime.get(k.correlation_id())
+        op = ops.get(k.linked_correlation_id())
+        if launch is None or op is None or op.name().startswith("aten::"):
+            continue
+        t, thread = launch.start_ns(), op.start_thread_id()
+        out.append((k.name(), [s.name() for s in spans
+                               if s.start_thread_id() == thread
+                               and s.start_ns() <= t <= s.end_ns()]))
+    return out
+
+
+@pytest.mark.parametrize("engine,S,L", [
+    ("cuda-fused", 4, None), ("cuda-staged", 4, None), ("cuda-wide", 20, None),
+    ("cuda-loop", 4, 4), ("cuda-loop", 20, 4)])
+def test_ops_spans_enclose_their_kernels(device, engine, S, L):
+    """Under ``torch.profiler``, a value and gradient through each kernel
+    pair: one ``physher.ops.<pair>.forward`` span and one ``.backward``
+    span (the latter on the autograd engine's thread), as many as the
+    launch counters count, and every launch of the pair's kernels inside
+    one of them, under ``physher.treelikelihood.forward`` for the
+    forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from physher_tpu_torch.models.parameters import ParamBatch
+    from physher_tpu_torch.models.protein import WAG
+    from physher_tpu_torch.models.sitemodel import GammaSiteModel
+    from physher_tpu_torch.models.substitution import GTR
+    from physher_tpu_torch.models.treelikelihood import TreeLikelihood
+    from physher_tpu_torch.utils.synthetic import random_sitepattern
+
+    kw = dict(dtype=torch.float32, device=device)
+    topo = balanced_topology(32)
+    sp = random_sitepattern(32, 1000, seed=7,
+                            datatype="nucleotide" if S == 4 else "aa")
+    tlk = TreeLikelihood(sp, topo, GTR(**kw) if S == 4 else WAG(**kw),
+                         GammaSiteModel(4, **kw), engine=engine,
+                         batch_engine=engine, **kw)
+    space = tlk.param_space()
+    params = space.init_params(**kw)
+    if L:
+        params = {k: v.expand((L,) + v.shape).clone()
+                  for k, v in params.items()}
+    leaves = {k: v.requires_grad_() for k, v in params.items()}
+    batch = ParamBatch(leaves, (L,)) if L else leaves
+    pair = engine.split("-")[1]
+    mod = {"fused": fused, "staged": staged, "wide": wide, "loop": loop}[pair]
+    counters = [n for n in dir(mod) if n.endswith("_LAUNCHES")]
+
+    def run():
+        torch.autograd.grad(tlk.log_likelihood(batch).sum(),
+                            list(leaves.values()))
+        torch.cuda.synchronize(device)
+    run()                                   # builds and warms
+    before = {n: getattr(mod, n) for n in counters}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    calls = sum(getattr(mod, n) - before[n] for n in counters)
+    # the host's rows (each span also has a shadow on the device's)
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    names = [e.name for e in host
+             if e.name.startswith(f"physher.ops.{pair}.")]
+    assert sorted(names) == [f"physher.ops.{pair}.backward",
+                             f"physher.ops.{pair}.forward"] and calls == 2
+    threads = {e.name: e.thread for e in host
+               if e.name.startswith("physher.")}
+    assert threads[f"physher.ops.{pair}.backward"] != \
+        threads["physher.treelikelihood.forward"]
+    kernels = _kernel_spans(prof)
+    assert kernels
+    for name, around in kernels:
+        ops = [s for s in around if s.startswith(f"physher.ops.{pair}.")]
+        assert len(ops) == 1, (name, around)
+        if ops[0].endswith(".forward"):
+            assert "physher.treelikelihood.forward" in around, (name, around)
